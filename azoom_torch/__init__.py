@@ -7,15 +7,26 @@ find. Every TPU kernel of the ported path has a hand-written CUDA kernel in
 plain PyTorch version: a CUDA tensor launches the kernel, a CPU tensor takes
 the plain version.
 
-Ported so far (the learned serving path): config, dsp (windows, stft,
-delays), beam (covariance, linalg2x2 solve, mvdr), masks.features
-(physics features), models (quantize reader, unet TPUFPU, convert,
-pretrained ``tpufpu_nano``), kernels (masked MVDR, int8 3x3 conv) and
-pipelines.learned (``learned_enhance`` with the MVDR beamformer).
+Ported so far: config, dsp (windows, stft, delays), beam (covariance,
+linalg2x2, mvdr, nullsteer at M = 2), masks (physics features, bin_doa,
+geometric incl. the FOV gate, oracle), models (quantize reader, unet
+TPUFPU, convert, pretrained ``tpufpu_nano``), eval.projection,
+stream.chunker, kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
+int8 matmul) and pipelines (``learned_enhance`` with the MVDR or hard-null
+beamformer and the FOV gate, ``learned_enhance_streaming``,
+``oracle_enhance``, ``heuristic_enhance``).
 """
 
 from azoom_torch.config import DEFAULT, PipelineConfig
 from azoom_torch.models.pretrained import load_bundled
-from azoom_torch.pipelines.learned import learned_enhance, predict_mask
+from azoom_torch.pipelines.learned import (
+    learned_enhance,
+    learned_enhance_streaming,
+    predict_mask,
+)
+from azoom_torch.pipelines.oracle import heuristic_enhance, oracle_enhance
 
-__all__ = ["DEFAULT", "PipelineConfig", "load_bundled", "learned_enhance", "predict_mask"]
+__all__ = [
+    "DEFAULT", "PipelineConfig", "load_bundled", "learned_enhance",
+    "learned_enhance_streaming", "predict_mask", "oracle_enhance", "heuristic_enhance",
+]

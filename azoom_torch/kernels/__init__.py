@@ -8,7 +8,9 @@ them after can show which kernels the run went through.
 
 from __future__ import annotations
 
-launches: dict[str, int] = {"masked_mvdr": 0, "qconv3x3": 0, "convt1x2": 0}
+launches: dict[str, int] = {
+    "masked_mvdr": 0, "qconv3x3": 0, "convt1x2": 0, "hard_null": 0, "int8_mm": 0,
+}
 
 
 def reset_launches() -> None:

@@ -27,7 +27,9 @@ __all__ = ["KERNEL_SOURCES", "build_all", "check", "load_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNEL_SOURCES = ("mvdr_kernel", "qconv_kernel", "convt_kernel")
+KERNEL_SOURCES = (
+    "mvdr_kernel", "qconv_kernel", "convt_kernel", "nullsteer_kernel", "int8_mm_kernel",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

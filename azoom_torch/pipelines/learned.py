@@ -1,13 +1,17 @@
 """Learned-mask enhancement, the serving path (counterpart of
-azoom.pipelines.learned for ``beamformer="mvdr"``, physics features):
+azoom.pipelines.learned for ``beamformer="mvdr"`` and ``"hard_null"``,
+physics features):
 
     STFT -> steer-align -> physics features -> TPUFPU int8 mask net
-         -> masked MVDR + floored mask post-filter + high-pass -> iSTFT
+         -> (FOV covariance gate) -> masked MVDR + floored mask post-filter
+            + high-pass, or hybrid hard-null + raw mask post-filter + 200 Hz
+            mic-0 bypass -> iSTFT
 
 Everything runs on the device of the mixture. On CUDA the mask net's 3x3
-convs run on the int8 conv kernel and the MVDR stage on the fused MVDR
-kernel, one launch for the whole batch; on the CPU both take their plain
-PyTorch versions.
+convs run on the int8 conv kernel and the beamformer on its fused kernel
+(MVDR or hard-null), one launch for the whole batch; on the CPU they take
+their plain PyTorch versions. ``learned_enhance_streaming`` runs the 2 s /
+50 % chunker with all chunks as one batch.
 """
 
 from __future__ import annotations
@@ -18,10 +22,13 @@ from azoom_torch.config import PipelineConfig
 from azoom_torch.dsp.delays import steering_vector
 from azoom_torch.dsp.stft import istft, rfft_freqs, stft
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
+from azoom_torch.kernels.nullsteer_kernel import hard_null_fused
 from azoom_torch.masks.features import physics_aware_features
+from azoom_torch.masks.geometric import apply_fov_gate, fov_noise_gate
 from azoom_torch.models.unet import pad_frames
+from azoom_torch.stream.chunker import streaming_enhance
 
-__all__ = ["predict_mask", "learned_enhance"]
+__all__ = ["predict_mask", "learned_enhance", "learned_enhance_streaming"]
 
 
 def _model_device(model: torch.nn.Module) -> torch.device:
@@ -51,7 +58,7 @@ def predict_mask(
     feats = feats.reshape((-1,) + tuple(feats.shape[-3:]))
     feats, t_orig = pad_frames(feats, pad_multiple)
     with torch.inference_mode():
-        mask = model(feats.contiguous())[..., :t_orig]
+        mask = model(feats.contiguous())[..., :t_orig].contiguous()
     mask = mask.reshape(lead + tuple(mask.shape[-2:]))
     return mask[0] if unbatched else mask
 
@@ -67,10 +74,19 @@ def learned_enhance(
     fov_deg=None,
     steer_deg=None,
     train_mic_dist: float | None = None,
+    n_nulls: int = 1,
     steer_align: bool = True,
     harmonic_regen: bool = False,
 ) -> torch.Tensor:
     """Whole-signal learned enhancement: (..., M, n) -> (..., n), float32.
+
+    ``beamformer``: 'mvdr' (post-filter: the mask floored at ``mask_floor``,
+    high-pass at cfg.hp_cutoff_hz) or 'hard_null' (the Final-generation
+    hybrid: phase-normalised steering, raw un-floored mask post-filter,
+    mic 0 passed through below 200 Hz). ``fov_deg`` gates the noise
+    covariance of either by the camera's field of view around the look
+    direction (masks.geometric.fov_noise_gate). ``n_nulls`` acts at M > 2
+    only, which is not ported.
 
     ``steer_deg`` overrides ``cfg.angle_target_deg``. ``steer_align``
     rotates the STFT by the conjugate steering vector before the features,
@@ -80,13 +96,13 @@ def learned_enhance(
     by train_mic_dist / the first pair's spacing). The mixture and the
     model must be on the same device.
     """
-    if beamformer != "mvdr":
+    if beamformer in ("rmvb", "rtf", "wpd"):
         raise NotImplementedError(
-            f"beamformer {beamformer!r} is not ported; the others are queued "
+            f"beamformer {beamformer!r} is not ported; it is queued "
             "(ROADMAP.md Queue A item 9)"
         )
-    if fov_deg is not None:
-        raise NotImplementedError("fov_deg (the FOV covariance gate) is not ported yet")
+    if beamformer not in ("mvdr", "hard_null"):
+        raise ValueError(f"unknown beamformer {beamformer!r}")
     if harmonic_regen:
         raise NotImplementedError("harmonic_regen is not ported yet")
     mixture = torch.as_tensor(mixture)
@@ -97,7 +113,7 @@ def learned_enhance(
     cfg = cfg.for_input(mixture)
     if cfg.n_mics != 2:
         raise NotImplementedError(
-            "M > 2 MVDR needs azoom/beam/linalgmm.py, which is queued for a later slice"
+            "M > 2 beamforming needs azoom/beam/linalgmm.py, which is queued for a later slice"
         )
     dev = mixture.device
     n = mixture.shape[-1]
@@ -132,9 +148,44 @@ def learned_enhance(
         tgt_mask = predict_mask(model, Y_feat, feature_kind, ipd_scale=ipd_scale,
                                 pair_mode=pair_mode)
         noise_mask = 1.0 - tgt_mask
-        d = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics, positions=geom)
-        S = masked_mvdr_fused(
-            Y, noise_mask, d, freqs, target_mask=tgt_mask, sigma=cfg.sigma,
-            hp_cutoff_hz=cfg.hp_cutoff_hz, mask_floor=mask_floor,
-        )
+        if fov_deg is not None:
+            gate, protect, valid = fov_noise_gate(
+                Y, steer, fov_deg, cfg.mic_dist, cfg.fs, cfg.c, positions=geom)
+            noise_mask = apply_fov_gate(noise_mask, gate, protect, valid)
+        if beamformer == "mvdr":
+            d = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics, positions=geom)
+            S = masked_mvdr_fused(
+                Y, noise_mask, d, freqs, target_mask=tgt_mask, sigma=cfg.sigma,
+                hp_cutoff_hz=cfg.hp_cutoff_hz, mask_floor=mask_floor,
+            )
+        else:
+            d = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics,
+                                normalize_phase=True, positions=geom)
+            # The beamformer weights its interference covariance by 1 - its
+            # mask argument, so the (gated) noise mask enters as 1 - noise
+            # in float32, as in the reference; the post-filter is the raw mask.
+            S = hard_null_fused(Y, 1.0 - noise_mask, d, freqs, post_mask=tgt_mask)
         return istft(S, cfg.n_fft, cfg.hop, length=length)
+
+
+def learned_enhance_streaming(
+    mixture: torch.Tensor,
+    model,
+    cfg: PipelineConfig,
+    beamformer: str = "mvdr",
+    feature_kind: str = "physics",
+    train_mic_dist: float | None = None,
+    n_nulls: int = 1,
+    harmonic_regen: bool = False,
+) -> torch.Tensor:
+    """Chunked 2 s / 50 % overlap-add enhancement of audio of any length,
+    (..., M, n) -> (..., n): every chunk of the recording goes through one
+    batched :func:`learned_enhance` call."""
+
+    def process(chunks):
+        return learned_enhance(
+            chunks, model, cfg, beamformer, feature_kind, train_mic_dist=train_mic_dist,
+            n_nulls=n_nulls, harmonic_regen=harmonic_regen,
+        )
+
+    return streaming_enhance(mixture, process, cfg.win_size, cfg.win_size // 2)

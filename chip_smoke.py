@@ -23,6 +23,24 @@ Phases, each printing its own line(s):
                is taken after warm-up.
   6. profile - torch.profiler over one main-path call: device time by
                kernel and the device's idle share (chiprun_out/profile.txt).
+  7. hard_null - the fused hard-null kernel against its float64 plain version
+               at (128, 2, 513, 64) on a far-field speech-like scene at rms
+               0.1, and on it x1e-2, x1e2, x2^-7 and x2^7, at cond thresholds
+               1 + 1e-6, 10 and 1e6; the output's scale covariance.
+  8. int8_mm - the int8 matmul: the microbenchmark path (one launch at each
+               (M, K, N) of scripts/microbench_{pallas_mm,int8,int8b}.py),
+               then each product held exactly against the plain version;
+               torch._int_mm timed beside it.
+  9. main_hard_null - learned_enhance(beamformer="hard_null", steer_deg=60,
+               fov_deg=30) at (128, 2, 32000): launch counts, the first 4
+               chunks against the CPU, the median time per call, and a
+               profile of one call (chiprun_out/profile_hard_null.txt).
+ 10. stream  - learned_enhance_streaming(beamformer="hard_null") over one 60 s
+               recording (59 chunks): equal to the batched call over
+               chunk_signal's chunks, overlap-added; a 6 s prefix against the
+               CPU; the time per recorded second.
+ 11. oracle  - oracle_enhance(post_filter="irm") on 128 far-field scenes:
+               one MVDR launch; waveform and SIR against the CPU.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and a last line {"ok": true, "device": {...}}.
 
@@ -42,6 +60,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor cores
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32, outside the tensor cores
+FP64_FLOPS_PER_S = 34e12    # H100 SXM float64, outside the tensor cores
 BATCH = 128                 # 2 s chunks per call (the serving batch)
 N_SAMPLES = 32_000          # one 2 s chunk at 16 kHz
 F_ROWS = 129                # folded frequency rows: ceil(513 / 4)
@@ -60,6 +79,33 @@ NANO_CONVS = (
 )
 # The 3 upsamplings at T = 64: (K = Cin, Cout, input frames).
 NANO_CONVT = [(256, 128, 8), (128, 64, 16), (64, 64, 32)]
+
+
+def far_field_scene(rng, batch: int, n: int, fs: int = 16_000, mic_dist: float = 0.04,
+                    angles=(90.0, 40.0, 130.0), rms: float = 0.1, c: float = 343.0):
+    """Speech-like far-field scenes made with numpy: a target and two
+    interferers (first angle is the target's), each low-passed noise under a
+    syllable-rate envelope, delayed to a 2-mic linear array by an rFFT phase
+    ramp (fractional delays). Returns float32 (mixture (batch, 2, n),
+    target_ref (batch, n), interference_ref (batch, n)) at mic 0, the
+    mixture scaled to ``rms``."""
+    import numpy as np
+
+    f = np.fft.rfftfreq(n, 1.0 / fs)
+    t = np.arange(n) / fs
+    src = np.fft.irfft(np.fft.rfft(rng.standard_normal((batch, 3, n))) / (1.0 + f / 500.0), n)
+    rate = 3.0 + 2.0 * rng.random((batch, 3, 1))
+    env = 0.5 * (1.0 + np.sin(2 * np.pi * rate * t + 2 * np.pi * rng.random((batch, 3, 1))))
+    src = src * env**2
+    src /= np.sqrt(np.mean(src**2, axis=-1, keepdims=True))
+    pos = np.array([mic_dist / 2, -mic_dist / 2])  # mic m at ((M-1)/2 - m) d
+    tau = pos[None, :] * np.cos(np.deg2rad(np.array(angles)))[:, None] / c  # (3, 2)
+    ramp = np.exp(-2j * np.pi * f * tau[..., None])  # (3, 2, F)
+    img = np.fft.irfft(np.fft.rfft(src)[:, :, None, :] * ramp, n)  # (batch, 3, 2, n)
+    mix = img.sum(axis=1)
+    g = rms / np.sqrt(np.mean(mix**2))
+    return ((mix * g).astype(np.float32), (img[:, 0, 0] * g).astype(np.float32),
+            (img[:, 1:, 0].sum(axis=1) * g).astype(np.float32))
 
 
 def log(phase: str, **kw) -> None:
@@ -85,12 +131,22 @@ def main() -> int:
     from azoom_torch.config import PipelineConfig
     from azoom_torch.dsp.delays import steering_vector
     from azoom_torch.dsp.stft import rfft_freqs, stft
+    from azoom_torch.eval.projection import osinr_osir
     from azoom_torch.kernels import build
     from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
+    from azoom_torch.kernels.int8_mm_kernel import MICROBENCH_SHAPES, int8_mm, int8_mm_plain
     from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
+    from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
     from azoom_torch.kernels.qconv_kernel import k_padded, qconv3x3, qconv3x3_plain
+    from azoom_torch.masks.oracle import ibm_target_mask
     from azoom_torch.models.pretrained import load_bundled
-    from azoom_torch.pipelines.learned import learned_enhance, predict_mask
+    from azoom_torch.pipelines.learned import (
+        learned_enhance,
+        learned_enhance_streaming,
+        predict_mask,
+    )
+    from azoom_torch.pipelines.oracle import oracle_enhance
+    from azoom_torch.stream.chunker import chunk_signal, overlap_add_chunks
 
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
@@ -108,6 +164,13 @@ def main() -> int:
         t1.record()
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / iters
+
+    def active_launches() -> dict:
+        return {k: v for k, v in kernels.launches.items() if v}
+
+    def row_rel(got, ref):
+        """Relative error of each (stream, bin) row of complex (..., F, T)."""
+        return (got - ref).abs().norm(dim=-1) / ref.abs().norm(dim=-1).clamp(min=1e-30)
 
     def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
         t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
@@ -278,7 +341,7 @@ def main() -> int:
     kernels.reset_launches()
     out = learned_enhance(mix, model, cfg, steer_deg=60.0)
     torch.cuda.synchronize()
-    counts = dict(kernels.launches)
+    counts = active_launches()
     check(counts == {"qconv3x3": 21, "masked_mvdr": 1, "convt1x2": 3},
           f"main path launch counts {counts}")
     check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
@@ -317,26 +380,207 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def profile_call(phase: str, fn, path: str) -> None:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        dev_ms = sum(r[1] for r in rows)
+        (out_dir / path).write_text(prof.key_averages().table(
+            sort_by="device_time_total", row_limit=40))
+        log(phase, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{dev_ms:.3f}",
+            idle_share=f"{max(0.0, 1 - dev_ms / wall_ms):.3f}",
+            top=[(k[:48], round(t, 3), n) for k, t, n in rows[:8]])
+
+    profile_call("profile", lambda: learned_enhance(mix, model, cfg, steer_deg=60.0),
+                 "profile.txt")
+
+    # 7. hard-null beamformer -------------------------------------------------
+    mix_s, tgt_s, itf_s = (torch.from_numpy(a).to(dev) for a in far_field_scene(rng, BATCH, N_SAMPLES))
+    Y = stft(mix_s)
+    tmask = ibm_target_mask(stft(tgt_s), stft(itf_s))
+    freqs = rfft_freqs(1024, 16_000, device=dev)
+    d = steering_vector(freqs, 90.0, 0.04, normalize_phase=True)
+    cond = hard_null_cond(Y, tmask, d)
+    band = 1e-9  # float64 on both sides: the gate may flip only this close to the threshold
+    # Scale covariance is checked at exact power-of-two scales, where s * Y is
+    # exact and only a scale-dependent step could move the output, and at the
+    # decimal scales where the gate acts; without a gate (threshold 1e6) rows
+    # of cond up to ~1e3 amplify the float32 rounding of 1e-2 * Y beyond 1e-5.
+    exact, decimal = (2.0**-7, 2.0**7), (1e-2, 1e2)
+    worst = 0.0
+    for thr in (1 + 1e-6, 10.0, 1e6):
+        keep = (cond / thr - 1).abs() > band
+        outs = {}
+        for s in (1.0,) + decimal + exact:
+            Ys = Y * s
+            got = hard_null_fused(Ys, tmask, d, freqs, post_mask=tmask, cond_threshold=thr)
+            ref = hard_null_plain(Ys, tmask, d, freqs, post_mask=tmask, cond_threshold=thr)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(torch.view_as_real(got)).all()), "hard_null: non-finite output")
+            rel = float(row_rel(got, ref)[keep].max())
+            check(rel <= 1e-5, f"hard_null: threshold {thr} scale {s}: row relative error {rel:.3e}")
+            worst = max(worst, float((got - ref).abs().max()) / s)
+            outs[s] = got
+        cov = {s: float(row_rel(outs[s], outs[1.0] * s)[keep].max()) for s in decimal + exact}
+        for s, c in cov.items():
+            if s in exact or thr <= 10.0:
+                check(c <= 1e-5, f"hard_null: not scale-covariant at threshold {thr}, x{s}: {c:.3e}")
+        log("hard_null", threshold=thr, rows_in_band=int((~keep).sum()), rows=keep.numel(),
+            rows_on_das=int((cond > thr).sum()),
+            scale_cov_max_rel={f"x{s:g}": f"{c:.3e}" for s, c in cov.items()})
+    ms = time_ms(lambda: hard_null_fused(Y, tmask, d, freqs, post_mask=tmask))
+    plain_ms = time_ms(lambda: hard_null_plain(Y, tmask, d, freqs, post_mask=tmask), iters=5)
+    n_el = BATCH * F * T
+    # Y, target mask, post-filter mask in; S out. ~24 float64 flops per
+    # element: the five covariance sums and the apply.
+    b_ms, b_by = bound(n_el * (16 + 4 + 4 + 8) + F * (16 + 4), n_el * 24.0, FP64_FLOPS_PER_S)
+    results["hard_null"] = dict(
+        name="hard_null", route="cuda", source="azoom_torch/csrc/nullsteer_kernel.cu",
+        replaces="azoom/pallas/nullsteer_kernel.py:30", max_abs_err=worst, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log("hard_null", shape=tuple(Y.shape), max_abs_err=f"{worst:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    del Y
+
+    # 8. int8 matmul: the microbenchmark path, then the checks -----------------
+    operands = {}
+    for shape in MICROBENCH_SHAPES:
+        M, K, N = shape
+        operands[shape] = (
+            torch.from_numpy(rng.integers(-127, 127, (M, K)).astype(np.int8)).to(dev),
+            torch.from_numpy(rng.integers(-127, 127, (K, N)).astype(np.int8)).to(dev))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    products = {shape: int8_mm(x, w) for shape, (x, w) in operands.items()}
+    torch.cuda.synchronize()
+    mm_counts = active_launches()
+    check(mm_counts == {"int8_mm": len(MICROBENCH_SHAPES)}, f"int8_mm launch counts {mm_counts}")
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    mm_parts = {}
+    mm_err = 0
+    for shape, (x, w) in operands.items():
+        M, K, N = shape
+        err = int((products[shape].to(torch.int64) - int8_mm_plain(x, w)).abs().max())
+        check(err == 0, f"int8_mm {shape}: max abs error {err}, not exact")
+        mm_err = max(mm_err, err)
+        ms = time_ms(lambda: int8_mm(x, w))
+        plain_ms = time_ms(lambda: int8_mm_plain(x, w), iters=3, warmup=1)
+        w_cm = w.t().contiguous().t()  # column-major B, the layout cuBLASLt's int8 GEMM takes
+        lib_ms = time_ms(lambda: torch._int_mm(x, w_cm))
+        b_ms, b_by = bound(M * K + K * N + 4 * M * N, 2.0 * M * K * N, INT8_OPS_PER_S)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms), ("library_ms", lib_ms)):
+            tot[key] += v
+        mm_parts[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=lib_ms, scripts=MICROBENCH_SHAPES[shape])
+        log("int8_mm", M=M, K=K, N=N, ms=f"{ms:.4f}", int_mm_ms=f"{lib_ms:.4f}",
+            plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            tops=f"{2.0 * M * K * N / ms / 1e9:.1f}")
+    del operands, products
+    results["int8_mm"] = dict(
+        name="int8_mm", route="cuda", source="azoom_torch/csrc/int8_mm_kernel.cu",
+        replaces="scripts/microbench_pallas_mm.py:35 (and scripts/microbench_int8.py:53, "
+                 "scripts/microbench_int8b.py:41)",
+        launches=mm_counts["int8_mm"], max_abs_err=float(mm_err),
+        bound_by=bound_by_of(list(mm_parts.values())), **tot)
+
+    # 9. the hard-null main path ----------------------------------------------
+    hn_kw = dict(beamformer="hard_null", steer_deg=60.0, fov_deg=30.0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = learned_enhance(mix, model, cfg, **hn_kw)
+    torch.cuda.synchronize()
+    hn_counts = active_launches()
+    check(hn_counts == {"qconv3x3": 21, "convt1x2": 3, "hard_null": 1},
+          f"hard-null path launch counts {hn_counts}")
+    check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
+          "hard-null path: bad output")
+    results["hard_null"]["launches"] = hn_counts["hard_null"]
+    out_cpu = learned_enhance(mix[:4].cpu(), model_cpu, cfg, **hn_kw)
+    hn_wave_rel = float((out[:4].cpu() - out_cpu).norm() / out_cpu.norm())
+    check(hn_wave_rel <= 1e-2, f"hard-null waveform relative L2 {hn_wave_rel:.3e}")
+    hn_times = []
+    for _ in range(3):
+        learned_enhance(mix, model, cfg, **hn_kw)
+    for _ in range(10):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        learned_enhance(mix, model, cfg, steer_deg=60.0)
+        learned_enhance(mix, model, cfg, **hn_kw)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
-    (out_dir / "profile.txt").write_text(prof.key_averages().table(
-        sort_by="device_time_total", row_limit=40))
-    log("profile", wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{dev_ms:.3f}",
-        idle_share=f"{max(0.0, 1 - dev_ms / wall_ms):.3f}",
-        top=[(k[:48], round(t, 3), n) for k, t, n in rows[:8]])
+        hn_times.append((time.perf_counter() - t0) * 1e3)
+    hn_med = statistics.median(hn_times)
+    log("main_hard_null", batch=BATCH, samples=N_SAMPLES, launches=hn_counts,
+        ms_median=f"{hn_med:.3f}", ms_all=[round(t, 3) for t in hn_times],
+        audio_seconds_per_second=f"{BATCH * N_SAMPLES / 16_000 / (hn_med / 1e3):.1f}",
+        mask_max_err=f"{float(mask_err.max()):.3e} (phase 5, same mixture)",
+        wave_rel_l2=f"{hn_wave_rel:.3e}")
+    profile_call("profile_hard_null", lambda: learned_enhance(mix, model, cfg, **hn_kw),
+                 "profile_hard_null.txt")
 
-    line = {"kernels": [results[k] for k in ("masked_mvdr", "qconv3x3", "convt1x2")]}
+    # 10. the chunked stream of one long recording -------------------------------
+    rec = torch.from_numpy(far_field_scene(rng, 1, 60 * 16_000)[0][0]).to(dev)
+    kernels.reset_launches()
+    streamed = learned_enhance_streaming(rec, model, cfg, beamformer="hard_null")
+    torch.cuda.synchronize()
+    st_counts = active_launches()
+    chunks, n = chunk_signal(rec, cfg.win_size, cfg.win_size // 2)
+    batched = overlap_add_chunks(learned_enhance(chunks, model, cfg, beamformer="hard_null"),
+                                 cfg.win_size // 2, n)
+    check(chunks.shape[0] == 59, f"{chunks.shape[0]} chunks, expected 59")
+    check(torch.equal(streamed, batched), "stream differs from the batched call over its chunks")
+    check(st_counts == {"qconv3x3": 21, "convt1x2": 3, "hard_null": 1},
+          f"stream launch counts {st_counts}")
+    pre = rec[:, :6 * 16_000]
+    pre_gpu = learned_enhance_streaming(pre, model, cfg, beamformer="hard_null").cpu()
+    pre_cpu = learned_enhance_streaming(pre.cpu(), model_cpu, cfg, beamformer="hard_null")
+    st_rel = float((pre_gpu - pre_cpu).norm() / pre_cpu.norm())
+    check(st_rel <= 1e-2, f"stream 6 s prefix: waveform relative L2 {st_rel:.3e}")
+    st_times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learned_enhance_streaming(rec, model, cfg, beamformer="hard_null")
+        torch.cuda.synchronize()
+        st_times.append((time.perf_counter() - t0) * 1e3)
+    st_med = statistics.median(st_times[1:])
+    log("stream", seconds=60, chunks=chunks.shape[0], launches=st_counts,
+        ms_median=f"{st_med:.3f}", ms_per_recorded_second=f"{st_med / 60:.4f}",
+        ms_all=[round(t, 3) for t in st_times], prefix_wave_rel_l2=f"{st_rel:.3e}")
+    del chunks, batched
+
+    # 11. the oracle path ---------------------------------------------------------
+    ocfg = PipelineConfig(mic_dist=0.04)
+    kernels.reset_launches()
+    o_gpu = oracle_enhance(mix_s, tgt_s, itf_s, ocfg, post_filter="irm")
+    torch.cuda.synchronize()
+    o_counts = active_launches()
+    check(o_counts == {"masked_mvdr": 1}, f"oracle path launch counts {o_counts}")
+    o_cpu = oracle_enhance(mix_s.cpu(), tgt_s.cpu(), itf_s.cpu(), ocfg, post_filter="irm")
+    o_rel = float((o_gpu.cpu() - o_cpu).norm() / o_cpu.norm())
+    sir_gpu = osinr_osir(o_gpu.cpu(), tgt_s.cpu(), itf_s.cpu())[1]
+    sir_cpu = osinr_osir(o_cpu, tgt_s.cpu(), itf_s.cpu())[1]
+    sir_in = osinr_osir(mix_s[:, 0].cpu(), tgt_s.cpu(), itf_s.cpu())[1]
+    d_sir = float((sir_gpu - sir_cpu).abs().max())
+    check(bool(torch.isfinite(o_gpu).all()) and o_gpu.shape == tgt_s.shape, "oracle: bad output")
+    check(d_sir <= 0.05, f"oracle: SIR card vs CPU differs by {d_sir:.4f} dB")
+    o_ms = time_ms(lambda: oracle_enhance(mix_s, tgt_s, itf_s, ocfg, post_filter="irm"),
+                   iters=5, warmup=1)
+    log("oracle", batch=BATCH, launches=o_counts, wave_rel_l2=f"{o_rel:.3e}",
+        sir_db_mean=f"{float(sir_gpu.mean()):.3f}", sir_in_db_mean=f"{float(sir_in.mean()):.3f}",
+        sir_max_abs_diff_db=f"{d_sir:.2e}", ms=f"{o_ms:.3f}")
+
+    line = {"kernels": [results[k] for k in
+                        ("masked_mvdr", "qconv3x3", "convt1x2", "hard_null", "int8_mm")]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**line, "per_shape": {str(k): v for k, v in per_shape.items()},
-         "main_ms": times, "card": smi}, indent=1))
+         "int8_mm_per_shape": {str(k): v for k, v in mm_parts.items()},
+         "main_ms": times, "main_hard_null_ms": hn_times, "stream_ms": st_times,
+         "card": smi}, indent=1))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

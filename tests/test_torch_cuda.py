@@ -18,7 +18,9 @@ from azoom_torch.config import PipelineConfig
 from azoom_torch.dsp.delays import steering_vector
 from azoom_torch.dsp.stft import rfft_freqs
 from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
+from azoom_torch.kernels.int8_mm_kernel import int8_mm, int8_mm_plain
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
+from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
 from azoom_torch.kernels.qconv_kernel import k_padded, qconv3x3, qconv3x3_plain
 
 pytestmark = pytest.mark.cuda
@@ -78,16 +80,65 @@ def test_convt_kernel_matches_plain(cuda):
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
 
-def test_main_path_launches_and_matches_cpu(cuda):
+@pytest.mark.parametrize("thr", [1 + 1e-6, 10.0, 1e6])
+def test_hard_null_kernel_matches_plain(cuda, thr):
+    rng = np.random.default_rng(4)
+    shape = (3, 2, 513, 64)
+    Y = 0.01 * torch.complex(_t(rng.standard_normal(shape).astype(np.float32), cuda),
+                             _t(rng.standard_normal(shape).astype(np.float32), cuda))
+    Y[:, 1] += 0.5 * Y[:, 0]  # correlated mics: anisotropic covariances
+    tm = _t(rng.random((3, 513, 64), dtype=np.float32), cuda)
+    f = rfft_freqs(1024, 16000, device=cuda)
+    d = steering_vector(f, 60.0, 0.04, normalize_phase=True)
+    got = hard_null_fused(Y, tm, d, f, post_mask=tm, cond_threshold=thr)
+    ref = hard_null_plain(Y, tm, d, f, post_mask=tm, cond_threshold=thr)
+    keep = (hard_null_cond(Y, tm, d) / thr - 1).abs() > 1e-9
+    err = ((got - ref).abs().norm(dim=-1) / ref.abs().norm(dim=-1).clamp(min=1e-30))[keep]
+    assert float(err.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(256, 576, 64), (128, 4608, 512), (512, 1152, 128)])
+def test_int8_mm_kernel_is_exact(cuda, shape):
+    M, K, N = shape
+    rng = np.random.default_rng(M + K)
+    x = _t(rng.integers(-128, 128, (M, K)).astype(np.int8), cuda)
+    w = _t(rng.integers(-128, 128, (K, N)).astype(np.int8), cuda)
+    assert torch.equal(int8_mm(x, w), int8_mm_plain(x, w))
+
+
+def _active(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+@pytest.mark.parametrize("beamformer,kernel", [("mvdr", "masked_mvdr"), ("hard_null", "hard_null")])
+def test_main_path_launches_and_matches_cpu(cuda, beamformer, kernel):
     from azoom_torch import learned_enhance, load_bundled
 
     rng = np.random.default_rng(3)
     mix = torch.from_numpy((0.1 * rng.standard_normal((2, 2, 32000))).astype(np.float32))
     cfg = PipelineConfig(mic_dist=0.04)
     model, _ = load_bundled("tpufpu_nano")
+    kw = dict(beamformer=beamformer, steer_deg=60.0,
+              fov_deg=30.0 if beamformer == "hard_null" else None)
     kernels.reset_launches()
-    out = learned_enhance(mix.to(cuda), model, cfg, steer_deg=60.0)
+    out = learned_enhance(mix.to(cuda), model, cfg, **kw)
     torch.cuda.synchronize()
-    assert kernels.launches == {"qconv3x3": 21, "masked_mvdr": 1, "convt1x2": 3}
-    ref = learned_enhance(mix, load_bundled("tpufpu_nano", device="cpu")[0], cfg, steer_deg=60.0)
+    assert _active(kernels.launches) == {"qconv3x3": 21, kernel: 1, "convt1x2": 3}
+    ref = learned_enhance(mix, load_bundled("tpufpu_nano", device="cpu")[0], cfg, **kw)
     assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
+
+
+def test_oracle_path_launches_once(cuda):
+    from azoom_torch import oracle_enhance
+
+    rng = np.random.default_rng(6)
+    tgt, itf = (_t((0.1 * rng.standard_normal((2, 32000))).astype(np.float32), cuda)
+                for _ in range(2))
+    mix = torch.stack([tgt + itf, tgt + 0.5 * itf], dim=-2)
+    kernels.reset_launches()
+    out = oracle_enhance(mix, tgt, itf, PipelineConfig(mic_dist=0.04), post_filter="irm")
+    torch.cuda.synchronize()
+    assert _active(kernels.launches) == {"masked_mvdr": 1}
+    ref = oracle_enhance(mix.cpu(), tgt.cpu(), itf.cpu(), PipelineConfig(mic_dist=0.04),
+                         post_filter="irm")
+    assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-4

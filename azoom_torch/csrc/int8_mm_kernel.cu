@@ -7,202 +7,192 @@
 // scripts/microbench_int8.py:53 and scripts/microbench_int8b.py:41, which
 // all compute this function at the TPUFPU im2col shapes.
 //
-// What bounds it: operations. At (21504, 4608, 512) it does 1.01e11 int8
-// operations (0.051 ms at 1,979 TOP/s) against 145 MB (0.043 ms at
-// 3.35 TB/s). Design, the inner loop of csrc/qconv_kernel.cu: a block of 8
-// warps owns a BM x BN output tile (128 x 128, or 256 x 64 when N is not a
-// multiple of 128) and walks K in chunks of 64 bytes through two shared
-// buffers. A's chunk is copied with cp.async (16 bytes a thread, the next
-// chunk's copy overlapping this chunk's products). w is row-major along N,
-// but the B fragment of mma.sync wants 4 consecutive K bytes per column, and
-// ldmatrix transposes only 16-bit elements; so each thread loads an 8 x 4
-// byte block of w (8 K rows, one 32-bit word each) into registers while the
-// current chunk computes, transposes it with byte permutes and stores it as
-// four 8-byte pieces of (N, K) rows; the 16 threads of each store phase cover
-// two rows' 64 bytes, so the stores hit distinct banks. Rows in shared memory
-// are padded by 16 bytes so the 8 rows of each ldmatrix hit distinct banks.
-// Each warp holds 32 x 64 int32 accumulators and issues mma.sync m16n8k32
-// s8. wgmma and TMA are later work.
+// What bounds it: at K = 4608, N = 512 operations (1.01e11 at M = 21504:
+// 0.051 ms at 1,979 TOP/s against 145 MB, 0.043 ms at 3.35 TB/s); at the
+// other seven shapes the bytes, most of them the 4 * M * N of int32 output.
+// Short of either roofline sits the road from L2 to shared memory: a 128 x
+// 256 tile does 170 operations for each operand byte it stages, so the
+// tensor cores' peak would need 11.6 TB/s of it.
+//
+// Design, on the shared mainloop of csrc/wgmma_s8.cuh:
+//   - w is N-major and int8 wgmma reads K-major operands only, so a pre-pass
+//     kernel writes w^T (N, K) once per product into scratch of the
+//     wrapper's (K * N bytes, at most 2.4 MB here against M * K = 99 MB).
+//     The earlier kernel transposed every K chunk again in every block.
+//   - TMA loads x and w^T as 128-row and BN-row boxes of 128 K bytes, in the
+//     128-byte swizzle, into a ring of 4 to 8 stages guarded by full / empty
+//     mbarriers. One producer thread starts the loads; the two consumer
+//     warpgroups each own 64 rows of the 128 x BN tile (BN = 256, 128 or 64,
+//     the widest that divides N) and run wgmma m64nBNk32 s8 with both
+//     operands read from shared memory through descriptors, one group of
+//     products in flight while the next stage is awaited.
+//   - One persistent block per SM walks the tiles (N tiles of one M block
+//     are neighbours, so x comes from device memory once); the producer runs
+//     ahead into the next tile's stages while the consumers store the int32
+//     tile, so stores overlap loads. M = 16384, N = 64 is 128 tiles, one
+//     wave on 128 of the 132 SMs.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wgmma_s8.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // 8 warps
-constexpr int kBK = 64;           // K bytes per chunk
-constexpr int kRow = kBK + 16;    // padded shared-memory row (bytes)
+using namespace azt;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int kBM = 128;                 // rows of an output tile: 64 per consumer warpgroup
+constexpr int kConsumers = 256;          // threads 0..255: two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kSmemLimit = 232448;       // bytes a block may have on sm_90
+
+__host__ __device__ constexpr int stages_for(int bn) {       // the ring takes what fits, up to 8 stages
+  const int fit = (kSmemLimit - kTileAlign - 256) / ((kBM + bn) * kSwizzleRow);
+  return fit > 8 ? 8 : fit;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-// Four 8x16-byte matrices; lane L supplies the address of row L % 8 of
-// matrix L / 8, and receives word (L % 4) of row (L / 4) of each matrix.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem_row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 4 words r[i] = bytes (k + i, n .. n + 3) -> o[j] = bytes (k .. k + 3, n + j).
-__device__ __forceinline__ void transpose4x4(const uint32_t* r, uint32_t (&o)[4]) {
-  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140), lo23 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362), hi23 = __byte_perm(r[2], r[3], 0x7362);
-  o[0] = __byte_perm(lo01, lo23, 0x5410);
-  o[1] = __byte_perm(lo01, lo23, 0x7632);
-  o[2] = __byte_perm(hi01, hi23, 0x5410);
-  o[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
-// WN = BN / 64 warps along N, 8 / WN along M; BM = 32 * 8 / WN.
-template <int WN>
-__global__ void __launch_bounds__(kThreads) int8_mm_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ w, int32_t* __restrict__ out,
-    int M, int N, int K) {
-  constexpr int BN = 64 * WN, BM = 32 * (8 / WN);
-  constexpr int kAStage = BM * kRow, kBStage = BN * kRow;
-  constexpr int kBUnits = (kBK / 8) * (BN / 4);  // 8 x 4-byte blocks of w per chunk
-  static_assert(kBUnits <= kThreads, "one block of w per thread at most");
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* As = smem;                  // 2 stages of BM rows (K bytes)
-  unsigned char* Bs = smem + 2 * kAStage;    // 2 stages of BN rows (K bytes)
-  const long m0 = (long)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int n_chunks = K / kBK;
-
-  auto stage_a = [&](int c) {
-    unsigned char* dst = As + (c & 1) * kAStage;
-    for (int i = threadIdx.x; i < BM * (kBK / 16); i += kThreads) {
-      const int r = i / (kBK / 16), v = i % (kBK / 16);
-      cp_async16(dst + r * kRow + v * 16, x + (m0 + r) * K + (long)c * kBK + v * 16);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  // This thread's block of w: K rows 8 * bkq .. + 7 of the chunk, columns
-  // 4 * bnq .. + 3 of the tile.
-  const bool b_active = threadIdx.x < kBUnits;
-  const int bkq = threadIdx.x % 8, bnq = threadIdx.x / 8;
-  uint32_t breg[8];
-  auto load_b = [&](int c) {
-    if (!b_active) return;
-    const int8_t* src = w + ((long)c * kBK + 8 * bkq) * N + n0 + 4 * bnq;
+// w (K, N) -> wt (N, K), 64 x 64 bytes per block through shared memory.
+__global__ void __launch_bounds__(256) transpose_kernel(const uint8_t* __restrict__ w,
+                                                        uint8_t* __restrict__ wt, int K, int N) {
+  __shared__ __align__(4) uint8_t tile[64][68];  // [n][k]
+  const int k0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
+  for (int i = threadIdx.x; i < 64 * 16; i += 256) {
+    const int k = i >> 4, n4 = i & 15;
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(w + (long)(k0 + k) * N + n0 + 4 * n4);
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      breg[r] = __ldg(reinterpret_cast<const uint32_t*>(src + (long)r * N));
-  };
-  auto store_b = [&](int c) {
-    if (!b_active) return;
-    unsigned char* dst = Bs + (c & 1) * kBStage + 4 * bnq * kRow + 8 * bkq;
-    uint32_t lo[4], hi[4];
-    transpose4x4(breg, lo);
-    transpose4x4(breg + 4, hi);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<uint2*>(dst + j * kRow) = make_uint2(lo[j], hi[j]);
-  };
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wn = warp % WN, wm = warp / WN;
-  const int mat = lane >> 3, mrow = lane & 7;
-  // A: matrices 0..3 = rows 0-7 / 8-15 of the m-tile, K bytes 0-15 / 16-31
-  const int arow0 = (wm * 32 + (mat & 1) * 8 + mrow) * kRow + (mat >> 1) * 16;
-  // B: matrices 0..3 = K bytes 0-15 / 16-31 of n-tile 2jp, then of 2jp + 1
-  const int brow0 = (wn * 64 + (mat >> 1) * 8 + mrow) * kRow + (mat & 1) * 16;
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0;
-
-  stage_a(0);
-  load_b(0);
-  store_b(0);
-  for (int c = 0; c < n_chunks; ++c) {
-    const bool more = c + 1 < n_chunks;
-    if (more) {
-      stage_a(c + 1);
-      load_b(c + 1);  // in flight while chunk c computes
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // chunk c visible to all warps
-    const unsigned char* a_s = As + (c & 1) * kAStage;
-    const unsigned char* b_s = Bs + (c & 1) * kBStage;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t a[2][4];
-      ldmatrix_x4(a[0], a_s + arow0 + ks);
-      ldmatrix_x4(a[1], a_s + arow0 + 16 * kRow + ks);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, b_s + brow0 + jp * 16 * kRow + ks);
-        mma_s8(acc[0][2 * jp], a[0], bfr[0], bfr[1]);
-        mma_s8(acc[1][2 * jp], a[1], bfr[0], bfr[1]);
-        mma_s8(acc[0][2 * jp + 1], a[0], bfr[2], bfr[3]);
-        mma_s8(acc[1][2 * jp + 1], a[1], bfr[2], bfr[3]);
-      }
-    }
-    // Buffer (c + 1) & 1 was last read in chunk c - 1, behind the barrier
-    // that ended it, so chunk c + 1's w can go there now.
-    if (more) store_b(c + 1);
-    __syncthreads();
+    for (int b = 0; b < 4; ++b) tile[4 * n4 + b][k] = (uint8_t)(v >> (8 * b));
   }
-
-  const int g = lane >> 2, tg = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long m = m0 + wm * 32 + mi * 16 + h * 8 + g;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + wn * 64 + j * 8 + tg * 2;
-        *reinterpret_cast<int2*>(out + m * N + n) =
-            make_int2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
-      }
-    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 64 * 16; i += 256) {
+    const int n = i >> 4, k4 = i & 15;
+    *reinterpret_cast<uint32_t*>(wt + (long)(n0 + n) * K + k0 + 4 * k4) =
+        *reinterpret_cast<const uint32_t*>(&tile[n][4 * k4]);
+  }
 }
 
-template <int WN>
-int launch(const void* x, const void* w, void* out, int M, int N, int K, cudaStream_t stream) {
-  constexpr int BN = 64 * WN, BM = 32 * (8 / WN);
-  const int smem = 2 * (BM + BN) * kRow;
-  if (smem > 48 * 1024) {  // dynamic shared memory above 48 KB must be opted into
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1) int8_mm_kernel(
+    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_wt,
+    int32_t* __restrict__ out, int M, int N, int K) {
+  constexpr int S = stages_for(BN);
+  constexpr int kAStage = kBM * kSwizzleRow, kBStage = BN * kSwizzleRow;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries
+  unsigned char* smem = smem_raw + ((kTileAlign - (smem_u32(smem_raw) & (kTileAlign - 1))) &
+                                    (kTileAlign - 1));
+  unsigned char* As = smem;                // S stages of 128 rows x 128 K bytes
+  unsigned char* Bs = smem + S * kAStage;  // S stages of BN rows x 128 K bytes
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + S * kBStage);
+  uint64_t* empty = full + S;
+
+  const int n_ntiles = N / BN;
+  const int n_tiles = (M / kBM) * n_ntiles;
+  const int n_chunks = (K + kSwizzleRow - 1) / kSwizzleRow;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);    // the producer's arrive; the TMA unit adds the bytes
+      mbar_init(empty + s, 8);   // one lane of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: one thread keeps the ring full -----------------
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      int s = 0, parity = 1;  // a fresh stage is empty: the first waits pass at once
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_ntiles) * kBM, n0 = (tile % n_ntiles) * BN;
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(empty + s, parity);
+          mbar_arrive_expect_tx(full + s, kAStage + kBStage);
+          tma_load_2d(As + s * kAStage, &map_x, full + s, c * kSwizzleRow, m0);
+          tma_load_2d(Bs + s * kBStage, &map_wt, full + s, c * kSwizzleRow, n0);
+          if (++s == S) { s = 0; parity ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups ------------------------------------------------
+    reg_alloc<232>();
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    int s = 0, parity = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long m0 = (long)(tile / n_ntiles) * kBM + wg * 64;
+      const int n0 = (tile % n_ntiles) * BN;
+      int prev = -1;  // the stage whose products may still be running
+      for (int c = 0; c < n_chunks; ++c) {
+        mbar_wait(full + s, parity);
+        const uint64_t da = wgmma_desc(smem_u32(As + s * kAStage + wg * 64 * kSwizzleRow));
+        const uint64_t db = wgmma_desc(smem_u32(Bs + s * kBStage));
+        const int steps = min(kSwizzleRow, K - c * kSwizzleRow) / kWgmmaK;
+        acc_fence(acc);
+        wgmma_fence();
+        for (int j = 0; j < steps; ++j)  // + 2: 32 bytes along K, in 16-byte units
+          Wgmma<BN>::ss(acc, da + 2 * j, db + 2 * j, (c | j) != 0);
+        wgmma_commit();
+        if (prev >= 0) {  // chunk c - 1 is done: its stage goes back to the producer
+          wgmma_wait<1>();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + prev);
+        }
+        prev = s;
+        if (++s == S) { s = 0; parity ^= 1; }
+      }
+      wgmma_wait<0>();
+      acc_fence(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + prev);
+      // this thread's rows m, m + 8 and column pairs 8j + 2tg of the tile
+      int32_t* o = out + (m0 + warp * 16 + g) * N + n0 + 2 * tg;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        *reinterpret_cast<int2*>(o + 8 * j) = make_int2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<int2*>(o + 8 * (long)N + 8 * j) = make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+template <int BN>
+int launch(const void* x, const void* wt, void* out, int M, int N, int K, cudaStream_t stream) {
+  constexpr int S = stages_for(BN);
+  constexpr int smem = kTileAlign + S * (kBM + BN) * kSwizzleRow + 2 * S * 8;
+  static_assert(S >= 4 && smem <= kSmemLimit, "the ring must fit with at least 4 stages");
+  static bool raised = false;
+  if (!raised) {  // dynamic shared memory above 48 KB must be opted into, once
     const cudaError_t e = cudaFuncSetAttribute(
-        int8_mm_kernel<WN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        int8_mm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
+    raised = true;
   }
-  const dim3 grid(N / BN, M / BM);
-  int8_mm_kernel<WN><<<grid, kThreads, smem, stream>>>(
-      (const int8_t*)x, (const int8_t*)w, (int32_t*)out, M, N, K);
+  CUtensorMap map_x, map_wt;
+  int rc = cached_tensor_map_s8(&map_x, x, M, K, kBM);
+  if (rc == 0) rc = cached_tensor_map_s8(&map_wt, wt, N, K, BN);
+  if (rc != 0) return rc;
+  const int n_tiles = (M / kBM) * (N / BN);
+  const int grid = n_tiles < sm_count() ? n_tiles : sm_count();
+  int8_mm_kernel<BN><<<grid, kThreads, smem, stream>>>(map_x, map_wt, (int32_t*)out, M, N, K);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) int8, w (K, N) int8, out (M, N) int32, all row-major and
-// 16-byte aligned. Needs K % 64 == 0 and either N % 128 == 0 and M % 128 == 0,
-// or N % 64 == 0 and M % 256 == 0 (the wrapper checks). Returns
-// cudaGetLastError() (or the error of raising the shared-memory limit).
-extern "C" int azt_int8_mm(const void* x, const void* w, void* out, int M, int N, int K,
-                           void* stream) {
-  if (N % 128 == 0) return launch<2>(x, w, out, M, N, K, (cudaStream_t)stream);
-  return launch<1>(x, w, out, M, N, K, (cudaStream_t)stream);
+// x (M, K) int8, w (K, N) int8, out (M, N) int32, wt K * N bytes of scratch
+// (receives w^T), all row-major and 16-byte aligned. Needs M % 128 == 0,
+// K % 64 == 0 and N % 64 == 0 (the wrapper checks). Two launches on the
+// stream: the transpose of w, then the product. Returns 0, a cudaError_t, or
+// 1000 + the CUresult of building a tensor map.
+extern "C" int azt_int8_mm(const void* x, const void* w, void* wt, void* out, int M, int N,
+                           int K, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  transpose_kernel<<<dim3(N / 64, K / 64), 256, 0, st>>>((const uint8_t*)w, (uint8_t*)wt, K, N);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (N % 256 == 0) return launch<256>(x, wt, out, M, N, K, st);
+  if (N % 128 == 0) return launch<128>(x, wt, out, M, N, K, st);
+  return launch<64>(x, wt, out, M, N, K, st);
 }

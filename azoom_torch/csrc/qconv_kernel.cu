@@ -9,271 +9,518 @@
 //   acc = sum_{dy,dx,c} x_q[f+dy-1, t+dx-1, c] * w_q[n, (3*dy+dx)*Cin + c]   (exact int32)
 //   y   = ((acc * s1[n] + b1[n]) - mean[n]) * mul[n] + beta[n]  (+ residual) (ReLU)
 //
-// s1 = act_scale * w_scale and b1 = conv bias dequantise; mean, mul =
-// gamma / sqrt(var + eps) and beta are the inference BatchNorm (0, 1, 0 for
-// a bare conv). The epilogue keeps the reference's order of float32
-// operations (QConv's dequant, then flax's BatchNorm) instead of folding it
-// into one affine: every int8 code of the next layer is a rounding of this
-// output, so a one-ulp difference here flips codes, and over the 21 convs of
-// the mask net the flips compound (tests/test_torch_tpufpu.py: a folded
-// affine moves the bundled net's mask by 5e-2 against the reference, this
-// order by 2e-7). The quantisation uses IEEE division and round-half-to-even
-// (rintf), as jnp.round does; this file must never be built with
-// --use_fast_math. __fmul_rn / __fadd_rn / __fsub_rn keep the compiler from
-// contracting the epilogue into FMAs.
+// The quantisation and the epilogue's float32 operations, in the reference's
+// order, are csrc/qconv_common.cuh, shared with the mma.sync kernel this one
+// replaced (csrc/qconv_mma_kernel.cu), so the two agree bit for bit. Never
+// build with --use_fast_math.
 //
 // What bounds it: at the mask net's shapes (129 folded-frequency rows,
-// T = 64..8, Cin = 16..256, batch 128) every layer moves more float32
-// activation bytes than the int8 tensor cores need time for (e.g. Cin = Cout
-// = 64 at T = 64: 541 MB of activations against 77 GOP), so the roofline is
-// the memory rate. Design: implicit GEMM, M = output pixels, N = Cout,
-// K = 9 * Cin in tap-major order. A block of 8 warps owns a tile of
-// 256 / (Cout / 64) pixels (FR rows of F by TW frames) and ALL Cout output
-// channels, so each input element is read from device memory and quantised
-// about once ((FR+2)/FR halo overlap), not once per channel block. The
-// quantised halo ((FR+2) x (TW+2) pixels x Cin int8) stays in shared memory;
-// the 9 taps are address offsets into it, so im2col never exists in memory.
-// Weights stream through two shared buffers in K chunks of 128 (cp.async,
-// the next chunk's copy overlapping this chunk's products). Warps split the
-// tile (Cout / 64) ways along N and the rest along M; each owns 32 pixels x
-// 64 channels of int32 accumulators in registers, loads its fragments with
-// ldmatrix (rows padded by 16 bytes so the 8 rows of each 8x16-byte matrix
-// hit distinct banks) and issues mma.sync m16n8k32 s8. wgmma and TMA are
-// later work.
+// T = 64..8, Cin = 64..256, batch 128) every layer is bound by its float32
+// activation bytes (Cin = Cout = 64 at T = 64: 541 MB against 77 GOP; even
+// 256 -> 256 at T = 8: 271 MB, 0.081 ms, against 156 GOP, 0.079 ms). The
+// mma.sync kernel reached a quarter of the memory rate and a tenth of the
+// tensor rate: a block loaded, multiplied and stored in turn, and every
+// block pulled the layer's whole weight matrix from L2 for its 64 to 256
+// pixels.
+//
+// Design: implicit GEMM (M = output pixels, N = Cout, K = 9 * Cin tap-major)
+// in persistent, warp-specialised blocks, one per SM: two consumer
+// warpgroups and 8 producer warps (4 at Cout = 256, see PW below).
+//   - A block takes a contiguous run of tiles, walking down the frequency
+//     rows of one stream. Producers read the next tile's float32 rows (both
+//     inputs of a channel concat in place), quantise them and write the int8
+//     halo into the second of two halo buffers, while the consumers work on
+//     the first. The two halo rows a tile shares with the one above are
+//     copied from that tile's halo, so every input row is read from device
+//     memory and quantised once. Each thread keeps two batches of 6 float4
+//     loads in flight. The nine taps are address offsets into the halo;
+//     im2col never exists.
+//   - Weights come by TMA in the 128-byte swizzle. Packed weights
+//     (Cout, 9 * Cin) are K-major already, which is what wgmma's B wants.
+//     Where all of them fit beside the halos they are loaded once per block
+//     and stay (14 of the net's 21 convs); else K chunks of 128 bytes stream
+//     through a ring of 3 or more stages, once per tile of 128 pixels, fed
+//     by a producer warp of its own (the ring wants a chunk every few
+//     hundred cycles). The host-side plan (kernels/qconv_kernel.py:plan)
+//     decides which, and the ring's depth; the tensor map is cached per layer.
+//   - Two consumer warpgroups own 64 * MI pixels each and all Cout channels:
+//     wgmma m64nCoutk32 s8, B through a shared-memory descriptor, A from
+//     registers by ldmatrix out of the halo (pixels padded by 16 bytes, so
+//     the eight rows of a matrix hit distinct banks). A from registers, not
+//     through a descriptor: a descriptor wants the 8-pixel groups of a
+//     64-row tile at one stride, which the halo gives only when a tile is
+//     one row of 64 frames or rows of 8, and it would want the halo swizzled
+//     per 128 channels; ldmatrix takes any tile shape and any Cin % 32 == 0.
+//   - Epilogue: the five epilogue rows sit in shared memory; each warp
+//     stages 16 pixels x 32 channels at a time through its own patch of
+//     shared memory and writes (and reads the residual, which the block asked
+//     L2 for when the tile began) 16 bytes a lane, 128 contiguous bytes per
+//     pixel. It overlaps the producers' next halo.
+// Cin % 32 != 0 (the net's 16-channel stem) and Cout = 512 stay on the
+// mma.sync kernel; the wrapper picks by shape.
+//
+// Built with -DAZT_QCONV_CLOCKS (kernels/bench.py clocks), block 0 also sums
+// the cycles its first consumer thread and first producer thread spend
+// waiting and working, per tile: the profilers that read stall reasons do
+// not run everywhere, and which role is critical is the first question.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qconv_common.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;    // 8 warps
-constexpr int kKC = 128;         // K bytes of weights staged per chunk
-constexpr int kWRow = kKC + 16;  // padded shared-memory row of a staged weight chunk
+using namespace azt;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Threads 0..255 are the two consumer warpgroups; PW producer warps follow. A
+// block starts with 65,536 registers over its threads, and ptxas holds the
+// whole kernel to that count whatever setmaxnreg grants later: 168 at 384
+// threads (PW = 4), which the 128 accumulators of Cout = 256 need; 128 at
+// 512 threads (PW = 8) for Cout <= 128, where more producers are worth more.
+constexpr int kConsumers = 256;
+constexpr int kStageRow = 40;          // floats per staged output row: 32 channels + 8 of padding
+constexpr int kStageBytes = 8 * 16 * kStageRow * 4;  // 16 rows for each consumer warp
+constexpr int kMaxStages = 18;         // K chunks of Cin = 256
+constexpr int kBarBytes = (2 * kMaxStages + 4) * 8;
+constexpr int kSmemLimit = 232448;     // bytes a block may have on sm_90
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
+struct Params {
+  const float* x;
+  const float* x2;
+  const float* epi;
+  const float* res;
+  float* out;
+  float act_scale;
+  int relu;
+  int F, T, Cin, Cin1;
+  int tw_log2;                        // a tile is 2^tw_log2 frames by (128 * MI) >> tw_log2 rows
+  int n_ttiles, n_ftiles, n_tiles;
+  int n_chunks;                       // K chunks of 128 bytes
+  int stages;                         // of the weight ring; == n_chunks: the weights stay
+  uint32_t magic_hw, magic_c4;        // ceil(2^32 / (TW + 2)), ceil(2^32 / (Cin / 4))
+#ifdef AZT_QCONV_CLOCKS
+  // cycles of block 0: consumer waiting for a halo, in the products, in the epilogue;
+  // producer waiting for a buffer, loading and quantising; tiles
+  long long* clocks;
+#endif
+};
 
-// Four 8x16-byte matrices; lane L supplies the address of row L % 8 of
-// matrix L / 8, and receives word (L % 4) of row (L / 4) of each matrix.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem_row);
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
 
-// clip(rint(v / s), -127, 127) with the IEEE quotient, without paying for a
-// division per element: y = v * (1/s) is within ~1 ulp of v / s, i.e. within
-// 1.6e-5 for |y| < 128, so rint(y) = rint(v / s) unless y lies within 1e-4
-// of a half-integer; only then (about 1 element in 10^4) is the division
-// done. Beyond |y| >= 128 the clip decides either way.
-__device__ __forceinline__ uint32_t quant1(float v, float s, float rs) {
-  float y = v * rs;
-  if (fabsf(y) < 128.f && fabsf(fabsf(y - truncf(y)) - 0.5f) < 1e-4f) y = v / s;
-  const float q = fminf(fmaxf(rintf(y), -127.f), 127.f);
-  return (uint32_t)((int)q & 0xff);
-}
+// One producer thread's batch of U float4s of the halo.
+template <int U>
+struct HaloBatch {
+  float4 v[U];
+  int first;  // item (float4 of the halo) of v[0]; v[u] is item first + u * n_halo
+};
 
-__device__ __forceinline__ uint32_t quant4(float4 v, float s, float rs) {
-  return quant1(v.x, s, rs) | (quant1(v.y, s, rs) << 8) | (quant1(v.z, s, rs) << 16) |
-         (quant1(v.w, s, rs) << 24);
-}
+template <int N, int MI, int PW>
+__global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_w, const Params p) {
+  constexpr int kThreads = kConsumers + 32 * PW;
+  constexpr int U = 6;                      // float4 loads per batch; two batches in flight
+  constexpr int kMTile = 128 * MI;          // pixels of a tile
+  constexpr int kWStage = N * kSwizzleRow;  // bytes of one K chunk of the weights
+  constexpr int G = N == 256 ? 2 : 4;       // K steps per group of products
+  const int TW = 1 << p.tw_log2, HW = TW + 2;
+  const int FR = kMTile >> p.tw_log2;
+  const int CinP = p.Cin + 16;              // pixel stride of the halo
+  const int halo_bytes = (FR + 2) * HW * CinP;
+  const bool resident = p.stages == p.n_chunks;
+  // The producer warps make the halos; one of them only feeds the weight ring, if there is one.
+  const int n_halo = resident ? 32 * PW : 32 * (PW - 1);
 
-__global__ void __launch_bounds__(kThreads, 2) qconv3x3_kernel(
-    const float* __restrict__ x, const float* __restrict__ x2, const int8_t* __restrict__ w,
-    const float* __restrict__ epi, const float* __restrict__ res, float* __restrict__ out,
-    float act_scale, int relu, int F, int T, int Cin, int Cin1, int Cout, int Kpad, int TW,
-    int FR, int n_ttiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int HW = TW + 2;
-  const int CinP = Cin + 16;  // pixel stride of the halo; the 16 pad bytes stay zero
-  unsigned char* halo = smem;
-  unsigned char* wbuf = smem + (FR + 2) * HW * CinP;  // 2 buffers of Cout rows of kWRow bytes
-  const long b = blockIdx.y;
-  const int f0 = (blockIdx.x / n_ttiles) * FR;
-  const int t0 = (blockIdx.x % n_ttiles) * TW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((kTileAlign - (smem_u32(smem_raw) & (kTileAlign - 1))) &
+                                    (kTileAlign - 1));
+  unsigned char* wbuf = smem;                              // stages x (N rows x 128 K bytes)
+  unsigned char* halo0 = wbuf + p.stages * kWStage;        // two int8 halos
+  unsigned char* stage0 = halo0 + 2 * halo_bytes;          // the consumers' output patches
+  float* epi_s = reinterpret_cast<float*>(stage0 + kStageBytes);  // (5, N)
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(epi_s + 5 * N);
+  uint64_t* w_empty = w_full + kMaxStages;
+  uint64_t* h_full = w_empty + kMaxStages;
+  uint64_t* h_empty = h_full + 2;
 
-  // 1. Quantised input halo -> shared memory (zeros outside the plane).
-  //    Channels [0, Cin1) come from x, [Cin1, Cin) from x2: the decoder's
-  //    channel concat is read in place, never materialised. Each thread
-  //    takes 4 channels (one float4) of a pixel; consecutive threads take
-  //    consecutive channels, then pixels, so the loads are coalesced.
-  {
-    uint32_t* halo32 = reinterpret_cast<uint32_t*>(halo);
-    const int cinp4 = CinP >> 2, cin4 = Cin >> 2, cin14 = Cin1 >> 2;
-    const int n_pix = (FR + 2) * HW;
-    const bool pow2 = (cin4 & (cin4 - 1)) == 0;
-    const int sh = __ffs(cin4) - 1;
-    const float rs = 1.f / act_scale;
-    for (int i = threadIdx.x; i < n_pix * cin4; i += kThreads) {
-      const int pix = pow2 ? i >> sh : i / cin4;
-      const int c4 = i - pix * cin4;
-      const int hr = pix / HW;
-      const int f = f0 - 1 + hr;
-      const int t = t0 - 1 + (pix - hr * HW);
-      uint32_t q = 0;
-      if (f >= 0 && f < F && t >= 0 && t < T) {
-        const long at = (b * F + f) * T + t;
-        const float* src = c4 < cin14 ? x + at * Cin1 + 4 * c4
-                                      : x2 + at * (Cin - Cin1) + 4 * (c4 - cin14);
-        q = quant4(*reinterpret_cast<const float4*>(src), act_scale, rs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(w_full + s, 1);    // the weight warp's arrive; the TMA unit adds the bytes
+      mbar_init(w_empty + s, 8);   // one lane of each consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(h_full + b, n_halo);
+      mbar_init(h_empty + b, 8);
+    }
+    mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < 5 * N; i += kThreads) epi_s[i] = p.epi[i];
+  __syncthreads();
+
+  // A block takes a contiguous run of tiles, in the order (stream, frame
+  // tile, row tile): the next tile is mostly the one below, whose first two
+  // halo rows are this tile's last two.
+  const int tiles_per_b = p.n_ftiles * p.n_ttiles;
+  const int tile_begin = (int)((long)blockIdx.x * p.n_tiles / gridDim.x);
+  const int tile_end = (int)((long)(blockIdx.x + 1) * p.n_tiles / gridDim.x);
+
+  if (threadIdx.x >= kConsumers) {
+    // ======================= producers =======================================
+    reg_dealloc<(PW == 8 ? 96 : 104)>();
+    const int ptid = threadIdx.x - kConsumers;
+    // ---- the weights, by TMA ------------------------------------------------------
+    // Weights that stay are requested once, by the first halo thread. A ring
+    // needs a chunk every few hundred cycles, more often than a thread that
+    // also makes halos comes by: it gets producer warp 0 to itself.
+    if (!resident && ptid < 32) {
+      if (ptid == 0) {
+        int s = 0, parity = 1;  // a fresh stage is empty
+        for (int tile = tile_begin; tile < tile_end; ++tile)
+          for (int c = 0; c < p.n_chunks; ++c) {
+            mbar_wait(w_empty + s, parity);
+            mbar_arrive_expect_tx(w_full + s, kWStage);
+            tma_load_2d(wbuf + s * kWStage, &map_w, w_full + s, c * kSwizzleRow, 0);
+            if (++s == p.stages) { s = 0; parity ^= 1; }
+          }
       }
-      halo32[pix * cinp4 + c4] = q;
-    }
-    for (int i = threadIdx.x; i < n_pix * 4; i += kThreads)  // the 16 pad bytes
-      halo32[(i >> 2) * cinp4 + cin4 + (i & 3)] = 0;
-  }
-
-  // 2. Implicit GEMM on the tensor cores.
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int WN = Cout >> 6;  // warps along N (1, 2, 4 or 8)
-  const int wn = warp % WN, wm = warp / WN;
-  const int nbase = wn * 64;
-  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's matrix and row
-  // A (pixels x K): matrices 0..3 = rows 0-7 / 8-15 of the m-tile, K bytes 0-15 / 16-31
-  int arow[2];  // halo byte offset of tap (0, 0) for this lane's row in m-tiles 0, 1
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int p = wm * 32 + mi * 16 + (mat & 1) * 8 + mrow;
-    arow[mi] = ((p / TW) * HW + (p % TW)) * CinP;
-  }
-  const int akhalf = (mat >> 1) * 16;
-  // B (channels x K): matrices 0..3 = K bytes 0-15 / 16-31 of n-tile 2jp, then of 2jp+1
-  const int bn = nbase + (mat >> 1) * 8 + mrow;
-  const int bkhalf = (mat & 1) * 16;
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0;
-
-  // Weights stream in K chunks through two shared buffers: the copy of
-  // chunk c + 1 (cp.async, no registers) overlaps the products of chunk c.
-  const int K = 9 * Cin;
-  const int n_chunks = (Kpad + kKC - 1) / kKC;
-  const int wbuf_bytes = Cout * kWRow;
-  auto stage = [&](int c) {
-    unsigned char* dst = wbuf + (c & 1) * wbuf_bytes;
-    const int kc0 = c * kKC, kcn = min(kKC, Kpad - kc0);
-    for (int i = threadIdx.x; i < Cout * (kKC / 16); i += kThreads) {
-      const int n = i / (kKC / 16), v = i % (kKC / 16);  // 16-byte vector v of row n
-      if (v * 16 < kcn) cp_async16(dst + n * kWRow + v * 16, w + (long)n * Kpad + kc0 + v * 16);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  stage(0);
-  for (int c = 0; c < n_chunks; ++c) {
-    if (c + 1 < n_chunks) {
-      stage(c + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);  // chunk c has landed
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // chunk c (and, the first time, the halo) visible to all warps
-    const unsigned char* wb = wbuf + (c & 1) * wbuf_bytes;
-    const int kc0 = c * kKC, kcn = min(kKC, Kpad - kc0);
-    for (int ks = 0; ks < kcn; ks += 32) {
-      // K bytes [k, k + 16) of this lane's A row lie in one tap (Cin % 16 == 0)
-      const int k = kc0 + ks + akhalf;
-      int aoff = Cin;  // K beyond 9 * Cin: the zero pad bytes of the row
-      if (k < K) {
-        const int tap = k / Cin;
-        aoff = ((tap / 3) * HW + tap % 3) * CinP + (k - tap * Cin);
+      const int htid = resident ? ptid : ptid - 32;
+      if (resident && htid == 0) {
+        for (int c = 0; c < p.n_chunks; ++c) {
+          mbar_arrive_expect_tx(w_full + c, kWStage);
+          tma_load_2d(wbuf + c * kWStage, &map_w, w_full + c, c * kSwizzleRow, 0);
+        }
       }
-      uint32_t a[2][4];
-      ldmatrix_x4(a[0], halo + arow[0] + aoff);
-      ldmatrix_x4(a[1], halo + arow[1] + aoff);
+      // ---- the quantised halo -------------------------------------------------
+      const int cin4 = p.Cin >> 2, cin14 = p.Cin1 >> 2, cinp4 = CinP >> 2;
+      const int n_items = (FR + 2) * HW * cin4;  // float4s of a halo
+      const float rs = 1.f / p.act_scale;
+      int it = 0;
+      for (int tile = tile_begin; tile < tile_end; ++tile, ++it) {
+        const int b = tile / tiles_per_b, rem = tile - b * tiles_per_b;
+        const int ft = rem % p.n_ftiles;
+        const int f0 = ft * FR - 1, t0 = (rem / p.n_ftiles) * TW - 1;
+        const int buf = it & 1;
+        uint32_t* halo32 = reinterpret_cast<uint32_t*>(halo0 + buf * halo_bytes);
+#ifdef AZT_QCONV_CLOCKS
+        const long long tp0 = clock64();
+#endif
+        mbar_wait(h_empty + buf, ((it >> 1) & 1) ^ 1);
+        // Every halo thread is done with the previous tile (whose halo the
+        // slower ones may still be copying from) before any writes into it.
+        if (it > 0) mbar_wait(h_full + (buf ^ 1), ((it - 1) >> 1) & 1);
+        // Below the block's previous tile: halo rows 0 and 1 are that halo's
+        // rows FR and FR + 1.
+        const bool below = it > 0 && ft > 0;
+        if (below) {
+          const uint4* src = reinterpret_cast<const uint4*>(halo0 + (buf ^ 1) * halo_bytes +
+                                                            FR * HW * CinP);
+          uint4* dst = reinterpret_cast<uint4*>(halo32);
+          for (int j = htid; j < 2 * HW * (CinP >> 4); j += n_halo) dst[j] = src[j];
+        }
+        const int item0 = below ? 2 * HW * cin4 : 0;
+#ifdef AZT_QCONV_CLOCKS
+        const long long tp1 = clock64();
+#endif
+        // Batch k + 1 is loaded before batch k is quantised, so loads stay in flight.
+        auto load = [&](HaloBatch<U>& bt, int first) {
+          bt.first = first;
 #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, wb + (bn + jp * 16) * kWRow + ks + bkhalf);
-        mma_s8(acc[0][2 * jp], a[0], bfr[0], bfr[1]);
-        mma_s8(acc[1][2 * jp], a[1], bfr[0], bfr[1]);
-        mma_s8(acc[0][2 * jp + 1], a[0], bfr[2], bfr[3]);
-        mma_s8(acc[1][2 * jp + 1], a[1], bfr[2], bfr[3]);
+          for (int u = 0; u < U; ++u) {
+            const int i = first + u * n_halo;
+            const int pix = __umulhi(i, p.magic_c4);   // i / cin4
+            const int c4 = i - pix * cin4;
+            const int hr = __umulhi(pix, p.magic_hw);  // pix / HW
+            const int f = f0 + hr, t = t0 + (pix - hr * HW);
+            bt.v[u] = make_float4(0.f, 0.f, 0.f, 0.f);  // outside the plane: zeros
+            if (i < n_items && f >= 0 && f < p.F && t >= 0 && t < p.T) {
+              const long at = ((long)b * p.F + f) * p.T + t;
+              const float* src = c4 < cin14 ? p.x + at * p.Cin1 + 4 * c4
+                                            : p.x2 + at * (p.Cin - p.Cin1) + 4 * (c4 - cin14);
+              bt.v[u] = __ldg(reinterpret_cast<const float4*>(src));
+            }
+          }
+        };
+        auto store = [&](const HaloBatch<U>& bt) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int i = bt.first + u * n_halo;
+            const int pix = __umulhi(i, p.magic_c4);
+            if (i < n_items)
+              halo32[pix * cinp4 + (i - pix * cin4)] = quant4_magic(bt.v[u], p.act_scale, rs);
+          }
+        };
+        HaloBatch<U> b0, b1;
+        load(b0, item0 + htid);
+        for (int base = item0 + htid; base < n_items; base += 2 * n_halo * U) {
+          load(b1, base + n_halo * U);
+          store(b0);
+          load(b0, base + 2 * n_halo * U);
+          store(b1);
+        }
+#ifdef AZT_QCONV_CLOCKS
+        if (blockIdx.x == 0 && htid == 0) {
+          p.clocks[3] += tp1 - tp0;
+          p.clocks[4] += clock64() - tp1;
+        }
+#endif
+        mbar_arrive(h_full + buf);
       }
     }
-    __syncthreads();  // every warp is done with buffer c & 1 before chunk c + 2 lands there
-  }
+  } else {
+    // ======================= consumers =======================================
+    reg_alloc<(PW == 8 ? 160 : 200)>();
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's matrix and row
+    // First pixel of this warp's 16 rows in each of its MI 64-row subtiles.
+    int row0[MI];
+    // A (pixels x K): matrices 0..3 = rows 0-7 / 8-15, K bytes 0-15 / 16-31.
+    uint32_t arow[MI];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      row0[mi] = (wg * MI + mi) * 64 + warp * 16;
+      const int px = row0[mi] + (mat & 1) * 8 + mrow;
+      arow[mi] = ((px >> p.tw_log2) * HW + (px & (TW - 1))) * CinP + (mat >> 1) * 16;
+    }
+    float* st = reinterpret_cast<float*>(stage0) + (threadIdx.x >> 5) * 16 * kStageRow;
+    const int n_ksteps = 9 * p.Cin / kWgmmaK;
 
-  // 3. Fused epilogue: dequant, BatchNorm, residual, ReLU.
-  const int g = lane >> 2, tg = lane & 3;
+    int acc[MI][N / 2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = wm * 32 + mi * 16 + h * 8 + g;
-      const int f = f0 + p / TW;
-      const int t = t0 + p % TW;
-      if (f >= F || t >= T) continue;
-      const long pix = (b * F + f) * T + t;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = nbase + j * 8 + tg * 2;
-        float2 e[5];  // s1, b1, mean, mul, beta at channels n, n + 1
-#pragma unroll
-        for (int r = 0; r < 5; ++r) e[r] = *reinterpret_cast<const float2*>(epi + r * Cout + n);
-        float y0 = __fadd_rn(__fmul_rn((float)acc[mi][j][2 * h], e[0].x), e[1].x);
-        float y1 = __fadd_rn(__fmul_rn((float)acc[mi][j][2 * h + 1], e[0].y), e[1].y);
-        y0 = __fadd_rn(__fmul_rn(__fsub_rn(y0, e[2].x), e[3].x), e[4].x);
-        y1 = __fadd_rn(__fmul_rn(__fsub_rn(y1, e[2].y), e[3].y), e[4].y);
-        if (res) {
-          const float2 r = *reinterpret_cast<const float2*>(res + pix * Cout + n);
-          y0 = __fadd_rn(r.x, y0);
-          y1 = __fadd_rn(r.y, y1);
+      for (int i = 0; i < N / 2; ++i) acc[mi][i] = 0;
+
+    int ws = 0, wparity = 0;  // the weight ring, when it streams
+    int it = 0;
+    for (int tile = tile_begin; tile < tile_end; ++tile, ++it) {
+      const int b = tile / tiles_per_b, rem = tile - b * tiles_per_b;
+      const int f0 = (rem % p.n_ftiles) * FR, t0 = (rem / p.n_ftiles) * TW;
+      const int buf = it & 1;
+      const uint32_t halo = smem_u32(halo0 + buf * halo_bytes);
+#ifdef AZT_QCONV_CLOCKS
+      const long long tc0 = clock64();
+#endif
+      mbar_wait(h_full + buf, (it >> 1) & 1);
+#ifdef AZT_QCONV_CLOCKS
+      const long long tc1 = clock64();
+#endif
+
+      // Ask L2 for the tile's residual now; the epilogue's reads then find it there.
+      if (p.res) {
+        const int tl = t0, th = min(p.T, t0 + TW), fh = min(p.F, f0 + FR);
+        const int lines = ((th - tl) * N * 4 + 127) >> 7;  // 128-byte lines of a row
+        for (int j = threadIdx.x; j < (fh - f0) * lines; j += kConsumers) {
+          const int r = j / lines;
+          const char* a =
+              reinterpret_cast<const char*>(p.res + (((long)b * p.F + f0 + r) * p.T + tl) * N) +
+              128 * (j - r * lines);
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(a));
         }
-        if (relu) {
-          y0 = fmaxf(y0, 0.f);
-          y1 = fmaxf(y1, 0.f);
-        }
-        *reinterpret_cast<float2*>(out + pix * Cout + n) = make_float2(y0, y1);
       }
+
+      // ---- products -------------------------------------------------------------
+      int ks = 0;                     // K step: 32 channels of one tap
+      int c0 = 0, dx = 0, tap_off = 0;  // its channel offset, and its tap's offset in the halo
+      for (int c = 0; c < p.n_chunks; ++c) {
+        const int s = resident ? c : ws;
+        mbar_wait(w_full + s, resident ? 0 : wparity);
+        const uint64_t db = wgmma_desc(smem_u32(wbuf + s * kWStage));
+        const int steps = min(4, n_ksteps - 4 * c);
+        for (int j0 = 0; j0 < steps; j0 += G) {
+          uint32_t a[MI][G][4];
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            if (j0 + j < steps) {
+#pragma unroll
+              for (int mi = 0; mi < MI; ++mi)
+                ldmatrix_x4(a[mi][j], halo + arow[mi] + tap_off + c0);
+              c0 += kWgmmaK;
+              if (c0 == p.Cin) {  // on to the next tap: (dy, dx + 1), or (dy + 1, 0)
+                c0 = 0;
+                tap_off += CinP;
+                if (++dx == 3) { dx = 0; tap_off += (HW - 3) * CinP; }
+              }
+            }
+          }
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) acc_fence(acc[mi]);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            if (j0 + j < steps) {
+#pragma unroll
+              for (int mi = 0; mi < MI; ++mi)
+                Wgmma<N>::rs(acc[mi], a[mi][j], db + 2 * (j0 + j), ks != 0);
+              ++ks;
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+        }
+        if (!resident) {  // this warp is done with the stage
+          __syncwarp();
+          if (lane == 0) mbar_arrive(w_empty + s);
+          if (++ws == p.stages) { ws = 0; wparity ^= 1; }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) acc_fence(acc[mi]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(h_empty + buf);  // the producers may refill this halo
+#ifdef AZT_QCONV_CLOCKS
+      const long long tc2 = clock64();
+#endif
+
+      // ---- epilogue -------------------------------------------------------------
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        // Reading back, lane L takes channels 4 * (L % 8) .. + 3 of rows L / 8 + 4 * q.
+        long obase[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int px = row0[mi] + (lane >> 3) + 4 * q;
+          const int f = f0 + (px >> p.tw_log2), t = t0 + (px & (TW - 1));
+          obase[q] = f < p.F && t < p.T
+                         ? (((long)b * p.F + f) * p.T + t) * N + 4 * (lane & 7) : -1;
+        }
+#pragma unroll
+        for (int slab = 0; slab < N / 32; ++slab) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = slab * 4 + jj, n = 8 * j + 2 * tg;
+            float2 e[5];  // s1, b1, mean, mul, beta at channels n, n + 1
+#pragma unroll
+            for (int k = 0; k < 5; ++k) e[k] = *reinterpret_cast<const float2*>(epi_s + k * N + n);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float y0 =
+                  dequant_bn(acc[mi][4 * j + 2 * h], e[0].x, e[1].x, e[2].x, e[3].x, e[4].x);
+              const float y1 =
+                  dequant_bn(acc[mi][4 * j + 2 * h + 1], e[0].y, e[1].y, e[2].y, e[3].y, e[4].y);
+              *reinterpret_cast<float2*>(st + (g + 8 * h) * kStageRow + 8 * jj + 2 * tg) =
+                  make_float2(y0, y1);
+            }
+          }
+          float4 r[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            r[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (p.res && obase[q] >= 0)
+              r[q] = __ldg(reinterpret_cast<const float4*>(p.res + obase[q] + slab * 32));
+          }
+          __syncwarp();
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float4 y = *reinterpret_cast<const float4*>(
+                st + ((lane >> 3) + 4 * q) * kStageRow + 4 * (lane & 7));
+            if (obase[q] >= 0) {
+              y.x = res_relu(y.x, r[q].x, p.res != nullptr, p.relu);
+              y.y = res_relu(y.y, r[q].y, p.res != nullptr, p.relu);
+              y.z = res_relu(y.z, r[q].z, p.res != nullptr, p.relu);
+              y.w = res_relu(y.w, r[q].w, p.res != nullptr, p.relu);
+              *reinterpret_cast<float4*>(p.out + obase[q] + slab * 32) = y;
+            }
+          }
+          __syncwarp();  // the patch is free for the next slab
+        }
+      }
+#ifdef AZT_QCONV_CLOCKS
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
+        p.clocks[0] += tc1 - tc0;
+        p.clocks[1] += tc2 - tc1;
+        p.clocks[2] += clock64() - tc2;
+        p.clocks[5] += 1;
+      }
+#endif
     }
+  }
+}
+
+#ifdef AZT_QCONV_CLOCKS
+long long* clocks_buffer() {
+  static long long* buf = nullptr;
+  if (!buf) cudaMalloc(&buf, 6 * sizeof(long long));
+  return buf;
+}
+#endif
+
+template <int N, int MI, int PW>
+int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t stream) {
+  const int fr = (128 * MI) / tile_w;
+  const int need = kTileAlign + p.stages * N * kSwizzleRow +
+                   2 * (fr + 2) * (tile_w + 2) * (p.Cin + 16) + kStageBytes + 5 * N * 4 + kBarBytes;
+  if (need != smem || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  static int raised = 0;
+  if (smem > raised) {  // dynamic shared memory above 48 KB must be opted into
+    const cudaError_t e = cudaFuncSetAttribute(
+        qconv_wgmma_kernel<N, MI, PW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    raised = smem;
+  }
+  CUtensorMap map_w;  // encoded once per layer: the table is keyed by the weights' address
+  const int rc = cached_tensor_map_s8(&map_w, w, N, 9 * (uint64_t)p.Cin, N);
+  if (rc != 0) return rc;
+  const int grid = p.n_tiles < sm_count() ? p.n_tiles : sm_count();
+  qconv_wgmma_kernel<N, MI, PW><<<grid, kConsumers + 32 * PW, smem, stream>>>(map_w, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x (B, F, T, Cin1) f32 and x2 (B, F, T, Cin - Cin1) f32 or null (then
-// Cin1 == Cin): the input is their channel concat. w (Cout, Kpad) int8, K
-// index (3*dy+dx)*Cin + c, zero beyond 9*Cin; epi (5, Cout) f32 rows s1, b1,
-// mean, mul, beta; res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32.
-// Needs Cin % 16 == 0, Cin1 % 4 == 0, Cout in {64, 128, 256, 512},
-// Kpad % 32 == 0. Returns cudaGetLastError() (or the error of raising the
-// shared-memory limit).
+// Cin1 == Cin): the input is their channel concat. w (Cout, 9 * Cin) int8, K
+// index (3*dy+dx)*Cin + c; epi (5, Cout) f32 rows s1, b1, mean, mul, beta;
+// res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32. Needs
+// Cin % 32 == 0, Cin1 % 4 == 0 and Cout in {64, 128, 256}. tile_w (frames of
+// a tile, a power of two up to 64), stages (of the weight ring; the number of
+// 128-byte K chunks means the weights stay in shared memory) and smem (bytes
+// of shared memory) come from the wrapper's plan; smem is checked against
+// this file's own sum. A tile is 256 pixels at Cout = 64, else 128. Returns
+// 0, a cudaError_t, or 1000 + the CUresult of building the tensor map.
 extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const void* epi,
-                            const void* res, void* out, float act_scale,
-                            int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
-                            int Kpad, void* stream) {
-  const int m_tile = 32 * (8 / (Cout / 64));  // pixels per block
-  int TW = 1;  // frames per tile: the largest power of two <= min(T, m_tile)
-  while (TW * 2 <= T && TW * 2 <= m_tile) TW *= 2;
-  const int FR = m_tile / TW;
-  const int n_ttiles = (T + TW - 1) / TW;
-  const int n_ftiles = (F + FR - 1) / FR;
-  const int smem = (FR + 2) * (TW + 2) * (Cin + 16) + 2 * Cout * kWRow;
-  if (smem > 48 * 1024) {  // dynamic shared memory above 48 KB must be opted into
-    const cudaError_t e = cudaFuncSetAttribute(
-        qconv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(n_ftiles * n_ttiles, B);
-  qconv3x3_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)x2, (const int8_t*)w, (const float*)epi,
-      (const float*)res, (float*)out, act_scale, relu, F, T, Cin, Cin1, Cout, Kpad, TW, FR,
-      n_ttiles);
-  return (int)cudaGetLastError();
+                            const void* res, void* out, float act_scale, int relu, int B, int F,
+                            int T, int Cin, int Cin1, int Cout, int tile_w, int stages, int smem,
+                            void* stream) {
+  const int m_tile = Cout == 64 ? 256 : 128;
+  int tw_log2 = 0;
+  while ((1 << tw_log2) < tile_w) ++tw_log2;
+  const int n_chunks = (9 * Cin + kSwizzleRow - 1) / kSwizzleRow;
+  if (Cin % 32 || Cin1 % 4 || (Cout != 64 && Cout != 128 && Cout != 256) ||
+      (1 << tw_log2) != tile_w || tile_w > 64 || tile_w > m_tile || stages < 1 ||
+      stages > n_chunks || stages > kMaxStages)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.x = (const float*)x, p.x2 = (const float*)x2, p.epi = (const float*)epi;
+  p.res = (const float*)res, p.out = (float*)out;
+  p.act_scale = act_scale, p.relu = relu;
+  p.F = F, p.T = T, p.Cin = Cin, p.Cin1 = Cin1;
+  p.tw_log2 = tw_log2;
+  p.n_ttiles = (T + tile_w - 1) / tile_w;
+  p.n_ftiles = (F + m_tile / tile_w - 1) / (m_tile / tile_w);
+  p.n_tiles = B * p.n_ftiles * p.n_ttiles;
+  p.n_chunks = n_chunks;
+  p.stages = stages;
+  p.magic_hw = (uint32_t)(((1ull << 32) + tile_w + 1) / (tile_w + 2));
+  p.magic_c4 = (uint32_t)(((1ull << 32) + Cin / 4 - 1) / (Cin / 4));
+  cudaStream_t st = (cudaStream_t)stream;
+#ifdef AZT_QCONV_CLOCKS
+  p.clocks = clocks_buffer();
+  cudaMemsetAsync(p.clocks, 0, 6 * sizeof(long long), st);
+#endif
+  if (Cout == 64) return launch<64, 2, 8>(p, w, smem, tile_w, st);
+  if (Cout == 128) return launch<128, 1, 8>(p, w, smem, tile_w, st);
+  return launch<256, 1, 4>(p, w, smem, tile_w, st);
 }
+
+#ifdef AZT_QCONV_CLOCKS
+// The six sums of the last launch (see Params::clocks), after it has ended.
+extern "C" int azt_qconv3x3_clocks(long long* out) {
+  const cudaError_t e = cudaDeviceSynchronize();
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpy(out, clocks_buffer(), 6 * sizeof(long long), cudaMemcpyDeviceToHost);
+}
+#endif

@@ -5,6 +5,11 @@ scripts/microbench_int8.py and scripts/microbench_int8b.py).
 
     out[m, n] = sum_k x[m, k] * w[k, n]      x (M, K) int8, w (K, N) int8 -> int32
 
+The kernel reads both operands K-major (``wgmma`` s8 takes nothing else), so
+one product is two launches on the stream, counted as one in
+``kernels.launches``: a pre-pass that writes ``w`` transposed into scratch
+allocated here, then the product over 128 x BN output tiles.
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs :func:`int8_mm_plain`.
 """
@@ -19,7 +24,7 @@ import torch
 from azoom_torch import kernels
 from azoom_torch.kernels import build
 
-__all__ = ["MICROBENCH_SHAPES", "int8_mm", "int8_mm_plain", "supported_shape"]
+__all__ = ["MICROBENCH_SHAPES", "int8_mm", "int8_mm_plain", "supported_shape", "tile_n"]
 
 # The microbenchmarks' (M, K, N) shapes, the TPUFPU im2col products, and
 # the scripts that time each.
@@ -45,18 +50,21 @@ def int8_mm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def supported_shape(M: int, K: int, N: int) -> bool:
     """Whether the kernel's tiles cover (M, K, N) exactly: K a multiple of
-    64, and 128 x 128 output tiles (N % 128 == 0) or 256 x 64 ones."""
-    if K <= 0 or K % 64:
-        return False
-    if N > 0 and N % 128 == 0:
-        return M > 0 and M % 128 == 0
-    return N > 0 and N % 64 == 0 and M > 0 and M % 256 == 0
+    64 (K steps of 32 bytes, transposed in 64 x 64 blocks) and output tiles of
+    128 rows by :func:`tile_n` columns."""
+    return min(M, K, N) > 0 and K % 64 == 0 and M % 128 == 0 and N % 64 == 0
+
+
+def tile_n(N: int) -> int:
+    """Columns of an output tile: the widest of 256, 128, 64 that divides N,
+    as the C entry point picks it."""
+    return next(bn for bn in (256, 128, 64) if N % bn == 0)
 
 
 @functools.cache
 def _entry():
     fn = build.load_library("int8_mm_kernel").azt_int8_mm
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -78,14 +86,15 @@ def int8_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     _require(w.device == x.device, f"w is on {w.device}, x on {x.device}")
     _require(supported_shape(M, K, N),
-             f"shape (M, K, N) = {(M, K, N)} is not a whole number of tiles (K % 64, "
-             "and M % 128 with N % 128, or M % 256 with N % 64)")
+             f"shape (M, K, N) = {(M, K, N)} is not a whole number of tiles "
+             "(M % 128, K % 64, N % 64)")
     for name, t in (("x", x), ("w", w)):
         _require(t.is_contiguous(), f"{name} must be contiguous")
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    w_t = torch.empty((N, K), dtype=torch.int8, device=x.device)  # scratch: w transposed
     with torch.cuda.device(x.device):
-        rc = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+        rc = _entry()(x.data_ptr(), w.data_ptr(), w_t.data_ptr(), out.data_ptr(), M, N, K,
                       torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "int8_mm kernel")
     kernels.launches["int8_mm"] += 1

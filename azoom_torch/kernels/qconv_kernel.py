@@ -1,6 +1,8 @@
-"""Int8 SAME 3x3 conv with a fused epilogue: the CUDA kernel
-``csrc/qconv_kernel.cu``, its wrapper and its plain PyTorch version
-(counterpart of azoom.pallas.qconv_kernel.qconv3x3_pallas).
+"""Int8 SAME 3x3 conv with a fused epilogue: the CUDA kernels
+``csrc/qconv_kernel.cu`` (``wgmma``, TMA-fed weights, persistent
+warp-specialised blocks) and ``csrc/qconv_mma_kernel.cu`` (``mma.sync``; kept
+for the shapes the first does not take), their wrapper and its plain
+PyTorch version (counterpart of azoom.pallas.qconv_kernel.qconv3x3_pallas).
 
     x_q = clip(round_half_even(x / act_scale), -127, 127)
     acc = conv3x3_same(x_q, w_q)                         (exact integers)
@@ -18,8 +20,13 @@ one folded affine: the next layer's int8 codes are roundings of this
 output, and folded-affine rounding differences flip codes that compound
 through the net.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs :func:`qconv3x3_plain`.
+On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
+it runs :func:`qconv3x3_plain`. Which kernel is a matter of shape alone
+(:func:`plan`): the ``wgmma`` kernel takes Cin % 32 == 0 with Cout of 64, 128
+or 256 (every conv of the bundled net but its 16-channel stem), the
+``mma.sync`` kernel the rest (Cin % 16 == 0, Cout up to 512). The two agree
+bit for bit (``kernels/bench.py`` checks it on the card); neither is a
+fallback for a failed build or launch of the other.
 """
 
 from __future__ import annotations
@@ -33,9 +40,23 @@ import torch.nn.functional as Fn
 from azoom_torch import kernels
 from azoom_torch.kernels import build
 
-__all__ = ["qconv3x3", "qconv3x3_plain", "pack_weights", "epilogue_params", "quantize_weights"]
+__all__ = [
+    "qconv3x3", "qconv3x3_plain", "pack_weights", "epilogue_params", "quantize_weights", "plan",
+    "route_counts",
+]
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on sm_90
+# Preprocessor macros of the wgmma kernel's build; kernels/bench.py sets
+# ("AZT_QCONV_CLOCKS",) before the first launch to time the kernel's roles.
+BUILD_DEFINES: tuple[str, ...] = ()
+# Launches by kernel since import (kernels.launches counts both as "qconv3x3").
+route_counts = {"wgmma": 0, "mma": 0}
+
+# csrc/qconv_kernel.cu's shared memory, beside the weight stages and the two
+# halos: slack to align the swizzled tiles, the consumer warps' output
+# patches (8 warps x 16 rows x 40 floats), the 5 epilogue rows, the barriers.
+_TILE_ALIGN, _STAGING, _BARRIERS, _MAX_STAGES = 1024, 8 * 16 * 40 * 4, (2 * 18 + 4) * 8, 18
 
 
 def k_padded(cin: int) -> int:
@@ -109,11 +130,74 @@ def qconv3x3_plain(
     return y.contiguous()
 
 
+def _pow2_floor(n: int, cap: int) -> int:
+    tw = 1
+    while tw * 2 <= min(n, cap):
+        tw *= 2
+    return tw
+
+
+def _plan_mma(cin: int, cout: int, frames: int) -> dict:
+    """The ``mma.sync`` kernel's tile and shared memory, as its C entry point
+    picks them: 256 * 64 / Cout pixels, the halo and two buffers of Cout rows
+    of 128 + 16 weight bytes."""
+    m_tile = 256 // (cout // 64)
+    tile_w = _pow2_floor(frames, m_tile)
+    tile_rows = m_tile // tile_w
+    smem = (tile_rows + 2) * (tile_w + 2) * (cin + 16) + 2 * cout * 144
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"qconv3x3: Cin {cin}, Cout {cout} at {frames} frames needs {smem} B "
+                         "of shared memory")
+    return dict(kernel="mma", m_tile=m_tile, tile_w=tile_w, tile_rows=tile_rows,
+                k_chunks=-(-k_padded(cin) // 128), stages=2, resident=False, smem=smem)
+
+
 @functools.cache
-def _entry():
-    fn = build.load_library("qconv_kernel").azt_qconv3x3
+def plan(cin: int, cout: int, frames: int) -> dict:
+    """How the card runs a (Cin, Cout) conv on planes of ``frames`` frames:
+    which kernel, its tile and its shared memory, from the shape alone.
+
+    ``kernel`` "wgmma": tiles of ``tile_rows`` x ``tile_w`` = ``m_tile``
+    pixels (256 at Cout = 64, else 128; ``tile_w`` the largest power of two
+    up to min(frames, 64)) by all Cout channels. Shared memory holds two int8
+    halos of (tile_rows + 2) x (tile_w + 2) pixels x (Cin + 16) bytes,
+    ``stages`` weight chunks of Cout x 128 bytes and a fixed part. All
+    ``k_chunks`` = ceil(9 Cin / 128) chunks are kept (``resident``) if they
+    fit in 232,448 bytes, else as many stream through a ring as fit, at
+    least 3. ``kernel`` "mma": the ``mma.sync`` kernel's tile (256 * 64 / Cout
+    pixels) and bytes, for Cin % 32 != 0, Cout = 512, or when not even 3
+    stages fit. Raises ValueError for a shape neither kernel takes."""
+    if cin < 16 or cin % 16:
+        raise ValueError(f"qconv3x3: Cin must be a multiple of 16, got {cin}")
+    if cout not in (64, 128, 256, 512):
+        raise ValueError(f"qconv3x3: Cout must be 64, 128, 256 or 512, got {cout}")
+    if frames < 1:
+        raise ValueError(f"qconv3x3: frames must be positive, got {frames}")
+    if cin % 32 == 0 and cout <= 256:
+        m_tile = 256 if cout == 64 else 128
+        tile_w = _pow2_floor(frames, 64)
+        tile_rows = m_tile // tile_w
+        halo = (tile_rows + 2) * (tile_w + 2) * (cin + 16)
+        fixed = _TILE_ALIGN + 2 * halo + _STAGING + 5 * cout * 4 + _BARRIERS
+        k_chunks = -(-9 * cin // 128)
+        stages = min(k_chunks, _MAX_STAGES, (SMEM_LIMIT - fixed) // (cout * 128))
+        if stages >= min(3, k_chunks):
+            return dict(kernel="wgmma", m_tile=m_tile, tile_w=tile_w, tile_rows=tile_rows,
+                        k_chunks=k_chunks, stages=stages, resident=stages == k_chunks,
+                        smem=fixed + stages * cout * 128)
+    return _plan_mma(cin, cout, frames)
+
+
+@functools.cache
+def _entry(kernel: str):
+    if kernel == "wgmma":
+        fn = build.load_library("qconv_kernel", BUILD_DEFINES).azt_qconv3x3
+        ints = 10
+    else:
+        fn = build.load_library("qconv_mma_kernel").azt_qconv3x3_mma
+        ints = 8
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 6 + [ctypes.c_float] + [ctypes.c_int] * ints + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -132,11 +216,15 @@ def qconv3x3(
     residual: torch.Tensor | None = None,
     relu: bool = True,
     x2: torch.Tensor | None = None,
+    *,
+    _kernel: str | None = None,
 ) -> torch.Tensor:
     """Fused int8 Conv3x3(SAME) + epilogue on (B, F, T, Cin) float32 ->
     (B, F, T, Cout) float32. ``act_scale`` is the static activation scale
     (a positive float32 value). With ``x2`` the input is the channel concat
-    [x, x2], which the kernel reads in place."""
+    [x, x2], which the kernel reads in place. ``_kernel="mma"`` runs the
+    ``mma.sync`` kernel where :func:`plan` would pick ``wgmma``: for the
+    bit-for-bit comparison of the two, not for callers."""
     if x.device.type == "cpu":
         return qconv3x3_plain(x, w_q, epi, act_scale, residual, relu, x2)
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
@@ -170,21 +258,24 @@ def qconv3x3(
         _require(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    m_tile = 256 // (cout // 64)  # pixels per block, as the C entry point picks it
-    tw = 1
-    while tw * 2 <= min(T, m_tile):
-        tw *= 2
-    smem = (m_tile // tw + 2) * (tw + 2) * (cin + 16) + 2 * cout * 144
-    _require(smem <= 227 * 1024, f"input halo needs {smem} B of shared memory")
+    if _kernel is None:
+        how = plan(cin, cout, T)
+    else:
+        _require(_kernel == "mma", f"_kernel must be None or 'mma', got {_kernel!r}")
+        how = _plan_mma(cin, cout, T)
 
     out = torch.empty((B, F, T, cout), dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), None if x2 is None else x2.data_ptr(), w_q.data_ptr(), epi.data_ptr(),
+            None if residual is None else residual.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = _entry()(
-            x.data_ptr(), None if x2 is None else x2.data_ptr(), w_q.data_ptr(),
-            epi.data_ptr(), None if residual is None else residual.data_ptr(), out.data_ptr(),
-            float(act_scale), int(relu), B, F, T, cin, cin1, cout, w_q.shape[1],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(rc, "qconv3x3 kernel")
+        if how["kernel"] == "wgmma":
+            rc = _entry("wgmma")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
+                                 how["tile_w"], how["stages"], how["smem"], stream)
+        else:
+            rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
+                               w_q.shape[1], stream)
+    build.check(rc, f"qconv3x3 {how['kernel']} kernel")
     kernels.launches["qconv3x3"] += 1
+    route_counts[how["kernel"]] += 1
     return out

@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Phases, each printing its own line(s):
-  1. build   - compile every CUDA kernel of the port with nvcc (sm_90a), in
-               parallel, into azoom_torch/_build/; print the card.
+  1. build   - compile every CUDA kernel of the port with nvcc (sm_90a: the
+               int8 kernels run wgmma), in parallel, into azoom_torch/_build/;
+               print the card.
   2. mvdr    - the fused masked-MVDR kernel against its plain PyTorch version
                at the serving shape (128 streams, 2 mics, 513 bins, 64 frames),
                with a scalar and a per-bin sigma.
-  3. qconv   - the int8 3x3 conv kernel against its plain version at each of
-               the ten conv shapes of the bundled tpufpu_nano net at batch 128,
-               with and without a residual; torch._int_mm on explicitly
-               im2col'd int8 operands is timed beside it as the bare GEMM.
+  3. qconv   - the int8 3x3 conv against its plain version at each of the ten
+               conv shapes of the bundled tpufpu_nano net at batch 128, with
+               and without a residual (the wgmma kernel at nine shapes, the
+               mma.sync kernel at the 16-channel stem: the wrapper picks by
+               shape); torch._int_mm on explicitly im2col'd int8 operands is
+               timed beside it as the bare GEMM.
   4. convt   - the upsampling kernel against its plain version at the net's
                three upsampling shapes.
   5. main    - the user's path: load_bundled("tpufpu_nano") and
@@ -30,7 +33,10 @@ Phases, each printing its own line(s):
   8. int8_mm - the int8 matmul: the microbenchmark path (one launch at each
                (M, K, N) of scripts/microbench_{pallas_mm,int8,int8b}.py),
                then each product held exactly against the plain version;
-               torch._int_mm timed beside it.
+               torch._int_mm timed beside it (its column-major w is made
+               outside the timing; int8_mm's transpose of w is inside). Both
+               are timed as replays of a CUDA graph of 20 calls: kernel time,
+               without the host's share of a call.
   9. main_hard_null - learned_enhance(beamformer="hard_null", steer_deg=60,
                fov_deg=30) at (128, 2, 32000): launch counts, the first 4
                chunks against the CPU, the median time per call, and a
@@ -133,11 +139,12 @@ def main() -> int:
     from azoom_torch.dsp.stft import rfft_freqs, stft
     from azoom_torch.eval.projection import osinr_osir
     from azoom_torch.kernels import build
+    from azoom_torch.kernels.bench import device_ms
     from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
     from azoom_torch.kernels.int8_mm_kernel import MICROBENCH_SHAPES, int8_mm, int8_mm_plain
     from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
     from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
-    from azoom_torch.kernels.qconv_kernel import k_padded, qconv3x3, qconv3x3_plain
+    from azoom_torch.kernels.qconv_kernel import k_padded, plan, qconv3x3, qconv3x3_plain, route_counts
     from azoom_torch.masks.oracle import ibm_target_mask
     from azoom_torch.models.pretrained import load_bundled
     from azoom_torch.pipelines.learned import (
@@ -283,7 +290,7 @@ def main() -> int:
         for v in variants:
             per_shape[(cin, cout, t) + v]["library_ms"] = lib_ms
         plain = per_shape[(cin, cout, t, False, False)]
-        log("qconv", cin=cin, cout=cout, frames=t, batch=BATCH,
+        log("qconv", cin=cin, cout=cout, frames=t, batch=BATCH, kernel=plan(cin, cout, t)["kernel"],
             ms={"+".join(n for n, on in zip(("res", "cat"), v) if on) or "plain":
                 round(per_shape[(cin, cout, t) + v]["ms"], 4) for v in sorted(variants)},
             plain_ms=f"{plain['plain_ms']:.3f}", bound_ms=f"{plain['bound_ms']:.4f}",
@@ -339,11 +346,14 @@ def main() -> int:
     mix = torch.from_numpy(mix_np).to(dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    routes_before = dict(route_counts)
     out = learned_enhance(mix, model, cfg, steer_deg=60.0)
     torch.cuda.synchronize()
     counts = active_launches()
     check(counts == {"qconv3x3": 21, "masked_mvdr": 1, "convt1x2": 3},
           f"main path launch counts {counts}")
+    routes = {k: v - routes_before[k] for k, v in route_counts.items()}
+    check(routes == {"wgmma": 20, "mma": 1}, f"main path conv kernels {routes}")
     check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
           "main path: bad output")
     for name, n in counts.items():
@@ -371,7 +381,8 @@ def main() -> int:
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
     rtf = BATCH * N_SAMPLES / 16_000 / (med / 1e3)
-    log("main", batch=BATCH, samples=N_SAMPLES, launches=counts, ms_median=f"{med:.3f}",
+    log("main", batch=BATCH, samples=N_SAMPLES, launches=counts, conv_kernels=routes,
+        ms_median=f"{med:.3f}",
         ms_all=[round(t, 3) for t in times], audio_seconds_per_second=f"{rtf:.1f}",
         mask_max_err=f"{float(mask_err.max()):.3e}", mask_mean_err=f"{float(mask_err.mean()):.3e}",
         wave_rel_l2=f"{wave_rel:.3e}")
@@ -469,16 +480,21 @@ def main() -> int:
         err = int((products[shape].to(torch.int64) - int8_mm_plain(x, w)).abs().max())
         check(err == 0, f"int8_mm {shape}: max abs error {err}, not exact")
         mm_err = max(mm_err, err)
-        ms = time_ms(lambda: int8_mm(x, w))
+        # Kernel time from a replayed graph (both launches of int8_mm: the
+        # transpose of w and the product); call_ms is the same call in a loop
+        # from Python, which the host bounds near 0.05 ms.
+        ms = device_ms(lambda: int8_mm(x, w))
+        call_ms = time_ms(lambda: int8_mm(x, w))
         plain_ms = time_ms(lambda: int8_mm_plain(x, w), iters=3, warmup=1)
         w_cm = w.t().contiguous().t()  # column-major B, the layout cuBLASLt's int8 GEMM takes
-        lib_ms = time_ms(lambda: torch._int_mm(x, w_cm))
+        lib_ms = device_ms(lambda: torch._int_mm(x, w_cm))
         b_ms, b_by = bound(M * K + K * N + 4 * M * N, 2.0 * M * K * N, INT8_OPS_PER_S)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms), ("library_ms", lib_ms)):
             tot[key] += v
-        mm_parts[shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                               library_ms=lib_ms, scripts=MICROBENCH_SHAPES[shape])
-        log("int8_mm", M=M, K=K, N=N, ms=f"{ms:.4f}", int_mm_ms=f"{lib_ms:.4f}",
+        mm_parts[shape] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib_ms, scripts=MICROBENCH_SHAPES[shape])
+        log("int8_mm", M=M, K=K, N=N, ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}",
+            int_mm_ms=f"{lib_ms:.4f}",
             plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
             tops=f"{2.0 * M * K * N / ms / 1e9:.1f}")
     del operands, products

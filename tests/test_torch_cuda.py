@@ -21,7 +21,7 @@ from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
 from azoom_torch.kernels.int8_mm_kernel import int8_mm, int8_mm_plain
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
 from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
-from azoom_torch.kernels.qconv_kernel import k_padded, qconv3x3, qconv3x3_plain
+from azoom_torch.kernels.qconv_kernel import k_padded, plan, qconv3x3, qconv3x3_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -55,6 +55,44 @@ def test_qconv_kernel_matches_plain(cuda, cin, cout, t, res, cat):
     got = qconv3x3(x, w.to(cuda), epi, 0.026, **kw)
     ref = qconv3x3_plain(x, w.to(cuda), epi, 0.026, **kw)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def _conv_case(rng, dev, batch, f_rows, t, cin, cout, res):
+    x = _t(np.abs(rng.standard_normal((batch, f_rows, t, cin))).astype(np.float32), dev)
+    w = torch.zeros((cout, k_padded(cin)), dtype=torch.int8)
+    w[:, :9 * cin] = torch.from_numpy(rng.integers(-127, 128, (cout, 9 * cin)).astype(np.int8))
+    epi = _t(np.stack([np.full(cout, 2e-4), *(0.1 * rng.standard_normal((2, cout))),
+                       1 + 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout)])
+             .astype(np.float32), dev)
+    r = _t(rng.standard_normal((batch, f_rows, t, cout)).astype(np.float32), dev) if res else None
+    return x, w.to(dev), epi, r
+
+
+# Ragged and tiny planes, one stream, the widest Cout and the classic tree's
+# widths: batch, F, T, Cin, Cout, residual, relu.
+@pytest.mark.parametrize("batch,f_rows,t,cin,cout,res,relu", [
+    (2, 129, 1, 64, 64, True, True), (2, 129, 7, 64, 128, False, True),
+    (3, 1, 8, 128, 256, True, False), (1, 129, 8, 256, 256, True, True),
+    (1, 5, 3, 32, 64, False, True), (2, 129, 8, 256, 512, True, True),
+    (1, 129, 8, 512, 512, False, True), (1, 129, 16, 512, 256, True, True),
+    (2, 129, 40, 64, 64, True, True), (1, 129, 100, 128, 64, False, True),
+    (1, 300, 64, 96, 128, True, True)])
+def test_qconv_kernels_on_ragged_and_tiny_shapes(cuda, batch, f_rows, t, cin, cout, res, relu):
+    rng = np.random.default_rng(1000 * cin + 10 * t + batch)
+    x, w, epi, r = _conv_case(rng, cuda, batch, f_rows, t, cin, cout, res)
+    got = qconv3x3(x, w, epi, 0.026, residual=r, relu=relu)
+    ref = qconv3x3_plain(x, w, epi, 0.026, residual=r, relu=relu)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("cin,cout,t", [(64, 64, 32), (128, 128, 16), (256, 256, 8), (256, 128, 16)])
+def test_qconv_wgmma_equals_mma_kernel_bit_for_bit(cuda, cin, cout, t):
+    rng = np.random.default_rng(cin + cout + t)
+    assert plan(cin, cout, t)["kernel"] == "wgmma"
+    x, w, epi, r = _conv_case(rng, cuda, 3, 129, t, cin, cout, True)
+    new = qconv3x3(x, w, epi, 0.026, residual=r)
+    old = qconv3x3(x, w, epi, 0.026, residual=r, _kernel="mma")
+    assert torch.equal(new, old)
 
 
 def test_mvdr_kernel_matches_plain(cuda):
@@ -97,7 +135,10 @@ def test_hard_null_kernel_matches_plain(cuda, thr):
     assert float(err.max()) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(256, 576, 64), (128, 4608, 512), (512, 1152, 128)])
+# (128, 64, 64) is the smallest supported product: one 128 x 64 tile, one K chunk of 64.
+@pytest.mark.parametrize("shape", [(256, 576, 64), (128, 4608, 512), (512, 1152, 128),
+                                   (128, 64, 64), (128, 64, 256), (384, 192, 128),
+                                   (17024, 320, 192)])
 def test_int8_mm_kernel_is_exact(cuda, shape):
     M, K, N = shape
     rng = np.random.default_rng(M + K)

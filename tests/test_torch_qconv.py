@@ -21,7 +21,7 @@ from azoom.models.unet import ResBlock as FlaxResBlock
 from azoom_torch import kernels
 from azoom_torch.kernels.convt_kernel import convt1x2_plain
 from azoom_torch.kernels.qconv_kernel import (
-    epilogue_params, k_padded, pack_weights, qconv3x3, qconv3x3_plain,
+    SMEM_LIMIT, epilogue_params, k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain,
 )
 from azoom_torch.models.convert import load_conv_transpose, load_qconv
 from azoom_torch.models.unet import ConvBNRelu, ConvTranspose1x2, QConv, ResBlock
@@ -196,3 +196,86 @@ def test_concat_input_equals_concatenated_tensor(rng):
     epi = epilogue_params(0.01, torch.ones(8), torch.zeros(8))
     np.testing.assert_array_equal(qconv3x3(a, w, epi, 0.05, x2=b).numpy(),
                                   qconv3x3(torch.cat([a, b], -1), w, epi, 0.05).numpy())
+
+
+# ---- the host-side plan of the CUDA kernels (pure Python) ---------------------
+
+F_ROWS = 129  # folded frequency rows of the mask net: ragged against every tile height
+# (Cin, Cout, frames at T = 64 input frames, launches) of the bundled tpufpu_nano net
+NANO_SHAPES = [
+    (16, 64, 64, 1), (64, 64, 64, 2), (64, 64, 32, 5), (64, 128, 16, 1), (128, 128, 16, 4),
+    (128, 256, 8, 1), (256, 256, 8, 4), (256, 128, 16, 1), (128, 64, 32, 1), (128, 64, 64, 1),
+]
+# (Cin, Cout) of the classic tree (base 64, bottleneck 8, no width division)
+CLASSIC_WIDTHS = [
+    (16, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256), (256, 512), (512, 512),
+    (512, 256), (256, 128), (128, 64),
+]
+
+
+def _smem_as_the_c_side_sums_it(cin, cout, how):
+    """Shared memory of a plan, restated from the two C entry points."""
+    halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (cin + 16)
+    if how["kernel"] == "mma":  # csrc/qconv_mma_kernel.cu: halo + 2 buffers of Cout x (128 + 16)
+        return halo + 2 * cout * 144
+    # csrc/qconv_kernel.cu: alignment slack, weight stages, two halos, the warps' output
+    # patches, 5 epilogue rows, barriers
+    return 1024 + how["stages"] * cout * 128 + 2 * halo + 8 * 16 * 40 * 4 + 5 * cout * 4 + 40 * 8
+
+
+def _check_plan(cin, cout, frames):
+    how = plan(cin, cout, frames)
+    assert how["smem"] <= SMEM_LIMIT == 232_448
+    assert how["smem"] == _smem_as_the_c_side_sums_it(cin, cout, how)
+    tw, rows = how["tile_w"], how["tile_rows"]
+    assert tw & (tw - 1) == 0 and tw <= max(frames, 1) and tw * rows == how["m_tile"]
+    # whole tiles cover the ragged plane: ceil(F / rows) row tiles, ceil(T / tw) frame tiles
+    assert -(-F_ROWS // rows) * rows >= F_ROWS and -(-frames // tw) * tw >= frames
+    if how["kernel"] == "wgmma":
+        assert cin % 32 == 0 and cout in (64, 128, 256) and tw <= 64
+        assert how["m_tile"] == (256 if cout == 64 else 128)
+        assert how["k_chunks"] == -(-9 * cin // 128) and k_padded(cin) == 9 * cin
+        assert min(3, how["k_chunks"]) <= how["stages"] <= min(how["k_chunks"], 18)
+        assert how["resident"] == (how["stages"] == how["k_chunks"])
+        # one more stage would not have fit
+        assert how["resident"] or how["stages"] == 18 or how["smem"] + cout * 128 > SMEM_LIMIT
+    else:
+        assert how["kernel"] == "mma" and how["m_tile"] == 256 * 64 // cout
+    return how
+
+
+@pytest.mark.parametrize("cin,cout,frames,launches", NANO_SHAPES)
+def test_plan_of_the_nano_shapes(cin, cout, frames, launches):
+    how = _check_plan(cin, cout, frames)
+    # wgmma wherever the net spends its time; the 16-channel stem stays on mma.sync
+    assert how["kernel"] == ("mma" if cin == 16 else "wgmma")
+    if cin >= 64:  # the weights stay in shared memory unless they are 295 KB or more (147 KB fits)
+        assert how["resident"] == (9 * cin * cout < 200_000)
+
+
+def test_plan_keeps_weights_resident_for_15_of_the_21_convs():
+    resident = sum(n for cin, cout, t, n in NANO_SHAPES if plan(cin, cout, t)["resident"])
+    on_wgmma = sum(n for cin, cout, t, n in NANO_SHAPES if plan(cin, cout, t)["kernel"] == "wgmma")
+    assert (resident, on_wgmma) == (14, 20)  # the 15th small conv is the stem, on mma.sync
+
+
+@pytest.mark.parametrize("frames", [1, 7, 8, 64])
+@pytest.mark.parametrize("cin,cout", CLASSIC_WIDTHS)
+def test_plan_of_the_classic_widths(cin, cout, frames):
+    how = _check_plan(cin, cout, frames)
+    if cout == 512 or cin % 32:
+        assert how["kernel"] == "mma"
+
+
+@pytest.mark.parametrize("cin,cout,frames", [(8, 64, 8), (24, 64, 8), (64, 96, 8), (64, 64, 0)])
+def test_plan_refuses_what_no_kernel_takes(cin, cout, frames):
+    with pytest.raises(ValueError, match="qconv3x3"):
+        plan(cin, cout, frames)
+
+
+@pytest.mark.parametrize("cin", [32, 64, 96, 128, 256, 512])
+def test_packed_rows_have_no_padding_where_wgmma_reads_them(cin):
+    """The TMA tensor map of the wgmma kernel takes rows of exactly 9 * Cin
+    bytes (a multiple of 16); only Cin % 32 != 0 pads."""
+    assert k_padded(cin) == 9 * cin and (9 * cin) % 16 == 0
+    assert k_padded(16) == 160 and k_padded(48) == 448

@@ -25,16 +25,31 @@
 //        frequency: S = y0 * post_mask
 //
 // What bounds it: bytes. Each element of Y (16 B), the target mask (4 B), the
-// post-filter mask (4 B) and S (8 B) is touched once by the algorithm; the
-// arithmetic is ~30 flops per element and ~150 per row. At the serving shape
-// (128 x 513 rows, T = 64) that is ~134 MB, 0.040 ms at 3.35 TB/s.
-// Design: one warp per row, as csrc/mvdr_kernel.cu. Lanes stride over T so a
-// warp's loads are contiguous; the five covariance sums are reduced with
-// warp shuffles; the closed form runs redundantly in every lane's registers;
-// the apply re-reads the row from L1. The sums and the closed form are in
-// float64: the kernel stays bound by bytes, and the card and the float64
-// plain version (kernels/nullsteer_kernel.py:hard_null_plain) then disagree
-// on the cond gate only for rows within ~1e-12 of the threshold.
+// post-filter mask (4 B) and S (8 B) is touched once by the algorithm. At the
+// serving shape (128 x 513 rows, T = 64) that is ~134 MB, 0.040 ms at
+// 3.35 TB/s. The sums and the closed form are in float64, so the card and
+// the float64 plain version (kernels/nullsteer_kernel.py:hard_null_plain)
+// disagree on the cond gate only for rows within ~1e-12 of the threshold.
+// The closed form is ~350 float64 instructions, 2 cycles each per warp on the
+// H100's 64 float64 lanes per SM: run by all 32 lanes of a warp per row, it
+// alone took as long as the bytes (0.046 ms at the serving shape).
+//
+// Design: a warp takes a group of kGroup = 4 consecutive rows. Lane l takes
+// frames t = l, l + 32, ... of each row, as a warp per row would, loads the
+// group's rows together and keeps 5 float64 partial sums per row, in t
+// order. A reduce-scatter over the xor offsets 16 and 8, then a butterfly
+// over 4, 2 and 1, leaves row r's five totals in lanes 8r .. 8r + 7: each
+// addition pairs the same two operands, in the same order, as a butterfly
+// per row, so the totals are bit for bit a warp_sum's, with 15 float64
+// shuffles per row instead of 50. Each lane then runs the closed form for its
+// row: a warp instruction serves 4 rows, not 1. The weights come back by
+// shuffles and the apply pass reads the frames again, from L1. Occupancy is
+// what the bytes need: the kernel is held to 96 registers (5 blocks of 4
+// warps an SM); with 4 blocks (128 registers) it took 0.075 ms, not 0.059,
+// and groups of 8 rows need more registers still.
+//
+// -DAZT_HARD_NULL_FIXED_WEIGHTS (kernels/bench.py only) replaces the closed
+// form by the delay-and-sum weights: what the kernel costs without it.
 
 #include <cuda_runtime.h>
 
@@ -44,7 +59,13 @@ constexpr double kEpsNorm = 1e-6;   // masked_covariance normalisation guard
 constexpr double kEps = 1e-10;      // hard_null_weights: phase and Cramer guards
 constexpr double kEigEps = 1e-12;   // eigh_2x2_hermitian / cond_2x2 floors
 constexpr double kRelTol = 1e-6;    // eigh_2x2_hermitian degeneracy, relative to scale
-constexpr int kThreads = 256;       // 8 rows (warps) per block
+constexpr int kGroup = 4;           // rows per warp
+constexpr int kScatterSteps = 2;    // log2(kGroup)
+constexpr int kLanes = 32 / kGroup;  // lanes that hold each row's totals
+static_assert(kGroup == 1 << kScatterSteps && kGroup <= 32, "kGroup: a power of two up to 32");
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Cx {
   double re, im;
@@ -67,57 +88,15 @@ __device__ __forceinline__ Cx cdiv(Cx a, Cx b) {
 
 __device__ __forceinline__ bool cfinite(Cx a) { return isfinite(a.re) && isfinite(a.im); }
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads) hard_null_kernel(
-    const float2* __restrict__ Y, const float* __restrict__ tmask,
-    const float* __restrict__ post, const float2* __restrict__ dvec,
-    const float* __restrict__ freqs, double cond_thr, float bypass_hz,
-    float2* __restrict__ S, int B, int F, int T) {
-  const int lane = threadIdx.x & 31;
-  const long row = (long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);  // b * F + f
-  if (row >= (long)B * F) return;
-  const long b = row / F;
-  const int f = (int)(row - b * F);
-  const float2* y0 = Y + ((2 * b) * F + f) * (long)T;
-  const float2* y1 = Y + ((2 * b + 1) * F + f) * (long)T;
-  const float* m = tmask + row * T;
-  const float* g = post ? post + row * T : nullptr;
-  float2* s = S + row * T;
-
-  if (freqs[f] < bypass_hz) {  // mic 0 passes through
-    for (int t = lane; t < T; t += 32) {
-      float2 a = y0[t];
-      if (g) {
-        a.x *= g[t];
-        a.y *= g[t];
-      }
-      s[t] = a;
-    }
-    return;
-  }
-
-  // 1. Interference covariance.
-  double sm = 0.0, r00 = 0.0, r11 = 0.0, r01r = 0.0, r01i = 0.0;
-  for (int t = lane; t < T; t += 32) {
-    const float2 a = y0[t], c = y1[t];
-    const double w = (double)(1.0f - m[t]);
-    const double ar = a.x, ai = a.y, cr = c.x, ci = c.y;
-    sm += w;
-    r00 += w * (ar * ar + ai * ai);
-    r11 += w * (cr * cr + ci * ci);
-    r01r += w * (ar * cr + ai * ci);
-    r01i += w * (ai * cr - ar * ci);
-  }
-  const double norm = warp_sum(sm) + kEpsNorm;
-  const double R00 = warp_sum(r00) / norm, R11 = warp_sum(r11) / norm;
-  const double br = warp_sum(r01r) / norm, bi = warp_sum(r01i) / norm;
-
-  // 2. Principal eigenvector (eigh_2x2_hermitian's eigvecs[:, -1]).
+// The closed form: weights of one row from its normalised covariance
+// [[R00, b], [conj(b), R11]], b = br + i bi, and its steering vector d.
+__device__ __forceinline__ void hard_null_weights(double R00, double R11, double br, double bi,
+                                                  Cx d0, Cx d1, double cond_thr, Cx& w0, Cx& w1) {
+#ifdef AZT_HARD_NULL_FIXED_WEIGHTS
+  w0 = {0.5 * d0.re + 0.0 * (R00 + R11 + br + bi), 0.5 * d0.im};
+  w1 = {0.5 * d1.re, 0.5 * d1.im};
+#else
+  // 1. Principal eigenvector (eigh_2x2_hermitian's eigvecs[:, -1]).
   const double half_tr = 0.5 * (R00 + R11), half_diff = 0.5 * (R00 - R11);
   const double b2 = br * br + bi * bi;
   const double radius = sqrt(half_diff * half_diff + b2);
@@ -157,15 +136,13 @@ __global__ void __launch_bounds__(kThreads) hard_null_kernel(
     v1 = cmul(v1, ph);
   }
 
-  // 3. C = [d, v]; C^H w = [1, 0] by Cramer: w = [conj(v1), -conj(v0)] / det.
-  const float2 df0 = dvec[2 * f], df1 = dvec[2 * f + 1];
-  const Cx d0 = {df0.x, df0.y}, d1 = {df1.x, df1.y};
+  // 2. C = [d, v]; C^H w = [1, 0] by Cramer: w = [conj(v1), -conj(v0)] / det.
   const Cx p = cmul(cconj(d0), cconj(v1)), q = cmul(cconj(d1), cconj(v0));
   const Cx det = {p.re - q.re + kEps, p.im - q.im};
-  Cx w0 = cdiv(cconj(v1), det);
-  Cx w1 = cdiv({-v0.re, v0.im}, det);
+  w0 = cdiv(cconj(v1), det);
+  w1 = cdiv({-v0.re, v0.im}, det);
 
-  // 4. cond(C) from the eigenvalues of C^H C; the gate and the finiteness guard.
+  // 3. cond(C) from the eigenvalues of C^H C; the gate and the finiteness guard.
   const double g00 = d0.re * d0.re + d0.im * d0.im + d1.re * d1.re + d1.im * d1.im;
   const double g11 = v0.re * v0.re + v0.im * v0.im + v1.re * v1.re + v1.im * v1.im;
   const Cx g01a = cmul(cconj(d0), v0), g01b = cmul(cconj(d1), v1);
@@ -182,18 +159,136 @@ __global__ void __launch_bounds__(kThreads) hard_null_kernel(
   }
   if (!cfinite(w0)) w0 = das0;
   if (!cfinite(w1)) w1 = das1;
+#endif
+}
 
-  // 5. S = conj(w0) y0 + conj(w1) y1, rounded once, times the post-filter.
+__global__ void __launch_bounds__(kThreads, 5) hard_null_kernel(
+    const float2* __restrict__ Y, const float* __restrict__ tmask,
+    const float* __restrict__ post, const float2* __restrict__ dvec,
+    const float* __restrict__ freqs, double cond_thr, float bypass_hz,
+    float2* __restrict__ S, int B, int F, int T) {
+  const int lane = threadIdx.x & 31;
+  const long rows = (long)B * F, plane = (long)F * T;
+  const long row0 = ((long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kGroup;  // rows are b * F + f
+  if (row0 >= rows) return;
+  const int n = (int)min((long)kGroup, rows - row0);
+  const long b0 = row0 / F;
+  const int f0 = (int)(row0 - b0 * F);
+  const float2* y0[kGroup];  // row r: stream b0 + (f0 + r) / F, bin (f0 + r) % F; y1 a plane on
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r) {
+    const int fr = f0 + min(r, n - 1);
+    y0[r] = Y + ((2 * (b0 + fr / F)) * F + fr % F) * (long)T;
+  }
+
+  // 1. Partial sums of the interference covariance, in t order per lane; the
+  // group's rows load together.
+  double v[kGroup][5];
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r)
+#pragma unroll
+    for (int q = 0; q < 5; ++q) v[r][q] = 0.0;
   for (int t = lane; t < T; t += 32) {
-    const float2 a = y0[t], c = y1[t];
-    const double ar = a.x, ai = a.y, cr = c.x, ci = c.y;
-    float sr = (float)(w0.re * ar + w0.im * ai + (w1.re * cr + w1.im * ci));
-    float si = (float)(w0.re * ai - w0.im * ar + (w1.re * ci - w1.im * cr));
-    if (g) {
-      sr *= g[t];
-      si *= g[t];
+    float2 a[kGroup], c[kGroup];
+    float m[kGroup];
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      if (r >= n) break;
+      a[r] = y0[r][t];
+      c[r] = y0[r][plane + t];
+      m[r] = tmask[(row0 + r) * T + t];
     }
-    s[t] = make_float2(sr, si);
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      if (r >= n) break;
+      const double w = (double)(1.0f - m[r]);
+      const double ar = a[r].x, ai = a[r].y, cr = c[r].x, ci = c[r].y;
+      v[r][0] += w;
+      v[r][1] += w * (ar * ar + ai * ai);
+      v[r][2] += w * (cr * cr + ci * ci);
+      v[r][3] += w * (ar * cr + ai * ci);
+      v[r][4] += w * (ai * cr - ar * ci);
+    }
+  }
+
+  // 2. Reduce-scatter: at offset off a lane keeps the half of its rows whose
+  // bit off it has and adds its partner's partial of the same rows; then a
+  // butterfly over the offsets left. Row r's totals end in lanes r * kLanes ..
+  // r * kLanes + kLanes - 1.
+#pragma unroll
+  for (int step = 0; step < kScatterSteps; ++step) {
+    const int half = kGroup >> (step + 1), off = 16 >> step;
+    const bool upper = lane & off;
+#pragma unroll
+    for (int r = 0; r < half; ++r)
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        const double keep = upper ? v[r + half][q] : v[r][q];
+        const double send = upper ? v[r][q] : v[r + half][q];
+        v[r][q] = keep + __shfl_xor_sync(kFull, send, off);
+      }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off >= 1; off >>= 1)
+#pragma unroll
+    for (int q = 0; q < 5; ++q) v[0][q] += __shfl_xor_sync(kFull, v[0][q], off);
+
+  // 3. The closed form, once per lane for row lane / kLanes (rows >= n: row n - 1).
+  Cx w0, w1;
+  {
+    const int f = (f0 + min(lane / kLanes, n - 1)) % F;
+    const double norm = v[0][0] + kEpsNorm;
+    const double R00 = v[0][1] / norm, R11 = v[0][2] / norm;
+    const double br = v[0][3] / norm, bi = v[0][4] / norm;
+    const float2 df0 = dvec[2 * f], df1 = dvec[2 * f + 1];
+    hard_null_weights(R00, R11, br, bi, {df0.x, df0.y}, {df1.x, df1.y}, cond_thr, w0, w1);
+  }
+  double w[kGroup][4];
+  bool bypass[kGroup];
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r) {
+    w[r][0] = __shfl_sync(kFull, w0.re, r * kLanes);
+    w[r][1] = __shfl_sync(kFull, w0.im, r * kLanes);
+    w[r][2] = __shfl_sync(kFull, w1.re, r * kLanes);
+    w[r][3] = __shfl_sync(kFull, w1.im, r * kLanes);
+    bypass[r] = freqs[(f0 + min(r, n - 1)) % F] < bypass_hz;
+  }
+
+  // 4. S = conj(w0) y0 + conj(w1) y1, rounded once, times the post-filter;
+  // below the bypass frequency S = y0 times the post-filter. The frames are
+  // read again, from L1.
+  for (int t = lane; t < T; t += 32) {
+    float2 a[kGroup], c[kGroup];
+    float g[kGroup];
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      if (r >= n) break;
+      a[r] = y0[r][t];
+      c[r] = y0[r][plane + t];
+      g[r] = post ? post[(row0 + r) * T + t] : 1.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      if (r >= n) break;
+      float2 s;
+      if (bypass[r]) {  // mic 0 passes through
+        s = a[r];
+        if (post) {
+          s.x *= g[r];
+          s.y *= g[r];
+        }
+      } else {
+        const double ar = a[r].x, ai = a[r].y, cr = c[r].x, ci = c[r].y;
+        float sr = (float)(w[r][0] * ar + w[r][1] * ai + (w[r][2] * cr + w[r][3] * ci));
+        float si = (float)(w[r][0] * ai - w[r][1] * ar + (w[r][2] * ci - w[r][3] * cr));
+        if (post) {
+          sr *= g[r];
+          si *= g[r];
+        }
+        s = make_float2(sr, si);
+      }
+      S[(row0 + r) * T + t] = s;
+    }
   }
 }
 
@@ -205,8 +300,8 @@ __global__ void __launch_bounds__(kThreads) hard_null_kernel(
 extern "C" int azt_hard_null(const void* Y, const void* tmask, const void* post,
                              const void* d, const void* freqs, double cond_thr,
                              float bypass_hz, void* S, int B, int F, int T, void* stream) {
-  const long rows = (long)B * F;
-  const long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  const long groups = ((long)B * F + kGroup - 1) / kGroup;
+  const long blocks = (groups + kWarps - 1) / kWarps;
   hard_null_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float2*)Y, (const float*)tmask, (const float*)post, (const float2*)d,
       (const float*)freqs, cond_thr, bypass_hz, (float2*)S, B, F, T);

@@ -1,7 +1,7 @@
-"""Check and time the port's int8 tensor-core kernels alone, shape by shape,
-on one NVIDIA GPU:
+"""Check and time the port's kernels alone, shape by shape, on one NVIDIA GPU:
 
-    python3 -m azoom_torch.kernels.bench [int8_mm] [qconv] [--quick]
+    python3 -m azoom_torch.kernels.bench [int8_mm] [qconv] [convt] [hard_null]
+                                         [fp32_peak] [--quick] [--against DIR]
     python3 -m azoom_torch.kernels.bench clocks
 
 ``int8_mm``: each of the nine microbenchmark shapes held exactly against the
@@ -24,7 +24,31 @@ spends waiting for a halo, in the products and in the epilogue, and that its
 first producer thread spends waiting for a halo buffer and loading and
 quantising: which role bounds the kernel, where no profiler reads stalls.
 
-``--quick`` checks only (batch 8, no timing): the first run of a new build.
+``convt``: the three upsamplings of the bundled net at batch 128 held
+against the plain version (the count of elements that are not bit-equal to
+it: the plain version rounds twice on rare ties), then timed as CUDA-graph
+replays beside ``torch.addmm`` on the same operands and the float32 bound.
+
+``hard_null``: B3 at (128, 2, 513, 64) held against its float64 plain
+version (row relative error, outside a 1e-9 band around the cond
+threshold) and timed as CUDA-graph replays beside its byte bound and a build of the same
+kernel with ``-DAZT_HARD_NULL_FIXED_WEIGHTS``, whose closed form (eigenvector,
+solve, cond gate) is replaced by the delay-and-sum weights: the closed
+form's share of the time.
+
+``fp32_peak``: the float32 FMA rate of ``csrc/bench_fp32_peak.cu``, FMA
+chains on registers with no memory traffic: what ``convt``'s rate is held
+against beside the published 67 TFLOP/s.
+
+``--against DIR``: DIR holds the ``convt_kernel.cu`` and
+``nullsteer_kernel.cu`` of an earlier tree, with the C interface they had
+when ``convt1x2`` took no plan (``azt_convt1x2(x, W, bias, out, P, K, N2,
+Cout, stream)``); ``convt`` and ``hard_null`` then build them too, count the
+elements where the two kernels differ, and time both in turns (earlier,
+current, current, earlier).
+
+``--quick`` checks only (batch 8, or 3 for ``convt``, no timing): the first
+run of a new build.
 Prints ptxas's registers and spills per kernel first and stops before any
 launch if a kernel that rebalances registers between its warpgroups
 (``setmaxnreg``) was not given the registers its block starts from (65,536
@@ -34,6 +58,7 @@ over its threads). Writes ``chiprun_out/kernel_bench.json``
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
@@ -54,6 +79,9 @@ NANO_SHAPES = (
     (256, 256, 8, 4, False), (256, 128, 16, 1, True), (128, 64, 32, 1, True),
     (128, 64, 64, 1, True),
 )
+# The net's three upsamplings: (K = Cin, Cout, input frames).
+NANO_CONVT = ((256, 128, 8), (128, 64, 16), (64, 64, 32))
+HBM_BYTES_PER_S, FP32_FLOPS_PER_S, FP64_FLOPS_PER_S = 3.35e12, 67e12, 34e12
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -218,11 +246,151 @@ def bench_clocks(dev) -> dict:
     return rows
 
 
+def earlier_library(src_dir: Path, name: str) -> ctypes.CDLL:
+    """``src_dir/<name>.cu`` built with the port's flags into
+    ``_build/earlier/``: a kernel of an earlier tree, for comparison."""
+    out = build.BUILD_DIR / "earlier" / f"{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(Path(src_dir) / f"{name}.cu")],
+                   check=True, capture_output=True, timeout=600)
+    return ctypes.CDLL(str(out))
+
+
+def _in_turns(f_old, f_new) -> tuple[float, float]:
+    """Device times of two calls taken in turns (old, new, new, old); the
+    lower of each pair."""
+    t_old, t_new = device_ms(f_old), device_ms(f_new)
+    t_new = min(t_new, device_ms(f_new))
+    return min(t_old, device_ms(f_old)), t_new
+
+
+def bench_convt(dev, quick: bool, against: Path | None) -> dict:
+    from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
+
+    old_fn = None
+    if against is not None:
+        old_fn = earlier_library(against, "convt_kernel").azt_convt1x2
+        old_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        old_fn.restype = ctypes.c_int
+
+    def earlier(x, w, b):
+        out = torch.empty(x.shape[:2] + (2 * x.shape[2], b.shape[0]), dtype=torch.float32, device=dev)
+        build.check(old_fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                           x.numel() // x.shape[-1], x.shape[-1], w.shape[1], b.shape[0],
+                           torch.cuda.current_stream().cuda_stream), "earlier convt1x2")
+        return out
+
+    rng = np.random.default_rng(3)
+    batch = 3 if quick else BATCH
+    rows = {}
+    for k, cout, t in NANO_CONVT:
+        x = torch.from_numpy(np.abs(rng.standard_normal((batch, F_ROWS, t, k))).astype(np.float32)).to(dev)
+        w = torch.from_numpy((0.05 * rng.standard_normal((k, 2 * cout))).astype(np.float32)).to(dev)
+        b = torch.from_numpy((0.1 * rng.standard_normal(cout)).astype(np.float32)).to(dev)
+        got, ref = convt1x2(x, w, b), convt1x2_plain(x, w, b)
+        torch.cuda.synchronize()
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        row = dict(batch=batch, not_bit_equal_to_plain=int((got != ref).sum()), rel_err_vs_plain=rel)
+        if old_fn is not None:
+            row["not_bit_equal_to_earlier"] = int((got != earlier(x, w, b)).sum())
+        if not quick:
+            p = batch * F_ROWS * t
+            x2, b2 = x.reshape(p, k), b.repeat(2)
+            row.update(ms=device_ms(lambda: convt1x2(x, w, b)),
+                       addmm_ms=device_ms(lambda: torch.addmm(b2, x2, w)),
+                       bound_ms=max(4.0 * (p * k + 2 * k * cout + cout + 2 * p * cout) / HBM_BYTES_PER_S,
+                                    2.0 * p * k * 2 * cout / FP32_FLOPS_PER_S) * 1e3)
+            if old_fn is not None:
+                row["earlier_ms"], row["ms"] = _in_turns(lambda: earlier(x, w, b),
+                                                         lambda: convt1x2(x, w, b))
+            row["tflops"] = 2.0 * p * k * 2 * cout / row["ms"] / 1e9
+        rows[str((k, cout, t))] = row
+        print(f"[convt] {(k, cout, t)} " + " ".join(
+            f"{n}={v:.4g}" if isinstance(v, float) else f"{n}={v}" for n, v in row.items()), flush=True)
+        if rel >= 1e-6 or row.get("not_bit_equal_to_earlier", 0):
+            raise AssertionError(f"convt {(k, cout, t)}: {row}")
+        del x, got, ref
+    return rows
+
+
+def bench_hard_null(dev, quick: bool, against: Path | None) -> dict:
+    from azoom_torch.dsp.delays import steering_vector
+    from azoom_torch.dsp.stft import rfft_freqs
+    from azoom_torch.kernels import nullsteer_kernel as nk
+
+    batch = 8 if quick else BATCH
+    rng = np.random.default_rng(4)
+    shape = (batch, 2, 513, 64)
+    Y = 0.01 * torch.complex(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                               for _ in range(2))).to(dev)
+    Y[:, 1] += 0.5 * Y[:, 0]  # correlated mics: anisotropic covariances
+    tm = torch.from_numpy(rng.random((batch, 513, 64), dtype=np.float32)).to(dev)
+    f = rfft_freqs(1024, 16000, device=dev)
+    d = steering_vector(f, 60.0, 0.04, normalize_phase=True)
+    args = (Y, tm, d, f)
+
+    def call(fn):
+        """The wrapper's launch with another build's entry point."""
+        S = torch.empty((batch, 513, 64), dtype=torch.complex64, device=dev)
+        build.check(fn(Y.data_ptr(), tm.data_ptr(), tm.data_ptr(), d.data_ptr(), f.data_ptr(),
+                       10.0, 200.0, S.data_ptr(), batch, 513, 64,
+                       torch.cuda.current_stream().cuda_stream), "hard_null variant")
+        return S
+
+    got = nk.hard_null_fused(*args, post_mask=tm)
+    ref = nk.hard_null_plain(*args, post_mask=tm)
+    cond = nk.hard_null_cond(Y, tm, d)
+    keep = (cond / 10.0 - 1).abs() > 1e-9
+    err = ((got - ref).abs().norm(dim=-1) / ref.abs().norm(dim=-1).clamp(min=1e-30))[keep]
+    row = dict(shape=shape, rows_on_das=int((cond > 10.0).sum()),
+               row_rel_err_vs_plain=float(err.max()),
+               not_bit_equal_to_plain=int((got != ref).sum()))
+    old_fn = None
+    if against is not None:
+        old_fn = nk.bind(earlier_library(against, "nullsteer_kernel"))
+        row["not_bit_equal_to_earlier"] = int((got != call(old_fn)).sum())
+    if not quick:
+        fixed = nk.bind(build.load_library("nullsteer_kernel", ("AZT_HARD_NULL_FIXED_WEIGHTS",)))
+        n_el = batch * 513 * 64
+        row.update(ms=device_ms(lambda: nk.hard_null_fused(*args, post_mask=tm)),
+                   fixed_weights_ms=device_ms(lambda: call(fixed)),
+                   bound_ms=max((n_el * (16 + 4 + 4 + 8) + 513 * 20) / HBM_BYTES_PER_S,
+                                n_el * 24.0 / FP64_FLOPS_PER_S) * 1e3)
+        if old_fn is not None:
+            row["earlier_ms"], row["ms"] = _in_turns(
+                lambda: call(old_fn), lambda: nk.hard_null_fused(*args, post_mask=tm))
+    print("[hard_null] " + " ".join(
+        f"{n}={v:.4g}" if isinstance(v, float) else f"{n}={v}" for n, v in row.items()), flush=True)
+    if not row["row_rel_err_vs_plain"] <= 1e-5:
+        raise AssertionError(f"hard_null: {row}")
+    return {str(shape): row}
+
+
+def bench_fp32_peak(dev) -> dict:
+    fn = build.load_library("bench_fp32_peak").azt_fp32_peak
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks, iters = 8 * torch.cuda.get_device_properties(dev).multi_processor_count, 20_000
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=dev)
+    ms = time_ms(lambda: build.check(fn(out.data_ptr(), blocks, iters, 0.5,
+                                        torch.cuda.current_stream().cuda_stream), "fp32_peak"),
+                 iters=3, warmup=1)
+    row = dict(blocks=blocks, iters=iters, ms=ms, tflops=2.0 * 72 * iters * blocks * 256 / ms / 1e9)
+    print("[fp32_peak] " + " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                                    for k, v in row.items()), flush=True)
+    return row
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernels.bench: no CUDA device", file=sys.stderr)
         return 2
     quick = "--quick" in argv
+    against = None
+    if "--against" in argv:
+        i = argv.index("--against")
+        against = Path(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     which = [a for a in argv if not a.startswith("--")] or ["int8_mm", "qconv"]
     dev = torch.device("cuda")
     info = build.build_all()
@@ -255,6 +423,12 @@ def main(argv) -> int:
         out["int8_mm"] = bench_int8_mm(dev, quick)
     if "qconv" in which:
         out["qconv"] = bench_qconv(dev, quick)
+    if "convt" in which:
+        out["convt"] = bench_convt(dev, quick, against)
+    if "hard_null" in which:
+        out["hard_null"] = bench_hard_null(dev, quick, against)
+    if "fp32_peak" in which:
+        out["fp32_peak"] = bench_fp32_peak(dev)
     Path("chiprun_out").mkdir(exist_ok=True)
     name = "kernel_clocks.json" if "clocks" in which else "kernel_bench.json"
     Path("chiprun_out", name).write_text(json.dumps(out, indent=1))

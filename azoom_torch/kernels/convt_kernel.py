@@ -12,7 +12,8 @@ library GEMM would not: its summation order is its own, and the next layer
 quantises this output to int8, where a one-ulp difference flips codes.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs :func:`convt1x2_plain`.
+it runs :func:`convt1x2_plain`. :func:`plan` gives the kernel's tiles, grid
+and shared memory from the shape alone; the C side checks them.
 """
 
 from __future__ import annotations
@@ -25,7 +26,12 @@ import torch
 from azoom_torch import kernels
 from azoom_torch.kernels import build
 
-__all__ = ["convt1x2", "convt1x2_plain"]
+__all__ = ["convt1x2", "convt1x2_plain", "plan"]
+
+# csrc/convt_kernel.cu: a 96 x 128 tile of out per block of 128 threads; K in
+# chunks of 16 through a ring of 3 stages, each x^T (16 x (96 + 4) floats)
+# and W (16 x 128 floats).
+TILE_M, TILE_N, K_CHUNK, STAGES = 96, 128, 16, 3
 
 
 def convt1x2_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -46,10 +52,28 @@ def convt1x2_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) ->
     return out + bias
 
 
+def plan(rows: int, k: int, n2: int) -> dict:
+    """How the card runs out (rows, n2) = x (rows, k) @ W (k, n2): tiles of
+    ``tile_m`` x ``tile_n`` outputs, one block each (``blocks``, a 1-D grid
+    with the column tiles of a row tile adjacent), K in ``chunks`` of
+    ``k_chunk`` (the last one short when k % 16 != 0) through ``stages``
+    buffers of ``smem`` bytes in all. Raises ValueError for a shape the
+    kernel does not take: k or n2 not a multiple of 4, or no rows."""
+    if rows < 1 or k < 1:
+        raise ValueError(f"convt1x2: empty product ({rows} rows, K = {k})")
+    if k % 4 or n2 % 4:
+        raise ValueError(f"convt1x2: K and 2*Cout must be multiples of 4, got {k} and {n2}")
+    smem = STAGES * K_CHUNK * ((TILE_M + 4) + TILE_N) * 4
+    grid_m, grid_n = -(-rows // TILE_M), -(-n2 // TILE_N)
+    return dict(tile_m=TILE_M, tile_n=TILE_N, k_chunk=K_CHUNK, chunks=-(-k // K_CHUNK),
+                stages=STAGES, grid=(grid_m, grid_n), blocks=grid_m * grid_n, smem=smem)
+
+
 @functools.cache
 def _entry():
     fn = build.load_library("convt_kernel").azt_convt1x2
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_long] + [ctypes.c_int] * 3
+                   + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -71,18 +95,18 @@ def convt1x2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch
     _require(weight.dtype == torch.float32 and tuple(weight.shape) == (K, 2 * cout),
              f"weight must be float32 ({K}, {2 * cout}), got {weight.dtype} {tuple(weight.shape)}")
     _require(bias.dtype == torch.float32 and bias.ndim == 1, "bias must be float32 (Cout,)")
-    _require(B * F * T > 0, "empty input")
-    _require(K % 4 == 0, f"K must be a multiple of 4, got {K}")
-    _require(32 * K * 4 <= 227 * 1024, f"K = {K} is too deep for the shared-memory tile")
+    how = plan(B * F * T, K, 2 * cout)
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
         _require(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
+        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
 
     out = torch.empty((B, F, 2 * T, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _entry()(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B * F * T, K, 2 * cout, cout, torch.cuda.current_stream(x.device).cuda_stream,
+            B * F * T, K, 2 * cout, cout, how["blocks"], how["smem"],
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(rc, "convt1x2 kernel")
     kernels.launches["convt1x2"] += 1

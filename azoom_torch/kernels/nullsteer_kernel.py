@@ -20,14 +20,16 @@ the difference).
 
 What bounds it: bytes. Per (stream, bin, frame) element it reads Y (16 B),
 the target mask (4 B) and the post-filter mask (4 B) and writes S (8 B);
-the arithmetic is a few dozen flops per element plus ~150 per row. Design:
-as the MVDR kernel, one warp per (stream, bin) row, one launch for the
-batch. The five covariance sums and the closed form (eigenvector, Cramer
-solve, cond gate) run in float64: the kernel stays bound by bytes, and the
-card and the CPU plain version then flip the cond gate only on rows within
-~1e-12 of the threshold, where float32 with two summation orders would put
-every row near it at risk. S is rounded to complex64 once, then multiplied
-by the post-filter mask in float32, as the pipeline does.
+the arithmetic is a few dozen flops per element plus ~350 float64
+instructions per row for the closed form. Design: one launch for the batch;
+a warp takes 4 rows, sums each over its frames as a warp per row would
+(same order, same bits) and runs the closed form once per lane, for one of
+the 4 rows, so a warp instruction of it serves 4 rows. The five covariance
+sums and the closed form (eigenvector, Cramer solve, cond gate) run in
+float64: the card and the CPU plain version then flip the cond gate only on
+rows within ~1e-12 of the threshold, where float32 with two summation
+orders would put every row near it at risk. S is rounded to complex64 once,
+then multiplied by the post-filter mask in float32, as the pipeline does.
 """
 
 from __future__ import annotations
@@ -72,15 +74,21 @@ def hard_null_cond(Y: torch.Tensor, target_mask: torch.Tensor, d: torch.Tensor) 
     return cond_2x2(constraint_matrix(R, d.to(torch.complex128)))
 
 
-@functools.cache
-def _entry():
-    fn = build.load_library("nullsteer_kernel").azt_hard_null
+def bind(lib: ctypes.CDLL):
+    """The C entry point ``azt_hard_null`` of a build of the kernel, with its
+    argument types."""
+    fn = lib.azt_hard_null
     fn.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_double, ctypes.c_float, ctypes.c_void_p]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _entry():
+    return bind(build.load_library("nullsteer_kernel"))
 
 
 def _require(cond: bool, msg: str) -> None:

@@ -17,7 +17,9 @@ Phases, each printing its own line(s):
                shape); torch._int_mm on explicitly im2col'd int8 operands is
                timed beside it as the bare GEMM.
   4. convt   - the upsampling kernel against its plain version at the net's
-               three upsampling shapes.
+               three upsampling shapes, with the count of elements that are
+               not bit-equal to it (the plain version rounds twice on rare
+               ties); kernel and torch.addmm timed as CUDA-graph replays.
   5. main    - the user's path: load_bundled("tpufpu_nano") and
                learned_enhance on a (128, 2, 32000) mixture made from a seed,
                steered to 60 deg. The launch counts of that one call must show
@@ -29,7 +31,8 @@ Phases, each printing its own line(s):
   7. hard_null - the fused hard-null kernel against its float64 plain version
                at (128, 2, 513, 64) on a far-field speech-like scene at rms
                0.1, and on it x1e-2, x1e2, x2^-7 and x2^7, at cond thresholds
-               1 + 1e-6, 10 and 1e6; the output's scale covariance.
+               1 + 1e-6, 10 and 1e6; the output's scale covariance; the
+               kernel timed as CUDA-graph replays.
   8. int8_mm - the int8 matmul: the microbenchmark path (one launch at each
                (M, K, N) of scripts/microbench_{pallas_mm,int8,int8b}.py),
                then each product held exactly against the plain version;
@@ -310,6 +313,7 @@ def main() -> int:
     # 4. upsampling -------------------------------------------------------------
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     parts = []
+    convt_shapes = {}
     worst = 0.0
     for k, cout, t in NANO_CONVT:
         x = torch.from_numpy(np.abs(rng.standard_normal((BATCH, F_ROWS, t, k))).astype(np.float32)).to(dev)
@@ -320,19 +324,24 @@ def main() -> int:
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         check(rel < 1e-6, f"convt {(k, cout, t)}: relative error {rel:.3e}")
+        not_bit_equal = int((got != ref).sum())
         worst = max(worst, err)
-        ms = time_ms(lambda: convt1x2(x, w, b))
+        ms = device_ms(lambda: convt1x2(x, w, b))
+        call_ms = time_ms(lambda: convt1x2(x, w, b))
         plain_ms = time_ms(lambda: convt1x2_plain(x, w, b), iters=2, warmup=1)
-        x2 = x.reshape(-1, k)
-        lib_ms = time_ms(lambda: torch.addmm(b.repeat(2), x2, w))
+        x2, b2 = x.reshape(-1, k), b.repeat(2)
+        lib_ms = device_ms(lambda: torch.addmm(b2, x2, w))
         p = x2.shape[0]
         b_ms, b_by = bound(4.0 * (p * k + k * 2 * cout + cout + p * 2 * cout),
                            2.0 * p * k * 2 * cout, FP32_FLOPS_PER_S)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms), ("library_ms", lib_ms)):
             tot[key] += v
         parts.append(dict(bound_ms=b_ms, bound_by=b_by))
-        log("convt", k=k, cout=cout, frames=t, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
-            bound_ms=f"{b_ms:.4f}", bound_by=b_by, addmm_ms=f"{lib_ms:.4f}", max_abs_err=f"{err:.3e}")
+        convt_shapes[(k, cout, t)] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                          library_ms=lib_ms, not_bit_equal_to_plain=not_bit_equal)
+        log("convt", k=k, cout=cout, frames=t, ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}",
+            plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            addmm_ms=f"{lib_ms:.4f}", max_abs_err=f"{err:.3e}", not_bit_equal_to_plain=not_bit_equal)
         del x, x2
     results["convt1x2"] = dict(
         name="convt1x2", route="cuda", source="azoom_torch/csrc/convt_kernel.cu",
@@ -445,7 +454,8 @@ def main() -> int:
         log("hard_null", threshold=thr, rows_in_band=int((~keep).sum()), rows=keep.numel(),
             rows_on_das=int((cond > thr).sum()),
             scale_cov_max_rel={f"x{s:g}": f"{c:.3e}" for s, c in cov.items()})
-    ms = time_ms(lambda: hard_null_fused(Y, tmask, d, freqs, post_mask=tmask))
+    ms = device_ms(lambda: hard_null_fused(Y, tmask, d, freqs, post_mask=tmask))
+    call_ms = time_ms(lambda: hard_null_fused(Y, tmask, d, freqs, post_mask=tmask))
     plain_ms = time_ms(lambda: hard_null_plain(Y, tmask, d, freqs, post_mask=tmask), iters=5)
     n_el = BATCH * F * T
     # Y, target mask, post-filter mask in; S out. ~24 float64 flops per
@@ -456,7 +466,7 @@ def main() -> int:
         replaces="azoom/pallas/nullsteer_kernel.py:30", max_abs_err=worst, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log("hard_null", shape=tuple(Y.shape), max_abs_err=f"{worst:.3e}", ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+        call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
     del Y
 
     # 8. int8 matmul: the microbenchmark path, then the checks -----------------
@@ -595,6 +605,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**line, "per_shape": {str(k): v for k, v in per_shape.items()},
          "int8_mm_per_shape": {str(k): v for k, v in mm_parts.items()},
+         "convt_per_shape": {str(k): v for k, v in convt_shapes.items()},
          "main_ms": times, "main_hard_null_ms": hn_times, "stream_ms": st_times,
          "card": smi}, indent=1))
     print(json.dumps(line))

@@ -118,6 +118,48 @@ def test_convt_kernel_matches_plain(cuda):
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
 
+# The net's three upsamplings at a batch of 3 (3 x 129 x T rows: a partial
+# last row tile at T = 8 and 16), and K = 36, 2*Cout = 40 over 1,290 rows: a
+# short last K chunk, a partial column tile and a partial row tile.
+@pytest.mark.parametrize("k,cout,t,batch", [(256, 128, 8, 3), (128, 64, 16, 3), (64, 64, 32, 3),
+                                            (36, 20, 5, 2)])
+def test_convt_kernel_on_ragged_shapes(cuda, k, cout, t, batch):
+    rng = np.random.default_rng(k + t)
+    x = _t(np.abs(rng.standard_normal((batch, 129, t, k))).astype(np.float32), cuda)
+    w = _t((0.05 * rng.standard_normal((k, 2 * cout))).astype(np.float32), cuda)
+    b = _t((0.1 * rng.standard_normal(cout)).astype(np.float32), cuda)
+    got, ref = convt1x2(x, w, b), convt1x2_plain(x, w, b)
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    # one chain per output in K order: bit for bit the plain version's, but
+    # where its float64 emulation of the FMA rounds twice (rare ties)
+    assert int((got != ref).sum()) <= got.numel() // 100_000 + 1
+
+
+def test_hard_null_kernel_on_ragged_groups_without_post_filter(cuda):
+    """35 rows of 5 bins (warps' row groups straddle streams; the last is
+    partial), 50 frames (a partial step of 32), bins 0 and 1 below the
+    200 Hz bypass, and a threshold between the cond of rows 2 and 3, so the
+    first rows mix bypass, delay-and-sum and nulled rows."""
+    rng = np.random.default_rng(5)
+    B, F, T = 7, 5, 50
+    Y = 0.01 * torch.complex(_t(rng.standard_normal((B, 2, F, T)).astype(np.float32), cuda),
+                             _t(rng.standard_normal((B, 2, F, T)).astype(np.float32), cuda))
+    Y[:, 1] += torch.from_numpy(rng.random((B, 1, 1)).astype(np.float32)).to(cuda) * Y[:, 0]
+    tm = _t(rng.random((B, F, T), dtype=np.float32), cuda)
+    f = torch.tensor([0.0, 150.0, 300.0, 1000.0, 4000.0], device=cuda)
+    d = steering_vector(f, 60.0, 0.04, normalize_phase=True)
+    cond = hard_null_cond(Y, tm, d)
+    lo, hi = sorted((float(cond[0, 2]), float(cond[0, 3])))
+    assert hi > 1.01 * lo
+    thr = (lo * hi) ** 0.5
+    got = hard_null_fused(Y, tm, d, f, post_mask=None, cond_threshold=thr)
+    ref = hard_null_plain(Y, tm, d, f, post_mask=None, cond_threshold=thr)
+    keep = (cond / thr - 1).abs() > 1e-9
+    err = ((got - ref).abs().norm(dim=-1) / ref.abs().norm(dim=-1).clamp(min=1e-30))[keep]
+    assert float(err.max()) <= 1e-5
+    assert torch.equal(got[:, :2], Y[:, 0, :2])  # the bypass rows are mic 0, unfiltered
+
+
 @pytest.mark.parametrize("thr", [1 + 1e-6, 10.0, 1e6])
 def test_hard_null_kernel_matches_plain(cuda, thr):
     rng = np.random.default_rng(4)

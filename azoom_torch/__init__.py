@@ -8,13 +8,17 @@ plain PyTorch version: a CUDA tensor launches the kernel, a CPU tensor takes
 the plain version.
 
 Ported so far: config, dsp (windows, stft, delays), beam (covariance,
-linalg2x2, mvdr, nullsteer at M = 2), masks (physics features, bin_doa,
-geometric incl. the FOV gate, oracle), models (quantize reader, unet
-TPUFPU, convert, pretrained ``tpufpu_nano``), eval.projection,
-stream.chunker, kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
-int8 matmul) and pipelines (``learned_enhance`` with the MVDR or hard-null
+linalg2x2, mvdr with per-stream steering and loading, nullsteer at M = 2,
+zoom), masks (physics features, bin_doa, geometric incl. the FOV gate and
+the IPD-deviation mask, oracle), localize.srp (SRP, GCC-PHAT, the IPD angle
+histogram), models (quantize reader, unet TPUFPU, convert, pretrained
+``tpufpu_nano``), eval.projection, stream (chunker, ``AudioZoomServer``:
+S live streams with mask reuse, an int16 wire and per-stream steer, zoom
+and tracking), kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
+int8 matmul), pipelines (``learned_enhance`` with the MVDR or hard-null
 beamformer and the FOV gate, ``learned_enhance_streaming``,
-``oracle_enhance``, ``heuristic_enhance``).
+``autosteer_enhance``, ``oracle_enhance``, ``heuristic_enhance``) and the
+``AudioZoom`` facade at high latency.
 """
 
 from azoom_torch.config import DEFAULT, PipelineConfig
@@ -24,9 +28,13 @@ from azoom_torch.pipelines.learned import (
     learned_enhance_streaming,
     predict_mask,
 )
+from azoom_torch.pipelines.autosteer import autosteer_enhance
 from azoom_torch.pipelines.oracle import heuristic_enhance, oracle_enhance
+from azoom_torch.stream.server import AudioZoomServer
+from azoom_torch.zoom_api import AudioZoom
 
 __all__ = [
     "DEFAULT", "PipelineConfig", "load_bundled", "learned_enhance",
     "learned_enhance_streaming", "predict_mask", "oracle_enhance", "heuristic_enhance",
+    "autosteer_enhance", "AudioZoomServer", "AudioZoom",
 ]

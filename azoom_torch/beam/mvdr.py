@@ -5,7 +5,11 @@
     S_out[f, t] = w[f]^H Y[:, f, t]
 
 This is also the plain version of the fused CUDA kernel
-(azoom_torch.kernels.mvdr_kernel).
+(azoom_torch.kernels.mvdr_kernel). Steering vectors d may be shared, (F, M),
+or one set per stream, (..., F, M) matching Y's leading dims; the loading
+sigma may be a scalar, per bin (F,), per stream (...,) or (..., 1), or both
+(..., F) (:func:`loading_strides`). The JAX package computes the per-stream form by
+vmapping the MVDR over streams (azoom/stream/server.py).
 """
 
 from __future__ import annotations
@@ -15,7 +19,33 @@ import torch
 from azoom_torch.beam.covariance import masked_covariance
 from azoom_torch.beam.linalg2x2 import solve_2x2_hermitian
 
-__all__ = ["mvdr_weights", "apply_weights", "mvdr_beamform", "masked_mvdr"]
+__all__ = ["mvdr_weights", "apply_weights", "mvdr_beamform", "masked_mvdr", "loading_strides"]
+
+
+def loading_strides(shape, lead, F: int) -> tuple[int, int]:
+    """Where a loading tensor of ``shape`` keeps stream b's loading of bin f,
+    for an STFT with leading dims ``lead`` and F bins: the flat index
+    ``b * bstride + f * fstride``, returned as (bstride, fstride). () is one
+    loading for all; (F,) one per bin; ``lead + (1,)`` or ``lead`` one per
+    stream; ``lead + (F,)`` one per stream and bin. When ``lead`` is (F,) a
+    sigma of shape (F,) could mean either and is refused: pass (F, 1) for
+    one per stream, or (F, F) for one per bin in every stream."""
+    shape, lead = tuple(shape), tuple(lead)
+    if shape == ():
+        return 0, 0
+    if shape == lead == (F,):
+        raise ValueError(
+            f"sigma of shape {shape} is ambiguous with {F} streams of {F} bins: pass "
+            f"({F}, 1) for one loading per stream or ({F}, {F}) for one per bin")
+    if shape == (F,):
+        return 0, 1
+    if shape in (lead, lead + (1,)):
+        return 1, 0
+    if shape == lead + (F,):
+        return F, 1
+    raise ValueError(
+        f"sigma of shape {shape} fits neither (), ({F},), {lead}, {lead + (1,)} nor "
+        f"{lead + (F,)}")
 
 
 def _loading(sigma, R: torch.Tensor):
@@ -60,7 +90,11 @@ def mvdr_beamform(
     hp_cutoff_hz: float = 100.0,
 ) -> torch.Tensor:
     """Full masked-MVDR pass on an STFT block (..., M, F, T) -> (..., F, T);
-    bins below ``hp_cutoff_hz`` are zero."""
+    bins below ``hp_cutoff_hz`` are zero. ``d`` is (F, M) or (..., F, M);
+    a tensor ``sigma`` is laid out as :func:`loading_strides` says."""
+    if isinstance(sigma, torch.Tensor) and loading_strides(
+            sigma.shape, Y.shape[:-3], Y.shape[-2]) == (1, 0):
+        sigma = sigma.reshape(Y.shape[:-3] + (1,))  # per stream: the same loading at every bin
     R = masked_covariance(Y, noise_mask)
     w = mvdr_weights(R, d, sigma=sigma)
     S = apply_weights(w, Y)

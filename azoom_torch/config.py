@@ -4,7 +4,8 @@
 package's config, so one configuration describes the same pipeline in both
 packages. The only difference is :meth:`PipelineConfig.geometry`, which
 returns a float32 ``torch.Tensor`` (on the CPU; callers move it with
-``.to(device)``) instead of a JAX array.
+``.to(device)``) instead of a JAX array. :func:`resolve_device` is the
+entry points' rule for their ``device`` argument.
 """
 
 from __future__ import annotations
@@ -93,3 +94,23 @@ class PipelineConfig:
 
 
 DEFAULT = PipelineConfig()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA when ``device`` is None (and
+    an error when there is no card), else ``device`` ("cpu" runs the plain
+    PyTorch versions of the kernels)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def as_input(x, device=None) -> torch.Tensor:
+    """An entry point's input as a tensor: a tensor stays where it is unless
+    ``device`` is given; anything else goes to :func:`resolve_device`'s
+    device (CUDA unless the caller asks for another)."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    return torch.as_tensor(x, device=resolve_device(device))

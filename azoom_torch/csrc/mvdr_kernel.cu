@@ -5,7 +5,7 @@
 // floored target-mask gain that masked_mvdr_pallas applies after the kernel.
 //
 // Per (stream b, bin f) row of Y (B, 2, F, T) complex64:
-//   R00, R11, R01 = sum_t m[t] * y y^H / (sum_t m[t] + 1e-6), + sigma on the diagonal
+//   R00, R11, R01 = sum_t m[t] * y y^H / (sum_t m[t] + 1e-6), + sigma[b, f] on the diagonal
 //   x  = adj(R) d / det(R)
 //   w  = x * conj(d^H x) / (|d^H x|^2 + 1e-10)
 //   S  = (w^H y) * max(target_mask, floor)   (or 0 below the high-pass cutoff)
@@ -19,6 +19,13 @@
 // registers, with no shared memory and no block-wide barrier. The second
 // pass over T for the apply re-reads the row (1 KB of Y per row), which the
 // L1 still holds, so device memory sees each byte once.
+//
+// Steering and loading per stream: the live server steers and zooms each
+// stream on its own (azoom/stream/server.py vmaps the Pallas kernel over
+// streams). The steering vectors are read at d + b * d_bstride and the
+// loading at sigma_p[b * sigma_bstride + f * sigma_fstride]; a stride of 0
+// shares one over the batch, so the shared-d launch does the same arithmetic
+// as the kernel before the strides were added. They add B * F * 16 bytes.
 
 #include <cuda_runtime.h>
 
@@ -36,9 +43,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __global__ void __launch_bounds__(kThreads) masked_mvdr_kernel(
     const float2* __restrict__ Y, const float* __restrict__ nmask,
-    const float* __restrict__ tmask, const float2* __restrict__ d,
-    const float* __restrict__ sigma_f, float sigma, const float* __restrict__ freqs,
-    float hp_cutoff, float mask_floor, float2* __restrict__ S, int B, int F, int T) {
+    const float* __restrict__ tmask, const float2* __restrict__ d, long d_bstride,
+    const float* __restrict__ sigma_p, long sigma_bstride, long sigma_fstride, float sigma,
+    const float* __restrict__ freqs, float hp_cutoff, float mask_floor,
+    float2* __restrict__ S, int B, int F, int T) {
   const int lane = threadIdx.x & 31;
   const long row = (long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);  // b * F + f
   if (row >= (long)B * F) return;
@@ -65,14 +73,15 @@ __global__ void __launch_bounds__(kThreads) masked_mvdr_kernel(
     r01i += w * (a.y * c.x - a.x * c.y);
   }
   const float norm = warp_sum(sm) + kEpsNorm;
-  const float sg = sigma_f ? sigma_f[f] : sigma;
+  const float sg = sigma_p ? sigma_p[b * sigma_bstride + f * sigma_fstride] : sigma;
   const float R00 = warp_sum(r00) / norm + sg;
   const float R11 = warp_sum(r11) / norm + sg;
   const float R01r = warp_sum(r01r) / norm;
   const float R01i = warp_sum(r01i) / norm;
   const float det = R00 * R11 - (R01r * R01r + R01i * R01i);
 
-  const float2 e0 = d[2 * f], e1 = d[2 * f + 1];
+  const float2* db = d + b * d_bstride;
+  const float2 e0 = db[2 * f], e1 = db[2 * f + 1];
   // x = adj(R) d / det, adj(R) = [[R11, -R01], [-conj(R01), R00]]
   const float x0r = (R11 * e0.x - (R01r * e1.x - R01i * e1.y)) / det;
   const float x0i = (R11 * e0.y - (R01r * e1.y + R01i * e1.x)) / det;
@@ -105,17 +114,20 @@ __global__ void __launch_bounds__(kThreads) masked_mvdr_kernel(
 }  // namespace
 
 // Y (B, 2, F, T) complex64; nmask (B, F, T) f32; tmask (B, F, T) f32 or null;
-// d (F, 2) complex64; sigma_f (F,) f32 or null (then the scalar sigma);
-// freqs (F,) f32; S (B, F, T) complex64. Returns cudaGetLastError().
+// d complex64, stream b's (F, 2) at d + b * d_bstride complex elements (0:
+// shared); sigma_p f32 read at b * sigma_bstride + f * sigma_fstride, or null
+// (then the scalar sigma); freqs (F,) f32; S (B, F, T) complex64. Returns
+// cudaGetLastError().
 extern "C" int azt_masked_mvdr(const void* Y, const void* nmask, const void* tmask,
-                               const void* d, const void* sigma_f, float sigma,
+                               const void* d, long d_bstride, const void* sigma_p,
+                               long sigma_bstride, long sigma_fstride, float sigma,
                                const void* freqs, float hp_cutoff, float mask_floor,
                                void* S, int B, int F, int T, void* stream) {
   const long rows = (long)B * F;
   const long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   masked_mvdr_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)Y, (const float*)nmask, (const float*)tmask, (const float2*)d,
-      (const float*)sigma_f, sigma, (const float*)freqs, hp_cutoff, mask_floor,
-      (float2*)S, B, F, T);
+      (const float2*)Y, (const float*)nmask, (const float*)tmask, (const float2*)d, d_bstride,
+      (const float*)sigma_p, sigma_bstride, sigma_fstride, sigma, (const float*)freqs,
+      hp_cutoff, mask_floor, (float2*)S, B, F, T);
   return (int)cudaGetLastError();
 }

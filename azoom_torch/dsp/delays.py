@@ -14,7 +14,9 @@ import math
 
 import torch
 
-__all__ = ["mic_positions", "positions_2d", "far_field_delays", "steering_vector"]
+__all__ = [
+    "mic_positions", "positions_2d", "far_field_delays", "steering_vector", "steering_matrix",
+]
 
 
 def mic_positions(n_mics: int, mic_dist: float, device=None) -> torch.Tensor:
@@ -82,3 +84,17 @@ def steering_vector(
         ref = d[..., :, :1]
         d = d * torch.conj(ref) / (torch.abs(ref) + 1e-10)
     return d.to(torch.complex64)
+
+
+def steering_matrix(
+    freqs_hz: torch.Tensor,
+    angles_deg,
+    mic_dist: float,
+    c: float = 343.0,
+    n_mics: int = 2,
+    positions: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Steering vectors for a grid of angles, complex64 (A, F, n_mics): the
+    SRP angle scan and beam-pattern analysis."""
+    angles = torch.as_tensor(angles_deg, dtype=torch.float32, device=freqs_hz.device)
+    return steering_vector(freqs_hz, angles, mic_dist, c, n_mics, positions=positions)

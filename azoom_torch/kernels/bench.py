@@ -1,6 +1,6 @@
 """Check and time the port's kernels alone, shape by shape, on one NVIDIA GPU:
 
-    python3 -m azoom_torch.kernels.bench [int8_mm] [qconv] [convt] [hard_null]
+    python3 -m azoom_torch.kernels.bench [int8_mm] [qconv] [convt] [hard_null] [mvdr]
                                          [fp32_peak] [--quick] [--against DIR]
     python3 -m azoom_torch.kernels.bench clocks
 
@@ -36,16 +36,24 @@ kernel with ``-DAZT_HARD_NULL_FIXED_WEIGHTS``, whose closed form (eigenvector,
 solve, cond gate) is replaced by the delay-and-sum weights: the closed
 form's share of the time.
 
+``mvdr`` (needs ``--against``): B1's shared-steering launch (one d, one
+loading) at the server's tick, (128, 2, 513, 65), against an earlier tree's
+kernel: the elements that differ and both times in turns. chip_smoke.py
+phase 2 holds the shared and per-stream forms against the plain version.
+
 ``fp32_peak``: the float32 FMA rate of ``csrc/bench_fp32_peak.cu``, FMA
 chains on registers with no memory traffic: what ``convt``'s rate is held
 against beside the published 67 TFLOP/s.
 
-``--against DIR``: DIR holds the ``convt_kernel.cu`` and
-``nullsteer_kernel.cu`` of an earlier tree, with the C interface they had
-when ``convt1x2`` took no plan (``azt_convt1x2(x, W, bias, out, P, K, N2,
-Cout, stream)``); ``convt`` and ``hard_null`` then build them too, count the
-elements where the two kernels differ, and time both in turns (earlier,
-current, current, earlier).
+``--against DIR``: DIR holds kernel sources of an earlier tree: for
+``convt`` and ``hard_null`` the ``convt_kernel.cu`` and
+``nullsteer_kernel.cu`` with the C interface they had when ``convt1x2`` took
+no plan (``azt_convt1x2(x, W, bias, out, P, K, N2, Cout, stream)``); for
+``mvdr`` the ``mvdr_kernel.cu`` with one shared d and an optional per-bin
+sigma (``azt_masked_mvdr(Y, nmask, tmask, d, sigma_f, sigma, freqs,
+hp_cutoff, mask_floor, S, B, F, T, stream)``). Each mode then builds it too,
+counts the elements where the two kernels differ on the shared-d launch,
+and times both in turns (earlier, current, current, earlier).
 
 ``--quick`` checks only (batch 8, or 3 for ``convt``, no timing): the first
 run of a new build.
@@ -366,6 +374,47 @@ def bench_hard_null(dev, quick: bool, against: Path | None) -> dict:
     return {str(shape): row}
 
 
+def bench_mvdr(dev, quick: bool, against: Path) -> dict:
+    from azoom_torch.dsp.delays import steering_vector
+    from azoom_torch.dsp.stft import rfft_freqs
+    from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
+
+    batch, F, T = (8 if quick else BATCH), 513, 65
+    rng = np.random.default_rng(5)
+    shape = (batch, 2, F, T)
+    Y = torch.complex(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                        for _ in range(2))).to(dev)
+    nm = torch.from_numpy(rng.random((batch, F, T), dtype=np.float32)).to(dev)
+    tm = 1.0 - nm
+    f = rfft_freqs(1024, 16000, device=dev)
+    d = steering_vector(f, 60.0, 0.04)
+    old_fn = earlier_library(against, "mvdr_kernel").azt_masked_mvdr
+    old_fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_float,
+                                                ctypes.c_float, ctypes.c_void_p]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    old_fn.restype = ctypes.c_int
+
+    def earlier():
+        S = torch.empty((batch, F, T), dtype=torch.complex64, device=dev)
+        build.check(old_fn(Y.data_ptr(), nm.data_ptr(), tm.data_ptr(), d.data_ptr(), None, 1e-7,
+                           f.data_ptr(), 100.0, 0.05, S.data_ptr(), batch, F, T,
+                           torch.cuda.current_stream().cuda_stream), "earlier masked_mvdr")
+        return S
+
+    def current():
+        return masked_mvdr_fused(Y, nm, d, f, target_mask=tm, sigma=1e-7, hp_cutoff_hz=100.0,
+                                 mask_floor=0.05)
+
+    row = dict(shape=shape, not_bit_equal_to_earlier=int((current() != earlier()).sum()))
+    if not quick:
+        row["earlier_ms"], row["ms"] = _in_turns(earlier, current)
+    print("[mvdr] " + " ".join(
+        f"{n}={v:.4g}" if isinstance(v, float) else f"{n}={v}" for n, v in row.items()), flush=True)
+    if row["not_bit_equal_to_earlier"]:
+        raise AssertionError(f"mvdr: {row}")
+    return {str(shape): row}
+
+
 def bench_fp32_peak(dev) -> dict:
     fn = build.load_library("bench_fp32_peak").azt_fp32_peak
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -392,6 +441,10 @@ def main(argv) -> int:
         against = Path(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
     which = [a for a in argv if not a.startswith("--")] or ["int8_mm", "qconv"]
+    if "mvdr" in which and against is None:
+        print("kernels.bench: mvdr needs --against DIR (chip_smoke.py phase 2 holds B1 "
+              "against its plain version)", file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     info = build.build_all()
     card = subprocess.run(
@@ -427,6 +480,8 @@ def main(argv) -> int:
         out["convt"] = bench_convt(dev, quick, against)
     if "hard_null" in which:
         out["hard_null"] = bench_hard_null(dev, quick, against)
+    if "mvdr" in which:
+        out["mvdr"] = bench_mvdr(dev, quick, against)
     if "fp32_peak" in which:
         out["fp32_peak"] = bench_fp32_peak(dev)
     Path("chiprun_out").mkdir(exist_ok=True)

@@ -15,14 +15,15 @@ import functools
 import torch
 
 from azoom_torch import kernels
-from azoom_torch.beam.mvdr import masked_mvdr
+from azoom_torch.beam.mvdr import loading_strides, masked_mvdr
 from azoom_torch.kernels import build
 
 __all__ = ["masked_mvdr_fused"]
 
 _SIGNATURE = (
-    [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_float,
-                             ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+                             ctypes.c_float, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+                             ctypes.c_void_p]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
@@ -53,9 +54,11 @@ def masked_mvdr_fused(
     """Masked MVDR + high-pass zeroing + floored target-mask gain.
 
     Y complex64 (..., 2, F, T); noise_mask and target_mask float32
-    (..., F, T); d complex64 (F, 2); freqs_hz float32 (F,); sigma a Python
-    scalar or a float32 tensor of shape () or (F,). Returns complex64
-    (..., F, T).
+    (..., F, T); d complex64, shared (F, 2) or per stream (..., F, 2);
+    freqs_hz float32 (F,); sigma a Python scalar or a float32 tensor of
+    shape (), (F,), (...,), (..., 1) or (..., F) (per bin, per stream or both:
+    :func:`azoom_torch.beam.mvdr.loading_strides`). Returns complex64
+    (..., F, T). One launch serves the whole batch.
     """
     if Y.device.type == "cpu":
         return masked_mvdr(
@@ -69,14 +72,13 @@ def masked_mvdr_fused(
     tensors = {"Y": Y, "noise_mask": noise_mask, "d": d, "freqs_hz": freqs_hz}
     if target_mask is not None:
         tensors["target_mask"] = target_mask
-    sigma_f = None
+    sigma_t, s_bstride, s_fstride = None, 0, 0
     if isinstance(sigma, torch.Tensor):
-        _require(sigma.ndim == 0 or tuple(sigma.shape) == (F,),
-                 f"sigma must be a scalar or (F,), got {tuple(sigma.shape)}")
+        s_bstride, s_fstride = loading_strides(sigma.shape, lead, F)
         if sigma.ndim == 0:
             sigma = float(sigma)
         else:
-            sigma_f = tensors["sigma"] = sigma
+            sigma_t = tensors["sigma"] = sigma
     for name, t in tensors.items():
         _require(t.device == Y.device, f"{name} is on {t.device}, Y on {Y.device}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
@@ -86,12 +88,14 @@ def masked_mvdr_fused(
             _require(t.dtype == torch.float32 and t.shape == lead + (F, T),
                      f"{name} must be float32 {tuple(lead + (F, T))}, got "
                      f"{t.dtype} {tuple(t.shape)}")
-    _require(d.dtype == torch.complex64 and tuple(d.shape) == (F, 2),
-             f"d must be complex64 ({F}, 2), got {d.dtype} {tuple(d.shape)}")
+    _require(d.dtype == torch.complex64 and tuple(d.shape) in ((F, 2), tuple(lead) + (F, 2)),
+             f"d must be complex64 ({F}, 2) or {tuple(lead) + (F, 2)}, got {d.dtype} "
+             f"{tuple(d.shape)}")
+    d_bstride = 0 if d.ndim == 2 else 2 * F
     _require(freqs_hz.dtype == torch.float32 and tuple(freqs_hz.shape) == (F,),
              f"freqs_hz must be float32 ({F},)")
-    if sigma_f is not None:
-        _require(sigma_f.dtype == torch.float32, "sigma must be float32")
+    if sigma_t is not None:
+        _require(sigma_t.dtype == torch.float32, "sigma must be float32")
     B = 1
     for n in lead:
         B *= n
@@ -102,8 +106,8 @@ def masked_mvdr_fused(
         rc = _entry()(
             Y.data_ptr(), noise_mask.data_ptr(),
             None if target_mask is None else target_mask.data_ptr(),
-            d.data_ptr(), None if sigma_f is None else sigma_f.data_ptr(),
-            float(sigma) if sigma_f is None else 0.0, freqs_hz.data_ptr(),
+            d.data_ptr(), d_bstride, None if sigma_t is None else sigma_t.data_ptr(),
+            s_bstride, s_fstride, float(sigma) if sigma_t is None else 0.0, freqs_hz.data_ptr(),
             float(hp_cutoff_hz), float(mask_floor), S.data_ptr(), B, F, T,
             torch.cuda.current_stream(Y.device).cuda_stream,
         )

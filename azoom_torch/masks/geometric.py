@@ -1,6 +1,6 @@
 """Blind geometric masks and the visual field-of-view covariance gate
 (counterpart of azoom.masks.geometric: ``ipd``, ``hard_geometric_noise_mask``,
-``fov_noise_gate``, ``apply_fov_gate``).
+``ipd_deviation_noise_mask``, ``fov_noise_gate``, ``apply_fov_gate``).
 
 Transcendental steps (angles, arccos, sigmoid) run in float64 and are
 rounded once, so the CPU and CUDA give the same bits.
@@ -8,12 +8,17 @@ rounded once, so the CPU and CUDA give the same bits.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from azoom_torch.dsp.delays import positions_2d
 from azoom_torch.masks.duet import bin_doa
 
-__all__ = ["ipd", "hard_geometric_noise_mask", "fov_noise_gate", "apply_fov_gate"]
+__all__ = [
+    "ipd", "hard_geometric_noise_mask", "ipd_deviation_noise_mask", "fov_noise_gate",
+    "apply_fov_gate",
+]
 
 
 def ipd(Y: torch.Tensor, pair_mode: str = "mean") -> torch.Tensor:
@@ -22,6 +27,10 @@ def ipd(Y: torch.Tensor, pair_mode: str = "mean") -> torch.Tensor:
     angle(Y1) in (-2 pi, 2 pi). M > 2: the principal-value phase of the
     cross-spectrum averaged over adjacent pairs ('mean') or of the first
     pair ('first', for explicit non-uniform geometries)."""
+    return _ipd64(Y, pair_mode).to(torch.float32)
+
+
+def _ipd64(Y: torch.Tensor, pair_mode: str) -> torch.Tensor:
     Y = Y.to(torch.complex128)
     if Y.shape[-3] == 2:
         out = torch.angle(Y[..., 0, :, :]) - torch.angle(Y[..., 1, :, :])
@@ -31,7 +40,7 @@ def ipd(Y: torch.Tensor, pair_mode: str = "mean") -> torch.Tensor:
         else:
             cross = torch.mean(Y[..., :-1, :, :] * torch.conj(Y[..., 1:, :, :]), dim=-3)
         out = torch.angle(cross + 1e-20)
-    return out.to(torch.float32)
+    return out
 
 
 def hard_geometric_noise_mask(Y: torch.Tensor, threshold: float = 0.0,
@@ -41,6 +50,20 @@ def hard_geometric_noise_mask(Y: torch.Tensor, threshold: float = 0.0,
     phase deviation marks interference."""
     one = torch.ones((), dtype=torch.float32, device=Y.device)
     return torch.where(torch.abs(ipd(Y)) > threshold, one, floor * one)
+
+
+def ipd_deviation_noise_mask(
+    Y: torch.Tensor, expected_ipd: torch.Tensor, width: float = 0.5, pair_mode: str = "mean"
+) -> torch.Tensor:
+    """Soft geometric noise mask, float32 (..., F, T): the IPD's wrapped
+    distance from an expected per-bin IPD (..., F) (e.g. of a steered target
+    off broadside), |dev| / (width pi) clipped to [0, 1]. An ``expected_ipd``
+    from the first pair's delays on an explicit non-uniform geometry needs
+    ``pair_mode='first'``."""
+    exp64 = torch.as_tensor(expected_ipd, device=Y.device).to(torch.float64)
+    diff = _ipd64(Y, pair_mode) - exp64[..., :, None]
+    dev = torch.remainder(diff + math.pi, 2.0 * math.pi) - math.pi
+    return torch.clamp(torch.abs(dev) / (width * math.pi), 0.0, 1.0).to(torch.float32)
 
 
 def fov_noise_gate(

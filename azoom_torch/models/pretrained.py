@@ -10,8 +10,7 @@ from __future__ import annotations
 
 from pathlib import Path
 
-import torch
-
+from azoom_torch.config import resolve_device
 from azoom_torch.models.convert import tpufpu_from_flax
 from azoom_torch.models.quantize import load_quantized
 
@@ -71,13 +70,7 @@ def load_bundled(name: str, quant: bool = True, device=None):
         )
     if not quant:
         raise NotImplementedError("the port serves the int8 path only (quant=True)")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "load_bundled: no CUDA device; pass device='cpu' to run the "
-                "plain PyTorch path on the CPU"
-            )
-        device = "cuda"
+    device = resolve_device(device)
     fname, kwargs, feature_kind = _PORTED[name]
     path = ASSETS / fname
     if not path.exists():

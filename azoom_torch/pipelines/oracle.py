@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from azoom_torch.config import PipelineConfig
+from azoom_torch.config import PipelineConfig, as_input
 from azoom_torch.dsp.delays import steering_vector
 from azoom_torch.dsp.stft import istft, rfft_freqs, stft
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
@@ -22,16 +22,6 @@ from azoom_torch.masks.geometric import hard_geometric_noise_mask
 from azoom_torch.masks.oracle import ibm_noise_mask, irm_target_mask
 
 __all__ = ["oracle_enhance", "heuristic_enhance"]
-
-
-def _as_input(x, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor) and device is None:
-        return x
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.as_tensor(x, device=device)
 
 
 def _steering(cfg: PipelineConfig, freqs: torch.Tensor) -> torch.Tensor:
@@ -54,9 +44,9 @@ def oracle_enhance(
     (1 - the IBM noise mask), 'irm' (the ideal ratio mask) or 'none'."""
     if post_filter not in ("binary", "irm", "none"):
         raise ValueError(f"unknown post_filter {post_filter!r}")
-    mixture = _as_input(mixture, device)
-    target_ref = _as_input(target_ref, mixture.device)
-    interference_ref = _as_input(interference_ref, mixture.device)
+    mixture = as_input(mixture, device)
+    target_ref = as_input(target_ref, mixture.device)
+    interference_ref = as_input(interference_ref, mixture.device)
     cfg = cfg.for_input(mixture)
     length = mixture.shape[-1] if length is None else length
     with torch.inference_mode():
@@ -80,7 +70,7 @@ def heuristic_enhance(mixture, cfg: PipelineConfig, length: int | None = None,
                       device=None) -> torch.Tensor:
     """Blind enhancement with the hard geometric IPD mask (no ground truth),
     post-filtered by 1 - that mask floored at 0.05."""
-    mixture = _as_input(mixture, device)
+    mixture = as_input(mixture, device)
     cfg = cfg.for_input(mixture)
     length = mixture.shape[-1] if length is None else length
     with torch.inference_mode():

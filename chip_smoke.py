@@ -9,17 +9,26 @@ Phases, each printing its own line(s):
                print the card.
   2. mvdr    - the fused masked-MVDR kernel against its plain PyTorch version
                at the serving shape (128 streams, 2 mics, 513 bins, 64 frames),
-               with a scalar and a per-bin sigma.
+               with a scalar and a per-bin sigma; then at the server's tick
+               (65 frames) with 128 distinct steers and zooms (a steering
+               vector and a loading per stream), and the shared-steering
+               launch bit for bit against the per-stream launch given that
+               steering in every stream.
   3. qconv   - the int8 3x3 conv against its plain version at each of the ten
                conv shapes of the bundled tpufpu_nano net at batch 128, with
                and without a residual (the wgmma kernel at nine shapes, the
                mma.sync kernel at the 16-channel stem: the wrapper picks by
                shape); torch._int_mm on explicitly im2col'd int8 operands is
-               timed beside it as the bare GEMM.
+               timed beside it as the bare GEMM. Then every conv of the net
+               (with and without a residual, and the concat convs) at the
+               frame families of the server's full tick (80 / 40 / 20 / 10)
+               and reuse tick (48 / 24 / 12 / 6), with the elements that
+               differ from the plain version and the kernel's time.
   4. convt   - the upsampling kernel against its plain version at the net's
                three upsampling shapes, with the count of elements that are
                not bit-equal to it (the plain version rounds twice on rare
-               ties); kernel and torch.addmm timed as CUDA-graph replays.
+               ties); kernel and torch.addmm timed as CUDA-graph replays;
+               then at the two server frame families.
   5. main    - the user's path: load_bundled("tpufpu_nano") and
                learned_enhance on a (128, 2, 32000) mixture made from a seed,
                steered to 60 deg. The launch counts of that one call must show
@@ -50,8 +59,25 @@ Phases, each printing its own line(s):
                CPU; the time per recorded second.
  11. oracle  - oracle_enhance(post_filter="irm") on 128 far-field scenes:
                one MVDR launch; waveform and SIR against the CPU.
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and a last line {"ok": true, "device": {...}}.
+ 12. server  - AudioZoomServer(128, win_size=32768, mask_reuse=True,
+               wire="int16", track=True) on 128 far-field scenes, each stream
+               steered and zoomed its own way: a prime, then one-hop ticks;
+               the launches of every tick (a reuse tick: 21 convs, 3
+               upsamplings, 1 MVDR); the first 4 streams against the CPU
+               port's server on the same blocks (waveform and bearings);
+               the median ms per tick, the bytes moved each way per tick and
+               the streams served in real time at that tick; a profile of one
+               tick (chiprun_out/profile_server.txt). Then the same with
+               mask_reuse=False and the float32 wire.
+ 13. facade  - AudioZoom(model="tpufpu_nano", int8=True): enhance() of a 2 s
+               clip (autosteer: the DOA histogram, then the learned path with
+               the FOV gate) and push() of 6 s with tracker="momentum", each
+               against the same calls on the CPU; ms per call and per window.
+Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
+shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
+server's form at 65 frames with the launches of phase 12's reuse ticks; ms
+is a loop of calls from Python for both), the card's name and power limit,
+and a last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without CUDA it exits non-zero at once. Imports nothing of JAX or azoom.
@@ -74,26 +100,41 @@ BATCH = 128                 # 2 s chunks per call (the serving batch)
 N_SAMPLES = 32_000          # one 2 s chunk at 16 kHz
 F_ROWS = 129                # folded frequency rows: ceil(513 / 4)
 
-# The 21 int8 convs of tpufpu_nano in forward order at T = 64 input frames:
-# (Cin, Cout, frames, with residual, input is a two-tensor channel concat).
-NANO_CONVS = (
-    [(16, 64, 64, False, False), (64, 64, 64, False, False)]                   # e1
-    + [(64, 64, 32, False, False), (64, 64, 32, False, False), (64, 64, 32, True, False)]
-    + [(64, 128, 16, False, False), (128, 128, 16, False, False), (128, 128, 16, True, False)]
-    + [(128, 256, 8, False, False)]                                          # bottleneck
-    + [(256, 256, 8, False, False), (256, 256, 8, True, False)] * 2
-    + [(256, 128, 16, False, True), (128, 128, 16, False, False), (128, 128, 16, True, False)]
-    + [(128, 64, 32, False, True), (64, 64, 32, False, False), (64, 64, 32, True, False)]
-    + [(128, 64, 64, False, True), (64, 64, 64, False, False)]                 # d1
-)
-# The 3 upsamplings at T = 64: (K = Cin, Cout, input frames).
-NANO_CONVT = [(256, 128, 8), (128, 64, 16), (64, 64, 32)]
+
+
+def nano_convs(t: int) -> list:
+    """The 21 int8 convs of tpufpu_nano in forward order at t input frames:
+    (Cin, Cout, frames, with residual, input is a two-tensor channel concat)."""
+    h, q, e = t // 2, t // 4, t // 8
+    return (
+        [(16, 64, t, False, False), (64, 64, t, False, False)]                 # e1
+        + [(64, 64, h, False, False), (64, 64, h, False, False), (64, 64, h, True, False)]
+        + [(64, 128, q, False, False), (128, 128, q, False, False), (128, 128, q, True, False)]
+        + [(128, 256, e, False, False)]                                      # bottleneck
+        + [(256, 256, e, False, False), (256, 256, e, True, False)] * 2
+        + [(256, 128, q, False, True), (128, 128, q, False, False), (128, 128, q, True, False)]
+        + [(128, 64, h, False, True), (64, 64, h, False, False), (64, 64, h, True, False)]
+        + [(128, 64, t, False, True), (64, 64, t, False, False)]               # d1
+    )
+
+
+def nano_convt(t: int) -> list:
+    """The 3 upsamplings at t input frames: (K = Cin, Cout, input frames)."""
+    return [(256, 128, t // 8), (128, 64, t // 4), (64, 64, t // 2)]
+
+
+NANO_CONVS = nano_convs(64)   # a 2 s chunk: 64 frames
+NANO_CONVT = nano_convt(64)
+# The server's frame families at win_size 32768: a full tick runs the net on
+# 65 frames padded to 80, a reuse tick on 48 (16 context + 32 new).
+SERVER_FRAMES = (80, 48)
 
 
 def far_field_scene(rng, batch: int, n: int, fs: int = 16_000, mic_dist: float = 0.04,
                     angles=(90.0, 40.0, 130.0), rms: float = 0.1, c: float = 343.0):
     """Speech-like far-field scenes made with numpy: a target and two
-    interferers (first angle is the target's), each low-passed noise under a
+    interferers (first angle is the target's; ``angles`` (3,) for all scenes
+    or (batch, 3) for one triple each), each low-passed noise under a
     syllable-rate envelope, delayed to a 2-mic linear array by an rFFT phase
     ramp (fractional delays). Returns float32 (mixture (batch, 2, n),
     target_ref (batch, n), interference_ref (batch, n)) at mic 0, the
@@ -108,8 +149,8 @@ def far_field_scene(rng, batch: int, n: int, fs: int = 16_000, mic_dist: float =
     src = src * env**2
     src /= np.sqrt(np.mean(src**2, axis=-1, keepdims=True))
     pos = np.array([mic_dist / 2, -mic_dist / 2])  # mic m at ((M-1)/2 - m) d
-    tau = pos[None, :] * np.cos(np.deg2rad(np.array(angles)))[:, None] / c  # (3, 2)
-    ramp = np.exp(-2j * np.pi * f * tau[..., None])  # (3, 2, F)
+    tau = pos * np.cos(np.deg2rad(np.array(angles)))[..., None] / c  # ([batch,] 3, 2)
+    ramp = np.exp(-2j * np.pi * f * tau[..., None])  # ([batch,] 3, 2, F)
     img = np.fft.irfft(np.fft.rfft(src)[:, :, None, :] * ramp, n)  # (batch, 3, 2, n)
     mix = img.sum(axis=1)
     g = rms / np.sqrt(np.mean(mix**2))
@@ -229,59 +270,121 @@ def main() -> int:
         check(rel <= 1e-4, f"mvdr: relative error {rel:.3e} > 1e-4")
         worst = max(worst, err)
     kw = dict(target_mask=tmask, sigma=1e-7, hp_cutoff_hz=100.0, mask_floor=0.05)
+    # ms: a loop of calls from Python, as since the first slice; graph_ms: replays
     ms = time_ms(lambda: masked_mvdr_fused(Y, nmask, d, freqs, **kw))
+    graph_ms = device_ms(lambda: masked_mvdr_fused(Y, nmask, d, freqs, **kw))
     plain_ms = time_ms(lambda: masked_mvdr(Y, nmask, d, freqs, **kw), iters=5)
     n_el = BATCH * F * T
-    nbytes = n_el * (2 * 8 + 4 + 4 + 8) + F * (16 + 4)
-    b_ms, b_by = bound(nbytes, n_el * 34.0, FP32_FLOPS_PER_S)
+    b_ms, b_by = bound(n_el * (2 * 8 + 4 + 4 + 8) + F * (16 + 4), n_el * 34.0, FP32_FLOPS_PER_S)
     results["masked_mvdr"] = dict(
         name="masked_mvdr", route="cuda", source="azoom_torch/csrc/mvdr_kernel.cu",
         replaces="azoom/pallas/mvdr_kernel.py:38", max_abs_err=worst, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log("mvdr", shape=shape, max_abs_err=f"{worst:.3e}", ms=f"{ms:.4f}",
+    mvdr_forms = dict(shared=dict(shape=shape, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms))
+    log("mvdr", shape=shape, max_abs_err=f"{worst:.3e}", ms=f"{ms:.4f}", graph_ms=f"{graph_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
     del Y, nmask, tmask
 
+    # the server's tick: 65 frames, a steering vector and a loading per stream
+    from azoom_torch.beam.zoom import zoom_to_sigma
+
+    T_srv = 65
+    shape = (BATCH, 2, F, T_srv)
+    Y = torch.complex(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                        for _ in range(2))).to(dev)
+    nmask = torch.from_numpy(rng.random((BATCH, F, T_srv), dtype=np.float32)).to(dev)
+    tmask = 1.0 - nmask
+    d_s = steering_vector(freqs, torch.linspace(30.0, 150.0, BATCH, device=dev), 0.04)
+    sig_s = zoom_to_sigma(torch.linspace(0.0, 1.0, BATCH)).to(dev)
+    kw = dict(target_mask=tmask, hp_cutoff_hz=100.0, mask_floor=0.05)
+    got = masked_mvdr_fused(Y, nmask, d_s, freqs, sigma=sig_s, **kw)
+    ref = masked_mvdr(Y, nmask, d_s, freqs, sigma=sig_s, **kw)
+    shared = masked_mvdr_fused(Y, nmask, d_s[1], freqs, sigma=float(sig_s[1]), **kw)
+    each = masked_mvdr_fused(Y, nmask, d_s[1].expand(BATCH, F, 2).contiguous(), freqs,
+                             sigma=sig_s[1].expand(BATCH).contiguous(), **kw)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    check(bool(torch.isfinite(torch.view_as_real(got)).all()), "mvdr per stream: non-finite output")
+    check(rel <= 1e-4, f"mvdr per stream: relative error {rel:.3e} > 1e-4")
+    differ = int((shared != each).sum())
+    check(differ == 0, f"mvdr: shared steering differs from per-stream steering in {differ} elements")
+    ms = time_ms(lambda: masked_mvdr_fused(Y, nmask, d_s, freqs, sigma=sig_s, **kw))
+    graph_ms = device_ms(lambda: masked_mvdr_fused(Y, nmask, d_s, freqs, sigma=sig_s, **kw))
+    plain_ms = time_ms(lambda: masked_mvdr(Y, nmask, d_s, freqs, sigma=sig_s, **kw), iters=5)
+    n_el = BATCH * F * T_srv
+    # Y, both masks in, S out; per stream d (F, 2) complex64 and sigma; freqs
+    nbytes = n_el * (2 * 8 + 4 + 4 + 8) + BATCH * (F * 16 + 4) + F * 4
+    b_ms, b_by = bound(nbytes, n_el * 34.0, FP32_FLOPS_PER_S)
+    # The server's form: its launches are counted in phase 12.
+    results["masked_mvdr_per_stream"] = dict(
+        name="masked_mvdr_per_stream", route="cuda", source="azoom_torch/csrc/mvdr_kernel.cu",
+        replaces="azoom/pallas/mvdr_kernel.py:38 (jax.vmap over streams, azoom/stream/server.py:129)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    mvdr_forms["per_stream"] = dict(shape=shape, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, rel_err=rel)
+    log("mvdr_per_stream", shape=shape, steers="30..150", zooms="0..1", max_abs_err=f"{err:.3e}",
+        shared_vs_per_stream_elements_differ=differ, ms=f"{ms:.4f}", graph_ms=f"{graph_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    del Y, nmask, tmask, got, ref, shared, each
+
     # 3. int8 3x3 conv --------------------------------------------------------
-    per_shape = {}
-    worst = 0.0
-    for cin, cout, t in dict.fromkeys(c[:3] for c in NANO_CONVS):
+    act_scale = float(np.float32(3.3 / 127))
+
+    def conv_operands(cin, cout, t):
         x = torch.from_numpy(np.abs(rng.standard_normal((BATCH, F_ROWS, t, cin)))
                              .astype(np.float32)).to(dev)
-        act_scale = float(np.float32(3.3 / 127))
         w_q = torch.zeros((cout, k_padded(cin)), dtype=torch.int8)
         w_q[:, :9 * cin] = torch.from_numpy(
             rng.integers(-127, 128, (cout, 9 * cin)).astype(np.int8))
-        w_q = w_q.to(dev)
         epi = torch.from_numpy(np.stack([
             np.full(cout, 2e-4), 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout),
             1 + 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout),
         ]).astype(np.float32)).to(dev)
         res = torch.from_numpy(rng.standard_normal((BATCH, F_ROWS, t, cout))
                                .astype(np.float32)).to(dev)
-        variants = {(False, False), (True, False)} | {
-            c[3:] for c in NANO_CONVS if c[:3] == (cin, cout, t)}
+        return x, w_q.to(dev), epi, res
+
+    def conv_variants(convs, cin, cout, t, x, res):
+        """(with residual, concat input) of a shape: plain, +residual, and
+        what the net runs there; with the conv's call arguments."""
+        variants = {(False, False), (True, False)} | {c[3:] for c in convs if c[:3] == (cin, cout, t)}
         for with_res, cat in sorted(variants):
             kw = dict(residual=res if with_res else None)
             if cat:  # the decoder's concat: two inputs of cin / 2 channels each
                 kw["x2"] = x[..., cin // 2:].contiguous()
-            xin = x[..., :cin // 2].contiguous() if cat else x
-            got = qconv3x3(xin, w_q, epi, act_scale, **kw)
-            ref = qconv3x3_plain(xin, w_q, epi, act_scale, **kw)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            rel = err / (float(ref.abs().max()) + 1e-30)
-            check(rel < 1e-5, f"qconv {(cin, cout, t, with_res, cat)}: relative error {rel:.3e}")
+            yield with_res, cat, (x[..., :cin // 2].contiguous() if cat else x), kw
+
+    def conv_check(cin, cout, t, with_res, cat, xin, w_q, epi, kw):
+        """The kernel against the plain version: (max abs error, elements
+        that differ, kernel ms, bound ms, bound by)."""
+        got = qconv3x3(xin, w_q, epi, act_scale, **kw)
+        ref = qconv3x3_plain(xin, w_q, epi, act_scale, **kw)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / (float(ref.abs().max()) + 1e-30)
+        check(rel < 1e-5, f"qconv {(cin, cout, t, with_res, cat)}: relative error {rel:.3e}")
+        m = BATCH * F_ROWS * t
+        nbytes = (m * cin * 4 + cout * 9 * cin + epi.numel() * 4
+                  + m * cout * 4 * (2 if with_res else 1))
+        b_ms, b_by = bound(nbytes, 2.0 * m * 9 * cin * cout, INT8_OPS_PER_S)
+        ms = time_ms(lambda: qconv3x3(xin, w_q, epi, act_scale, **kw))
+        return err, int((got != ref).sum()), ms, b_ms, b_by
+
+    per_shape = {}
+    worst = 0.0
+    for cin, cout, t in dict.fromkeys(c[:3] for c in NANO_CONVS):
+        x, w_q, epi, res = conv_operands(cin, cout, t)
+        variants = [v[:2] for v in conv_variants(NANO_CONVS, cin, cout, t, x, res)]
+        for with_res, cat, xin, kw in conv_variants(NANO_CONVS, cin, cout, t, x, res):
+            err, differ, ms, b_ms, b_by = conv_check(cin, cout, t, with_res, cat, xin, w_q, epi, kw)
             worst = max(worst, err)
-            ms = time_ms(lambda: qconv3x3(xin, w_q, epi, act_scale, **kw))
             plain_ms = time_ms(lambda: qconv3x3_plain(xin, w_q, epi, act_scale, **kw),
                                iters=3, warmup=1)
-            m = BATCH * F_ROWS * t
-            nbytes = (m * cin * 4 + cout * 9 * cin + epi.numel() * 4
-                      + m * cout * 4 * (2 if with_res else 1))
-            b_ms, b_by = bound(nbytes, 2.0 * m * 9 * cin * cout, INT8_OPS_PER_S)
             per_shape[(cin, cout, t, with_res, cat)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                not_bit_equal_to_plain=differ)
         # the bare int8 GEMM of the same conv, im2col'd outside the timing
         xq = torch.clamp(torch.round(x / act_scale), -127, 127).to(torch.int8)
         xp = torch.nn.functional.pad(xq, (0, 0, 1, 1, 1, 1))
@@ -309,6 +412,33 @@ def main() -> int:
     log("qconv_net", convs=len(net), ms=f"{results['qconv3x3']['ms']:.4f}",
         bound_ms=f"{results['qconv3x3']['bound_ms']:.4f}",
         int_mm_ms=f"{results['qconv3x3']['library_ms']:.4f}", max_abs_err=f"{worst:.3e}")
+
+    # the server's frame families: a full tick (80 frames: a 64-frame tile and
+    # a 16-frame tail) and a reuse tick (48 frames; 6 at the bottleneck)
+    families = {}
+    for t0 in SERVER_FRAMES:
+        convs = nano_convs(t0)
+        fam = {}
+        for cin, cout, t in dict.fromkeys(c[:3] for c in convs):
+            x, w_q, epi, res = conv_operands(cin, cout, t)
+            for with_res, cat, xin, kw in conv_variants(convs, cin, cout, t, x, res):
+                err, differ, ms, b_ms, b_by = conv_check(cin, cout, t, with_res, cat, xin, w_q,
+                                                         epi, kw)
+                worst = max(worst, err)
+                fam[(cin, cout, t, with_res, cat)] = dict(
+                    ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                    not_bit_equal_to_plain=differ, kernel=plan(cin, cout, t)["kernel"])
+            del x, res
+        net_t = [fam[c] for c in convs]
+        families[t0] = {str(k): v for k, v in fam.items()}
+        log("qconv_family", frames=t0, shapes_checked=len(fam), batch=BATCH,
+            net_ms=f"{sum(p['ms'] for p in net_t):.4f}",
+            net_bound_ms=f"{sum(p['bound_ms'] for p in net_t):.4f}",
+            elements_not_bit_equal_to_plain=sum(p["not_bit_equal_to_plain"] for p in fam.values()),
+            max_abs_err=f"{max(p['max_abs_err'] for p in fam.values()):.3e}",
+            per_shape={f"{k[0]}-{k[1]}@{k[2]}" + "+res" * k[3] + "+cat" * k[4]: round(v["ms"], 4)
+                       for k, v in fam.items()})
+    results["qconv3x3"]["max_abs_err"] = worst
 
     # 4. upsampling -------------------------------------------------------------
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
@@ -343,6 +473,30 @@ def main() -> int:
             plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
             addmm_ms=f"{lib_ms:.4f}", max_abs_err=f"{err:.3e}", not_bit_equal_to_plain=not_bit_equal)
         del x, x2
+    for t0 in SERVER_FRAMES:  # the server's frame families
+        fam = {}
+        for k, cout, t in nano_convt(t0):
+            x = torch.from_numpy(np.abs(rng.standard_normal((BATCH, F_ROWS, t, k))).astype(np.float32)).to(dev)
+            w = torch.from_numpy((0.05 * rng.standard_normal((k, 2 * cout))).astype(np.float32)).to(dev)
+            b = torch.from_numpy((0.1 * rng.standard_normal(cout)).astype(np.float32)).to(dev)
+            got, ref = convt1x2(x, w, b), convt1x2_plain(x, w, b)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            check(rel < 1e-6, f"convt {(k, cout, t)}: relative error {rel:.3e}")
+            worst = max(worst, err)
+            p_rows = BATCH * F_ROWS * t
+            b_ms, _ = bound(4.0 * (p_rows * k + k * 2 * cout + cout + p_rows * 2 * cout),
+                            2.0 * p_rows * k * 2 * cout, FP32_FLOPS_PER_S)
+            fam[(k, cout, t)] = dict(ms=device_ms(lambda: convt1x2(x, w, b)), bound_ms=b_ms,
+                                     max_abs_err=err, not_bit_equal_to_plain=int((got != ref).sum()))
+            del x, got, ref
+        convt_shapes.update({(t0,) + key: v for key, v in fam.items()})
+        log("convt_family", frames=t0, batch=BATCH,
+            ms={f"{key[0]}->{2 * key[1]}@{key[2]}": round(v["ms"], 4) for key, v in fam.items()},
+            bound_ms=f"{sum(v['bound_ms'] for v in fam.values()):.4f}",
+            not_bit_equal_to_plain=[v["not_bit_equal_to_plain"] for v in fam.values()],
+            max_abs_err=f"{max(v['max_abs_err'] for v in fam.values()):.3e}")
     results["convt1x2"] = dict(
         name="convt1x2", route="cuda", source="azoom_torch/csrc/convt_kernel.cu",
         replaces="azoom/models/unet.py:313 (XLA ConvTranspose, no Pallas kernel)",
@@ -600,14 +754,152 @@ def main() -> int:
         sir_db_mean=f"{float(sir_gpu.mean()):.3f}", sir_in_db_mean=f"{float(sir_in.mean()):.3f}",
         sir_max_abs_diff_db=f"{d_sir:.2e}", ms=f"{o_ms:.3f}")
 
-    line = {"kernels": [results[k] for k in
-                        ("masked_mvdr", "qconv3x3", "convt1x2", "hard_null", "int8_mm")]}
+    # 12. the live server ----------------------------------------------------------
+    from azoom_torch import AudioZoom, AudioZoomServer
+
+    scfg = PipelineConfig(mic_dist=0.04, win_size=32_768)
+    win, hop, n_ticks = scfg.win_size, scfg.win_size // 2, 10
+    steers = np.linspace(30.0, 150.0, BATCH)
+    zooms = np.linspace(0.0, 1.0, BATCH)
+    itf = np.stack([np.clip(steers - 45.0, 5.0, 175.0), np.clip(steers + 45.0, 5.0, 175.0)], 1)
+    srv_mix = far_field_scene(rng, BATCH, win + n_ticks * hop,
+                              angles=np.concatenate([steers[:, None], itf], axis=1))[0]
+    n_cpu_ticks = 3  # the first 4 streams, held against the CPU over the prime and 3 ticks
+    server_stats = {}
+    for name, kw, want in (
+            ("reuse_int16", dict(mask_reuse=True, wire="int16"), np.int16),
+            ("full_float32", dict(mask_reuse=False, wire="float32"), np.float32)):
+        blocks = np.clip(srv_mix * 32767.0, -32767, 32767).astype(np.int16) \
+            if kw["wire"] == "int16" else srv_mix
+        servers = {}
+        for where, S in (("cuda", BATCH), ("cpu", 4)):
+            srv = AudioZoomServer(S, cfg=scfg, track=True, device=where, **kw)
+            for st in range(S):
+                srv.set_zoom(st, direction_deg=float(steers[st]), zoom=float(zooms[st]))
+            servers[where] = srv
+        srv = servers["cuda"]
+        # the host's share of a tick: the momentum filters' NumPy step, timed
+        track_ms = []
+        host_update = srv._tracker.update
+
+        def timed_update(*args):
+            t_up = time.perf_counter()
+            bearings_now = host_update(*args)
+            track_ms.append((time.perf_counter() - t_up) * 1e3)
+            return bearings_now
+
+        srv._tracker.update = timed_update
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.push(blocks[:, :, :win])
+        prime_ms = (time.perf_counter() - t0) * 1e3
+        track_ms.clear()
+        cpu_outs = [servers["cpu"].push(blocks[:4, :, :win])]
+        outs, tick_ms, tick_launches, moved = [], [], [], []
+        for k in range(n_ticks):
+            blk = blocks[:, :, win + k * hop:win + (k + 1) * hop]
+            before = dict(srv.bytes_moved)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = srv.push(blk)
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            tick_launches.append(active_launches())
+            moved.append({d: srv.bytes_moved[d] - before[d] for d in before})
+            outs.append(out)
+            if k < n_cpu_ticks:
+                cpu_outs.append(servers["cpu"].push(blk[:4]))
+                check(np.array_equal(srv.bearings[:4], servers["cpu"].bearings),
+                      f"server {name}: bearings after tick {k} differ from the CPU's: "
+                      f"{srv.bearings[:4]} vs {servers['cpu'].bearings}")
+        for k, c in enumerate(tick_launches):
+            check(c == {"qconv3x3": 21, "convt1x2": 3, "masked_mvdr": 1},
+                  f"server {name}: tick {k} launch counts {c}")
+        if name == "reuse_int16":
+            results["masked_mvdr_per_stream"]["launches"] = sum(
+                c["masked_mvdr"] for c in tick_launches)
+        out = np.concatenate(outs, axis=1)
+        check(out.dtype == want and out.shape == (BATCH, n_ticks * hop), f"server {name}: bad output")
+        f_out = out.astype(np.float32) / (32767.0 if want == np.int16 else 1.0)
+        check(bool(np.isfinite(f_out).all()), f"server {name}: non-finite output")
+        a = np.concatenate(outs[:n_cpu_ticks], axis=1)[:4].astype(np.float32)
+        b = np.concatenate(cpu_outs[1:], axis=1).astype(np.float32)
+        srv_rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        check(srv_rel <= 1e-2, f"server {name}: first 4 streams vs CPU, waveform relative L2 {srv_rel:.3e}")
+        med = statistics.median(tick_ms[1:])
+        per_tick = moved[-1]
+        server_stats[name] = dict(
+            streams=BATCH, win_size=win, hop=hop, ticks=n_ticks, prime_ms=prime_ms,
+            tick_ms=tick_ms, tick_ms_median=med, launches_per_tick=tick_launches[-1],
+            host_tracking_ms=track_ms, host_tracking_ms_median=statistics.median(track_ms),
+            bytes_per_tick=per_tick, streams_real_time=BATCH * (hop / scfg.fs) / (med / 1e3),
+            cpu_wave_rel_l2=srv_rel, bearings=srv.bearings[:8].tolist())
+        log("server", mode=name, streams=BATCH, ticks=n_ticks, launches_per_tick=tick_launches[-1],
+            prime_ms=f"{prime_ms:.2f}", tick_ms_median=f"{med:.3f}",
+            host_tracking_ms_median=f"{statistics.median(track_ms):.3f}",
+            tick_ms_all=[round(t, 2) for t in tick_ms],
+            to_device_bytes_per_tick=per_tick["to_device"], to_host_bytes_per_tick=per_tick["to_host"],
+            streams_real_time=f"{server_stats[name]['streams_real_time']:.1f}",
+            cpu_first4_wave_rel_l2=f"{srv_rel:.3e}", bearings_0_4=srv.bearings[:4].tolist())
+        if name == "reuse_int16":
+            blk = blocks[:, :, :hop]
+            profile_call("profile_server", lambda: srv.push(blk), "profile_server.txt")
+        del servers, srv
+    del srv_mix
+
+    # 13. the facade ----------------------------------------------------------------
+    clip = far_field_scene(rng, 1, 6 * 16_000, angles=(65.0, 20.0, 130.0))[0][0]
+    facade = {}
+    zoom_kw = dict(model="tpufpu_nano", int8=True, direction_deg=75.0, fov_deg=60.0, zoom=0.4)
+    z_gpu, z_cpu = AudioZoom(**zoom_kw), AudioZoom(device="cpu", **zoom_kw)
+    kernels.reset_launches()
+    e_gpu = z_gpu.enhance(clip[:, :32_000])
+    torch.cuda.synchronize()
+    e_counts = active_launches()
+    check(e_counts == {"qconv3x3": 21, "convt1x2": 3, "masked_mvdr": 1},
+          f"facade enhance launch counts {e_counts}")
+    e_cpu = z_cpu.enhance(clip[:, :32_000])
+    e_rel = float(np.linalg.norm(e_gpu - e_cpu) / np.linalg.norm(e_cpu))
+    check(e_gpu.shape == (32_000,) and bool(np.isfinite(e_gpu).all()), "facade enhance: bad output")
+    check(e_rel <= 1e-2, f"facade enhance: waveform relative L2 {e_rel:.3e} against the CPU")
+    e_times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        z_gpu.enhance(clip[:, :32_000])
+        e_times.append((time.perf_counter() - t0) * 1e3)
+    z_gpu = AudioZoom(track=True, tracker="momentum", **zoom_kw)
+    z_cpu = AudioZoom(track=True, tracker="momentum", device="cpu", **zoom_kw)
+    p_gpu, p_cpu, push_ms, bearings = [], [], [], []
+    for block in np.array_split(clip, 12, axis=1):
+        t0 = time.perf_counter()
+        p_gpu.append(z_gpu.push(block))
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+        p_cpu.append(z_cpu.push(block))
+        bearings.append(z_gpu._track_theta)
+        check(z_gpu._track_theta == z_cpu._track_theta,
+              f"facade push: bearing {z_gpu._track_theta} vs {z_cpu._track_theta} on the CPU")
+    p_gpu, p_cpu = np.concatenate(p_gpu), np.concatenate(p_cpu)
+    p_rel = float(np.linalg.norm(p_gpu - p_cpu) / np.linalg.norm(p_cpu))
+    check(p_gpu.shape == (6 * 16_000 - 2 * 16_000,) and bool(np.isfinite(p_gpu).all()),
+          f"facade push: bad output {p_gpu.shape}")
+    check(p_rel <= 1e-2, f"facade push: waveform relative L2 {p_rel:.3e} against the CPU")
+    windows = 1 + (clip.shape[-1] - 32_000) // 16_000
+    facade = dict(enhance_ms=e_times, enhance_wave_rel_l2=e_rel, push_ms=push_ms,
+                  push_wave_rel_l2=p_rel, bearings=bearings, enhance_launches=e_counts)
+    log("facade", enhance_launches=e_counts, enhance_ms_median=f"{statistics.median(e_times):.3f}",
+        enhance_wave_rel_l2=f"{e_rel:.3e}", push_seconds=6, pushes=len(push_ms),
+        ms_per_window=f"{sum(push_ms) / windows:.3f}",
+        push_wave_rel_l2=f"{p_rel:.3e}", bearings=bearings)
+
+    line = {"kernels": [results[k] for k in ("masked_mvdr", "masked_mvdr_per_stream", "qconv3x3",
+                                             "convt1x2", "hard_null", "int8_mm")]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**line, "per_shape": {str(k): v for k, v in per_shape.items()},
+         "qconv_server_families": families, "mvdr_forms": mvdr_forms,
          "int8_mm_per_shape": {str(k): v for k, v in mm_parts.items()},
          "convt_per_shape": {str(k): v for k, v in convt_shapes.items()},
          "main_ms": times, "main_hard_null_ms": hn_times, "stream_ms": st_times,
-         "card": smi}, indent=1))
+         "server": server_stats, "facade": facade, "card": smi}, indent=1))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -109,6 +109,67 @@ def test_mvdr_kernel_matches_plain(cuda):
         assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
+def test_mvdr_kernel_per_stream_steering_and_loading(cuda):
+    """d (S, F, 2) and sigma (S,) or (S, F): one launch against the plain
+    version; the shared-d launch is bit for bit the per-stream launch with
+    that d (and that loading) in every stream: the same arithmetic."""
+    rng = np.random.default_rng(7)
+    S, F, T = 5, 513, 65
+    Y = torch.complex(_t(rng.standard_normal((S, 2, F, T)).astype(np.float32), cuda),
+                      _t(rng.standard_normal((S, 2, F, T)).astype(np.float32), cuda))
+    nm = _t(rng.random((S, F, T), dtype=np.float32), cuda)
+    f = rfft_freqs(1024, 16000, device=cuda)
+    steers = torch.tensor([30.0, 60.0, 90.0, 120.0, 150.0], device=cuda)
+    d = steering_vector(f, steers, 0.04)
+    assert d.shape == (S, F, 2)
+    sig_s = torch.tensor([1e-7, 1e-5, 1e-3, 3e-6, 1e-2], device=cuda)
+    sig_sf = sig_s[:, None] * (1 + torch.arange(F, device=cuda) / F)
+    kw = dict(target_mask=1 - nm, mask_floor=0.05)
+    for dd, sg in ((d, sig_s), (d, sig_sf), (d, 2e-7), (d[1], sig_s)):
+        kernels.reset_launches()
+        got = masked_mvdr_fused(Y, nm, dd, f, sigma=sg, **kw)
+        assert kernels.launches["masked_mvdr"] == 1
+        ref = masked_mvdr(Y, nm, dd, f, sigma=sg, **kw)
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    shared = masked_mvdr_fused(Y, nm, d[1], f, sigma=3e-6, **kw)
+    each = masked_mvdr_fused(Y, nm, d[1].expand(S, F, 2).contiguous(), f,
+                             sigma=torch.full((S,), 3e-6, device=cuda), **kw)
+    assert torch.equal(shared, each)
+    per_bin = torch.full((F,), 3e-6, device=cuda)
+    assert torch.equal(shared, masked_mvdr_fused(Y, nm, d[1], f, sigma=per_bin, **kw))
+
+
+def test_server_tick_on_the_card_matches_the_cpu(cuda):
+    """Two streams, mask reuse, the int16 wire and tracking: prime and two
+    ticks on the card against the CPU port. A reuse tick launches 21 convs,
+    3 upsamplings and one MVDR."""
+    from azoom_torch import AudioZoomServer
+
+    cfg = PipelineConfig(mic_dist=0.04, win_size=32768)
+    rng = np.random.default_rng(9)
+    mix = (0.1 * rng.standard_normal((2, 2, 2 * 32768))).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        srv = AudioZoomServer(2, cfg=cfg, mask_reuse=True, wire="int16", track=True, device=dev)
+        srv.set_zoom(0, direction_deg=60.0, zoom=0.3)
+        srv.set_zoom(1, direction_deg=120.0, zoom=0.8)
+        srv.push(mix[:, :, :32768])
+        ticks = []
+        for k in range(2):
+            kernels.reset_launches()
+            ticks.append(srv.push(mix[:, :, 32768 + k * 16384:32768 + (k + 1) * 16384]))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert _active(kernels.launches) == {"qconv3x3": 21, "convt1x2": 3,
+                                                     "masked_mvdr": 1}
+        outs[dev] = (np.concatenate(ticks, axis=1), srv.bearings)
+    (a, ba), (b, bb) = outs["cuda"], outs["cpu"]
+    assert a.dtype == np.int16 and a.shape == (2, 2 * 16384)
+    np.testing.assert_array_equal(ba, bb)
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    assert float(np.linalg.norm(a - b) / np.linalg.norm(b)) <= 1e-4
+
+
 def test_convt_kernel_matches_plain(cuda):
     rng = np.random.default_rng(2)
     x = _t(np.abs(rng.standard_normal((2, 129, 8, 256))).astype(np.float32), cuda)

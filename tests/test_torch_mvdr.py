@@ -111,3 +111,100 @@ def test_more_than_two_mics_is_queued():
     R = torch.eye(3, dtype=torch.complex64).expand(5, 3, 3)
     with pytest.raises(NotImplementedError, match="linalgmm"):
         mvdr_weights(R, torch.ones(5, 3, dtype=torch.complex64))
+
+
+# -- per-stream steering and loading (the server's form) ---------------------
+
+def _streams(n=16_000):
+    """Three scenes, each steered and zoomed its own way: (Y, noise mask, d,
+    sigma) with d (3, F, 2) and sigma (3,)."""
+    from azoom.beam.zoom import zoom_to_sigma
+
+    Ys, ms, ds = [], [], []
+    freqs = rfft_freqs(CFG.n_fft, CFG.fs)
+    for k, steer in enumerate((60.0, 90.0, 125.0)):
+        sigs = speech_like_batch(jax.random.PRNGKey(20 + k), 2, n, CFG.fs)
+        sc = make_scene(sigs[0], sigs[1:], steer, jnp.array([steer - 45.0]), CFG.mic_dist, CFG.fs)
+        Ys.append(np.asarray(stft(sc["mixture"], CFG.n_fft, CFG.hop)))
+        ms.append(np.asarray(ibm_noise_mask(stft(sc["target_ref"], CFG.n_fft, CFG.hop),
+                                            stft(sc["interference_ref"], CFG.n_fft, CFG.hop)),
+                             np.float32))
+        ds.append(np.asarray(steering_vector(freqs, jnp.float32(steer), CFG.mic_dist)))
+    sigma = np.array([float(zoom_to_sigma(z)) for z in (0.2, 0.5, 0.9)], np.float32)
+    return np.stack(Ys), np.stack(ms), np.stack(ds), sigma, np.asarray(freqs)
+
+
+def test_per_stream_steering_and_loading_match_vmapped_pallas():
+    """Per-stream d (S, F, 2) and sigma (S,) in the plain B1 against the
+    reference server's form, jax.vmap of the Pallas kernel (interpret mode)
+    over streams; rtol 1e-3 / atol 2e-4, as test_pallas_mvdr.py."""
+    Y, m, d, sigma, freqs = _streams()
+    tm = 1.0 - m
+
+    def one(y, nm, t, dd, sg):
+        return masked_mvdr_pallas(y, nm, dd, freqs, target_mask=t, mask_floor=0.05, sigma=sg,
+                                  interpret=True)
+
+    ref = np.asarray(jax.vmap(one)(Y, m, tm, d, sigma))
+    got = masked_mvdr(_t(Y), _t(m), _t(d), _t(freqs), target_mask=_t(tm), mask_floor=0.05,
+                      sigma=_t(sigma)).numpy()
+    assert got.shape == ref.shape == (3, 513, Y.shape[-1])
+    np.testing.assert_allclose(got.real, ref.real, rtol=1e-3, atol=2e-4)
+    np.testing.assert_allclose(got.imag, ref.imag, rtol=1e-3, atol=2e-4)
+    # each stream alone, with its own d and scalar sigma, is the same function
+    for s in range(3):
+        alone = masked_mvdr(_t(Y[s]), _t(m[s]), _t(d[s]), _t(freqs), target_mask=_t(tm[s]),
+                            mask_floor=0.05, sigma=float(sigma[s])).numpy()
+        np.testing.assert_allclose(got[s], alone, rtol=1e-6, atol=1e-9)
+
+
+def test_per_stream_and_per_bin_loading_broadcast_alike():
+    """sigma (S,) equals sigma (S, F) with each row constant; (F,) equals
+    (S, F) with every row that vector."""
+    Y, m, d, sigma, freqs = _streams(8_000)
+    F = len(freqs)
+    base = dict(target_mask=_t(1.0 - m), mask_floor=0.05)
+    a = masked_mvdr(_t(Y), _t(m), _t(d), _t(freqs), sigma=_t(sigma), **base)
+    b = masked_mvdr(_t(Y), _t(m), _t(d), _t(freqs),
+                    sigma=_t(np.repeat(sigma[:, None], F, axis=1)), **base)
+    assert torch.equal(a, b)
+    per_bin = (1e-6 * (1.0 + np.arange(F) / F)).astype(np.float32)
+    c = masked_mvdr(_t(Y), _t(m), _t(d), _t(freqs), sigma=_t(per_bin), **base)
+    e = masked_mvdr(_t(Y), _t(m), _t(d), _t(freqs), sigma=_t(np.tile(per_bin, (3, 1))), **base)
+    assert torch.equal(c, e)
+
+
+@pytest.mark.parametrize("shape,lead,expect", [
+    ((), (3,), (0, 0)), ((513,), (3,), (0, 1)), ((3,), (3,), (1, 0)), ((3, 513), (3,), (513, 1)),
+    ((2, 3), (2, 3), (1, 0)), ((2, 3, 513), (2, 3), (513, 1)), ((513, 1), (513,), (1, 0)),
+    ((3, 1), (3,), (1, 0)), ((513, 513), (513,), (513, 1))])
+def test_loading_strides(shape, lead, expect):
+    from azoom_torch.beam.mvdr import loading_strides
+
+    assert loading_strides(shape, lead, 513) == expect
+
+
+@pytest.mark.parametrize("shape", [(4,), (3, 512), (513, 3)])
+def test_loading_strides_refuse_other_shapes(shape):
+    from azoom_torch.beam.mvdr import loading_strides
+
+    with pytest.raises(ValueError, match="sigma of shape"):
+        loading_strides(shape, (3,), 513)
+
+
+def test_loading_strides_refuse_a_bin_vector_when_streams_equal_bins():
+    """With as many streams as bins, (F,) could mean per bin or per stream."""
+    from azoom_torch.beam.mvdr import loading_strides
+
+    with pytest.raises(ValueError, match="ambiguous"):
+        loading_strides((513,), (513,), 513)
+
+
+def test_fused_wrapper_on_cpu_takes_per_stream_inputs():
+    Y, m, d, sigma, freqs = _streams(8_000)
+    before = dict(kernels.launches)
+    args = (_t(Y), _t(m), _t(d), _t(freqs))
+    kw = dict(target_mask=_t(1.0 - m), sigma=_t(sigma), mask_floor=0.05)
+    np.testing.assert_array_equal(masked_mvdr_fused(*args, **kw).numpy(),
+                                  masked_mvdr(*args, **kw).numpy())
+    assert kernels.launches == before

@@ -8,17 +8,19 @@ plain PyTorch version: a CUDA tensor launches the kernel, a CPU tensor takes
 the plain version.
 
 Ported so far: config, dsp (windows, stft, delays), beam (covariance,
-linalg2x2, mvdr with per-stream steering and loading, nullsteer at M = 2,
-zoom), masks (physics features, bin_doa, geometric incl. the FOV gate and
-the IPD-deviation mask, oracle), localize.srp (SRP, GCC-PHAT, the IPD angle
-histogram), models (quantize reader, unet TPUFPU, convert, pretrained
+linalg2x2, mvdr with per-stream steering and loading, nullsteer at M = 2
+with per-chunk steering, zoom, the HRNR postfilter), masks (physics
+features, bin_doa, geometric incl. the FOV gate and the IPD-deviation mask,
+oracle), localize (srp: SRP, GCC-PHAT, the IPD angle histogram; tracking:
+the Viterbi, causal, momentum, two-source and EMA trackers), models (quantize reader, unet TPUFPU, convert, pretrained
 ``tpufpu_nano``), eval.projection, stream (chunker, ``AudioZoomServer``:
 S live streams with mask reuse, an int16 wire and per-stream steer, zoom
 and tracking), kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
 int8 matmul), pipelines (``learned_enhance`` with the MVDR or hard-null
-beamformer and the FOV gate, ``learned_enhance_streaming``,
-``autosteer_enhance``, ``oracle_enhance``, ``heuristic_enhance``) and the
-``AudioZoom`` facade at high latency.
+beamformer, the FOV gate and the HRNR post-filter,
+``learned_enhance_streaming``, ``autosteer_enhance``,
+``tracked_autosteer_enhance``, ``oracle_enhance``, ``heuristic_enhance``)
+and the ``AudioZoom`` facade at high latency.
 """
 
 from azoom_torch.config import DEFAULT, PipelineConfig

@@ -75,7 +75,7 @@ def hybrid_hard_null_beamform(
     cond_threshold: float = 10.0,
 ) -> torch.Tensor:
     """Full hybrid pass on an STFT block Y (..., 2, F, T) with the target
-    mask (..., F, T) and phase-normalised steering d_tgt (F, 2) ->
+    mask (..., F, T) and phase-normalised steering d_tgt (F, 2) or (..., F, 2) ->
     (..., F, T). Below ``lowfreq_bypass_hz`` mic 0 passes through; the
     caller applies any spectral post-filter."""
     _require_two_mics(Y.shape[-3])

@@ -48,6 +48,13 @@
 // warps an SM); with 4 blocks (128 registers) it took 0.075 ms, not 0.059,
 // and groups of 8 rows need more registers still.
 //
+// Steering per chunk: the tracked pipeline steers each chunk of a clip at its
+// own bearing (azoom/pipelines/tracked.py vmaps the beamformer over chunks).
+// Row (b, f) reads its steering vector at dvec + b * d_bstride + 2 f; a stride
+// of 0 shares one (F, 2) vector over the batch, so the shared launch does the
+// same arithmetic, bit for bit, as the kernel before the stride was added.
+// Per chunk it adds B * F * 16 bytes.
+//
 // -DAZT_HARD_NULL_FIXED_WEIGHTS (kernels/bench.py only) replaces the closed
 // form by the delay-and-sum weights: what the kernel costs without it.
 
@@ -164,7 +171,7 @@ __device__ __forceinline__ void hard_null_weights(double R00, double R11, double
 
 __global__ void __launch_bounds__(kThreads, 5) hard_null_kernel(
     const float2* __restrict__ Y, const float* __restrict__ tmask,
-    const float* __restrict__ post, const float2* __restrict__ dvec,
+    const float* __restrict__ post, const float2* __restrict__ dvec, long d_bstride,
     const float* __restrict__ freqs, double cond_thr, float bypass_hz,
     float2* __restrict__ S, int B, int F, int T) {
   const int lane = threadIdx.x & 31;
@@ -236,11 +243,13 @@ __global__ void __launch_bounds__(kThreads, 5) hard_null_kernel(
   // 3. The closed form, once per lane for row lane / kLanes (rows >= n: row n - 1).
   Cx w0, w1;
   {
-    const int f = (f0 + min(lane / kLanes, n - 1)) % F;
+    const int fr = f0 + min(lane / kLanes, n - 1);
+    const int f = fr % F;
     const double norm = v[0][0] + kEpsNorm;
     const double R00 = v[0][1] / norm, R11 = v[0][2] / norm;
     const double br = v[0][3] / norm, bi = v[0][4] / norm;
-    const float2 df0 = dvec[2 * f], df1 = dvec[2 * f + 1];
+    const float2* db = dvec + (b0 + fr / F) * d_bstride;
+    const float2 df0 = db[2 * f], df1 = db[2 * f + 1];
     hard_null_weights(R00, R11, br, bi, {df0.x, df0.y}, {df1.x, df1.y}, cond_thr, w0, w1);
   }
   double w[kGroup][4];
@@ -295,15 +304,17 @@ __global__ void __launch_bounds__(kThreads, 5) hard_null_kernel(
 }  // namespace
 
 // Y (B, 2, F, T) complex64; tmask (B, F, T) f32 (covariance weights are
-// 1 - tmask); post (B, F, T) f32 or null; d (F, 2) complex64, phase-
-// normalised; freqs (F,) f32; S (B, F, T) complex64. Returns cudaGetLastError().
+// 1 - tmask); post (B, F, T) f32 or null; d complex64, phase-normalised,
+// stream b's (F, 2) at d + b * d_bstride complex elements (0: shared); freqs
+// (F,) f32; S (B, F, T) complex64. Returns cudaGetLastError().
 extern "C" int azt_hard_null(const void* Y, const void* tmask, const void* post,
-                             const void* d, const void* freqs, double cond_thr,
-                             float bypass_hz, void* S, int B, int F, int T, void* stream) {
+                             const void* d, long d_bstride, const void* freqs,
+                             double cond_thr, float bypass_hz, void* S, int B, int F, int T,
+                             void* stream) {
   const long groups = ((long)B * F + kGroup - 1) / kGroup;
   const long blocks = (groups + kWarps - 1) / kWarps;
   hard_null_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)Y, (const float*)tmask, (const float*)post, (const float2*)d,
+      (const float2*)Y, (const float*)tmask, (const float*)post, (const float2*)d, d_bstride,
       (const float*)freqs, cond_thr, bypass_hz, (float2*)S, B, F, T);
   return (int)cudaGetLastError();
 }

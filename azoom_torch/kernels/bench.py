@@ -47,8 +47,10 @@ against beside the published 67 TFLOP/s.
 
 ``--against DIR``: DIR holds kernel sources of an earlier tree: for
 ``convt`` and ``hard_null`` the ``convt_kernel.cu`` and
-``nullsteer_kernel.cu`` with the C interface they had when ``convt1x2`` took
-no plan (``azt_convt1x2(x, W, bias, out, P, K, N2, Cout, stream)``); for
+``nullsteer_kernel.cu`` with the C interfaces they had when ``convt1x2`` took
+no plan (``azt_convt1x2(x, W, bias, out, P, K, N2, Cout, stream)``) and B3
+one shared d (``azt_hard_null(Y, tmask, post, d, freqs, cond_thr,
+bypass_hz, S, B, F, T, stream)``); for
 ``mvdr`` the ``mvdr_kernel.cu`` with one shared d and an optional per-bin
 sigma (``azt_masked_mvdr(Y, nmask, tmask, d, sigma_f, sigma, freqs,
 hp_cutoff, mask_floor, S, B, F, T, stream)``). Each mode then builds it too,
@@ -337,11 +339,13 @@ def bench_hard_null(dev, quick: bool, against: Path | None) -> dict:
     d = steering_vector(f, 60.0, 0.04, normalize_phase=True)
     args = (Y, tm, d, f)
 
-    def call(fn):
-        """The wrapper's launch with another build's entry point."""
+    def call(fn, *d_bstride):
+        """The wrapper's launch with another build's entry point: the
+        current interface takes d's batch stride (0: shared), the earlier
+        one does not."""
         S = torch.empty((batch, 513, 64), dtype=torch.complex64, device=dev)
-        build.check(fn(Y.data_ptr(), tm.data_ptr(), tm.data_ptr(), d.data_ptr(), f.data_ptr(),
-                       10.0, 200.0, S.data_ptr(), batch, 513, 64,
+        build.check(fn(Y.data_ptr(), tm.data_ptr(), tm.data_ptr(), d.data_ptr(), *d_bstride,
+                       f.data_ptr(), 10.0, 200.0, S.data_ptr(), batch, 513, 64,
                        torch.cuda.current_stream().cuda_stream), "hard_null variant")
         return S
 
@@ -355,13 +359,16 @@ def bench_hard_null(dev, quick: bool, against: Path | None) -> dict:
                not_bit_equal_to_plain=int((got != ref).sum()))
     old_fn = None
     if against is not None:
-        old_fn = nk.bind(earlier_library(against, "nullsteer_kernel"))
+        old_fn = earlier_library(against, "nullsteer_kernel").azt_hard_null
+        old_fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_double, ctypes.c_float, ctypes.c_void_p]
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        old_fn.restype = ctypes.c_int
         row["not_bit_equal_to_earlier"] = int((got != call(old_fn)).sum())
     if not quick:
         fixed = nk.bind(build.load_library("nullsteer_kernel", ("AZT_HARD_NULL_FIXED_WEIGHTS",)))
         n_el = batch * 513 * 64
         row.update(ms=device_ms(lambda: nk.hard_null_fused(*args, post_mask=tm)),
-                   fixed_weights_ms=device_ms(lambda: call(fixed)),
+                   fixed_weights_ms=device_ms(lambda: call(fixed, 0)),
                    bound_ms=max((n_el * (16 + 4 + 4 + 8) + 513 * 20) / HBM_BYTES_PER_S,
                                 n_el * 24.0 / FP64_FLOPS_PER_S) * 1e3)
         if old_fn is not None:
@@ -369,7 +376,7 @@ def bench_hard_null(dev, quick: bool, against: Path | None) -> dict:
                 lambda: call(old_fn), lambda: nk.hard_null_fused(*args, post_mask=tm))
     print("[hard_null] " + " ".join(
         f"{n}={v:.4g}" if isinstance(v, float) else f"{n}={v}" for n, v in row.items()), flush=True)
-    if not row["row_rel_err_vs_plain"] <= 1e-5:
+    if not row["row_rel_err_vs_plain"] <= 1e-5 or row.get("not_bit_equal_to_earlier", 0):
         raise AssertionError(f"hard_null: {row}")
     return {str(shape): row}
 

@@ -59,7 +59,8 @@ def hard_null_plain(
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: hybrid_hard_null_beamform in
     float64 (the interference weights 1 - target_mask taken in float32, as
-    the reference takes them), rounded to complex64, times ``post_mask``."""
+    the reference takes them), rounded to complex64, times ``post_mask``.
+    d is (F, 2) or one per stream (..., F, 2), as the kernel takes it."""
     S = hybrid_hard_null_beamform(
         Y.to(torch.complex128), target_mask, d.to(torch.complex128), freqs_hz,
         lowfreq_bypass_hz=lowfreq_bypass_hz, cond_threshold=cond_threshold,
@@ -79,7 +80,8 @@ def bind(lib: ctypes.CDLL):
     argument types."""
     fn = lib.azt_hard_null
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_double, ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_void_p, ctypes.c_double, ctypes.c_float,
+                                 ctypes.c_void_p]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -109,9 +111,11 @@ def hard_null_fused(
 
     Y complex64 (..., 2, F, T); target_mask and post_mask float32
     (..., F, T) (the interference covariance is weighted by 1 -
-    target_mask); d complex64 (F, 2), phase-normalised; freqs_hz float32
-    (F,). Returns complex64 (..., F, T). On a CUDA tensor one kernel launch
-    for the whole batch; on a CPU tensor :func:`hard_null_plain`.
+    target_mask); d complex64, phase-normalised, shared (F, 2) or one per
+    stream (..., F, 2) (the tracked pipeline steers each chunk on its own);
+    freqs_hz float32 (F,). Returns complex64 (..., F, T). On a CUDA tensor
+    one kernel launch for the whole batch; on a CPU tensor
+    :func:`hard_null_plain`.
     """
     if Y.device.type == "cpu":
         return hard_null_plain(Y, target_mask, d, freqs_hz, post_mask, cond_threshold,
@@ -132,8 +136,10 @@ def hard_null_fused(
             _require(t.dtype == torch.float32 and t.shape == lead + (F, T),
                      f"{name} must be float32 {tuple(lead + (F, T))}, got "
                      f"{t.dtype} {tuple(t.shape)}")
-    _require(d.dtype == torch.complex64 and tuple(d.shape) == (F, 2),
-             f"d must be complex64 ({F}, 2), got {d.dtype} {tuple(d.shape)}")
+    _require(d.dtype == torch.complex64 and tuple(d.shape) in ((F, 2), tuple(lead) + (F, 2)),
+             f"d must be complex64 ({F}, 2) or {tuple(lead) + (F, 2)}, got {d.dtype} "
+             f"{tuple(d.shape)}")
+    d_bstride = 0 if d.ndim == 2 else 2 * F
     _require(freqs_hz.dtype == torch.float32 and tuple(freqs_hz.shape) == (F,),
              f"freqs_hz must be float32 ({F},)")
     B = 1
@@ -146,7 +152,7 @@ def hard_null_fused(
         rc = _entry()(
             Y.data_ptr(), target_mask.data_ptr(),
             None if post_mask is None else post_mask.data_ptr(),
-            d.data_ptr(), freqs_hz.data_ptr(), float(cond_threshold),
+            d.data_ptr(), d_bstride, freqs_hz.data_ptr(), float(cond_threshold),
             float(lowfreq_bypass_hz), S.data_ptr(), B, F, T,
             torch.cuda.current_stream(Y.device).cuda_stream,
         )

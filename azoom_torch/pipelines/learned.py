@@ -5,11 +5,13 @@ physics features):
     STFT -> steer-align -> physics features -> TPUFPU int8 mask net
          -> (FOV covariance gate) -> masked MVDR + floored mask post-filter
             + high-pass, or hybrid hard-null + raw mask post-filter + 200 Hz
-            mic-0 bypass -> iSTFT
+            mic-0 bypass -> (HRNR post-filter) -> iSTFT
 
 Everything runs on the device of the mixture. On CUDA the mask net's 3x3
 convs run on the int8 conv kernel and the beamformer on its fused kernel
-(MVDR or hard-null), one launch for the whole batch; on the CPU they take
+(MVDR or hard-null), one launch for the whole batch, with one steering
+vector shared or one per batch entry (the tracked pipeline steers each
+chunk at its own bearing); on the CPU they take
 their plain PyTorch versions. ``learned_enhance_streaming`` runs the 2 s /
 50 % chunker with all chunks as one batch.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from azoom_torch.beam.postfilter import harmonic_regeneration
 from azoom_torch.config import PipelineConfig
 from azoom_torch.dsp.delays import steering_vector
 from azoom_torch.dsp.stft import istft, rfft_freqs, stft
@@ -86,12 +89,16 @@ def learned_enhance(
     mic 0 passed through below 200 Hz). ``fov_deg`` gates the noise
     covariance of either by the camera's field of view around the look
     direction (masks.geometric.fov_noise_gate). ``n_nulls`` acts at M > 2
-    only, which is not ported.
+    only, which is not ported. ``harmonic_regen`` runs the HRNR stage-2
+    post-filter (beam.postfilter) on the beamformer's unmasked output with
+    the stage-1 gain: the floored mask for MVDR, the raw mask for hard-null.
 
-    ``steer_deg`` overrides ``cfg.angle_target_deg``. ``steer_align``
-    rotates the STFT by the conjugate steering vector before the features,
-    so the look direction appears broadside to the net (an exact no-op,
-    and skipped, at a static 90 deg on a linear array).
+    ``steer_deg`` overrides ``cfg.angle_target_deg``: a float, a 0-d tensor or
+    one bearing per leading index of the mixture (a (C,) tensor for C
+    chunks). ``steer_align`` rotates the STFT by the conjugate steering
+    vector before the features, so the look direction appears broadside to
+    the net (an exact no-op, and skipped, at a static 90 deg on a linear
+    array).
     ``train_mic_dist`` enables geometry adaptation (phase features scaled
     by train_mic_dist / the first pair's spacing). The mixture and the
     model must be on the same device.
@@ -103,8 +110,6 @@ def learned_enhance(
         )
     if beamformer not in ("mvdr", "hard_null"):
         raise ValueError(f"unknown beamformer {beamformer!r}")
-    if harmonic_regen:
-        raise NotImplementedError("harmonic_regen is not ported yet")
     mixture = torch.as_tensor(mixture)
     if mixture.device != _model_device(model):
         raise ValueError(
@@ -152,10 +157,13 @@ def learned_enhance(
             gate, protect, valid = fov_noise_gate(
                 Y, steer, fov_deg, cfg.mic_dist, cfg.fs, cfg.c, positions=geom)
             noise_mask = apply_fov_gate(noise_mask, gate, protect, valid)
+        # With harmonic_regen the beamformer applies no post-filter; the HRNR
+        # stage takes its output and the stage-1 gain g1 instead.
+        post = None if harmonic_regen else tgt_mask
         if beamformer == "mvdr":
             d = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics, positions=geom)
             S = masked_mvdr_fused(
-                Y, noise_mask, d, freqs, target_mask=tgt_mask, sigma=cfg.sigma,
+                Y, noise_mask, d, freqs, target_mask=post, sigma=cfg.sigma,
                 hp_cutoff_hz=cfg.hp_cutoff_hz, mask_floor=mask_floor,
             )
         else:
@@ -164,7 +172,13 @@ def learned_enhance(
             # The beamformer weights its interference covariance by 1 - its
             # mask argument, so the (gated) noise mask enters as 1 - noise
             # in float32, as in the reference; the post-filter is the raw mask.
-            S = hard_null_fused(Y, 1.0 - noise_mask, d, freqs, post_mask=tgt_mask)
+            S = hard_null_fused(Y, 1.0 - noise_mask, d, freqs, post_mask=post)
+        if harmonic_regen:
+            # The stage-1 gain: the floored mask (MVDR), the raw mask (hard-null).
+            g1 = tgt_mask
+            if beamformer == "mvdr" and mask_floor > 0:
+                g1 = torch.clamp(tgt_mask, min=mask_floor)
+            S = harmonic_regeneration(S, g1, cfg.n_fft, cfg.hop, length=n)
         return istft(S, cfg.n_fft, cfg.hop, length=length)
 
 

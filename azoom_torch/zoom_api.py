@@ -9,11 +9,12 @@ int8 mask net: the camera's field of view picks the region, the DOA
 histogram refines the bearing inside it, the net gives the mask.
 
 Ported: the high-latency mode (2 s windows, 50 % Hann overlap-add; push()
-output emerges one hop behind the input), the causal and momentum streaming
-trackers, ``pipelined`` pushes and the ``mask_reuse`` one-slot server. Not
-ported (each raises NotImplementedError naming its ROADMAP.md item):
-``latency="low"``, whole-clip tracking of clips longer than a window,
-``harmonic_regen`` and float (``int8=False``) nets.
+output emerges one hop behind the input), whole-clip tracking of clips
+longer than a window (pipelines.tracked), the causal and momentum streaming
+trackers, the HRNR post-filter (``harmonic_regen``), ``pipelined`` pushes
+and the ``mask_reuse`` one-slot server. Not ported (each raises
+NotImplementedError naming its ROADMAP.md item): ``latency="low"`` and
+float (``int8=False``) nets.
 """
 
 from __future__ import annotations
@@ -27,11 +28,12 @@ import torch
 from azoom_torch.beam.zoom import zoom_to_sigma
 from azoom_torch.config import PipelineConfig, resolve_device
 from azoom_torch.dsp.stft import _check_precision, stft
+from azoom_torch.localize import tracking
 from azoom_torch.localize.srp import ipd_angle_histogram
 from azoom_torch.models.pretrained import geo_adapt_dist, load_bundled
 from azoom_torch.pipelines.autosteer import autosteer_enhance
 from azoom_torch.pipelines.learned import learned_enhance
-from azoom_torch.pipelines.tracked import steered_heuristic_enhance
+from azoom_torch.pipelines.tracked import steered_heuristic_enhance, tracked_autosteer_enhance
 from azoom_torch.stream.server import AudioZoomServer, _MomentumBank
 
 __all__ = ["AudioZoom"]
@@ -58,12 +60,14 @@ class AudioZoom:
       autosteer: with a model, refine the bearing by the DOA histogram inside
         the field of view before steering the net; False steers exactly at
         ``direction_deg`` (the FOV still gates the noise covariance).
-      track: streaming push() follows a moving talker: a forward-Viterbi
-        bearing filter per window, its scores carried across windows
-        (camera aiming prior on the first). Whole-clip enhance() of a clip
-        longer than a window is not ported.
+      track: follow a moving talker. Whole-clip enhance() of a clip longer
+        than a window chunks it and steers every chunk at its bearing on
+        the Viterbi MAP track (pipelines.tracked); streaming push() runs a
+        forward-Viterbi bearing filter per window, its scores carried
+        across windows (camera aiming prior on the first).
       tracker: 'causal' (position-only) or 'momentum' (direction state,
-        which keeps identity through a crossing talker).
+        which keeps identity through a crossing talker); enhance() of a long
+        clip runs the offline form of either ('viterbi' or 'momentum').
       latency: 'high' (ported) or 'low' (not ported).
       native: accepted; push() buffers in NumPy either way (the reference's
         own path without its C++ engine, with the same output) until
@@ -74,11 +78,17 @@ class AudioZoom:
         surfaces one window late. flush() drains it.
       dsp_precision: 'exact' or 'fast', checked; it selects nothing here (in
         the reference it picks the TPU's matmul-DFT precision).
-      harmonic_regen: not ported; True raises.
+      harmonic_regen: the HRNR stage-2 post-filter (beam.postfilter) on the
+        learned paths that steer one window: autosteer, exact steering and
+        the streaming tracker; the heuristic paths and whole-clip tracking
+        ignore it, as in the reference.
       mask_reuse: streaming push() through a one-slot AudioZoomServer with
         frame-aligned mask reuse (needs a model and cfg.win_size // 2 a
         multiple of cfg.hop, e.g. win_size=32768); ``track`` composes,
         ``enhance_fn`` and ``pipelined`` do not. enhance() is unaffected.
+        The server's path drops ``autosteer`` and ``harmonic_regen``: a
+        defect of the reference (azoom/zoom_api.py), kept on purpose so that
+        the two give the same output (ROADMAP.md Queue C).
       device: None for CUDA (raises without a card), or "cpu" for the plain
         PyTorch path.
     """
@@ -111,9 +121,6 @@ class AudioZoom:
             raise NotImplementedError(
                 "latency='low' (the causal crn_causal net, stream/lowlat.py, stream/online.py) "
                 "is not ported (ROADMAP.md Queue A items 9.4 and 9.5)")
-        if self.harmonic_regen:
-            raise NotImplementedError(
-                "harmonic_regen (beam/postfilter.py) is not ported (ROADMAP.md Queue A item 9.3)")
         if self.model is not None and not self.int8:
             raise NotImplementedError(
                 "float mask nets are not ported (ROADMAP.md Queue A item 9.4); pass int8=True")
@@ -156,8 +163,10 @@ class AudioZoom:
     def _update_track(self, window: torch.Tensor, cfg: PipelineConfig) -> float:
         """One forward-Viterbi filtering step of the bearing on this window's
         DOA histogram (FOV-gated log emissions), the scores carried across
-        push() windows. The momentum tracker is the server's filter with one
-        slot."""
+        push() windows: the trellis step of localize.tracking on the host.
+        The emissions are NumPy's float32 log, as the reference facade takes
+        them (torch's log differs from it in the last bit on some inputs).
+        The momentum tracker is the server's filter with one slot."""
         with torch.inference_mode():
             Y = stft(window, cfg.n_fft, cfg.hop)
             angles, hist = ipd_angle_histogram(Y, cfg.mic_dist, cfg.fs, c=cfg.c)
@@ -179,10 +188,11 @@ class AudioZoom:
             sigma_p = self.fov_deg / 5.0
             scores = emis - 0.5 * ((angles - self.direction_deg) / sigma_p) ** 2
         else:
-            trans_sigma = 12.0  # deg per window hop
-            diff = angles[:, None] - angles[None, :]
-            trans = -0.5 * (diff / trans_sigma) ** 2
-            scores = (self._track_scores[:, None] + trans).max(axis=0) + emis
+            a = torch.from_numpy(angles)
+            scores = tracking.viterbi_step(
+                torch.from_numpy(self._track_scores),
+                tracking.transition(a, 12.0),  # deg per window hop
+                torch.from_numpy(emis))[0].numpy()
         self._track_scores = scores - scores.max()
         self._track_theta = float(angles[np.argmax(scores)])
         return self._track_theta
@@ -203,7 +213,8 @@ class AudioZoom:
                 return steered_heuristic_enhance(window, cfg, theta)
             return learned_enhance(window, net, cfg, steer_deg=theta,
                                    fov_deg=float(self.fov_deg),
-                                   train_mic_dist=self._train_mic_dist)
+                                   train_mic_dist=self._train_mic_dist,
+                                   harmonic_regen=self.harmonic_regen)
         if net is None:
             return autosteer_enhance(window, cfg, fov_center_deg=self.direction_deg,
                                      fov_width_deg=self.fov_deg)[0]
@@ -211,10 +222,12 @@ class AudioZoom:
             # camera field of view -> DOA-refined bearing -> learned mask
             return autosteer_enhance(
                 window, cfg, fov_center_deg=self.direction_deg, fov_width_deg=self.fov_deg,
-                model=net, fov_gate=True, train_mic_dist=self._train_mic_dist)[0]
+                model=net, fov_gate=True, train_mic_dist=self._train_mic_dist,
+                harmonic_regen=self.harmonic_regen)[0]
         # exact steering; the field of view still gates the noise covariance
         return learned_enhance(window, net, cfg, fov_deg=float(self.fov_deg),
-                               train_mic_dist=self._train_mic_dist)
+                               train_mic_dist=self._train_mic_dist,
+                               harmonic_regen=self.harmonic_regen)
 
     # -- whole clip ---------------------------------------------------------
 
@@ -222,14 +235,21 @@ class AudioZoom:
         return torch.as_tensor(np.asarray(x, np.float32)).to(self._device)
 
     def enhance(self, mixture) -> np.ndarray:
-        """Whole-clip enhancement: (M, n) -> (n,) numpy, one window of the
-        clip's length."""
-        if self.track and self.enhance_fn is None and np.shape(mixture)[-1] > self.cfg.win_size:
-            raise NotImplementedError(
-                "whole-clip tracking of clips longer than win_size (pipelines/tracked.py "
-                "tracked_autosteer_enhance, localize/tracking.py) is not ported "
-                "(ROADMAP.md Queue A item 9.5)")
-        return _to_numpy(self._enhance_window(self._as_input(mixture)))
+        """Whole-clip enhancement: (M, n) -> (n,) numpy. With ``track`` a
+        clip longer than a window is chunked and every chunk steered at its
+        own bearing on the offline track (the moving-talker path,
+        pipelines.tracked); otherwise one window of the clip's length."""
+        x = self._as_input(mixture)
+        if self.track and self.enhance_fn is None and x.shape[-1] > self.cfg.win_size:
+            kw = {} if self._mask_net is None else dict(
+                model=self._mask_net, train_mic_dist=self._train_mic_dist)
+            out, _ = tracked_autosteer_enhance(
+                x, self._zoom_cfg(), fov_center_deg=self.direction_deg,
+                fov_width_deg=float(self.fov_deg),
+                tracker="momentum" if self.tracker == "momentum" else "viterbi",
+                dsp_precision=self.dsp_precision, **kw)
+            return _to_numpy(out)
+        return _to_numpy(self._enhance_window(x))
 
     # -- live streaming -----------------------------------------------------
 

@@ -73,11 +73,33 @@ Phases, each printing its own line(s):
                clip (autosteer: the DOA histogram, then the learned path with
                the FOV gate) and push() of 6 s with tracker="momentum", each
                against the same calls on the CPU; ms per call and per window.
+ 14. tracked - a 128 s moving talker made with numpy (target gliding 60 -> 120
+               deg, interferers fixed at 30 and 150 deg, 4 cm; 127 chunks):
+               tracked_autosteer_enhance with each tracker (viterbi, causal,
+               momentum, momentum_causal, ema) on the heuristic path, bearings
+               equal to and waveform against the CPU port's on the whole clip;
+               each tracker alone on the clip's (127, 181) histograms, on the
+               card and on the host; the learned path with MVDR and hard-null
+               (21 convs, 3 upsamplings, ONE beamformer launch for the whole
+               clip; a 6 s prefix against the CPU; ms per recorded second);
+               AudioZoom(model="tpufpu_nano", int8=True, track=True).enhance
+               of the clip; a profile of one learned MVDR call
+               (chiprun_out/profile_tracked.txt). Then B3 per chunk at
+               (128, 2, 513, 64) with 128 steers against its plain version,
+               the shared launch bit for bit against the per-chunk launch
+               given that steering in every chunk, and its time as CUDA-graph
+               replays.
+ 15. hrnr    - learned_enhance(harmonic_regen=True) at (128, 2, 32000) on the
+               far-field scenes of phase 7, MVDR and hard-null: launch counts,
+               the first 4 chunks against the CPU, the median ms per call; a
+               profile of the HRNR stage alone (chiprun_out/profile_hrnr.txt).
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
-is a loop of calls from Python for both), the card's name and power limit,
-and a last line {"ok": true, "device": {...}}.
+is a loop of calls from Python for both; B3 twice: hard_null shared with
+phase 9's launches, hard_null_per_chunk with the launches of phase 14's
+learned hard-null run), the card's name and power limit, and a last line
+{"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without CUDA it exits non-zero at once. Imports nothing of JAX or azoom.
@@ -156,6 +178,45 @@ def far_field_scene(rng, batch: int, n: int, fs: int = 16_000, mic_dist: float =
     g = rms / np.sqrt(np.mean(mix**2))
     return ((mix * g).astype(np.float32), (img[:, 0, 0] * g).astype(np.float32),
             (img[:, 1:, 0].sum(axis=1) * g).astype(np.float32))
+
+
+def moving_scene(rng, n: int, glide=(60.0, 120.0), interferers=(30.0, 150.0), fs: int = 16_000,
+                 mic_dist: float = 0.04, rms: float = 0.1, c: float = 343.0, block: int = 2048):
+    """A moving talker with numpy, as azoom's moving-source renderer makes
+    one: speech-like sources (as far_field_scene's), the target's azimuth
+    gliding linearly from glide[0] to glide[1] over the clip, the
+    interferers fixed. Each source is cut into periodic-Hann windows of
+    2 * block at a hop of block (the windows sum to one), every window is
+    delayed to the 2 mics by an rFFT phase ramp at its block's azimuth, and
+    the windows are overlap-added: a crossfade between block anchors.
+    Returns the mixture float32 (2, n) at ``rms``."""
+    import numpy as np
+
+    f = np.fft.rfftfreq(n, 1.0 / fs)
+    t = np.arange(n) / fs
+    src = np.fft.irfft(np.fft.rfft(rng.standard_normal((3, n))) / (1.0 + f / 500.0), n)
+    rate = 3.0 + 2.0 * rng.random((3, 1))
+    src = src * (0.5 * (1.0 + np.sin(2 * np.pi * rate * t + 2 * np.pi * rng.random((3, 1))))) ** 2
+    src /= np.sqrt(np.mean(src**2, axis=-1, keepdims=True))
+    n_blocks = -(-n // block)
+    seg = 2 * block
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(seg) / seg)
+    xp = np.pad(src, ((0, 0), (block, (n_blocks + 2) * block - n - block)))
+    starts = np.arange(n_blocks + 1) * block
+    segs = np.stack([xp[:, s:s + seg] for s in starts]) * w  # (B + 1, 3, seg)
+    traj = np.linspace(glide[0], glide[1], n_blocks)
+    traj = np.concatenate([traj[:1], traj])  # window b peaks half a block before anchor b
+    angles = np.stack([traj] + [np.full(n_blocks + 1, a) for a in interferers], axis=1)
+    pos = np.array([mic_dist / 2, -mic_dist / 2])
+    tau = pos * np.cos(np.deg2rad(angles))[..., None] / c  # (B + 1, 3, 2)
+    fb = np.fft.rfftfreq(seg, 1.0 / fs)
+    img = np.fft.irfft(np.fft.rfft(segs)[:, :, None, :]
+                       * np.exp(-2j * np.pi * fb * tau[..., None]), seg)  # (B + 1, 3, 2, seg)
+    out = np.zeros((2, (n_blocks + 2) * block))
+    for b, s in enumerate(starts):
+        out[:, s:s + seg] += img[b].sum(axis=0)
+    mix = out[:, block:block + n]
+    return (mix * (rms / np.sqrt(np.mean(mix**2)))).astype(np.float32)
 
 
 def log(phase: str, **kw) -> None:
@@ -891,15 +952,209 @@ def main() -> int:
         ms_per_window=f"{sum(push_ms) / windows:.3f}",
         push_wave_rel_l2=f"{p_rel:.3e}", bearings=bearings)
 
+    # 14. whole-clip tracking --------------------------------------------------------
+    from azoom_torch.localize.srp import ipd_angle_histogram
+    from azoom_torch.pipelines.tracked import TRACKERS, track_bearings, tracked_autosteer_enhance
+
+    seconds = 128
+    clip = moving_scene(rng, seconds * 16_000)  # 127 chunks of 2 s at 50 %
+    clip_gpu = torch.from_numpy(clip).to(dev)
+    tr_kw = dict(fov_center_deg=90.0, fov_width_deg=90.0)
+    tracked, theta_cpu_of = {}, {}
+    for tracker in TRACKERS:  # the heuristic path (no net): the tracker and B1 per chunk
+        out, theta = tracked_autosteer_enhance(clip_gpu, cfg, tracker=tracker, **tr_kw)
+        torch.cuda.synchronize()
+        out_cpu, theta_cpu = tracked_autosteer_enhance(clip, cfg, tracker=tracker, device="cpu",
+                                                       **tr_kw)
+        check(out.shape == (seconds * 16_000,) and bool(torch.isfinite(out).all()),
+              f"tracked {tracker}: bad output")
+        check(theta.shape == (127,) and torch.equal(theta.cpu(), theta_cpu),
+              f"tracked {tracker}: bearings differ from the CPU's")
+        theta_cpu_of[tracker] = theta_cpu
+        rel = float((out.cpu() - out_cpu).norm() / out_cpu.norm())
+        check(rel <= 1e-2, f"tracked {tracker}: waveform relative L2 {rel:.3e} against the CPU")
+        tracked[tracker] = dict(wave_rel_l2=rel, bearings_first_last=[float(theta[0]),
+                                                                      float(theta[-1])])
+    # the trackers alone on the clip's (127, 181) histograms: on the card, and
+    # on the host after one copy of the histograms
+    chunks_gpu, _ = chunk_signal(clip_gpu, cfg.win_size, cfg.win_size // 2)
+    angles_gpu, hists_gpu = ipd_angle_histogram(stft(chunks_gpu), cfg.mic_dist, cfg.fs)
+    center = torch.tensor(90.0)
+    for tracker in TRACKERS:
+        def on_card():
+            return track_bearings(tracker, angles_gpu, hists_gpu, center.to(dev), 90.0)
+
+        def on_host():
+            return track_bearings(tracker, angles_gpu.cpu(), hists_gpu.cpu(), center, 90.0)
+
+        check(torch.equal(on_card().cpu(), on_host()), f"tracker {tracker}: card and host differ")
+        for where, fn in (("card_ms", on_card), ("host_ms", on_host)):
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn().cpu()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            tracked[tracker][where] = statistics.median(ts[1:])
+        log("tracker", tracker=tracker, chunks=127, card_ms=f"{tracked[tracker]['card_ms']:.3f}",
+            host_ms=f"{tracked[tracker]['host_ms']:.3f}",
+            wave_rel_l2_vs_cpu=f"{tracked[tracker]['wave_rel_l2']:.3e}",
+            bearings_first_last=tracked[tracker]["bearings_first_last"])
+    del chunks_gpu, hists_gpu
+    learned_tracked = {}
+    pre = clip[:, :6 * 16_000]  # 5 chunks: the prefix held against the CPU
+    for beamformer, kernel, tracker in (("mvdr", "masked_mvdr", "viterbi"),
+                                        ("hard_null", "hard_null", "momentum")):
+        kw = dict(model=model, beamformer=beamformer, tracker=tracker, **tr_kw)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, theta = tracked_autosteer_enhance(clip_gpu, cfg, **kw)
+        torch.cuda.synchronize()
+        counts = active_launches()
+        check(counts == {"qconv3x3": 21, "convt1x2": 3, kernel: 1},
+              f"learned tracked {beamformer}: launch counts {counts}")
+        check(out.shape == (seconds * 16_000,) and bool(torch.isfinite(out).all()),
+              f"learned tracked {beamformer}: bad output")
+        check(torch.equal(theta.cpu(), theta_cpu_of[tracker]),
+              f"learned tracked {beamformer}: bearings differ from the CPU's")
+        p_gpu, th_gpu = tracked_autosteer_enhance(torch.from_numpy(pre).to(dev), cfg, **kw)
+        p_cpu, th_cpu = tracked_autosteer_enhance(
+            pre, cfg, device="cpu", **{**kw, "model": model_cpu})
+        check(torch.equal(th_gpu.cpu(), th_cpu), f"learned tracked {beamformer}: prefix bearings")
+        rel = float((p_gpu.cpu() - p_cpu).norm() / p_cpu.norm())
+        check(rel <= 1e-2,
+              f"learned tracked {beamformer}: 6 s prefix, waveform relative L2 {rel:.3e}")
+        ts = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracked_autosteer_enhance(clip_gpu, cfg, **kw)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(ts[1:])
+        learned_tracked[beamformer] = dict(launches=counts, ms=ts, ms_median=med,
+                                           ms_per_recorded_second=med / seconds,
+                                           prefix_wave_rel_l2=rel, tracker=tracker)
+        if beamformer == "mvdr":
+            profile_call("profile_tracked", lambda: tracked_autosteer_enhance(clip_gpu, cfg, **kw),
+                         "profile_tracked.txt")
+        log("tracked", beamformer=beamformer, tracker=tracker, seconds=seconds, chunks=127,
+            launches=counts, ms_median=f"{med:.3f}", ms_per_recorded_second=f"{med / seconds:.4f}",
+            ms_all=[round(t, 2) for t in ts], prefix_wave_rel_l2=f"{rel:.3e}",
+            bearings_first_last=[float(theta[0]), float(theta[-1])])
+    # the facade: enhance of the whole clip with track=True
+    zkw = dict(model="tpufpu_nano", int8=True, track=True, direction_deg=90.0, fov_deg=90.0,
+               zoom=0.4)
+    z_gpu = AudioZoom(**zkw)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    z_out = z_gpu.enhance(clip)
+    z_ms = (time.perf_counter() - t0) * 1e3
+    z_counts = active_launches()
+    check(z_counts == {"qconv3x3": 21, "convt1x2": 3, "masked_mvdr": 1},
+          f"facade tracked enhance: launch counts {z_counts}")
+    check(z_out.shape == (seconds * 16_000,) and bool(np.isfinite(z_out).all()),
+          "facade tracked enhance: bad output")
+    z_pre_cpu = AudioZoom(device="cpu", **zkw).enhance(pre)
+    z_rel = float(np.linalg.norm(z_gpu.enhance(pre) - z_pre_cpu) / np.linalg.norm(z_pre_cpu))
+    check(z_rel <= 1e-2, f"facade tracked enhance: 6 s prefix, waveform relative L2 {z_rel:.3e}")
+    log("tracked_facade", seconds=seconds, launches=z_counts, ms=f"{z_ms:.3f}",
+        prefix_wave_rel_l2=f"{z_rel:.3e}")
+    del clip_gpu
+
+    # B3 per chunk: 128 chunks, each steered at its own bearing
+    Y = stft(mix_s)
+    tmask = ibm_target_mask(stft(tgt_s), stft(itf_s))
+    freqs = rfft_freqs(1024, 16_000, device=dev)
+    d_c = steering_vector(freqs, torch.linspace(30.0, 150.0, BATCH, device=dev), 0.04,
+                          normalize_phase=True)
+    got = hard_null_fused(Y, tmask, d_c, freqs, post_mask=tmask)
+    ref = hard_null_plain(Y, tmask, d_c, freqs, post_mask=tmask)
+    torch.cuda.synchronize()
+    keep = (hard_null_cond(Y, tmask, d_c) / 10.0 - 1).abs() > 1e-9
+    rel = float(row_rel(got, ref)[keep].max())
+    check(bool(torch.isfinite(torch.view_as_real(got)).all()), "hard_null per chunk: non-finite")
+    check(rel <= 1e-5, f"hard_null per chunk: row relative error {rel:.3e}")
+    shared = hard_null_fused(Y, tmask, d_c[BATCH // 2], freqs, post_mask=tmask)
+    each = hard_null_fused(Y, tmask, d_c[BATCH // 2].expand(BATCH, F, 2).contiguous(), freqs,
+                           post_mask=tmask)
+    torch.cuda.synchronize()
+    differ = int((shared != each).sum())
+    check(differ == 0,
+          f"hard_null: shared steering differs from per-chunk steering in {differ} elements")
+    ms = device_ms(lambda: hard_null_fused(Y, tmask, d_c, freqs, post_mask=tmask))
+    shared_ms = device_ms(lambda: hard_null_fused(Y, tmask, d_c[BATCH // 2], freqs,
+                                                  post_mask=tmask))
+    call_ms = time_ms(lambda: hard_null_fused(Y, tmask, d_c, freqs, post_mask=tmask))
+    plain_ms = time_ms(lambda: hard_null_plain(Y, tmask, d_c, freqs, post_mask=tmask), iters=5)
+    n_el = BATCH * F * T
+    # Y, target mask, post-filter mask in, S out; d (F, 2) per chunk; freqs
+    b_ms, b_by = bound(n_el * (16 + 4 + 4 + 8) + BATCH * F * 16 + F * 4, n_el * 24.0,
+                       FP64_FLOPS_PER_S)
+    results["hard_null_per_chunk"] = dict(
+        name="hard_null_per_chunk", route="cuda", source="azoom_torch/csrc/nullsteer_kernel.cu",
+        replaces="azoom/pallas/nullsteer_kernel.py:30 (jax.vmap over chunks, "
+                 "azoom/pipelines/tracked.py:216)",
+        launches=learned_tracked["hard_null"]["launches"]["hard_null"],
+        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    log("hard_null_per_chunk", shape=tuple(Y.shape), steers="30..150", row_rel_err=f"{rel:.3e}",
+        shared_vs_per_chunk_elements_differ=differ, ms=f"{ms:.4f}", shared_ms=f"{shared_ms:.4f}",
+        call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    del Y, got, ref, shared, each
+
+    # 15. the HRNR post-filter -----------------------------------------------------------
+    from azoom_torch.beam.postfilter import harmonic_regeneration
+
+    hrnr = {}
+    for beamformer, kernel in (("mvdr", "masked_mvdr"), ("hard_null", "hard_null")):
+        kw = dict(beamformer=beamformer, steer_deg=90.0, harmonic_regen=True)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = learned_enhance(mix_s, model, cfg, **kw)
+        torch.cuda.synchronize()
+        counts = active_launches()
+        check(counts == {"qconv3x3": 21, "convt1x2": 3, kernel: 1},
+              f"hrnr {beamformer}: launch counts {counts}")
+        check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
+              f"hrnr {beamformer}: bad output")
+        out_cpu = learned_enhance(mix_s[:4].cpu(), model_cpu, cfg, **kw)
+        rel = float((out[:4].cpu() - out_cpu).norm() / out_cpu.norm())
+        check(rel <= 1e-2, f"hrnr {beamformer}: waveform relative L2 {rel:.3e} against the CPU")
+        ts = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learned_enhance(mix_s, model, cfg, **kw)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        hrnr[beamformer] = dict(launches=counts, ms=ts, ms_median=statistics.median(ts[2:]),
+                                wave_rel_l2=rel)
+        log("hrnr", beamformer=beamformer, batch=BATCH, launches=counts,
+            ms_median=f"{hrnr[beamformer]['ms_median']:.3f}", ms_all=[round(t, 2) for t in ts],
+            wave_rel_l2=f"{rel:.3e}")
+    # the stage alone on the MVDR path's spectrum and gain: device time by kernel
+    Y = stft(mix_s)
+    S_bf = masked_mvdr_fused(Y, 1.0 - tmask, steering_vector(freqs, 90.0, 0.04), freqs,
+                             target_mask=None, sigma=cfg.sigma, hp_cutoff_hz=cfg.hp_cutoff_hz)
+    g1 = torch.clamp(tmask, min=0.05)
+    harmonic_regeneration(S_bf, g1, 1024, 512, N_SAMPLES)
+    profile_call("profile_hrnr", lambda: harmonic_regeneration(S_bf, g1, 1024, 512, N_SAMPLES),
+                 "profile_hrnr.txt")
+    del Y, S_bf
+
     line = {"kernels": [results[k] for k in ("masked_mvdr", "masked_mvdr_per_stream", "qconv3x3",
-                                             "convt1x2", "hard_null", "int8_mm")]}
+                                             "convt1x2", "hard_null", "hard_null_per_chunk",
+                                             "int8_mm")]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**line, "per_shape": {str(k): v for k, v in per_shape.items()},
          "qconv_server_families": families, "mvdr_forms": mvdr_forms,
          "int8_mm_per_shape": {str(k): v for k, v in mm_parts.items()},
          "convt_per_shape": {str(k): v for k, v in convt_shapes.items()},
          "main_ms": times, "main_hard_null_ms": hn_times, "stream_ms": st_times,
-         "server": server_stats, "facade": facade, "card": smi}, indent=1))
+         "server": server_stats, "facade": facade, "tracked": tracked,
+         "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
+         "card": smi}, indent=1))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -238,6 +238,64 @@ def test_hard_null_kernel_matches_plain(cuda, thr):
     assert float(err.max()) <= 1e-5
 
 
+def test_hard_null_kernel_per_chunk_steering(cuda):
+    """d (C, F, 2), one phase-normalised steering vector per chunk, in one
+    launch against the plain version; the shared-d launch is bit for bit the
+    per-chunk launch with that d in every chunk (C = 7 at F = 513: the
+    warps' row groups straddle chunks)."""
+    rng = np.random.default_rng(8)
+    C, F, T = 7, 513, 64
+    Y = 0.01 * torch.complex(_t(rng.standard_normal((C, 2, F, T)).astype(np.float32), cuda),
+                             _t(rng.standard_normal((C, 2, F, T)).astype(np.float32), cuda))
+    Y[:, 1] += 0.5 * Y[:, 0]
+    tm = _t(rng.random((C, F, T), dtype=np.float32), cuda)
+    f = rfft_freqs(1024, 16000, device=cuda)
+    d = steering_vector(f, torch.linspace(20.0, 160.0, C, device=cuda), 0.04,
+                        normalize_phase=True)
+    for post in (tm, None):
+        kernels.reset_launches()
+        got = hard_null_fused(Y, tm, d, f, post_mask=post)
+        assert kernels.launches["hard_null"] == 1
+        ref = hard_null_plain(Y, tm, d, f, post_mask=post)
+        keep = (hard_null_cond(Y, tm, d) / 10.0 - 1).abs() > 1e-9
+        err = ((got - ref).abs().norm(dim=-1) / ref.abs().norm(dim=-1).clamp(min=1e-30))[keep]
+        assert float(err.max()) <= 1e-5
+    shared = hard_null_fused(Y, tm, d[3], f, post_mask=tm)
+    each = hard_null_fused(Y, tm, d[3].expand(C, F, 2).contiguous(), f, post_mask=tm)
+    assert torch.equal(shared, each)
+
+
+@pytest.mark.parametrize("beamformer,kernel", [("mvdr", "masked_mvdr"), ("hard_null", "hard_null")])
+def test_tracked_and_hrnr_paths_launch_once_and_match_cpu(cuda, beamformer, kernel):
+    """A 4 s clip tracked (3 chunks, each at its own bearing) and one
+    2 s window with the HRNR post-filter: 21 convs, 3 upsamplings and ONE
+    beamformer launch each, and the CPU's bearings and waveform."""
+    from azoom_torch import learned_enhance, load_bundled
+    from azoom_torch.pipelines.tracked import tracked_autosteer_enhance
+
+    rng = np.random.default_rng(9)
+    mix = torch.from_numpy((0.1 * rng.standard_normal((2, 64000))).astype(np.float32))
+    cfg = PipelineConfig(mic_dist=0.04)
+    model, model_cpu = load_bundled("tpufpu_nano")[0], load_bundled("tpufpu_nano", device="cpu")[0]
+    kernels.reset_launches()
+    out, theta = tracked_autosteer_enhance(mix.to(cuda), cfg, model=model, beamformer=beamformer,
+                                           tracker="momentum")
+    torch.cuda.synchronize()
+    assert _active(kernels.launches) == {"qconv3x3": 21, kernel: 1, "convt1x2": 3}
+    ref, theta_ref = tracked_autosteer_enhance(mix, cfg, model=model_cpu, beamformer=beamformer,
+                                               tracker="momentum")
+    assert torch.equal(theta.cpu(), theta_ref)
+    assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
+    kernels.reset_launches()
+    out = learned_enhance(mix[:, :32000].to(cuda), model, cfg, beamformer=beamformer,
+                          harmonic_regen=True)
+    torch.cuda.synchronize()
+    assert _active(kernels.launches) == {"qconv3x3": 21, kernel: 1, "convt1x2": 3}
+    ref = learned_enhance(mix[:, :32000], model_cpu, cfg, beamformer=beamformer,
+                          harmonic_regen=True)
+    assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
+
+
 # (128, 64, 64) is the smallest supported product: one 128 x 64 tile, one K chunk of 64.
 @pytest.mark.parametrize("shape", [(256, 576, 64), (128, 4608, 512), (512, 1152, 128),
                                    (128, 64, 64), (128, 64, 256), (384, 192, 128),

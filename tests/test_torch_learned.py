@@ -214,7 +214,6 @@ UNPORTED = {  # name: (learned_enhance keywords, number of mics)
     "rmvb": ({"beamformer": "rmvb"}, 2),
     "rtf": ({"beamformer": "rtf"}, 2),
     "wpd": ({"beamformer": "wpd"}, 2),
-    "harmonic_regen": ({"harmonic_regen": True}, 2),
     "logmag_ipd": ({"feature_kind": "logmag_ipd"}, 2),
     "mvdr_three_mics": ({}, 3),
     "hard_null_three_mics": ({"beamformer": "hard_null"}, 3),

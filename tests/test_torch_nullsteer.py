@@ -173,6 +173,31 @@ def test_wrapper_on_cpu_is_the_plain_version(scene):
     assert kernels.launches == before
 
 
+def test_plain_per_chunk_steering_is_a_loop_of_shared_calls(scene):
+    """d (C, F, 2), one steering vector per chunk (the tracked pipeline's
+    form), equals C calls with each chunk's (F, 2) vector, bit for bit; and
+    the wrapper on CPU tensors takes the plain version."""
+    from azoom_torch.dsp.delays import steering_vector as port_steering
+
+    sc = scene
+    Y = _t(sc["Y"])
+    Yc = torch.stack([Y, 0.5 * Y.flip(-1), Y * 1j])  # (3, 2, F, T)
+    tm = _t(sc["tm"])
+    tmc = torch.stack([tm, tm.flip(-1), 1.0 - tm])
+    f = _t(sc["freqs"])
+    d = port_steering(f, torch.tensor([50.0, 90.0, 140.0]), CFG.mic_dist, normalize_phase=True)
+    assert d.shape == (3, 513, 2)
+    before = dict(kernels.launches)
+    got = hard_null_fused(Yc, tmc, d, f, post_mask=tmc)
+    assert kernels.launches == before
+    for c in range(3):
+        want = hard_null_plain(Yc[c], tmc[c], d[c], f, post_mask=tmc[c])
+        assert torch.equal(got[c], want)
+    # the same vector in every chunk is the shared call
+    same = hard_null_plain(Yc, tmc, d[1].expand(3, 513, 2), f, post_mask=tmc)
+    assert torch.equal(same, hard_null_plain(Yc, tmc, d[1], f, post_mask=tmc))
+
+
 def test_more_than_two_mics_is_queued():
     R = torch.eye(3, dtype=torch.complex64).expand(5, 3, 3)
     with pytest.raises(NotImplementedError, match="linalgmm"):

@@ -227,7 +227,6 @@ def test_pipelined_push_is_the_plain_push_one_window_late(scene):
 
 QUEUED = {  # name: (AudioZoom keywords, what the message names)
     "low_latency": (dict(latency="low"), "lowlat"),
-    "harmonic_regen": (dict(harmonic_regen=True), "postfilter"),
     "float_net": (dict(model="tpufpu_nano", int8=False), "float"),
 }
 
@@ -237,12 +236,6 @@ def test_unported_options_raise(case):
     kw, match = QUEUED[case]
     with pytest.raises(NotImplementedError, match=match):
         AudioZoom(device="cpu", **kw)
-
-
-def test_long_tracked_clip_is_queued():
-    zoom = AudioZoom(cfg=PipelineConfig(mic_dist=0.04, win_size=16000), track=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="tracked.py"):
-        zoom.enhance(np.zeros((2, 20000), np.float32))
 
 
 def test_bad_arguments_raise():

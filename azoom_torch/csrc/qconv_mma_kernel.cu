@@ -17,8 +17,13 @@
 // persistent warp-specialised blocks) has replaced it wherever the mask net
 // spends its time and is 1.3 to 2.2 times faster there; this one is kept,
 // chosen by shape alone (kernels/qconv_kernel.py:plan), for
-//   - Cin % 32 != 0, the net's 16-channel stem among them (K = 144: a 32-byte
-//     wgmma K step would straddle two taps of the halo);
+//   - Cin % 32 != 0, the TPUFPU nets' 16-channel stem among them (K = 144: a
+//     32-byte wgmma K step would straddle two taps of the halo), and the
+//     stems of the unfolded nets, Cin = 2 (logmag_ipd) or 4 (physics): the
+//     halo load zero-extends them to 16 channels (x2 null, Cin1 < Cin), and
+//     their packed weights are zero there, so the int32 sums are the same;
+//   - Cout = 32, the first and last levels of the base-32 nets
+//     (FreqPreservingUNet, DeepFPU): a warp owns 64 pixels x 32 channels;
 //   - Cout = 512 (a wgmma instruction is at most 256 wide, and two of them
 //     per 64 pixels are 256 accumulator registers a thread);
 //   - shapes whose two halos leave no room for three weight stages;
@@ -37,7 +42,8 @@
 // Weights stream through two shared buffers in K chunks of 128 (cp.async,
 // the next chunk's copy overlapping this chunk's products): every block
 // streams the whole matrix. Warps split the tile (Cout / 64) ways along N
-// and the rest along M; each owns 32 pixels x 64 channels of int32
+// and the rest along M; each owns 32 pixels x 64 channels (MI = 2 m16 by
+// NJ = 8 n8 tiles; at Cout = 32, 64 x 32: MI = 4, NJ = 4) of int32
 // accumulators in registers, loads its fragments with ldmatrix (rows padded
 // by 16 bytes so the 8 rows of each 8x16-byte matrix hit distinct banks) and
 // runs mma.sync m16n8k32 s8. A block's phases (halo, products, epilogue)
@@ -78,6 +84,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_r
                : "r"(addr));
 }
 
+// A warp's tile: MI m16 tiles of pixels by NJ n8 tiles of channels.
+template <int MI, int NJ>
 __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
     const float* __restrict__ x, const float* __restrict__ x2, const int8_t* __restrict__ w,
     const float* __restrict__ epi, const float* __restrict__ res, float* __restrict__ out,
@@ -94,7 +102,8 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 
   // 1. Quantised input halo -> shared memory (zeros outside the plane).
   //    Channels [0, Cin1) come from x, [Cin1, Cin) from x2: the decoder's
-  //    channel concat is read in place, never materialised. Each thread
+  //    channel concat is read in place, never materialised. Without x2 they
+  //    are zeros (a stem of Cin1 = 2 or 4 channels, Cin = 16). Each thread
   //    takes 4 channels (one float4) of a pixel; consecutive threads take
   //    consecutive channels, then pixels, so the loads are coalesced.
   {
@@ -113,9 +122,18 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
       uint32_t q = 0;
       if (f >= 0 && f < F && t >= 0 && t < T) {
         const long at = (b * F + f) * T + t;
-        const float* src = c4 < cin14 ? x + at * Cin1 + 4 * c4
-                                      : x2 + at * (Cin - Cin1) + 4 * (c4 - cin14);
-        q = quant4(*reinterpret_cast<const float4*>(src), act_scale, rs);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c4 < cin14) {
+          v = *reinterpret_cast<const float4*>(x + at * Cin1 + 4 * c4);
+        } else if (x2) {
+          v = *reinterpret_cast<const float4*>(x2 + at * (Cin - Cin1) + 4 * (c4 - cin14));
+        } else if (4 * c4 < Cin1) {  // Cin1 = 2: the group's last two channels are zeros
+          const float* src = x + at * Cin1 + 4 * c4;
+          v.x = src[0];
+          if (4 * c4 + 1 < Cin1) v.y = src[1];
+          if (4 * c4 + 2 < Cin1) v.z = src[2];
+        }
+        q = quant4(v, act_scale, rs);
       }
       halo32[pix * cinp4 + c4] = q;
     }
@@ -125,15 +143,15 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 
   // 2. Implicit GEMM on the tensor cores.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int WN = Cout >> 6;  // warps along N (1, 2, 4 or 8)
+  const int WN = Cout / (8 * NJ);  // warps along N (1, 2, 4 or 8)
   const int wn = warp % WN, wm = warp / WN;
-  const int nbase = wn * 64;
+  const int nbase = wn * 8 * NJ;
   const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's matrix and row
   // A (pixels x K): matrices 0..3 = rows 0-7 / 8-15 of the m-tile, K bytes 0-15 / 16-31
-  int arow[2];  // halo byte offset of tap (0, 0) for this lane's row in m-tiles 0, 1
+  int arow[MI];  // halo byte offset of tap (0, 0) for this lane's row in each m-tile
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int p = wm * 32 + mi * 16 + (mat & 1) * 8 + mrow;
+  for (int mi = 0; mi < MI; ++mi) {
+    const int p = wm * 16 * MI + mi * 16 + (mat & 1) * 8 + mrow;
     arow[mi] = ((p / TW) * HW + (p % TW)) * CinP;
   }
   const int akhalf = (mat >> 1) * 16;
@@ -141,11 +159,11 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
   const int bn = nbase + (mat >> 1) * 8 + mrow;
   const int bkhalf = (mat & 1) * 16;
 
-  int acc[2][8][4];
+  int acc[MI][NJ][4];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0;
 
@@ -182,17 +200,18 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
         const int tap = k / Cin;
         aoff = ((tap / 3) * HW + tap % 3) * CinP + (k - tap * Cin);
       }
-      uint32_t a[2][4];
-      ldmatrix_x4(a[0], halo + arow[0] + aoff);
-      ldmatrix_x4(a[1], halo + arow[1] + aoff);
+      uint32_t a[MI][4];
 #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
+      for (int mi = 0; mi < MI; ++mi) ldmatrix_x4(a[mi], halo + arow[mi] + aoff);
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
         uint32_t bfr[4];
         ldmatrix_x4(bfr, wb + (bn + jp * 16) * kWRow + ks + bkhalf);
-        mma_s8(acc[0][2 * jp], a[0], bfr[0], bfr[1]);
-        mma_s8(acc[1][2 * jp], a[1], bfr[0], bfr[1]);
-        mma_s8(acc[0][2 * jp + 1], a[0], bfr[2], bfr[3]);
-        mma_s8(acc[1][2 * jp + 1], a[1], bfr[2], bfr[3]);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          mma_s8(acc[mi][2 * jp], a[mi], bfr[0], bfr[1]);
+          mma_s8(acc[mi][2 * jp + 1], a[mi], bfr[2], bfr[3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with buffer c & 1 before chunk c + 2 lands there
@@ -201,16 +220,16 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
   // 3. Fused epilogue: dequant, BatchNorm, residual, ReLU.
   const int g = lane >> 2, tg = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int p = wm * 32 + mi * 16 + h * 8 + g;
+      const int p = wm * 16 * MI + mi * 16 + h * 8 + g;
       const int f = f0 + p / TW;
       const int t = t0 + p % TW;
       if (f >= F || t >= T) continue;
       const long pix = (b * F + f) * T + t;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int n = nbase + j * 8 + tg * 2;
         float2 e[5];  // s1, b1, mean, mul, beta at channels n, n + 1
 #pragma unroll
@@ -228,18 +247,22 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 
 }  // namespace
 
-// x (B, F, T, Cin1) f32 and x2 (B, F, T, Cin - Cin1) f32 or null (then
-// Cin1 == Cin): the input is their channel concat. w (Cout, Kpad) int8, K
-// index (3*dy+dx)*Cin + c, zero beyond 9*Cin; epi (5, Cout) f32 rows s1, b1,
-// mean, mul, beta; res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32.
-// Needs Cin % 16 == 0, Cin1 % 4 == 0, Cout in {64, 128, 256, 512},
-// Kpad % 32 == 0. Returns cudaGetLastError() (or the error of raising the
-// shared-memory limit).
-extern "C" int azt_qconv3x3_mma(const void* x, const void* x2, const void* w, const void* epi,
-                            const void* res, void* out, float act_scale,
-                            int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
-                            int Kpad, void* stream) {
-  const int m_tile = 32 * (8 / (Cout / 64));  // pixels per block
+// x (B, F, T, Cin1) f32 and x2 (B, F, T, Cin - Cin1) f32 or null: the input
+// is their channel concat, or without x2 x's channels then zeros up to Cin
+// (a stem: Cin1 of 2 or 4, Cin = 16). w (Cout, Kpad) int8, K index
+// (3*dy+dx)*Cin + c, zero beyond 9*Cin; epi (5, Cout) f32 rows s1, b1, mean,
+// mul, beta; res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32. Needs
+// Cin % 16 == 0, Cin1 % 4 == 0 with x2 (Cin1 of 2, 4 or Cin without),
+// Cout in {32, 64, 128, 256, 512}, Kpad % 32 == 0. Returns cudaGetLastError()
+// (or the error of raising the shared-memory limit), cudaErrorInvalidValue
+// for another shape.
+namespace {
+
+template <int MI, int NJ>
+int launch(const void* x, const void* x2, const void* w, const void* epi, const void* res,
+           void* out, float act_scale, int relu, int B, int F, int T, int Cin, int Cin1,
+           int Cout, int Kpad, cudaStream_t stream) {
+  const int m_tile = 16 * MI * (8 / (Cout / (8 * NJ)));  // pixels per block
   int TW = 1;  // frames per tile: the largest power of two <= min(T, m_tile)
   while (TW * 2 <= T && TW * 2 <= m_tile) TW *= 2;
   const int FR = m_tile / TW;
@@ -248,13 +271,32 @@ extern "C" int azt_qconv3x3_mma(const void* x, const void* x2, const void* w, co
   const int smem = (FR + 2) * (TW + 2) * (Cin + 16) + 2 * Cout * kWRow;
   if (smem > 48 * 1024) {  // dynamic shared memory above 48 KB must be opted into
     const cudaError_t e = cudaFuncSetAttribute(
-        qconv3x3_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        qconv3x3_mma_kernel<MI, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(n_ftiles * n_ttiles, B);
-  qconv3x3_mma_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  qconv3x3_mma_kernel<MI, NJ><<<grid, kThreads, smem, stream>>>(
       (const float*)x, (const float*)x2, (const int8_t*)w, (const float*)epi,
       (const float*)res, (float*)out, act_scale, relu, F, T, Cin, Cin1, Cout, Kpad, TW, FR,
       n_ttiles);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int azt_qconv3x3_mma(const void* x, const void* x2, const void* w, const void* epi,
+                            const void* res, void* out, float act_scale,
+                            int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
+                            int Kpad, void* stream) {
+  const bool stem = x2 == nullptr && Cin1 < Cin;
+  if (Cin % 16 || Cin1 < 1 || Cin1 > Cin || (stem && Cin1 != 2 && Cin1 != 4) ||
+      (x2 != nullptr && Cin1 % 4) || Kpad % 32 || Kpad < 9 * Cin ||
+      (Cout != 32 && Cout != 64 && Cout != 128 && Cout != 256 && Cout != 512))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Cout == 32)
+    return launch<4, 4>(x, x2, w, epi, res, out, act_scale, relu, B, F, T, Cin, Cin1, Cout,
+                        Kpad, st);
+  return launch<2, 8>(x, x2, w, epi, res, out, act_scale, relu, B, F, T, Cin, Cin1, Cout,
+                      Kpad, st);
 }

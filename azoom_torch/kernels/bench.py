@@ -1,7 +1,8 @@
 """Check and time the port's kernels alone, shape by shape, on one NVIDIA GPU:
 
     python3 -m azoom_torch.kernels.bench [int8_mm] [qconv] [convt] [hard_null] [mvdr]
-                                         [fp32_peak] [--quick] [--against DIR]
+                                         [float_conv] [fp32_peak] [--quick] [--against DIR]
+                                         [--nets NET,...]
     python3 -m azoom_torch.kernels.bench clocks
 
 ``int8_mm``: each of the nine microbenchmark shapes held exactly against the
@@ -10,11 +11,14 @@ is made outside the timing). ``ms`` is the time per call of a loop of
 calls from Python, as ``chip_smoke.py`` takes it; ``device_ms`` replays the
 same calls from a CUDA graph, which leaves out the host's time per call.
 
-``qconv``: each conv shape of the bundled tpufpu_nano net at batch 128, plain,
-with a residual and (where the net has it) with the two-tensor concat input:
-the ``wgmma`` kernel held bit for bit (``torch.equal``) against the
-``mma.sync`` kernel it replaced and within 1e-5 relative of the plain
-version, then both timed in turns (old, new, new, old), beside a
+``qconv [--nets NET,...]``: each conv shape of a bundled net (default
+tpufpu_nano; any conv net of models.pretrained, e.g. ``--nets
+fpu,deepfpu,tpufpu``: the shapes are read from the net itself, on its plane
+of 129 folded rows for the TPUFPU nets and 513 bins for the others) at batch
+128, plain, with a residual and (where the net has it) with the two-tensor
+concat input: the kernel held bit for bit (``torch.equal``) against the
+plain version and the ``mma.sync`` kernel (the same kernel where the plan
+picks it), then both timed in turns (old, new, new, old), beside a
 device-to-device copy of as many bytes as the conv must move (``copy_ms``:
 what the card's memory gives a kernel that does nothing else).
 
@@ -40,6 +44,12 @@ form's share of the time.
 loading) at the server's tick, (128, 2, 513, 65), against an earlier tree's
 kernel: the elements that differ and both times in turns. chip_smoke.py
 phase 2 holds the shared and per-stream forms against the plain version.
+
+``float_conv``: the float nets' 3x3 convs two ways, as ``models.unet.FConv``
+runs them (im2col and one float32 matrix product) and as cuDNN's
+``conv2d`` under a scoped ``allow_tf32=False``: each net's mask on the card
+against the CPU's on 4 chunks of far-field scenes, and ms per batch-128
+mask: why FConv is a matrix product.
 
 ``fp32_peak``: the float32 FMA rate of ``csrc/bench_fp32_peak.cu``, FMA
 chains on registers with no memory traffic: what ``convt``'s rate is held
@@ -162,60 +172,87 @@ def bench_int8_mm(dev, quick: bool) -> dict:
     return rows
 
 
-def bench_qconv(dev, quick: bool) -> dict:
+def net_conv_shapes(net: str) -> tuple[int, dict]:
+    """(plane rows, {(Cin, Cout, frames): (launches, variants the net runs)})
+    of a bundled net's 3x3 convs at 64 input frames; a variant is
+    (with residual, concat input)."""
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.models.unet import TPUFPU, conv_shapes
+
+    model, _ = load_bundled(net, device="cpu")
+    shapes: dict = {}
+    for cin, cout, t, res, cat in conv_shapes(model, 64):
+        n, variants = shapes.get((cin, cout, t), (0, set()))
+        shapes[(cin, cout, t)] = (n + 1, variants | {(res, cat)})
+    return (F_ROWS if isinstance(model, TPUFPU) else 513), shapes
+
+
+def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",)) -> dict:
     from azoom_torch.kernels import qconv_kernel as qk
 
     rng = np.random.default_rng(1)
     batch = 8 if quick else BATCH
     rows = {}
-    for cin, cout, t, launches, has_cat in NANO_SHAPES:
-        x = torch.from_numpy(np.abs(rng.standard_normal((batch, F_ROWS, t, cin)))
-                             .astype(np.float32)).to(dev)
-        act_scale = float(np.float32(3.3 / 127))
-        w_q = qk.pack_weights(torch.from_numpy(
-            rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8))).to(dev)
-        epi = torch.from_numpy(np.stack([
-            np.full(cout, 2e-4), 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout),
-            1 + 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout),
-        ]).astype(np.float32)).to(dev)
-        res = torch.from_numpy(rng.standard_normal((batch, F_ROWS, t, cout))
-                               .astype(np.float32)).to(dev)
-        route = qk.plan(cin, cout, t)["kernel"]
-        for variant in ("plain", "res") + (("cat",) if has_cat else ()):
-            kw = dict(residual=res if variant == "res" else None)
-            xin = x
-            if variant == "cat":
-                xin, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
-            new = qk.qconv3x3(xin, w_q, epi, act_scale, **kw)
-            old = qk.qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")
-            ref = qk.qconv3x3_plain(xin, w_q, epi, act_scale, **kw)
-            torch.cuda.synchronize()
-            rel = float((new - ref).abs().max()) / float(ref.abs().max())
-            row = dict(kernel=route, launches=launches, bit_equal=bool(torch.equal(new, old)),
-                       rel_err_vs_plain=rel)
-            if not quick:
-                # a device-to-device copy that moves as many bytes as this conv must
-                n_bytes = 4 * x.numel() + 4 * res.numel() * (2 if variant == "res" else 1)
-                src = torch.empty(n_bytes // 8, dtype=torch.float32, device=dev)
-                dst = torch.empty_like(src)
-                row["copy_ms"] = time_ms(lambda: dst.copy_(src))
-                del src, dst
-                f_new = lambda: qk.qconv3x3(xin, w_q, epi, act_scale, **kw)  # noqa: E731
-                f_old = lambda: qk.qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")  # noqa: E731
-                t_old, t_new = time_ms(f_old), time_ms(f_new)
-                row.update(ms=min(t_new, time_ms(f_new)), mma_ms=min(t_old, time_ms(f_old)))
-            rows[str((cin, cout, t, variant))] = row
-            print(f"[qconv] {(cin, cout, t, variant)} " + " ".join(
-                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()),
-                flush=True)
-            if not row["bit_equal"]:
-                diff = (new - old).abs()
-                raise AssertionError(
-                    f"qconv {(cin, cout, t, variant)}: differs from the mma.sync kernel at "
-                    f"{int((diff > 0).sum())} of {diff.numel()} outputs, max {float(diff.max()):.3e}")
-            if rel >= 1e-5:
-                raise AssertionError(f"qconv {(cin, cout, t, variant)}: relative error {rel:.3e}")
-        del x, res
+    for net in nets:
+        f_rows, shapes = net_conv_shapes(net)
+        for (cin, cout, t), (launches, variants) in shapes.items():
+            rows.update(_bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t,
+                                          launches, variants))
+    return rows
+
+
+def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, launches,
+                      variants) -> dict:
+    x = torch.from_numpy(np.abs(rng.standard_normal((batch, f_rows, t, cin)))
+                         .astype(np.float32)).to(dev)
+    act_scale = float(np.float32(3.3 / 127))
+    w_q = qk.pack_weights(torch.from_numpy(
+        rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8))).to(dev)
+    epi = torch.from_numpy(np.stack([
+        np.full(cout, 2e-4), 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout),
+        1 + 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout),
+    ]).astype(np.float32)).to(dev)
+    res = torch.from_numpy(rng.standard_normal((batch, f_rows, t, cout))
+                           .astype(np.float32)).to(dev)
+    route = qk.plan(cin, cout, t)["kernel"]
+    rows = {}
+    for variant in ("plain", "res") + (("cat",) if any(c for _, c in variants) else ()):
+        kw = dict(residual=res if variant == "res" else None)
+        xin = x
+        if variant == "cat":
+            xin, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+        new = qk.qconv3x3(xin, w_q, epi, act_scale, **kw)
+        old = qk.qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")
+        ref = qk.qconv3x3_plain(xin, w_q, epi, act_scale, **kw)
+        torch.cuda.synchronize()
+        rel = float((new - ref).abs().max()) / float(ref.abs().max())
+        row = dict(net=net, rows=f_rows, kernel=route, launches=launches,
+                   bit_equal=bool(torch.equal(new, old)),
+                   not_bit_equal_to_plain=int((new != ref).sum()), rel_err_vs_plain=rel)
+        if not quick:
+            # a device-to-device copy that moves as many bytes as this conv must
+            n_bytes = 4 * x.numel() + 4 * res.numel() * (2 if variant == "res" else 1)
+            src = torch.empty(n_bytes // 8, dtype=torch.float32, device=dev)
+            dst = torch.empty_like(src)
+            row["copy_ms"] = time_ms(lambda: dst.copy_(src))
+            del src, dst
+            f_new = lambda: qk.qconv3x3(xin, w_q, epi, act_scale, **kw)  # noqa: E731
+            f_old = lambda: qk.qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")  # noqa: E731
+            t_old, t_new = time_ms(f_old), time_ms(f_new)
+            row.update(ms=min(t_new, time_ms(f_new)), mma_ms=min(t_old, time_ms(f_old)))
+        key = (net, cin, cout, t, variant)
+        rows[str(key)] = row
+        print(f"[qconv] {key} " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()),
+            flush=True)
+        if not row["bit_equal"]:
+            diff = (new - old).abs()
+            raise AssertionError(
+                f"qconv {key}: differs from the mma.sync kernel at "
+                f"{int((diff > 0).sum())} of {diff.numel()} outputs, max {float(diff.max()):.3e}")
+        if row["not_bit_equal_to_plain"]:
+            raise AssertionError(f"qconv {key}: {row['not_bit_equal_to_plain']} outputs differ "
+                                 "from the plain version")
     return rows
 
 
@@ -422,6 +459,47 @@ def bench_mvdr(dev, quick: bool, against: Path) -> dict:
     return {str(shape): row}
 
 
+def bench_float_conv(dev) -> dict:
+    from azoom_torch.dsp.stft import stft
+    from azoom_torch.models import unet
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.pipelines.learned import predict_mask
+
+    def cudnn_forward(self, x, residual=None, relu=True, x2=None):
+        if x2 is not None:
+            x = torch.cat([x, x2], dim=-1)
+        cudnn = torch.backends.cudnn
+        w = self.weight.reshape(3, 3, self.cin, self.cout).permute(3, 2, 0, 1)
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, padding=1)
+        e = self.epi
+        y = (y.permute(0, 2, 3, 1) + e[1] - e[2]) * e[3] + e[4]
+        y = y if residual is None else residual + y
+        return (torch.relu(y) if relu else y).contiguous()
+
+    rng = np.random.default_rng(7)
+    Y = stft(torch.from_numpy((0.1 * rng.standard_normal((4, 2, 32000))).astype(np.float32)))
+    Y_big = Y.to(dev).repeat(BATCH // 4, 1, 1, 1)
+    gemm_forward, rows = unet.FConv.forward, {}
+    for name in ("tpufpu_nano", "fpu", "deepfpu", "tpufpu"):
+        net_cpu, kind = load_bundled(name, quant=False, device="cpu")
+        net = load_bundled(name, quant=False)[0]
+        ref = predict_mask(net_cpu, Y, kind)
+        for route, fwd in (("gemm", gemm_forward), ("cudnn", cudnn_forward)):
+            unet.FConv.forward = fwd
+            try:
+                err = (predict_mask(net, Y.to(dev), kind).cpu() - ref).abs()
+                ms = time_ms(lambda: predict_mask(net, Y_big, kind), iters=3, warmup=1)
+            finally:
+                unet.FConv.forward = gemm_forward
+            rows[f"{name}/{route}"] = dict(mask_max_err=float(err.max()),
+                                           mask_mean_err=float(err.mean()), ms_batch128=ms)
+            print(f"[float_conv] {name} {route} mask_max_err={float(err.max()):.3e} "
+                  f"mask_mean_err={float(err.mean()):.3e} ms_batch128={ms:.2f}", flush=True)
+    return rows
+
+
 def bench_fp32_peak(dev) -> dict:
     fn = build.load_library("bench_fp32_peak").azt_fp32_peak
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -442,6 +520,11 @@ def main(argv) -> int:
         print("kernels.bench: no CUDA device", file=sys.stderr)
         return 2
     quick = "--quick" in argv
+    nets = ("tpufpu_nano",)
+    if "--nets" in argv:
+        i = argv.index("--nets")
+        nets = tuple(argv[i + 1].split(","))
+        argv = argv[:i] + argv[i + 2:]
     against = None
     if "--against" in argv:
         i = argv.index("--against")
@@ -482,13 +565,15 @@ def main(argv) -> int:
     if "int8_mm" in which:
         out["int8_mm"] = bench_int8_mm(dev, quick)
     if "qconv" in which:
-        out["qconv"] = bench_qconv(dev, quick)
+        out["qconv"] = bench_qconv(dev, quick, nets)
     if "convt" in which:
         out["convt"] = bench_convt(dev, quick, against)
     if "hard_null" in which:
         out["hard_null"] = bench_hard_null(dev, quick, against)
     if "mvdr" in which:
         out["mvdr"] = bench_mvdr(dev, quick, against)
+    if "float_conv" in which:
+        out["float_conv"] = bench_float_conv(dev)
     if "fp32_peak" in which:
         out["fp32_peak"] = bench_fp32_peak(dev)
     Path("chiprun_out").mkdir(exist_ok=True)

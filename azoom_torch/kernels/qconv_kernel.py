@@ -20,13 +20,19 @@ one folded affine: the next layer's int8 codes are roundings of this
 output, and folded-affine rounding differences flip codes that compound
 through the net.
 
+The stems of the unfolded nets take Cin = 2 (logmag_ipd features) or 4
+(physics features). Their weights are packed as if Cin were 16, the
+channels beyond Cin zero (:func:`kernel_cin`), and the kernel's halo load
+fills those channels with zero codes: the int32 sums are the same.
+
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it runs :func:`qconv3x3_plain`. Which kernel is a matter of shape alone
 (:func:`plan`): the ``wgmma`` kernel takes Cin % 32 == 0 with Cout of 64, 128
-or 256 (every conv of the bundled net but its 16-channel stem), the
-``mma.sync`` kernel the rest (Cin % 16 == 0, Cout up to 512). The two agree
-bit for bit (``kernels/bench.py`` checks it on the card); neither is a
-fallback for a failed build or launch of the other.
+or 256 (every conv of the TPUFPU nets but their 16-channel stem), the
+``mma.sync`` kernel the rest (Cin of 2, 4 or a multiple of 16; Cout of 32,
+64, 128, 256 or 512). The two agree bit for bit (``kernels/bench.py``
+checks it on the card); neither is a fallback for a failed build or launch
+of the other.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from azoom_torch.kernels import build
 
 __all__ = [
     "qconv3x3", "qconv3x3_plain", "pack_weights", "epilogue_params", "quantize_weights", "plan",
-    "route_counts",
+    "route_counts", "kernel_cin", "k_padded", "COUTS", "STEM_CINS",
 ]
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
@@ -57,11 +63,19 @@ route_counts = {"wgmma": 0, "mma": 0}
 # halos: slack to align the swizzled tiles, the consumer warps' output
 # patches (8 warps x 16 rows x 40 floats), the 5 epilogue rows, the barriers.
 _TILE_ALIGN, _STAGING, _BARRIERS, _MAX_STAGES = 1024, 8 * 16 * 40 * 4, (2 * 18 + 4) * 8, 18
+COUTS = (32, 64, 128, 256, 512)  # the output widths a kernel takes
+STEM_CINS = (2, 4)  # input widths below 16 the kernels take, as 16 zero-extended channels
+
+
+def kernel_cin(cin: int) -> int:
+    """The input width the kernels compute with: 16 for a stem of
+    Cin in :data:`STEM_CINS`, else Cin."""
+    return 16 if cin in STEM_CINS else cin
 
 
 def k_padded(cin: int) -> int:
-    """Row length of the packed weights: 9*Cin rounded up to 32."""
-    return -(-9 * cin // 32) * 32
+    """Row length of the packed weights: 9 * kernel_cin(Cin) rounded up to 32."""
+    return -(-9 * kernel_cin(cin) // 32) * 32
 
 
 def quantize_weights(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,12 +90,16 @@ def quantize_weights(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def pack_weights(w_q: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, Cout) int8 codes -> (Cout, Kpad) int8, tap-major along K."""
+    """(3, 3, Cin, Cout) int8 codes -> (Cout, Kpad) int8, tap-major along K,
+    each tap's channels zero-extended to kernel_cin(Cin)."""
     kh, kw, cin, cout = w_q.shape
     if (kh, kw) != (3, 3):
         raise ValueError(f"expected a 3x3 kernel, got {(kh, kw)}")
+    ck = kernel_cin(cin)
+    if ck != cin:
+        w_q = torch.nn.functional.pad(w_q, (0, 0, 0, ck - cin))
     packed = torch.zeros((cout, k_padded(cin)), dtype=torch.int8, device=w_q.device)
-    packed[:, :9 * cin] = w_q.reshape(9 * cin, cout).t()
+    packed[:, :9 * ck] = w_q.reshape(9 * ck, cout).t()
     return packed
 
 
@@ -117,9 +135,10 @@ def qconv3x3_plain(
     if x2 is not None:
         x = torch.cat([x, x2], dim=-1)
     cin, cout = x.shape[-1], w_q.shape[0]
+    ck = kernel_cin(cin)
     s = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
     x_q = torch.clamp(torch.round(x / s), -127, 127)
-    w = w_q[:, :9 * cin].to(torch.float64).reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    w = w_q[:, :9 * ck].to(torch.float64).reshape(cout, 3, 3, ck)[..., :cin].permute(0, 3, 1, 2)
     acc = Fn.conv2d(x_q.to(torch.float64).permute(0, 3, 1, 2), w, padding=1)
     y = acc.permute(0, 2, 3, 1).to(torch.float32) * epi[0] + epi[1]
     y = (y - epi[2]) * epi[3] + epi[4]
@@ -139,12 +158,13 @@ def _pow2_floor(n: int, cap: int) -> int:
 
 def _plan_mma(cin: int, cout: int, frames: int) -> dict:
     """The ``mma.sync`` kernel's tile and shared memory, as its C entry point
-    picks them: 256 * 64 / Cout pixels, the halo and two buffers of Cout rows
-    of 128 + 16 weight bytes."""
-    m_tile = 256 // (cout // 64)
+    picks them: 256 * 64 / Cout pixels, the halo and two buffers of Cout
+    rows of 128 + 16 weight bytes."""
+    ck = kernel_cin(cin)
+    m_tile = 256 * 64 // cout
     tile_w = _pow2_floor(frames, m_tile)
     tile_rows = m_tile // tile_w
-    smem = (tile_rows + 2) * (tile_w + 2) * (cin + 16) + 2 * cout * 144
+    smem = (tile_rows + 2) * (tile_w + 2) * (ck + 16) + 2 * cout * 144
     if smem > SMEM_LIMIT:
         raise ValueError(f"qconv3x3: Cin {cin}, Cout {cout} at {frames} frames needs {smem} B "
                          "of shared memory")
@@ -165,15 +185,17 @@ def plan(cin: int, cout: int, frames: int) -> dict:
     ``k_chunks`` = ceil(9 Cin / 128) chunks are kept (``resident``) if they
     fit in 232,448 bytes, else as many stream through a ring as fit, at
     least 3. ``kernel`` "mma": the ``mma.sync`` kernel's tile (256 * 64 / Cout
-    pixels) and bytes, for Cin % 32 != 0, Cout = 512, or when not even 3
-    stages fit. Raises ValueError for a shape neither kernel takes."""
-    if cin < 16 or cin % 16:
-        raise ValueError(f"qconv3x3: Cin must be a multiple of 16, got {cin}")
-    if cout not in (64, 128, 256, 512):
-        raise ValueError(f"qconv3x3: Cout must be 64, 128, 256 or 512, got {cout}")
+    pixels) and bytes, for Cin % 32 != 0 (the
+    stems of Cin 2, 4 and 16 among them), Cout = 32 or 512, or when not even
+    3 stages fit. Raises ValueError for a shape neither kernel takes: Cin
+    must be 2, 4 or a positive multiple of 16, Cout one of :data:`COUTS`."""
+    if cin not in STEM_CINS and (cin < 16 or cin % 16):
+        raise ValueError(f"qconv3x3: Cin must be 2, 4 or a multiple of 16, got {cin}")
+    if cout not in COUTS:
+        raise ValueError(f"qconv3x3: Cout must be one of {COUTS}, got {cout}")
     if frames < 1:
         raise ValueError(f"qconv3x3: frames must be positive, got {frames}")
-    if cin % 32 == 0 and cout <= 256:
+    if cin % 32 == 0 and 64 <= cout <= 256:
         m_tile = 256 if cout == 64 else 128
         tile_w = _pow2_floor(frames, 64)
         tile_rows = m_tile // tile_w
@@ -239,11 +261,10 @@ def qconv3x3(
                  "the channels of x and x2 must be multiples of 4")
         cin = cin1 + x2.shape[3]
     cout = w_q.shape[0]
-    _require(cin % 16 == 0, f"Cin must be a multiple of 16, got {cin}")
-    _require(cout in (64, 128, 256, 512), f"Cout must be 64, 128, 256 or 512, got {cout}")
+    _require(B * F * T > 0, "empty input")
+    how = plan(cin, cout, T)  # raises for a shape no kernel takes
     _require(w_q.dtype == torch.int8 and tuple(w_q.shape) == (cout, k_padded(cin)),
              f"w_q must be int8 ({cout}, {k_padded(cin)}), got {w_q.dtype} {tuple(w_q.shape)}")
-    _require(B * F * T > 0, "empty input")
     _require(act_scale > 0 and act_scale != float("inf"), f"bad act_scale {act_scale}")
     _require(epi.dtype == torch.float32 and tuple(epi.shape) == (5, cout),
              f"epi must be float32 (5, {cout}), got {epi.dtype} {tuple(epi.shape)}")
@@ -258,9 +279,7 @@ def qconv3x3(
         _require(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    if _kernel is None:
-        how = plan(cin, cout, T)
-    else:
+    if _kernel is not None:
         _require(_kernel == "mma", f"_kernel must be None or 'mma', got {_kernel!r}")
         how = _plan_mma(cin, cout, T)
 
@@ -273,8 +292,9 @@ def qconv3x3(
             rc = _entry("wgmma")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
                                  how["tile_w"], how["stages"], how["smem"], stream)
         else:
-            rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
-                               w_q.shape[1], stream)
+            # A stem's channels beyond Cin1 (no x2) are zeros to the kernel.
+            rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),
+                               cin1, cout, w_q.shape[1], stream)
     build.check(rc, f"qconv3x3 {how['kernel']} kernel")
     kernels.launches["qconv3x3"] += 1
     route_counts[how["kernel"]] += 1

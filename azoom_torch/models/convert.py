@@ -1,12 +1,14 @@
-"""Carry a flax TPUFPU variables tree across into the port's modules.
+"""Carry a flax variables tree of a conv mask net (FreqPreservingUNet,
+DeepFPU, TPUFPU) across into the port's modules.
 
 The tree is nested dicts of numpy arrays with the collections ``params``,
-``batch_stats`` and ``quant_stats`` (the calibrated static activation
-scales the int8 serving path needs), as
+``batch_stats`` and, for the int8 serving path, ``quant_stats`` (the
+calibrated static activation scales), as
 :func:`azoom_torch.models.quantize.load_quantized` returns it or as a flax
-model's variables give it after ``numpy`` conversion. Each 3x3 conv is
-quantised here, once, with QConv's formula, and its dequant and BatchNorm
-become the rows of the conv kernel's epilogue.
+model's variables give it after ``numpy`` conversion. In the int8 mode each
+3x3 conv is quantised here, once, with QConv's formula, and its dequant and
+BatchNorm become the rows of the conv kernel's epilogue; in the float mode
+the kernel is kept as it is and ``quant_stats`` is ignored.
 """
 
 from __future__ import annotations
@@ -16,10 +18,10 @@ import torch
 
 from azoom_torch.kernels.qconv_kernel import epilogue_params, pack_weights, quantize_weights
 from azoom_torch.models.unet import (
-    TPUFPU, ConvBNRelu, ConvTranspose1x2, DoubleConv, Head, QConv, ResBlock,
+    TPUFPU, ConvBNRelu, ConvTranspose1x2, FConv, Head, QConv, ResBlock,
 )
 
-__all__ = ["tpufpu_from_flax", "load_qconv", "load_conv_transpose"]
+__all__ = ["from_flax", "tpufpu_from_flax", "load_qconv", "load_fconv", "load_conv_transpose"]
 
 
 def _t(a) -> torch.Tensor:
@@ -44,6 +46,22 @@ def load_qconv(conv: QConv, conv_params: dict, act_scale, bn_params=None, bn_sta
     conv.act_scale = act_scale
 
 
+def load_fconv(conv: FConv, conv_params: dict, bn_params=None, bn_stats=None) -> None:
+    """Fill ``conv`` from a flax Conv's params and an optional BatchNorm, for
+    the float path: the kernel as (9 * Cin, Cout) rows in tap-major order,
+    the epilogue rows with b1 = bias."""
+    kernel = _t(conv_params["kernel"])
+    if tuple(kernel.shape) != (3, 3, conv.cin, conv.cout):
+        raise ValueError(
+            f"kernel {tuple(kernel.shape)} does not fit FConv({conv.cin}, {conv.cout})")
+    bn = None
+    if bn_params is not None:
+        bn = (_t(bn_params["scale"]), _t(bn_params["bias"]),
+              _t(bn_stats["mean"]), _t(bn_stats["var"]))
+    conv.weight.copy_(kernel.reshape(9 * conv.cin, conv.cout))
+    conv.epi.copy_(epilogue_params(1.0, torch.ones(conv.cout), _t(conv_params["bias"]), bn))
+
+
 def load_conv_transpose(up: ConvTranspose1x2, params: dict) -> None:
     """Fill ``up`` from a flax ConvTranspose (1, 2) kernel (1, 2, Cin, Cout)."""
     k = _t(params["kernel"])
@@ -51,47 +69,56 @@ def load_conv_transpose(up: ConvTranspose1x2, params: dict) -> None:
     up.bias.copy_(_t(params["bias"]))
 
 
-def _load_cbr(m: ConvBNRelu, p, s, q) -> None:
-    load_qconv(m.conv, p["Conv_0"], q["Conv_0"]["act_scale"], p["BatchNorm_0"], s["BatchNorm_0"])
+def _load_conv(conv, p: dict, s: dict, q: dict | None, i: int) -> None:
+    """Conv_i and BatchNorm_i of a flax cell into ``conv``; ``q`` None: float."""
+    bn_p, bn_s = p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"]
+    if q is None:
+        load_fconv(conv, p[f"Conv_{i}"], bn_p, bn_s)
+    else:
+        load_qconv(conv, p[f"Conv_{i}"], q[f"Conv_{i}"]["act_scale"], bn_p, bn_s)
 
 
-def _load_res(m: ResBlock, p, s, q) -> None:
-    for i, conv in enumerate((m.conv0, m.conv1)):
-        load_qconv(conv, p[f"Conv_{i}"], q[f"Conv_{i}"]["act_scale"],
-                   p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"])
+def _load_cell(m, p: dict, s: dict, q: dict | None) -> None:
+    if isinstance(m, ConvBNRelu):
+        _load_conv(m.conv, p, s, q, 0)
+    elif isinstance(m, ResBlock):
+        for i, conv in enumerate((m.conv0, m.conv1)):
+            _load_conv(conv, p, s, q, i)
+    else:  # DoubleConv
+        for i, cbr in enumerate((m.cbr0, m.cbr1)):
+            name = f"ConvBNRelu_{i}"
+            _load_cell(cbr, p[name], s[name], None if q is None else q[name])
 
 
-def _load_double(m: DoubleConv, p, s, q) -> None:
-    for i, cbr in enumerate((m.cbr0, m.cbr1)):
-        name = f"ConvBNRelu_{i}"
-        _load_cbr(cbr, p[name], s[name], q[name])
-
-
-def tpufpu_from_flax(variables: dict, model_kwargs: dict, device="cpu") -> TPUFPU:
-    """Build the port's TPUFPU with ``model_kwargs`` (base, fold, bneck,
-    dec_div, enc_div, ...; ``in_channels`` defaults to the 4 physics
-    features) and carry the flax ``variables`` across. Returns the model on
+def from_flax(cls, variables: dict, model_kwargs: dict, quant: bool = True, device="cpu"):
+    """Build the port's ``cls`` (FreqPreservingUNet, DeepFPU or TPUFPU) with
+    ``model_kwargs`` and carry the flax ``variables`` across, walking
+    ``cls.FLAX_NAMES``. ``quant`` serves the int8 convs (and needs
+    ``variables['quant_stats']``) or the float ones. Returns the model on
     ``device`` in eval mode."""
-    if "quant_stats" not in variables:
+    if quant and "quant_stats" not in variables:
         raise ValueError(
             "the int8 serving path needs calibrated static activation scales "
             "(variables['quant_stats'])"
         )
     kw = {k: v for k, v in model_kwargs.items() if k not in ("quant", "dtype")}
-    model = TPUFPU(**kw)
-    p, s, q = variables["params"], variables["batch_stats"], variables["quant_stats"]
+    model = cls(**kw, quant=quant)
+    p, s = variables["params"], variables["batch_stats"]
+    q = variables["quant_stats"] if quant else None
     with torch.no_grad():
-        for attr, name in TPUFPU.FLAX_NAMES.items():
+        for attr, name in cls.FLAX_NAMES.items():
             m = getattr(model, attr)
             if isinstance(m, ConvTranspose1x2):
                 load_conv_transpose(m, p[name])
             elif isinstance(m, Head):
                 m.weight.copy_(_t(p[name]["kernel"])[0, 0])
                 m.bias.copy_(_t(p[name]["bias"]))
-            elif isinstance(m, DoubleConv):
-                _load_double(m, p[name], s[name], q[name])
-            elif isinstance(m, ResBlock):
-                _load_res(m, p[name], s[name], q[name])
             else:
-                _load_cbr(m, p[name], s[name], q[name])
+                _load_cell(m, p[name], s[name], None if q is None else q[name])
     return model.to(device).eval()
+
+
+def tpufpu_from_flax(variables: dict, model_kwargs: dict, device="cpu"):
+    """:func:`from_flax` for the int8 TPUFPU (``in_channels`` defaults to the
+    4 physics features)."""
+    return from_flax(TPUFPU, variables, model_kwargs, True, device)

@@ -1,9 +1,12 @@
 """Bundled mask-net artifacts (counterpart of azoom.models.pretrained).
 
 The artifacts are read in place from ``azoom/assets/`` by path; the port
-imports nothing of the JAX package. This slice serves ``tpufpu_nano``, the
-int8 TPUFPU (base 64, fold 4, bneck 4, dec_div 2, enc_div 2) that the
-learned serving path runs.
+imports nothing of the JAX package. Every conv mask net is served, int8
+(``quant=True``) or float: the FreqPreservingUNet nets ``fpu``,
+``fpu_reverb`` and ``fpu_multigeo`` (base 32, logmag_ipd features),
+``deepfpu`` (DeepFPU base 32, physics features) and the TPUFPU nets
+``tpufpu``, ``tpufpu_slim`` and ``tpufpu_nano`` (physics features). The
+causal CRN ``crn_causal`` is not ported.
 """
 
 from __future__ import annotations
@@ -11,19 +14,27 @@ from __future__ import annotations
 from pathlib import Path
 
 from azoom_torch.config import resolve_device
-from azoom_torch.models.convert import tpufpu_from_flax
+from azoom_torch.models.convert import from_flax
 from azoom_torch.models.quantize import load_quantized
+from azoom_torch.models.unet import TPUFPU, DeepFPU, FreqPreservingUNet
 
 __all__ = ["load_bundled", "bundled_train_mic_dist", "geo_adapt_dist", "ASSETS"]
 
 ASSETS = Path(__file__).resolve().parents[2] / "azoom" / "assets"
 
+# name: (artifact, net, its keywords as the reference builds it, feature kind)
 _PORTED = {
-    "tpufpu_nano": (
-        "tpufpu_b64s4d2e2_phy_int8.npz",
-        dict(base=64, fold=4, bneck=4, dec_div=2, enc_div=2),
-        "physics",
-    ),
+    "fpu": ("fpu_b32_int8.npz", FreqPreservingUNet, dict(base=32, in_channels=2), "logmag_ipd"),
+    "fpu_reverb": ("fpu_b32_reverb_int8.npz", FreqPreservingUNet, dict(base=32, in_channels=2),
+                   "logmag_ipd"),
+    "fpu_multigeo": ("fpu_b32_multigeo_int8.npz", FreqPreservingUNet,
+                     dict(base=32, in_channels=2), "logmag_ipd"),
+    "deepfpu": ("deepfpu_b32_phy_int8.npz", DeepFPU, dict(base=32, in_channels=4), "physics"),
+    "tpufpu": ("tpufpu_b64_phy_int8.npz", TPUFPU, dict(base=64, fold=4), "physics"),
+    "tpufpu_slim": ("tpufpu_b64s4_phy_int8.npz", TPUFPU, dict(base=64, fold=4, bneck=4),
+                    "physics"),
+    "tpufpu_nano": ("tpufpu_b64s4d2e2_phy_int8.npz", TPUFPU,
+                    dict(base=64, fold=4, bneck=4, dec_div=2, enc_div=2), "physics"),
 }
 
 # Mic spacing each artifact's phase features were trained at (geometry
@@ -59,20 +70,21 @@ def geo_adapt_dist(model: str, actual_mic_dist: float) -> float | None:
 
 def load_bundled(name: str, quant: bool = True, device=None):
     """Returns (model, feature_kind) for a bundled artifact, the model on
-    ``device`` in eval mode. ``device=None`` means CUDA and raises when
-    there is no CUDA device; pass ``device="cpu"`` for the plain path."""
+    ``device`` in eval mode: the int8 net with ``quant=True``, the float net
+    of the same checkpoint otherwise. ``device=None`` means CUDA and raises
+    when there is no CUDA device; pass ``device="cpu"`` for the plain path.
+    (The reference defaults to ``quant=False``; the port keeps ``True``, the
+    serving path it had first.)"""
     if name not in _TRAIN_MIC_DIST:
         raise KeyError(f"unknown bundled model {name!r}; have {sorted(_TRAIN_MIC_DIST)}")
     if name not in _PORTED:
         raise NotImplementedError(
-            f"bundled model {name!r} is not ported yet; the other nets are "
-            "queued in ROADMAP.md Queue A item 9"
+            f"bundled model {name!r} (the causal CRN of the low-latency path) is not ported "
+            "yet; it is queued in ROADMAP.md Queue A item 2 (9.5)"
         )
-    if not quant:
-        raise NotImplementedError("the port serves the int8 path only (quant=True)")
     device = resolve_device(device)
-    fname, kwargs, feature_kind = _PORTED[name]
+    fname, cls, kwargs, feature_kind = _PORTED[name]
     path = ASSETS / fname
     if not path.exists():
         raise FileNotFoundError(f"bundled artifact missing: {path}")
-    return tpufpu_from_flax(load_quantized(path), kwargs, device), feature_kind
+    return from_flax(cls, load_quantized(path), kwargs, bool(quant), device), feature_kind

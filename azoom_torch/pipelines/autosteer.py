@@ -44,7 +44,7 @@ def autosteer_enhance(
     mask_width: float = 0.5,
     length: int | None = None,
     model=None,
-    feature_kind: str = "physics",
+    feature_kind: str = "logmag_ipd",
     beamformer: str = "mvdr",
     fov_gate: bool = False,
     train_mic_dist: float | None = None,

@@ -1,8 +1,7 @@
 """Learned-mask enhancement, the serving path (counterpart of
-azoom.pipelines.learned for ``beamformer="mvdr"`` and ``"hard_null"``,
-physics features):
+azoom.pipelines.learned for ``beamformer="mvdr"`` and ``"hard_null"``):
 
-    STFT -> steer-align -> physics features -> TPUFPU int8 mask net
+    STFT -> steer-align -> features (logmag_ipd or physics) -> conv mask net
          -> (FOV covariance gate) -> masked MVDR + floored mask post-filter
             + high-pass, or hybrid hard-null + raw mask post-filter + 200 Hz
             mic-0 bypass -> (HRNR post-filter) -> iSTFT
@@ -26,7 +25,7 @@ from azoom_torch.dsp.delays import steering_vector
 from azoom_torch.dsp.stft import istft, rfft_freqs, stft
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
 from azoom_torch.kernels.nullsteer_kernel import hard_null_fused
-from azoom_torch.masks.features import physics_aware_features
+from azoom_torch.masks.features import logmag_ipd_features, physics_aware_features
 from azoom_torch.masks.geometric import apply_fov_gate, fov_noise_gate
 from azoom_torch.models.unet import pad_frames
 from azoom_torch.stream.chunker import streaming_enhance
@@ -38,22 +37,23 @@ def _model_device(model: torch.nn.Module) -> torch.device:
     return next(model.buffers()).device
 
 
+_FEATURES = {"logmag_ipd": logmag_ipd_features, "physics": physics_aware_features}
+
+
 def predict_mask(
     model,
     Y: torch.Tensor,
-    feature_kind: str = "physics",
+    feature_kind: str = "logmag_ipd",
     pad_multiple: int = 16,
     ipd_scale=1.0,
     pair_mode: str = "mean",
 ) -> torch.Tensor:
     """STFT (..., M, F, T) -> target mask (..., F, T) via the mask net:
-    features, time padding to the U-Net's pool factor, cropping back."""
-    if feature_kind != "physics":
-        raise NotImplementedError(
-            f"feature_kind {feature_kind!r} is not ported; logmag_ipd features "
-            "come with the nets that use them (ROADMAP.md Queue A item 9)"
-        )
-    feats = physics_aware_features(Y, ipd_scale, pair_mode=pair_mode)
+    features ('logmag_ipd' or 'physics', the kind the net was trained on),
+    time padding to the U-Net's pool factor, cropping back."""
+    if feature_kind not in _FEATURES:
+        raise ValueError(f"feature_kind must be 'logmag_ipd' or 'physics', got {feature_kind!r}")
+    feats = _FEATURES[feature_kind](Y, ipd_scale, pair_mode=pair_mode)
     unbatched = feats.ndim == 3
     if unbatched:
         feats = feats[None]
@@ -71,7 +71,7 @@ def learned_enhance(
     model,
     cfg: PipelineConfig,
     beamformer: str = "mvdr",
-    feature_kind: str = "physics",
+    feature_kind: str = "logmag_ipd",
     mask_floor: float = 0.05,
     length: int | None = None,
     fov_deg=None,
@@ -86,7 +86,8 @@ def learned_enhance(
     ``beamformer``: 'mvdr' (post-filter: the mask floored at ``mask_floor``,
     high-pass at cfg.hp_cutoff_hz) or 'hard_null' (the Final-generation
     hybrid: phase-normalised steering, raw un-floored mask post-filter,
-    mic 0 passed through below 200 Hz). ``fov_deg`` gates the noise
+    mic 0 passed through below 200 Hz). ``feature_kind`` must be the one
+    the net was trained on (``load_bundled`` returns it). ``fov_deg`` gates the noise
     covariance of either by the camera's field of view around the look
     direction (masks.geometric.fov_noise_gate). ``n_nulls`` acts at M > 2
     only, which is not ported. ``harmonic_regen`` runs the HRNR stage-2
@@ -187,7 +188,7 @@ def learned_enhance_streaming(
     model,
     cfg: PipelineConfig,
     beamformer: str = "mvdr",
-    feature_kind: str = "physics",
+    feature_kind: str = "logmag_ipd",
     train_mic_dist: float | None = None,
     n_nulls: int = 1,
     harmonic_regen: bool = False,

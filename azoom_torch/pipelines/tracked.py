@@ -120,7 +120,7 @@ def tracked_autosteer_enhance(
     mask_width: float = 0.5,
     length: int | None = None,
     model=None,
-    feature_kind: str = "physics",
+    feature_kind: str = "logmag_ipd",
     beamformer: str = "mvdr",
     train_mic_dist: float | None = None,
     dsp_precision: str = "exact",

@@ -4,9 +4,11 @@
 ``AudioZoomServer`` holds S synchronized stream states; a tick takes one
 hop of new samples from every stream and runs STFT -> steer-aligned mask
 net -> masked MVDR -> iSTFT -> overlap-add for all of them at once. On CUDA
-the mask net's convs are 21 launches of the int8 conv kernel, its
-upsamplings 3 of the upsampling kernel, and the beamformer ONE launch of
-the fused MVDR kernel with a steering vector and a loading per stream.
+the mask net's int8 convs are launches of the int8 conv kernel (21 for
+the TPUFPU nets; a float net's convs are float32 matrix products), its
+upsamplings launches of the upsampling kernel, and the beamformer ONE
+launch of the fused MVDR kernel with a steering vector and a loading per
+stream.
 
 * **Steer-aligned features**: the STFT is rotated by each stream's
   conjugate steering vector before the features (in complex128, rounded
@@ -105,8 +107,9 @@ class AudioZoomServer:
       cfg: the shared physics and STFT configuration (direction and zoom are
         per stream). ``mask_reuse`` needs ``cfg.win_size // 2`` to be a
         multiple of ``cfg.hop`` (win_size = 32768 at the 1024 / 512 STFT).
-      model: bundled model name; int8: serve the int8 net (the only one
-        ported: int8=False raises).
+      model: bundled conv mask net name (its feature kind goes with it);
+        int8: serve the int8 net, or with False the float net of the same
+        checkpoint.
       dsp_precision: 'exact' or 'fast', checked; it selects nothing here (in
         the reference it picks the TPU's matmul-DFT precision).
       mask_reuse: stitch the previous window's masks over the shared half

@@ -9,12 +9,12 @@ int8 mask net: the camera's field of view picks the region, the DOA
 histogram refines the bearing inside it, the net gives the mask.
 
 Ported: the high-latency mode (2 s windows, 50 % Hann overlap-add; push()
-output emerges one hop behind the input), whole-clip tracking of clips
-longer than a window (pipelines.tracked), the causal and momentum streaming
-trackers, the HRNR post-filter (``harmonic_regen``), ``pipelined`` pushes
-and the ``mask_reuse`` one-slot server. Not ported (each raises
-NotImplementedError naming its ROADMAP.md item): ``latency="low"`` and
-float (``int8=False``) nets.
+output emerges one hop behind the input) with every bundled conv mask net,
+int8 or float, whole-clip tracking of clips longer than a window
+(pipelines.tracked), the causal and momentum streaming trackers, the HRNR
+post-filter (``harmonic_regen``), ``pipelined`` pushes and the
+``mask_reuse`` one-slot server. Not ported (it raises NotImplementedError
+naming its ROADMAP.md item): ``latency="low"``.
 """
 
 from __future__ import annotations
@@ -54,9 +54,10 @@ class AudioZoom:
       zoom: UI zoom level in [0, 1] (0 = wide, 1 = narrowest beam), mapped
         to the diagonal loading.
       enhance_fn: optional override (M, win) -> (win,) of the window step.
-      model: optional bundled mask net ('tpufpu_nano' is the one ported).
-      int8: serve the int8 net; must be True with a model (float nets are
-        not ported).
+      model: optional bundled conv mask net (every name of
+        models.pretrained but 'crn_causal'); its feature kind goes with it.
+      int8: serve the int8 net; False (the default, as in the reference)
+        serves the float net of the same checkpoint.
       autosteer: with a model, refine the bearing by the DOA histogram inside
         the field of view before steering the net; False steers exactly at
         ``direction_deg`` (the FOV still gates the noise covariance).
@@ -121,14 +122,13 @@ class AudioZoom:
             raise NotImplementedError(
                 "latency='low' (the causal crn_causal net, stream/lowlat.py, stream/online.py) "
                 "is not ported (ROADMAP.md Queue A items 9.4 and 9.5)")
-        if self.model is not None and not self.int8:
-            raise NotImplementedError(
-                "float mask nets are not ported (ROADMAP.md Queue A item 9.4); pass int8=True")
         self._device = resolve_device(self.device)
         self._mask_net = None
+        self._feats = None  # the net's feature kind
         self._train_mic_dist = None
         if self.model is not None:
-            self._mask_net = load_bundled(self.model, quant=True, device=self._device)[0]
+            self._mask_net, self._feats = load_bundled(self.model, quant=self.int8,
+                                                       device=self._device)
             self._train_mic_dist = geo_adapt_dist(self.model, self.cfg.mic_dist)
         if self.mask_reuse:
             if self.model is None:
@@ -211,7 +211,7 @@ class AudioZoom:
                                  device=window.device)
             if net is None:
                 return steered_heuristic_enhance(window, cfg, theta)
-            return learned_enhance(window, net, cfg, steer_deg=theta,
+            return learned_enhance(window, net, cfg, feature_kind=self._feats, steer_deg=theta,
                                    fov_deg=float(self.fov_deg),
                                    train_mic_dist=self._train_mic_dist,
                                    harmonic_regen=self.harmonic_regen)
@@ -222,11 +222,11 @@ class AudioZoom:
             # camera field of view -> DOA-refined bearing -> learned mask
             return autosteer_enhance(
                 window, cfg, fov_center_deg=self.direction_deg, fov_width_deg=self.fov_deg,
-                model=net, fov_gate=True, train_mic_dist=self._train_mic_dist,
-                harmonic_regen=self.harmonic_regen)[0]
+                model=net, feature_kind=self._feats, fov_gate=True,
+                train_mic_dist=self._train_mic_dist, harmonic_regen=self.harmonic_regen)[0]
         # exact steering; the field of view still gates the noise covariance
-        return learned_enhance(window, net, cfg, fov_deg=float(self.fov_deg),
-                               train_mic_dist=self._train_mic_dist,
+        return learned_enhance(window, net, cfg, feature_kind=self._feats,
+                               fov_deg=float(self.fov_deg), train_mic_dist=self._train_mic_dist,
                                harmonic_regen=self.harmonic_regen)
 
     # -- whole clip ---------------------------------------------------------
@@ -242,7 +242,8 @@ class AudioZoom:
         x = self._as_input(mixture)
         if self.track and self.enhance_fn is None and x.shape[-1] > self.cfg.win_size:
             kw = {} if self._mask_net is None else dict(
-                model=self._mask_net, train_mic_dist=self._train_mic_dist)
+                model=self._mask_net, feature_kind=self._feats,
+                train_mic_dist=self._train_mic_dist)
             out, _ = tracked_autosteer_enhance(
                 x, self._zoom_cfg(), fov_center_deg=self.direction_deg,
                 fov_width_deg=float(self.fov_deg),

@@ -93,10 +93,27 @@ Phases, each printing its own line(s):
                far-field scenes of phase 7, MVDR and hard-null: launch counts,
                the first 4 chunks against the CPU, the median ms per call; a
                profile of the HRNR stage alone (chiprun_out/profile_hrnr.txt).
+ 16. nets    - every bundled conv net. The int8 conv at each conv shape of
+               fpu and deepfpu (unfolded 513-row planes: stems of Cin 2 and 4,
+               Cout 32, Cout 512 at 4 frames) and of tpufpu and tpufpu_slim
+               (129 rows) at batch 128, bit for bit against the plain version,
+               timed beside torch._int_mm on im2col'd int8. Then each of the
+               seven artifacts, int8 and float (its convs float32 matrix
+               products, TF32 off), on the learned MVDR path at (128, 2, 32000)
+               on phase 7's scenes: launch counts and conv kernels, chunk 0
+               against the CPU (int8: the waveform; float: the mask to 1e-5),
+               the median ms per call. AudioZoom(model="fpu_multigeo") (float, the
+               reference's default) enhance() of 2 s against the CPU; then
+               AudioZoomServer(128, model="fpu", mask_reuse=True,
+               wire="int16"): a prime (80 frames) and 4 reuse ticks (48), the
+               launches of each, the first 2 streams against a CPU server.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
-is a loop of calls from Python for both; B3 twice: hard_null shared with
+is a loop of calls from Python for both; B2 five times: qconv3x3 is the
+tpufpu_nano net of phase 3 with phase 5's launches, qconv3x3_<net> the conv
+set of fpu, deepfpu, tpufpu and tpufpu_slim with the launches of that int8
+net's phase-16 run; B3 twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run), the card's name and power limit, and a last line
 {"ok": true, "device": {...}}.
@@ -219,7 +236,12 @@ def moving_scene(rng, n: int, glide=(60.0, 120.0), interferers=(30.0, 150.0), fs
     return (mix * (rms / np.sqrt(np.mean(mix**2)))).astype(np.float32)
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **kw) -> None:
+    """One line of a phase's results, ending with the seconds since the start."""
+    kw["t_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
@@ -417,16 +439,16 @@ def main() -> int:
                 kw["x2"] = x[..., cin // 2:].contiguous()
             yield with_res, cat, (x[..., :cin // 2].contiguous() if cat else x), kw
 
-    def conv_check(cin, cout, t, with_res, cat, xin, w_q, epi, kw):
-        """The kernel against the plain version: (max abs error, elements
-        that differ, kernel ms, bound ms, bound by)."""
+    def conv_check(cin, cout, t, with_res, cat, xin, w_q, epi, kw, rows=F_ROWS):
+        """The kernel against the plain version on planes of ``rows`` rows:
+        (max abs error, elements that differ, kernel ms, bound ms, bound by)."""
         got = qconv3x3(xin, w_q, epi, act_scale, **kw)
         ref = qconv3x3_plain(xin, w_q, epi, act_scale, **kw)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         rel = err / (float(ref.abs().max()) + 1e-30)
         check(rel < 1e-5, f"qconv {(cin, cout, t, with_res, cat)}: relative error {rel:.3e}")
-        m = BATCH * F_ROWS * t
+        m = BATCH * rows * t
         nbytes = (m * cin * 4 + cout * 9 * cin + epi.numel() * 4
                   + m * cout * 4 * (2 if with_res else 1))
         b_ms, b_by = bound(nbytes, 2.0 * m * 9 * cin * cout, INT8_OPS_PER_S)
@@ -566,12 +588,13 @@ def main() -> int:
     # 5. main path ----------------------------------------------------------------
     model, _ = load_bundled("tpufpu_nano")
     cfg = PipelineConfig(mic_dist=0.04)
+    main_kw = dict(feature_kind="physics", steer_deg=60.0)  # the nano net's features
     mix_np = (rng.standard_normal((BATCH, 2, N_SAMPLES)) * 0.1).astype(np.float32)
     mix = torch.from_numpy(mix_np).to(dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
     routes_before = dict(route_counts)
-    out = learned_enhance(mix, model, cfg, steer_deg=60.0)
+    out = learned_enhance(mix, model, cfg, **main_kw)
     torch.cuda.synchronize()
     counts = active_launches()
     check(counts == {"qconv3x3": 21, "masked_mvdr": 1, "convt1x2": 3},
@@ -584,11 +607,11 @@ def main() -> int:
         results[name]["launches"] = n
 
     model_cpu, _ = load_bundled("tpufpu_nano", device="cpu")
-    out_cpu = learned_enhance(mix[:4].cpu(), model_cpu, cfg, steer_deg=60.0)
+    out_cpu = learned_enhance(mix[:4].cpu(), model_cpu, cfg, **main_kw)
     wave_rel = float((out[:4].cpu() - out_cpu).norm() / out_cpu.norm())
     Y4 = stft(mix[:4])
-    mask_gpu = predict_mask(model, Y4).cpu()
-    mask_cpu = predict_mask(model_cpu, Y4.cpu())
+    mask_gpu = predict_mask(model, Y4, "physics").cpu()
+    mask_cpu = predict_mask(model_cpu, Y4.cpu(), "physics")
     mask_err = (mask_gpu - mask_cpu).abs()
     check(float(mask_err.max()) < 1e-2, f"mask max error {float(mask_err.max()):.3e}")
     check(float(mask_err.mean()) < 2e-4, f"mask mean error {float(mask_err.mean()):.3e}")
@@ -596,11 +619,11 @@ def main() -> int:
 
     times = []
     for _ in range(3):
-        learned_enhance(mix, model, cfg, steer_deg=60.0)
+        learned_enhance(mix, model, cfg, **main_kw)
     for _ in range(10):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        learned_enhance(mix, model, cfg, steer_deg=60.0)
+        learned_enhance(mix, model, cfg, **main_kw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
@@ -632,7 +655,7 @@ def main() -> int:
             idle_share=f"{max(0.0, 1 - dev_ms / wall_ms):.3f}",
             top=[(k[:48], round(t, 3), n) for k, t, n in rows[:8]])
 
-    profile_call("profile", lambda: learned_enhance(mix, model, cfg, steer_deg=60.0),
+    profile_call("profile", lambda: learned_enhance(mix, model, cfg, **main_kw),
                  "profile.txt")
 
     # 7. hard-null beamformer -------------------------------------------------
@@ -731,7 +754,7 @@ def main() -> int:
         bound_by=bound_by_of(list(mm_parts.values())), **tot)
 
     # 9. the hard-null main path ----------------------------------------------
-    hn_kw = dict(beamformer="hard_null", steer_deg=60.0, fov_deg=30.0)
+    hn_kw = dict(beamformer="hard_null", feature_kind="physics", steer_deg=60.0, fov_deg=30.0)
     torch.cuda.synchronize()
     kernels.reset_launches()
     out = learned_enhance(mix, model, cfg, **hn_kw)
@@ -765,27 +788,28 @@ def main() -> int:
 
     # 10. the chunked stream of one long recording -------------------------------
     rec = torch.from_numpy(far_field_scene(rng, 1, 60 * 16_000)[0][0]).to(dev)
+    st_kw = dict(beamformer="hard_null", feature_kind="physics")
     kernels.reset_launches()
-    streamed = learned_enhance_streaming(rec, model, cfg, beamformer="hard_null")
+    streamed = learned_enhance_streaming(rec, model, cfg, **st_kw)
     torch.cuda.synchronize()
     st_counts = active_launches()
     chunks, n = chunk_signal(rec, cfg.win_size, cfg.win_size // 2)
-    batched = overlap_add_chunks(learned_enhance(chunks, model, cfg, beamformer="hard_null"),
+    batched = overlap_add_chunks(learned_enhance(chunks, model, cfg, **st_kw),
                                  cfg.win_size // 2, n)
     check(chunks.shape[0] == 59, f"{chunks.shape[0]} chunks, expected 59")
     check(torch.equal(streamed, batched), "stream differs from the batched call over its chunks")
     check(st_counts == {"qconv3x3": 21, "convt1x2": 3, "hard_null": 1},
           f"stream launch counts {st_counts}")
     pre = rec[:, :6 * 16_000]
-    pre_gpu = learned_enhance_streaming(pre, model, cfg, beamformer="hard_null").cpu()
-    pre_cpu = learned_enhance_streaming(pre.cpu(), model_cpu, cfg, beamformer="hard_null")
+    pre_gpu = learned_enhance_streaming(pre, model, cfg, **st_kw).cpu()
+    pre_cpu = learned_enhance_streaming(pre.cpu(), model_cpu, cfg, **st_kw)
     st_rel = float((pre_gpu - pre_cpu).norm() / pre_cpu.norm())
     check(st_rel <= 1e-2, f"stream 6 s prefix: waveform relative L2 {st_rel:.3e}")
     st_times = []
     for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        learned_enhance_streaming(rec, model, cfg, beamformer="hard_null")
+        learned_enhance_streaming(rec, model, cfg, **st_kw)
         torch.cuda.synchronize()
         st_times.append((time.perf_counter() - t0) * 1e3)
     st_med = statistics.median(st_times[1:])
@@ -1005,7 +1029,8 @@ def main() -> int:
     pre = clip[:, :6 * 16_000]  # 5 chunks: the prefix held against the CPU
     for beamformer, kernel, tracker in (("mvdr", "masked_mvdr", "viterbi"),
                                         ("hard_null", "hard_null", "momentum")):
-        kw = dict(model=model, beamformer=beamformer, tracker=tracker, **tr_kw)
+        kw = dict(model=model, feature_kind="physics", beamformer=beamformer, tracker=tracker,
+                  **tr_kw)
         torch.cuda.synchronize()
         kernels.reset_launches()
         out, theta = tracked_autosteer_enhance(clip_gpu, cfg, **kw)
@@ -1108,7 +1133,8 @@ def main() -> int:
 
     hrnr = {}
     for beamformer, kernel in (("mvdr", "masked_mvdr"), ("hard_null", "hard_null")):
-        kw = dict(beamformer=beamformer, steer_deg=90.0, harmonic_regen=True)
+        kw = dict(beamformer=beamformer, feature_kind="physics", steer_deg=90.0,
+                  harmonic_regen=True)
         torch.cuda.synchronize()
         kernels.reset_launches()
         out = learned_enhance(mix_s, model, cfg, **kw)
@@ -1143,9 +1169,208 @@ def main() -> int:
                  "profile_hrnr.txt")
     del Y, S_bf
 
-    line = {"kernels": [results[k] for k in ("masked_mvdr", "masked_mvdr_per_stream", "qconv3x3",
-                                             "convt1x2", "hard_null", "hard_null_per_chunk",
-                                             "int8_mm")]}
+    # 16. every bundled conv net -----------------------------------------------------------
+    from azoom_torch.kernels.qconv_kernel import kernel_cin, pack_weights
+    from azoom_torch.models.unet import ConvTranspose1x2, conv_shapes
+
+    conv_sets = {"fpu": 513, "deepfpu": 513, "tpufpu": F_ROWS, "tpufpu_slim": F_ROWS}
+    set_shapes = {}
+    # operands made on the card from a seed: numpy took ~6 s a shape at 513 rows
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    for net, rows in conv_sets.items():
+        convs = conv_shapes(load_bundled(net, device="cpu")[0], 64)
+        shapes = {}
+        for cin, cout, t in dict.fromkeys(c[:3] for c in convs):
+            x = torch.randn((BATCH, rows, t, cin), generator=gen, device=dev).abs_()
+            w_q = pack_weights(torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
+                                             device=dev, dtype=torch.int8))
+            epi = torch.from_numpy(np.stack([
+                np.full(cout, 2e-4), 0.1 * rng.standard_normal(cout),
+                0.1 * rng.standard_normal(cout), 1 + 0.1 * rng.standard_normal(cout),
+                0.1 * rng.standard_normal(cout)]).astype(np.float32)).to(dev)
+            res = torch.randn((BATCH, rows, t, cout), generator=gen, device=dev)
+            for with_res, cat in sorted({c[3:] for c in convs if c[:3] == (cin, cout, t)}):
+                kw = dict(residual=res if with_res else None)
+                xin = x
+                if cat:
+                    xin, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+                err, differ, ms, b_ms, b_by = conv_check(cin, cout, t, with_res, cat, xin, w_q,
+                                                         epi, kw, rows=rows)
+                check(differ == 0, f"qconv {net} {(cin, cout, t, with_res, cat)}: {differ} "
+                                   "elements differ from the plain version")
+                plain_ms = time_ms(lambda: qconv3x3_plain(xin, w_q, epi, act_scale, **kw),
+                                   iters=2, warmup=1)
+                shapes[(cin, cout, t, with_res, cat)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                    not_bit_equal_to_plain=differ, kernel=plan(cin, cout, t)["kernel"])
+            # the bare int8 GEMM: im2col'd codes (a stem's channels zero-extended, as
+            # the kernel takes them) times the packed weights, outside the timing
+            ck = kernel_cin(cin)
+            xq = torch.clamp(torch.round(x / act_scale), -127, 127).to(torch.int8)
+            xq = torch.nn.functional.pad(xq, (0, ck - cin, 1, 1, 1, 1))
+            cols = torch.stack([xq[:, dy:dy + rows, dx:dx + t] for dy in range(3)
+                                for dx in range(3)], dim=3).reshape(BATCH * rows * t, 9 * ck)
+            cols = torch.nn.functional.pad(cols, (0, k_padded(cin) - 9 * ck)).contiguous()
+            w_t = w_q.t()
+            lib_ms = time_ms(lambda: torch._int_mm(cols, w_t))
+            for key in shapes:
+                if key[:3] == (cin, cout, t):
+                    shapes[key]["library_ms"] = lib_ms
+            del x, res, xq, cols
+        parts = [shapes[c] for c in convs]
+        kernel_of = [p["kernel"] for p in parts]
+        main_kernel = max(("wgmma", "mma"), key=kernel_of.count)
+        results[f"qconv3x3_{net}"] = dict(
+            name=f"qconv3x3_{net}", route="cuda",
+            source="azoom_torch/csrc/" + ("qconv_kernel.cu" if main_kernel == "wgmma"
+                                          else "qconv_mma_kernel.cu"),
+            replaces="azoom/pallas/qconv_kernel.py:53 (the int8 QConv convs of "
+                     "azoom/models/unet.py:96 in the bundled " + net + ")",
+            max_abs_err=max(p["max_abs_err"] for p in parts),
+            ms=sum(p["ms"] for p in parts), plain_ms=sum(p["plain_ms"] for p in parts),
+            bound_ms=sum(p["bound_ms"] for p in parts), bound_by=bound_by_of(parts),
+            library_ms=sum(p["library_ms"] for p in parts))
+        set_shapes[net] = {str(k): v for k, v in shapes.items()}
+        log("qconv_set", net=net, rows=rows, frames=64, batch=BATCH, convs=len(convs),
+            shapes_checked=len(shapes), elements_not_bit_equal_to_plain=0,
+            kernels={k: kernel_of.count(k) for k in ("wgmma", "mma")},
+            ms=f"{results[f'qconv3x3_{net}']['ms']:.4f}",
+            bound_ms=f"{results[f'qconv3x3_{net}']['bound_ms']:.4f}",
+            int_mm_ms=f"{results[f'qconv3x3_{net}']['library_ms']:.4f}",
+            per_shape={f"{k[0]}-{k[1]}@{k[2]}" + "+res" * k[3] + "+cat" * k[4]:
+                       (v["kernel"], round(v["ms"], 4)) for k, v in shapes.items()})
+
+    # each bundled conv net, int8 and float, on the learned MVDR path at batch 128
+    nets = {}
+    mix1 = mix_s[:1].cpu()
+    Y1 = stft(mix_s[:1])
+    for name in ("tpufpu_nano", "tpufpu_slim", "tpufpu", "deepfpu", "fpu", "fpu_reverb",
+                 "fpu_multigeo"):
+        for quant in (True, False):
+            net_gpu, fk = load_bundled(name, quant=quant)
+            net_cpu, _ = load_bundled(name, quant=quant, device="cpu")
+            n_convs = len(conv_shapes(net_cpu, 64))  # 14, 21 or 27
+            n_up = sum(isinstance(m, ConvTranspose1x2) for m in net_cpu.modules())
+            kw = dict(feature_kind=fk, steer_deg=60.0)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            routes_before = dict(route_counts)
+            out = learned_enhance(mix_s, net_gpu, cfg, **kw)
+            torch.cuda.synchronize()
+            counts = active_launches()
+            routes = {k: v - routes_before[k] for k, v in route_counts.items()}
+            kinds = [plan(c[0], c[1], c[2])["kernel"] for c in conv_shapes(net_cpu, 64)]
+            check(routes == {k: kinds.count(k) if quant else 0 for k in routes},
+                  f"{name} int8={quant}: conv kernels {routes}")
+            want = {"convt1x2": n_up, "masked_mvdr": 1}
+            if quant:
+                want["qconv3x3"] = n_convs
+                if name in conv_sets:
+                    results[f"qconv3x3_{name}"]["launches"] = counts["qconv3x3"]
+            check(counts == want, f"{name} int8={quant}: launch counts {counts}, want {want}")
+            check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
+                  f"{name} int8={quant}: bad output")
+            # one pass of the net on the CPU: chunk 0's waveform (int8: the
+            # plain B2 path) or mask (float: full float32, which TF32 would
+            # miss by orders of magnitude)
+            if quant:
+                rel = float((out[:1].cpu() - learned_enhance(mix1, net_cpu, cfg, **kw)).norm()
+                            / out[:1].cpu().norm())
+                check(rel <= 1e-2, f"{name} int8: waveform vs CPU {rel:.3e}")
+                cpu_err = dict(wave_rel_l2=rel)
+            else:
+                m_err = float((predict_mask(net_gpu, Y1, fk).cpu()
+                               - predict_mask(net_cpu, Y1.cpu(), fk)).abs().max())
+                check(m_err <= 1e-5, f"{name} float: mask vs CPU {m_err:.3e}")
+                cpu_err = dict(mask_max_err=m_err)
+            ts = []
+            for i in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                learned_enhance(mix_s, net_gpu, cfg, **kw)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            med = statistics.median(ts[2:])
+            nets[f"{name}_{'int8' if quant else 'float'}"] = dict(
+                launches=counts, conv_kernels=routes, ms=ts, ms_median=med, features=fk,
+                **cpu_err)
+            log("net", name=name, int8=quant, features=fk, batch=BATCH, launches=counts,
+                conv_kernels=routes, ms_median=f"{med:.3f}",
+                audio_seconds_per_second=f"{BATCH * N_SAMPLES / 16_000 / (med / 1e3):.1f}",
+                **{f"cpu_chunk0_{k}": f"{v:.3e}" for k, v in cpu_err.items()},
+                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32, card=f"'{smi}'")
+            del net_gpu, net_cpu, out
+
+    # the facade with the reference's defaults for a real array: float fpu_multigeo
+    clip2 = far_field_scene(rng, 1, N_SAMPLES, angles=(65.0, 20.0, 130.0))[0][0]
+    zf_kw = dict(model="fpu_multigeo", direction_deg=75.0, fov_deg=60.0, zoom=0.4)
+    zf_gpu, zf_cpu = AudioZoom(**zf_kw), AudioZoom(device="cpu", **zf_kw)
+    check(not zf_gpu.int8, "AudioZoom's default must be the float net")
+    kernels.reset_launches()
+    e_gpu = zf_gpu.enhance(clip2)
+    torch.cuda.synchronize()
+    zf_counts = active_launches()
+    check(zf_counts == {"convt1x2": 3, "masked_mvdr": 1}, f"facade fpu_multigeo launches {zf_counts}")
+    e_cpu = zf_cpu.enhance(clip2)
+    zf_rel = float(np.linalg.norm(e_gpu - e_cpu) / np.linalg.norm(e_cpu))
+    check(e_gpu.shape == (N_SAMPLES,) and bool(np.isfinite(e_gpu).all()), "facade fpu_multigeo: bad")
+    check(zf_rel <= 1e-4, f"facade fpu_multigeo: waveform vs CPU {zf_rel:.3e}")
+    zf_ts = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        zf_gpu.enhance(clip2)
+        zf_ts.append((time.perf_counter() - t0) * 1e3)
+    nets["facade_fpu_multigeo"] = dict(launches=zf_counts, ms=zf_ts,
+                                       ms_median=statistics.median(zf_ts[1:]), wave_rel_l2=zf_rel)
+    log("facade_fpu_multigeo", launches=zf_counts, ms_median=f"{statistics.median(zf_ts[1:]):.3f}",
+        wave_rel_l2=f"{zf_rel:.3e}")
+
+    # the server with fpu: Cout = 32 at the 80-frame prime and 48-frame reuse ticks
+    f_ticks = 4
+    f_mix = np.clip(far_field_scene(rng, BATCH, win + f_ticks * hop)[0] * 32767.0,
+                    -32767, 32767).astype(np.int16)
+    fsrv = {where: AudioZoomServer(S, cfg=scfg, model="fpu", mask_reuse=True, wire="int16",
+                                   device=where) for where, S in (("cuda", BATCH), ("cpu", 2))}
+    for where, srv_f in fsrv.items():
+        for st in range(srv_f.S):
+            srv_f.set_zoom(st, direction_deg=60.0 + st % 60, zoom=0.5)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    f_outs = [fsrv["cuda"].push(f_mix[:, :, :win])]
+    torch.cuda.synchronize()
+    f_prime = active_launches()
+    f_cpu = [fsrv["cpu"].push(f_mix[:2, :, :win])]
+    f_ms, f_launches = [], []
+    for k in range(f_ticks):
+        blk = f_mix[:, :, win + k * hop:win + (k + 1) * hop]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        f_outs.append(fsrv["cuda"].push(blk))
+        f_ms.append((time.perf_counter() - t0) * 1e3)
+        f_launches.append(active_launches())
+        if k < 2:
+            f_cpu.append(fsrv["cpu"].push(blk[:2]))
+    want = {"qconv3x3": 14, "convt1x2": 3, "masked_mvdr": 1}
+    check(f_prime == want and all(c == want for c in f_launches),
+          f"server fpu launches: prime {f_prime}, ticks {f_launches}")
+    a = np.concatenate(f_outs[1:3], axis=1)[:2].astype(np.float32)
+    b = np.concatenate(f_cpu[1:], axis=1).astype(np.float32)
+    f_rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    check(f_rel <= 1e-2, f"server fpu: first 2 streams vs CPU {f_rel:.3e}")
+    nets["server_fpu_reuse_int16"] = dict(prime_launches=f_prime, tick_launches=f_launches,
+                                          tick_ms=f_ms, tick_ms_median=statistics.median(f_ms[1:]),
+                                          cpu_wave_rel_l2=f_rel)
+    log("server_fpu", streams=BATCH, ticks=f_ticks, prime_launches=f_prime,
+        tick_launches=f_launches[-1], tick_ms_median=f"{statistics.median(f_ms[1:]):.3f}",
+        tick_ms_all=[round(t, 2) for t in f_ms], cpu_first2_wave_rel_l2=f"{f_rel:.3e}")
+    del fsrv, f_mix
+
+    line = {"kernels": [results[k] for k in (
+        "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
+        "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "convt1x2", "hard_null", "hard_null_per_chunk",
+        "int8_mm")]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**line, "per_shape": {str(k): v for k, v in per_shape.items()},
          "qconv_server_families": families, "mvdr_forms": mvdr_forms,
@@ -1154,7 +1379,7 @@ def main() -> int:
          "main_ms": times, "main_hard_null_ms": hn_times, "stream_ms": st_times,
          "server": server_stats, "facade": facade, "tracked": tracked,
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
-         "card": smi}, indent=1))
+         "qconv_sets": set_shapes, "nets": nets, "card": smi}, indent=1))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

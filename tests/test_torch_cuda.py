@@ -21,7 +21,9 @@ from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
 from azoom_torch.kernels.int8_mm_kernel import int8_mm, int8_mm_plain
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
 from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
-from azoom_torch.kernels.qconv_kernel import k_padded, plan, qconv3x3, qconv3x3_plain
+from azoom_torch.kernels.qconv_kernel import (
+    k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +95,56 @@ def test_qconv_wgmma_equals_mma_kernel_bit_for_bit(cuda, cin, cout, t):
     new = qconv3x3(x, w, epi, 0.026, residual=r)
     old = qconv3x3(x, w, epi, 0.026, residual=r, _kernel="mma")
     assert torch.equal(new, old)
+
+
+# The base-32 nets' shapes on unfolded 513-row planes (and ragged ones):
+# stems of Cin 2 and 4, Cout = 32 (with the decoder's concat), Cout = 512 at
+# 4 frames, 512 -> 256 on a concat. batch, F, T, Cin, Cout, residual, concat.
+@pytest.mark.parametrize("batch,f_rows,t,cin,cout,res,cat", [
+    (2, 513, 64, 2, 32, False, False), (2, 513, 64, 4, 32, False, False),
+    (2, 513, 64, 32, 32, False, False), (2, 513, 64, 64, 32, False, True),
+    (2, 513, 32, 32, 64, True, False), (2, 513, 4, 256, 512, False, False),
+    (2, 513, 4, 512, 512, True, False), (2, 513, 8, 512, 256, False, True),
+    (3, 13, 7, 2, 32, True, False), (1, 40, 5, 4, 64, False, False),
+    (2, 33, 3, 32, 32, True, False), (1, 513, 48, 64, 32, False, True)])
+def test_qconv_base32_shapes_bit_equal_to_plain(cuda, batch, f_rows, t, cin, cout, res, cat):
+    rng = np.random.default_rng(100 * cin + cout + t)
+    x = _t(np.abs(rng.standard_normal((batch, f_rows, t, cin))).astype(np.float32), cuda)
+    w = pack_weights(torch.from_numpy(
+        rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8))).to(cuda)
+    epi = _t(np.stack([np.full(cout, 2e-4), *(0.1 * rng.standard_normal((2, cout))),
+                       1 + 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout)])
+             .astype(np.float32), cuda)
+    kw = dict(residual=_t(rng.standard_normal((batch, f_rows, t, cout)).astype(np.float32), cuda)
+              if res else None)
+    if cat:
+        x, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+    got = qconv3x3(x, w, epi, 0.026, **kw)
+    ref = qconv3x3_plain(x, w, epi, 0.026, **kw)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("name", ["fpu", "deepfpu", "tpufpu", "tpufpu_slim"])
+@pytest.mark.parametrize("quant", [True, False])
+def test_bundled_net_on_the_card_matches_the_cpu(cuda, name, quant):
+    """Each bundled conv net's mask on the card against the same net on the
+    CPU: the int8 nets to the whole-net mask bounds (B2 is bit-equal to its
+    plain version; convt1x2's plain version rounds twice on rare ties), the
+    float nets (full float32 matrix products, not TF32) to 1e-5."""
+    from azoom_torch import load_bundled
+
+    model, fk = load_bundled(name, quant=quant)
+    model_cpu, _ = load_bundled(name, quant=quant, device="cpu")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 513, 64, model.in_channels)).astype(np.float32))
+    with torch.inference_mode():
+        got = model(x.to(cuda)).cpu()
+        ref = model_cpu(x)
+    err = (got - ref).abs()
+    if quant:
+        assert float(err.max()) < 1e-2 and float(err.mean()) < 2e-4
+    else:
+        assert float(err.max()) <= 1e-5
 
 
 def test_mvdr_kernel_matches_plain(cuda):
@@ -279,20 +331,20 @@ def test_tracked_and_hrnr_paths_launch_once_and_match_cpu(cuda, beamformer, kern
     model, model_cpu = load_bundled("tpufpu_nano")[0], load_bundled("tpufpu_nano", device="cpu")[0]
     kernels.reset_launches()
     out, theta = tracked_autosteer_enhance(mix.to(cuda), cfg, model=model, beamformer=beamformer,
-                                           tracker="momentum")
+                                           feature_kind="physics", tracker="momentum")
     torch.cuda.synchronize()
     assert _active(kernels.launches) == {"qconv3x3": 21, kernel: 1, "convt1x2": 3}
     ref, theta_ref = tracked_autosteer_enhance(mix, cfg, model=model_cpu, beamformer=beamformer,
-                                               tracker="momentum")
+                                               feature_kind="physics", tracker="momentum")
     assert torch.equal(theta.cpu(), theta_ref)
     assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
     kernels.reset_launches()
     out = learned_enhance(mix[:, :32000].to(cuda), model, cfg, beamformer=beamformer,
-                          harmonic_regen=True)
+                          feature_kind="physics", harmonic_regen=True)
     torch.cuda.synchronize()
     assert _active(kernels.launches) == {"qconv3x3": 21, kernel: 1, "convt1x2": 3}
     ref = learned_enhance(mix[:, :32000], model_cpu, cfg, beamformer=beamformer,
-                          harmonic_regen=True)
+                          feature_kind="physics", harmonic_regen=True)
     assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
 
 
@@ -320,7 +372,7 @@ def test_main_path_launches_and_matches_cpu(cuda, beamformer, kernel):
     mix = torch.from_numpy((0.1 * rng.standard_normal((2, 2, 32000))).astype(np.float32))
     cfg = PipelineConfig(mic_dist=0.04)
     model, _ = load_bundled("tpufpu_nano")
-    kw = dict(beamformer=beamformer, steer_deg=60.0,
+    kw = dict(beamformer=beamformer, feature_kind="physics", steer_deg=60.0,
               fov_deg=30.0 if beamformer == "hard_null" else None)
     kernels.reset_launches()
     out = learned_enhance(mix.to(cuda), model, cfg, **kw)

@@ -100,7 +100,8 @@ def test_learned_enhance_matches_jax(models, case, use_pallas):
         feature_kind="physics", steer_deg=steer, train_mic_dist=train_dist,
         use_pallas=use_pallas))
     got = learned_enhance(torch.tensor(sc["mixture"]), tm, PipelineConfig(mic_dist=mic_dist),
-                          steer_deg=steer, train_mic_dist=train_dist).numpy()
+                          feature_kind="physics", steer_deg=steer,
+                          train_mic_dist=train_dist).numpy()
     assert got.shape == ref.shape == sc["mixture"].shape[-1:]
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
     d_sir = _sir(got, sc) - _sir(ref, sc)
@@ -128,7 +129,8 @@ def test_hard_null_and_fov_match_jax(models, case):
     kw = dict(beamformer=beamformer, steer_deg=steer, fov_deg=fov)
     ref = np.asarray(jax_learned_enhance(jnp.asarray(sc["mixture"]), jm, jv, JaxConfig(mic_dist=0.04),
                                          feature_kind="physics", use_pallas=False, **kw))
-    got = learned_enhance(torch.tensor(sc["mixture"]), tm, PipelineConfig(mic_dist=0.04), **kw)
+    got = learned_enhance(torch.tensor(sc["mixture"]), tm, PipelineConfig(mic_dist=0.04),
+                          feature_kind="physics", **kw)
     _check_parity(case, got.numpy(), ref, sc)
 
 
@@ -140,7 +142,7 @@ def test_streaming_matches_jax(models, beamformer):
                                            JaxConfig(mic_dist=0.04), beamformer,
                                            feature_kind="physics"))
     got = learned_enhance_streaming(torch.tensor(sc["mixture"]), tm, PipelineConfig(mic_dist=0.04),
-                                    beamformer)
+                                    beamformer, feature_kind="physics")
     _check_parity(f"streaming {beamformer}", got.numpy(), ref, sc, wave_bound=2e-2)
 
 
@@ -201,8 +203,8 @@ def test_default_device_needs_cuda():
 
 
 def test_load_bundled_scope():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_bundled("fpu", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+        load_bundled("crn_causal", device="cpu")
     with pytest.raises(KeyError):
         load_bundled("nope", device="cpu")
     assert bundled_train_mic_dist("tpufpu_nano") == 0.04
@@ -214,7 +216,6 @@ UNPORTED = {  # name: (learned_enhance keywords, number of mics)
     "rmvb": ({"beamformer": "rmvb"}, 2),
     "rtf": ({"beamformer": "rtf"}, 2),
     "wpd": ({"beamformer": "wpd"}, 2),
-    "logmag_ipd": ({"feature_kind": "logmag_ipd"}, 2),
     "mvdr_three_mics": ({}, 3),
     "hard_null_three_mics": ({"beamformer": "hard_null"}, 3),
 }
@@ -233,5 +234,7 @@ def test_bad_arguments_raise(models):
     cfg = PipelineConfig(mic_dist=0.04)
     with pytest.raises(ValueError, match="unknown beamformer"):
         learned_enhance(torch.zeros(2, 8000), tm, cfg, beamformer="nope")
+    with pytest.raises(ValueError, match="feature_kind"):
+        learned_enhance(torch.zeros(2, 8000), tm, cfg, feature_kind="mfcc")
     with pytest.raises(ValueError, match="model is on"):
         learned_enhance(torch.zeros(2, 8000, device="meta"), tm, cfg)

@@ -128,10 +128,11 @@ def test_learned_enhance_harmonic_regen_matches_jax(models, scene, beamformer):
     ref = np.asarray(jax_learned_enhance(jnp.asarray(scene["mixture"]), jm, jv,
                                          JaxConfig(mic_dist=0.04), feature_kind="physics", **kw))
     got = learned_enhance(torch.from_numpy(scene["mixture"]), tm, PipelineConfig(mic_dist=0.04),
-                          **kw).numpy()
+                          feature_kind="physics", **kw).numpy()
     _check(f"learned hrnr {beamformer}", got, ref, scene, 2e-2, 0.05)
     plain = learned_enhance(torch.from_numpy(scene["mixture"]), tm, PipelineConfig(mic_dist=0.04),
-                            beamformer=beamformer, steer_deg=60.0).numpy()
+                            beamformer=beamformer, feature_kind="physics",
+                            steer_deg=60.0).numpy()
     assert not np.array_equal(got, plain)  # the stage ran
 
 

@@ -21,7 +21,8 @@ from azoom.models.unet import ResBlock as FlaxResBlock
 from azoom_torch import kernels
 from azoom_torch.kernels.convt_kernel import convt1x2_plain
 from azoom_torch.kernels.qconv_kernel import (
-    SMEM_LIMIT, epilogue_params, k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain,
+    SMEM_LIMIT, epilogue_params, k_padded, kernel_cin, pack_weights, plan, qconv3x3,
+    qconv3x3_plain,
 )
 from azoom_torch.models.convert import load_conv_transpose, load_qconv
 from azoom_torch.models.unet import ConvBNRelu, ConvTranspose1x2, QConv, ResBlock
@@ -214,8 +215,9 @@ CLASSIC_WIDTHS = [
 
 
 def _smem_as_the_c_side_sums_it(cin, cout, how):
-    """Shared memory of a plan, restated from the two C entry points."""
-    halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (cin + 16)
+    """Shared memory of a plan, restated from the two C entry points (a stem
+    of Cin 2 or 4 is 16 channels to the kernel)."""
+    halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (kernel_cin(cin) + 16)
     if how["kernel"] == "mma":  # csrc/qconv_mma_kernel.cu: halo + 2 buffers of Cout x (128 + 16)
         return halo + 2 * cout * 144
     # csrc/qconv_kernel.cu: alignment slack, weight stages, two halos, the warps' output
@@ -223,14 +225,14 @@ def _smem_as_the_c_side_sums_it(cin, cout, how):
     return 1024 + how["stages"] * cout * 128 + 2 * halo + 8 * 16 * 40 * 4 + 5 * cout * 4 + 40 * 8
 
 
-def _check_plan(cin, cout, frames):
+def _check_plan(cin, cout, frames, f_rows=F_ROWS):
     how = plan(cin, cout, frames)
     assert how["smem"] <= SMEM_LIMIT == 232_448
     assert how["smem"] == _smem_as_the_c_side_sums_it(cin, cout, how)
     tw, rows = how["tile_w"], how["tile_rows"]
     assert tw & (tw - 1) == 0 and tw <= max(frames, 1) and tw * rows == how["m_tile"]
     # whole tiles cover the ragged plane: ceil(F / rows) row tiles, ceil(T / tw) frame tiles
-    assert -(-F_ROWS // rows) * rows >= F_ROWS and -(-frames // tw) * tw >= frames
+    assert -(-f_rows // rows) * rows >= f_rows and -(-frames // tw) * tw >= frames
     if how["kernel"] == "wgmma":
         assert cin % 32 == 0 and cout in (64, 128, 256) and tw <= 64
         assert how["m_tile"] == (256 if cout == 64 else 128)
@@ -267,7 +269,9 @@ def test_plan_of_the_classic_widths(cin, cout, frames):
         assert how["kernel"] == "mma"
 
 
-@pytest.mark.parametrize("cin,cout,frames", [(8, 64, 8), (24, 64, 8), (64, 96, 8), (64, 64, 0)])
+@pytest.mark.parametrize("cin,cout,frames", [
+    (8, 64, 8), (24, 64, 8), (64, 96, 8), (64, 64, 0), (1, 32, 8), (3, 32, 8), (8, 32, 8),
+    (2, 16, 8), (4, 48, 8), (32, 1024, 8), (2, 32, 0), (20, 32, 8)])
 def test_plan_refuses_what_no_kernel_takes(cin, cout, frames):
     with pytest.raises(ValueError, match="qconv3x3"):
         plan(cin, cout, frames)
@@ -279,3 +283,61 @@ def test_packed_rows_have_no_padding_where_wgmma_reads_them(cin):
     bytes (a multiple of 16); only Cin % 32 != 0 pads."""
     assert k_padded(cin) == 9 * cin and (9 * cin) % 16 == 0
     assert k_padded(16) == 160 and k_padded(48) == 448
+
+
+# (Cin, Cout, frames at T = 64) of the base-32 nets on unfolded 513-row planes:
+# FreqPreservingUNet (logmag_ipd stem of 2 channels) and DeepFPU (physics stem
+# of 4, a 512-wide bottleneck at 4 frames)
+FPU_SHAPES = [
+    (2, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16), (128, 128, 16),
+    (128, 256, 8), (256, 256, 8), (256, 128, 16), (128, 64, 32), (64, 32, 64),
+]
+DEEPFPU_SHAPES = FPU_SHAPES[1:] + [(4, 32, 64), (256, 512, 4), (512, 512, 4), (512, 256, 8)]
+
+
+@pytest.mark.parametrize("cin,cout,frames", sorted(set(FPU_SHAPES + DEEPFPU_SHAPES)))
+def test_plan_of_the_base32_shapes(cin, cout, frames):
+    how = _check_plan(cin, cout, frames, f_rows=513)
+    # mma.sync: the stems, Cout of 32 and 512, and 512 -> 256 (no 3 weight stages fit)
+    on_mma = cin in (2, 4) or cout in (32, 512) or (cin, cout) == (512, 256)
+    assert how["kernel"] == ("mma" if on_mma else "wgmma")
+    if cout == 32:
+        assert how["m_tile"] == 512 and how["tile_w"] * how["tile_rows"] == 512
+
+
+def test_stem_weights_pack_as_16_channels():
+    """Cin 2 or 4 is packed as if Cin were 16, the taps' other channels zero:
+    the kernel's zero-extended halo then gives the same int32 sums."""
+    w = torch.arange(3 * 3 * 2 * 32, dtype=torch.int32).reshape(3, 3, 2, 32) % 101 - 50
+    packed = pack_weights(w.to(torch.int8))
+    assert kernel_cin(2) == kernel_cin(4) == 16 and kernel_cin(32) == 32
+    assert packed.shape == (32, k_padded(2)) == (32, 160)
+    for dy, dx, c, n in ((0, 0, 1, 0), (2, 1, 0, 31), (1, 2, 1, 7)):
+        assert packed[n, (3 * dy + dx) * 16 + c] == w[dy, dx, c, n]
+    taps = packed[:, :144].reshape(32, 9, 16)
+    assert torch.all(taps[..., 2:] == 0) and torch.all(packed[:, 144:] == 0)
+
+
+@pytest.mark.parametrize("cin,cout", [(2, 32), (4, 32), (32, 32), (64, 32), (4, 64)])
+def test_plain_conv_at_the_base32_widths_matches_an_integer_reference(rng, cin, cout):
+    """The plain version at the stems and at Cout = 32 against an int64 conv
+    of the same codes and the epilogue's float32 order in numpy."""
+    x = (rng.standard_normal((2, 7, 5, cin)) * 2).astype(np.float32)
+    w = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    s = np.float32(0.02)
+    epi = epilogue_params(float(s), torch.from_numpy(rng.random(cout).astype(np.float32) * 1e-2),
+                          torch.from_numpy(rng.standard_normal(cout).astype(np.float32)),
+                          tuple(torch.from_numpy(a.astype(np.float32)) for a in (
+                              1 + 0.1 * rng.standard_normal(cout), rng.standard_normal(cout),
+                              rng.standard_normal(cout), 0.5 + rng.random(cout))))
+    got = qconv3x3_plain(torch.from_numpy(x), pack_weights(torch.from_numpy(w)), epi, float(s),
+                         relu=False).numpy()
+    xq = np.clip(np.round(x / s), -127, 127).astype(np.int64)
+    xp = np.pad(xq, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    acc = np.zeros(got.shape, np.int64)
+    for dy in range(3):
+        for dx in range(3):
+            acc += np.einsum("bftc,cn->bftn", xp[:, dy:dy + 7, dx:dx + 5], w[dy, dx].astype(np.int64))
+    e = epi.numpy()
+    ref = ((acc.astype(np.float32) * e[0] + e[1]) - e[2]) * e[3] + e[4]
+    np.testing.assert_array_equal(got, ref)

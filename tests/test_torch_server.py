@@ -172,7 +172,8 @@ def test_server_matches_hand_overlap_add_of_learned_enhance():
         c = cfg.replace(sigma=float(zoom_to_sigma(ZOOMS[s])))
         steer = torch.tensor(STEERS[s])
         e1, e2 = (learned_enhance(torch.from_numpy(mixes[s, :, o:o + win]), model, c,
-                                  steer_deg=steer).numpy() for o in (0, hop))
+                                  feature_kind="physics", steer_deg=steer).numpy()
+                  for o in (0, hop))
         expected = ((e1 * w)[hop:] + (e2 * w)[:hop]) / norm
         err = np.max(np.abs(out[s] - expected)) / np.max(np.abs(expected))
         assert err <= 1e-5, f"stream {s}: server vs learned_enhance rel err {err:.3e}"
@@ -260,8 +261,6 @@ def test_server_bad_arguments():
                         reuse_context=60, device="cpu")
     with pytest.raises(ValueError, match="precision"):
         AudioZoomServer(1, dsp_precision="bf16", device="cpu")
-    with pytest.raises(NotImplementedError):
-        AudioZoomServer(1, int8=False, device="cpu")
     srv = AudioZoomServer(2, device="cpu")
     with pytest.raises(ValueError, match="expected 2 streams"):
         srv.push(np.zeros((3, 2, 100), np.float32))

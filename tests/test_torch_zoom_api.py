@@ -78,7 +78,7 @@ def test_autosteer_matches_jax(scene, models, case):
     jkw, tkw = dict(kw), dict(kw)
     if case == "learned":
         jkw.update(model=jm, variables=jv, feature_kind=fk, fov_gate=True)
-        tkw.update(model=tm, fov_gate=True)
+        tkw.update(model=tm, feature_kind="physics", fov_gate=True)
     ref, theta_ref = jax_autosteer(jnp.asarray(mix), jcfg, **jkw)
     got, theta = autosteer_enhance(torch.from_numpy(mix), cfg, **tkw)
     assert theta.shape == () and float(theta) == float(theta_ref)
@@ -150,10 +150,11 @@ def test_port_matches_reference_stages(scene, models, reference_stages):
     tm = models[3]
     _, mask_ref, stages = reference_stages
     mix = torch.from_numpy(scene["mixture"][:, :16000])
-    mask = predict_mask(tm, stft(mix, 1024, 512)).numpy()
+    mask = predict_mask(tm, stft(mix, 1024, 512), "physics").numpy()
     assert mask.shape == mask_ref.shape
     mask_err = float(np.abs(mask - mask_ref).mean())
-    out = learned_enhance(mix, tm, PipelineConfig(mic_dist=0.04, sigma=STAGE_SIGMA)).numpy()
+    out = learned_enhance(mix, tm, PipelineConfig(mic_dist=0.04, sigma=STAGE_SIGMA),
+                          feature_kind="physics").numpy()
     rel = float(np.linalg.norm(out - stages) / np.linalg.norm(stages))
     print(f"[parity] port vs reference stages: mask_mean_abs={mask_err:.3e} wave_rel_l2={rel:.3e}")
     assert mask_err <= 1e-5
@@ -227,7 +228,6 @@ def test_pipelined_push_is_the_plain_push_one_window_late(scene):
 
 QUEUED = {  # name: (AudioZoom keywords, what the message names)
     "low_latency": (dict(latency="low"), "lowlat"),
-    "float_net": (dict(model="tpufpu_nano", int8=False), "float"),
 }
 
 

@@ -16,6 +16,7 @@ import torch
 
 __all__ = [
     "mic_positions", "positions_2d", "far_field_delays", "steering_vector", "steering_matrix",
+    "steer_rotate",
 ]
 
 
@@ -98,3 +99,12 @@ def steering_matrix(
     SRP angle scan and beam-pattern analysis."""
     angles = torch.as_tensor(angles_deg, dtype=torch.float32, device=freqs_hz.device)
     return steering_vector(freqs_hz, angles, mic_dist, c, n_mics, positions=positions)
+
+
+def steer_rotate(Y: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The STFT Y (..., M, F, T) rotated by conj(d) of steering vectors d
+    ((F, M) or (..., F, M)), so the look direction appears broadside to a
+    mask net: in complex128, rounded once to complex64, the same bits on
+    every device."""
+    rot = torch.conj(d).transpose(-1, -2)[..., None].to(torch.complex128)
+    return (Y.to(torch.complex128) * rot).to(torch.complex64)

@@ -25,7 +25,9 @@ import torch
 
 from azoom_torch.dsp.windows import hann
 
-__all__ = ["stft", "istft", "stft_frame_count", "rfft_freqs"]
+__all__ = [
+    "stft", "istft", "stft_frame_count", "rfft_freqs", "analysis_frames", "synthesis_frames",
+]
 
 _PRECISIONS = ("exact", "fast")
 
@@ -86,9 +88,36 @@ def stft(
     n_add = (-(n_ext - n_fft)) % hop
     x = torch.nn.functional.pad(x, (pad, pad + n_add))
     frames = x.unfold(-1, n_fft, hop)  # (..., T, n_fft), a view
-    win = hann(n_fft, device=x.device, dtype=torch.float64)
-    spec = torch.fft.rfft(frames * win, dim=-1) / torch.sum(win)
-    return spec.to(torch.complex64).transpose(-1, -2).contiguous()  # (..., F, T)
+    return analysis_frames(frames).transpose(-1, -2).contiguous()  # (..., F, T)
+
+
+def analysis_frames(frames: torch.Tensor) -> torch.Tensor:
+    """Spectra of float64 frames (..., n_fft) -> complex64 (..., n_freqs):
+    the Hann-windowed rfft over ``win.sum()`` in float64, rounded once. The
+    one frame transform of :func:`stft` and of the hop-by-hop stream
+    (stream.lowlat), so the two give the same bits."""
+    n_fft = frames.shape[-1]
+    win = hann(n_fft, device=frames.device, dtype=torch.float64)
+    return (torch.fft.rfft(frames * win, dim=-1) / torch.sum(win)).to(torch.complex64)
+
+
+def synthesis_frames(Zt: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Windowed float64 frames (..., n_fft) of spectra Zt (..., n_freqs):
+    irfft * win * win.sum(), the frames :func:`istft` overlap-adds (and the
+    hop-by-hop stream finalizes one at a time).
+
+    In float64 and rounded once at the end by the caller: cuFFT's float32
+    C2R plans for large batches are less accurate than the small-batch
+    ones, so in float32 the output would depend on the batch. The imaginary
+    parts of the DC and Nyquist bins are not part of a real signal's
+    spectrum: pocketfft drops them, some cuFFT plans fold them in, so they
+    are dropped explicitly."""
+    win = hann(n_fft, device=Zt.device, dtype=torch.float64)
+    Zt = Zt.to(torch.complex128, copy=True)  # the caller's spectra stay as they are
+    Zt[..., 0].imag.zero_()
+    if n_fft % 2 == 0:
+        Zt[..., n_fft // 2].imag.zero_()
+    return torch.fft.irfft(Zt, n=n_fft, dim=-1) * win * torch.sum(win)
 
 
 def istft(
@@ -105,19 +134,7 @@ def istft(
     """
     _check_precision(precision)
     win = hann(n_fft, device=Z.device, dtype=torch.float64)
-    # In float64 and rounded once at the end, like the forward transform:
-    # cuFFT's float32 C2R plans for large batches are less accurate than the
-    # small-batch ones, so in float32 the output would depend on the batch.
-    # The imaginary parts of the DC and Nyquist bins are not part of a real
-    # signal's spectrum: pocketfft drops them, some cuFFT plans fold them
-    # in, so they are dropped explicitly.
-    Zt = Z.transpose(-1, -2).to(torch.complex128)
-    Zt[..., 0] = Zt[..., 0].real
-    if n_fft % 2 == 0:
-        Zt[..., n_fft // 2] = Zt[..., n_fft // 2].real
-    frames = torch.fft.irfft(Zt, n=n_fft, dim=-1)
-    frames = frames * win * torch.sum(win)
-    x = _overlap_add(frames, hop)
+    x = _overlap_add(synthesis_frames(Z.transpose(-1, -2), n_fft), hop)
 
     n_frames = Z.shape[-1]
     norm = _overlap_add((win * win).expand(n_frames, n_fft), hop)

@@ -1,8 +1,8 @@
 """Check and time the port's kernels alone, shape by shape, on one NVIDIA GPU:
 
     python3 -m azoom_torch.kernels.bench [int8_mm] [qconv] [convt] [hard_null] [mvdr]
-                                         [float_conv] [fp32_peak] [--quick] [--against DIR]
-                                         [--nets NET,...]
+                                         [online_mvdr] [float_conv] [fp32_peak] [--quick]
+                                         [--against DIR] [--nets NET,...]
     python3 -m azoom_torch.kernels.bench clocks
 
 ``int8_mm``: each of the nine microbenchmark shapes held exactly against the
@@ -44,6 +44,20 @@ form's share of the time.
 loading) at the server's tick, (128, 2, 513, 65), against an earlier tree's
 kernel: the elements that differ and both times in turns. chip_smoke.py
 phase 2 holds the shared and per-stream forms against the plain version.
+
+``online_mvdr``: the recursive online MVDR (the low-latency beamformer) on
+one stream of 513 bins at T = 1 (one hop), 64 and 1875 (a 60 s clip) and on
+128 streams at 1875, with the floored target-mask gain: held against the
+plain loop (relative error of the output and the state; the plain loop
+only at T <= 64 with ``--quick``), then timed as CUDA-graph replays beside
+the byte bound (Y, both masks and S once, the state read and written) and
+the floor of the frame-to-frame chain (T dependent FMAs of 4 cycles at the
+card's maximum SM clock); ``us_per_frame`` is the time over T. The plain
+check starts from a state warmed on 32 frames: from a fresh one the first
+frames are ill-posed (R = y y^H plus a 1e-6 prime). With ``--against DIR``
+it also builds DIR's ``online_mvdr_kernel.cu`` (the same C interface),
+counts the elements of S and of the state that differ from it, and times
+both in turns.
 
 ``float_conv``: the float nets' 3x3 convs two ways, as ``models.unet.FConv``
 runs them (im2col and one float32 matrix product) and as cuDNN's
@@ -500,6 +514,82 @@ def bench_float_conv(dev) -> dict:
     return rows
 
 
+def bench_online_mvdr(dev, quick: bool, against: Path | None) -> dict:
+    from azoom_torch.dsp.delays import steering_vector
+    from azoom_torch.dsp.stft import rfft_freqs
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr, online_mvdr_plain
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    F = 513
+    freqs = rfft_freqs(1024, 16_000, device=dev)
+    d = steering_vector(freqs, 60.0, 0.04)
+    old_fn = None
+    if against is not None:  # an earlier online_mvdr_kernel.cu of the same C interface
+        old_fn = earlier_library(against, "online_mvdr_kernel").azt_online_mvdr
+        old_fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_float] * 4
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        old_fn.restype = ctypes.c_int
+    rows = {}
+    for B, T in ((1, 1), (1, 64), (1, 1875), (128, 1875)):
+        if quick and T > 64:
+            continue
+        lead = () if B == 1 else (B,)
+        Y = torch.complex(torch.randn(lead + (2, F, T), generator=gen, device=dev),
+                          torch.randn(lead + (2, F, T), generator=gen, device=dev))
+        nm = torch.rand(lead + (F, T), generator=gen, device=dev)
+        kw = dict(target_mask=1.0 - nm, sigma=1e-7, mask_floor=0.05)
+        row = {}
+        if B == 1:
+            # from a state warmed on 32 frames: from a fresh one the first
+            # frames are ill-posed (R = y y^H + a 1e-6 prime)
+            warm = initial_state(lead, F, device=dev)
+            online_mvdr_plain(torch.complex(*torch.randn((2, 2, F, 32), generator=gen, device=dev)),
+                              torch.rand((F, 32), generator=gen, device=dev), d, freqs, *warm)
+            st_k, st_p = [t.clone() for t in warm], [t.clone() for t in warm]
+            got = online_mvdr(Y, nm, d, freqs, *st_k, **kw)
+            ref = online_mvdr_plain(Y, nm, d, freqs, *st_p, **kw)
+            row["rel_err"] = float((got - ref).abs().max() / ref.abs().max())
+            row["state_rel_err"] = max(float((a - b).abs().max() / b.abs().max())
+                                       for a, b in zip(st_k, st_p))
+        st = initial_state(lead, F, device=dev)
+
+        def current():
+            return online_mvdr(Y, nm, d, freqs, *st, **kw)
+
+        if old_fn is not None:
+            st_old = initial_state(lead, F, device=dev)
+            tm = kw["target_mask"]
+
+            def earlier():
+                S = torch.empty(lead + (F, T), dtype=torch.complex64, device=dev)
+                build.check(old_fn(Y.data_ptr(), nm.data_ptr(), tm.data_ptr(), d.data_ptr(), 1e-7,
+                                   freqs.data_ptr(), 100.0, 0.98, 1e-6, 0.05, st_old[0].data_ptr(),
+                                   st_old[1].data_ptr(), S.data_ptr(), B, F, T,
+                                   torch.cuda.current_stream().cuda_stream), "earlier online_mvdr")
+                return S
+
+            row["not_bit_equal_to_earlier"] = int((current() != earlier()).sum()) + sum(
+                int((a != b).sum()) for a, b in zip(st, st_old))
+        if not quick:
+            if old_fn is not None:
+                row["earlier_ms"], row["ms"] = _in_turns(earlier, current)
+            else:
+                row["ms"] = device_ms(current)
+            nbytes = B * F * (T * (16 + 4 + 4 + 8) + 2 * (32 + 4)) + F * (16 + 4)
+            row["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            row["chain_floor_ms"] = T * 4 / (mhz * 1e6) * 1e3
+            row["us_per_frame"] = row["ms"] / T * 1e3
+        rows[f"{B}x{T}"] = row
+        print(f"[online_mvdr] streams={B} F={F} T={T} " + " ".join(
+            f"{k}={v:.4g}" for k, v in row.items()) + f" max_sm_mhz={mhz:g}", flush=True)
+    return rows
+
+
 def bench_fp32_peak(dev) -> dict:
     fn = build.load_library("bench_fp32_peak").azt_fp32_peak
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -572,6 +662,8 @@ def main(argv) -> int:
         out["hard_null"] = bench_hard_null(dev, quick, against)
     if "mvdr" in which:
         out["mvdr"] = bench_mvdr(dev, quick, against)
+    if "online_mvdr" in which:
+        out["online_mvdr"] = bench_online_mvdr(dev, quick, against)
     if "float_conv" in which:
         out["float_conv"] = bench_float_conv(dev)
     if "fp32_peak" in which:

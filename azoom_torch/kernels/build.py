@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNEL_SOURCES = (
     "mvdr_kernel", "qconv_kernel", "qconv_mma_kernel", "convt_kernel", "nullsteer_kernel",
-    "int8_mm_kernel",
+    "int8_mm_kernel", "online_mvdr_kernel",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,6 @@
-"""Carry a flax variables tree of a conv mask net (FreqPreservingUNet,
-DeepFPU, TPUFPU) across into the port's modules.
+"""Carry a flax variables tree of a mask net (the conv nets
+FreqPreservingUNet, DeepFPU, TPUFPU; the causal CRN) across into the port's
+modules.
 
 The tree is nested dicts of numpy arrays with the collections ``params``,
 ``batch_stats`` and, for the int8 serving path, ``quant_stats`` (the
@@ -8,7 +9,8 @@ calibrated static activation scales), as
 model's variables give it after ``numpy`` conversion. In the int8 mode each
 3x3 conv is quantised here, once, with QConv's formula, and its dequant and
 BatchNorm become the rows of the conv kernel's epilogue; in the float mode
-the kernel is kept as it is and ``quant_stats`` is ignored.
+the kernel is kept as it is and ``quant_stats`` is ignored. The CRN is
+float only (:func:`crn_from_flax`).
 """
 
 from __future__ import annotations
@@ -17,11 +19,15 @@ import numpy as np
 import torch
 
 from azoom_torch.kernels.qconv_kernel import epilogue_params, pack_weights, quantize_weights
+from azoom_torch.models.crn import CRNMaskNet
 from azoom_torch.models.unet import (
     TPUFPU, ConvBNRelu, ConvTranspose1x2, FConv, Head, QConv, ResBlock,
 )
 
-__all__ = ["from_flax", "tpufpu_from_flax", "load_qconv", "load_fconv", "load_conv_transpose"]
+__all__ = [
+    "from_flax", "tpufpu_from_flax", "crn_from_flax", "load_qconv", "load_fconv",
+    "load_conv_transpose",
+]
 
 
 def _t(a) -> torch.Tensor:
@@ -122,3 +128,45 @@ def tpufpu_from_flax(variables: dict, model_kwargs: dict, device="cpu"):
     """:func:`from_flax` for the int8 TPUFPU (``in_channels`` defaults to the
     4 physics features)."""
     return from_flax(TPUFPU, variables, model_kwargs, True, device)
+
+
+def crn_from_flax(variables: dict, model_kwargs: dict, device="cpu") -> CRNMaskNet:
+    """Build the port's CRNMaskNet with ``model_kwargs`` (base, hidden,
+    n_lstm, unidirectional) and carry the flax ``variables`` of
+    azoom.models.crn.CRNMaskNet across. The frequency count comes from
+    Dense_0's kernel (F / 8 rows of 4 * base channels, F padded to a
+    multiple of 8; 513 unless ``n_freqs`` is given). The flax cells are
+    named in the order they were built: OptimizedLSTMCell_i for layer i, or
+    2i (forward) and 2i + 1 (backward) when bidirectional. Returns the model
+    on ``device`` in eval mode."""
+    kw = {k: v for k, v in model_kwargs.items() if k != "dtype"}
+    p, s = variables["params"], variables["batch_stats"]
+    model = CRNMaskNet(**kw)
+    flat = np.shape(p["Dense_0"]["kernel"])[0]
+    if flat != model.rows * 4 * model.base:
+        raise ValueError(f"Dense_0 takes {flat} inputs; the net at n_freqs={model.n_freqs} "
+                         f"flattens {model.rows * 4 * model.base}")
+    with torch.no_grad():
+        for name, convs in (("_FreqDown", model.down), ("_FreqUp", model.up)):
+            for k, conv in enumerate(convs):
+                cp, bs = p[f"{name}_{k}"], s[f"{name}_{k}"]["BatchNorm_0"]
+                kernel = cp["ConvTranspose_0" if conv.up else "Conv_0"]
+                bn = cp["BatchNorm_0"]
+                epi = epilogue_params(1.0, torch.ones(conv.cout), _t(kernel["bias"]),
+                                      (_t(bn["scale"]), _t(bn["bias"]), _t(bs["mean"]),
+                                       _t(bs["var"])))
+                conv.load(_t(kernel["kernel"]), *epi[1:])
+        model.w_in.copy_(_t(p["Dense_0"]["kernel"]))
+        model.b_in.copy_(_t(p["Dense_0"]["bias"]))
+        model.w_out.copy_(_t(p["Dense_1"]["kernel"]))
+        model.b_out.copy_(_t(p["Dense_1"]["bias"]))
+        cells = [(model.fwd[i], 2 * i if model.bwd else i) for i in range(model.n_lstm)]
+        cells += [(model.bwd[i], 2 * i + 1) for i in range(len(model.bwd))]
+        for lstm, j in cells:
+            c = p[f"OptimizedLSTMCell_{j}"]
+            lstm.wi.copy_(torch.cat([_t(c[f"i{g}"]["kernel"]) for g in "ifgo"], dim=1))
+            lstm.wh.copy_(torch.cat([_t(c[f"h{g}"]["kernel"]) for g in "ifgo"], dim=1))
+            lstm.bh.copy_(torch.cat([_t(c[f"h{g}"]["bias"]) for g in "ifgo"]))
+        model.w_head.copy_(_t(p["Conv_0"]["kernel"]).reshape(model.base, 1))
+        model.b_head.copy_(_t(p["Conv_0"]["bias"]))
+    return model.to(device).eval()

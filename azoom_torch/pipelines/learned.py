@@ -21,7 +21,7 @@ import torch
 
 from azoom_torch.beam.postfilter import harmonic_regeneration
 from azoom_torch.config import PipelineConfig
-from azoom_torch.dsp.delays import steering_vector
+from azoom_torch.dsp.delays import steer_rotate, steering_vector
 from azoom_torch.dsp.stft import istft, rfft_freqs, stft
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
 from azoom_torch.kernels.nullsteer_kernel import hard_null_fused
@@ -147,10 +147,8 @@ def learned_enhance(
                 and cfg.mic_positions is None):
             steer_align = False
         if steer_align:
-            d_al = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics, positions=geom)
-            # In complex128, rounded once: device-independent bits.
-            rot = torch.conj(d_al).transpose(-1, -2)[..., None].to(torch.complex128)
-            Y_feat = (Y.to(torch.complex128) * rot).to(torch.complex64)
+            Y_feat = steer_rotate(Y, steering_vector(freqs, steer, cfg.mic_dist, cfg.c,
+                                                     cfg.n_mics, positions=geom))
         tgt_mask = predict_mask(model, Y_feat, feature_kind, ipd_scale=ipd_scale,
                                 pair_mode=pair_mode)
         noise_mask = 1.0 - tgt_mask

@@ -42,7 +42,7 @@ import torch
 
 from azoom_torch.beam.zoom import zoom_to_sigma
 from azoom_torch.config import PipelineConfig, resolve_device
-from azoom_torch.dsp.delays import steering_vector
+from azoom_torch.dsp.delays import steer_rotate, steering_vector
 from azoom_torch.dsp.stft import _check_precision, istft, rfft_freqs, stft
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
 from azoom_torch.localize.srp import ipd_angle_histogram
@@ -327,10 +327,8 @@ class AudioZoomServer:
         cfg = self.cfg
         d = steering_vector(self._freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics,
                             positions=self._geom)
-        rot = torch.conj(d).transpose(-1, -2)[..., None].to(torch.complex128)
-        Y_feat = (Y[..., frames_from:].to(torch.complex128) * rot).to(torch.complex64)
-        mask = predict_mask(self._model, Y_feat, self._fk, ipd_scale=self._ipd_scale,
-                            pair_mode=self._pair_mode)
+        mask = predict_mask(self._model, steer_rotate(Y[..., frames_from:], d), self._fk,
+                            ipd_scale=self._ipd_scale, pair_mode=self._pair_mode)
         return d, mask
 
     def _beamform(self, Y, mask, d, sigma) -> torch.Tensor:

@@ -8,13 +8,18 @@ Enhancement is the blind autosteer pipeline, optionally with the bundled
 int8 mask net: the camera's field of view picks the region, the DOA
 histogram refines the bearing inside it, the net gives the mask.
 
-Ported: the high-latency mode (2 s windows, 50 % Hann overlap-add; push()
-output emerges one hop behind the input) with every bundled conv mask net,
-int8 or float, whole-clip tracking of clips longer than a window
-(pipelines.tracked), the causal and momentum streaming trackers, the HRNR
-post-filter (``harmonic_regen``), ``pipelined`` pushes and the
-``mask_reuse`` one-slot server. Not ported (it raises NotImplementedError
-naming its ROADMAP.md item): ``latency="low"``.
+Two latency modes, both ported:
+
+  * ``latency="high"`` (the default): 2 s windows with 50 % Hann
+    overlap-add, the reference's execution model; push() output emerges one
+    hop (1 s) behind the input. Every bundled conv mask net, int8 or float,
+    whole-clip tracking of clips longer than a window (pipelines.tracked),
+    the causal and momentum streaming trackers, the HRNR post-filter
+    (``harmonic_regen``), ``pipelined`` pushes and the ``mask_reuse``
+    one-slot server.
+  * ``latency="low"``: hop-granularity causal streaming (the crn_causal mask
+    net and the recursive online MVDR, stream.lowlat): 32-64 ms of
+    algorithmic latency; ``track=True`` retargets the stream once a second.
 """
 
 from __future__ import annotations
@@ -30,10 +35,13 @@ from azoom_torch.config import PipelineConfig, resolve_device
 from azoom_torch.dsp.stft import _check_precision, stft
 from azoom_torch.localize import tracking
 from azoom_torch.localize.srp import ipd_angle_histogram
+from azoom_torch.models.crn import CRNMaskNet
 from azoom_torch.models.pretrained import geo_adapt_dist, load_bundled
 from azoom_torch.pipelines.autosteer import autosteer_enhance
 from azoom_torch.pipelines.learned import learned_enhance
+from azoom_torch.pipelines.online_learned import online_learned_enhance
 from azoom_torch.pipelines.tracked import steered_heuristic_enhance, tracked_autosteer_enhance
+from azoom_torch.stream.lowlat import OnlineEnhancer
 from azoom_torch.stream.server import AudioZoomServer, _MomentumBank
 
 __all__ = ["AudioZoom"]
@@ -54,8 +62,9 @@ class AudioZoom:
       zoom: UI zoom level in [0, 1] (0 = wide, 1 = narrowest beam), mapped
         to the diagonal loading.
       enhance_fn: optional override (M, win) -> (win,) of the window step.
-      model: optional bundled conv mask net (every name of
-        models.pretrained but 'crn_causal'); its feature kind goes with it.
+      model: optional bundled mask net (any name of models.pretrained); its
+        feature kind goes with it. The causal 'crn_causal' runs the
+        low-latency pipeline (pipelines.online_learned) on each window.
       int8: serve the int8 net; False (the default, as in the reference)
         serves the float net of the same checkpoint.
       autosteer: with a model, refine the bearing by the DOA histogram inside
@@ -69,7 +78,12 @@ class AudioZoom:
       tracker: 'causal' (position-only) or 'momentum' (direction state,
         which keeps identity through a crossing talker); enhance() of a long
         clip runs the offline form of either ('viterbi' or 'momentum').
-      latency: 'high' (ported) or 'low' (not ported).
+      latency: 'high' (2 s windows, best quality) or 'low' (hop-level causal
+        streaming, 32-64 ms; needs a causal model, 'crn_causal' when none is
+        given). With ``track`` at low latency the bearing filter advances
+        once per second of received audio and retargets the stream, whose
+        output latency stays one hop; enhance() runs the causal pipeline on
+        the whole clip.
       native: accepted; push() buffers in NumPy either way (the reference's
         own path without its C++ engine, with the same output) until
         azoom/stream/native.py is ported.
@@ -118,10 +132,8 @@ class AudioZoom:
         if self.tracker not in ("causal", "momentum"):
             raise ValueError(f"tracker must be 'causal' or 'momentum', got {self.tracker!r}")
         _check_precision(self.dsp_precision)
-        if self.latency == "low":
-            raise NotImplementedError(
-                "latency='low' (the causal crn_causal net, stream/lowlat.py, stream/online.py) "
-                "is not ported (ROADMAP.md Queue A items 9.4 and 9.5)")
+        if self.latency == "low" and self.model is None:
+            self.model = "crn_causal"
         self._device = resolve_device(self.device)
         self._mask_net = None
         self._feats = None  # the net's feature kind
@@ -130,9 +142,16 @@ class AudioZoom:
             self._mask_net, self._feats = load_bundled(self.model, quant=self.int8,
                                                        device=self._device)
             self._train_mic_dist = geo_adapt_dist(self.model, self.cfg.mic_dist)
+        causal = isinstance(self._mask_net, CRNMaskNet)
+        if self.latency == "low" and not causal:
+            raise ValueError(f"latency='low' needs a causal streaming model (e.g. 'crn_causal'); "
+                             f"{self.model!r} cannot stream")
         if self.mask_reuse:
-            if self.model is None:
+            if self.latency != "high" or self.model is None:
                 raise ValueError("mask_reuse needs latency='high' and a mask net")
+            if causal:
+                raise ValueError("mask_reuse applies to windowed (non-causal) nets; "
+                                 f"{self.model!r} already streams per-frame")
             if self.enhance_fn is not None or self.pipelined:
                 raise ValueError(
                     "mask_reuse is the server streaming path: it does not compose with "
@@ -144,10 +163,14 @@ class AudioZoom:
     def set_zoom(self, direction_deg=None, fov_deg=None, zoom=None) -> None:
         if direction_deg is not None:
             self.direction_deg = float(direction_deg)
+            if self._online is not None:
+                self._online.set_direction(self.direction_deg)
         if fov_deg is not None:
             self.fov_deg = float(fov_deg)
         if zoom is not None:
             self.zoom = float(np.clip(zoom, 0.0, 1.0))
+            if self._online is not None:  # the loading, from the stream's next hop on
+                self._online.set_sigma(self.sigma)
         if self._srv is not None:
             self._srv.set_zoom(0, direction_deg=direction_deg, zoom=zoom, fov_deg=fov_deg)
 
@@ -204,7 +227,8 @@ class AudioZoom:
         if self.enhance_fn is not None:
             return self.enhance_fn(window)
         net = self._mask_net
-        if self.track:
+        causal = isinstance(net, CRNMaskNet)
+        if self.track and not causal:
             # The bearing goes in as a tensor: steered as the reference's
             # traced bearing is (the steer-align rotation always applies).
             theta = torch.tensor(self._update_track(window, cfg), dtype=torch.float32,
@@ -218,6 +242,8 @@ class AudioZoom:
         if net is None:
             return autosteer_enhance(window, cfg, fov_center_deg=self.direction_deg,
                                      fov_width_deg=self.fov_deg)[0]
+        if causal:  # the causal pipeline, steered exactly (no autosteer, no FOV gate)
+            return online_learned_enhance(window, net, cfg)
         if self.autosteer:
             # camera field of view -> DOA-refined bearing -> learned mask
             return autosteer_enhance(
@@ -240,7 +266,8 @@ class AudioZoom:
         own bearing on the offline track (the moving-talker path,
         pipelines.tracked); otherwise one window of the clip's length."""
         x = self._as_input(mixture)
-        if self.track and self.enhance_fn is None and x.shape[-1] > self.cfg.win_size:
+        if (self.track and self.enhance_fn is None and self.latency == "high"
+                and x.shape[-1] > self.cfg.win_size):
             kw = {} if self._mask_net is None else dict(
                 model=self._mask_net, feature_kind=self._feats,
                 train_mic_dist=self._train_mic_dist)
@@ -259,6 +286,15 @@ class AudioZoom:
         self._track_scores = None  # the causal tracker's forward-Viterbi scores
         self._momentum = None  # the momentum tracker (built on the first window)
         self._srv = None
+        self._online = None
+        if self.latency == "low":
+            self._online = OnlineEnhancer(self._zoom_cfg(), self._mask_net,
+                                          steer_deg=self.direction_deg, device=self._device)
+            # With track: the bearing filter steps on each full second of
+            # received audio (the 2 s / 50 % path's cadence, so its motion
+            # model carries over) and retargets the stream.
+            self._track_buf = np.zeros((self.cfg.n_mics, 0), np.float32)
+            return
         if self.mask_reuse:
             # One slot: device-resident window, overlap-add and masks,
             # frame-aligned mask reuse, this stream's steer, zoom and tracking.
@@ -291,6 +327,10 @@ class AudioZoom:
         if self._srv is not None:
             self._srv.reset()
             return
+        if self._online is not None:
+            self._online.reset()
+            self._track_buf = np.zeros((self.cfg.n_mics, 0), np.float32)
+            return
         self._reset_stream()
 
     @staticmethod
@@ -317,10 +357,23 @@ class AudioZoom:
         (a multiple of the hop, possibly empty). Output sample 0 corresponds
         to input sample win_size // 2 (the one-hop overlap-add warm-up). If
         the enhancer raises, no audio is lost: finished hops come back with
-        the next push, and the failed window is processed again."""
+        the next push, and the failed window is processed again. At
+        ``latency="low"`` the hop is one STFT hop (32 ms) and output sample
+        0 is input sample 0."""
         samples = np.asarray(samples, np.float32)
         if self._srv is not None:
             return self._srv.push(samples[None])[0]
+        if self._online is not None:
+            if self.track:
+                # Strictly causal: every histogram sample is audio already received.
+                buf = np.concatenate([self._track_buf, samples], axis=1)
+                w = int(self.cfg.fs)
+                while buf.shape[1] >= w:
+                    self._online.set_direction(
+                        self._update_track(self._as_input(buf[:, :w]), self._zoom_cfg()))
+                    buf = buf[:, w:]
+                self._track_buf = buf
+            return self._online.push(samples)
         out = self._out_pending
         self._inbuf = np.concatenate([self._inbuf, samples], axis=1)
         while self._inbuf.shape[1] >= self._win:

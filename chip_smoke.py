@@ -107,6 +107,22 @@ Phases, each printing its own line(s):
                AudioZoomServer(128, model="fpu", mask_reuse=True,
                wire="int16"): a prime (80 frames) and 4 reuse ticks (48), the
                launches of each, the first 2 streams against a CPU server.
+ 17. lowlat  - the low-latency path with the bundled causal crn_causal net. The
+               online_mvdr kernel against its plain loop at (2, 513, 1875)
+               with a floored target mask (output and carried state); one
+               launch over T bit for bit against T one-frame launches with
+               the state carried; its time as CUDA-graph replays beside the
+               byte bound and the chain floor. online_learned_enhance on a
+               numpy-seeded 60 s clip: ONE online_mvdr launch, ms per
+               recorded second, a profile of its first 10 s
+               (chiprun_out/profile_lowlat.txt),
+               the first 6 s against the CPU port (the CRN mask to 1e-5:
+               TF32 off; the waveform's relative L2 stated). OnlineEnhancer
+               over 10 s pushed hop by hop: ms per push, online_mvdr launches
+               and device kernels per hop, equality with the card's offline
+               output on the finalized samples. AudioZoom(latency="low",
+               track=True) pushing 6 s: bearings equal to and waveform
+               against the CPU port.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
@@ -115,7 +131,8 @@ tpufpu_nano net of phase 3 with phase 5's launches, qconv3x3_<net> the conv
 set of fpu, deepfpu, tpufpu and tpufpu_slim with the launches of that int8
 net's phase-16 run; B3 twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
-learned hard-null run), the card's name and power limit, and a last line
+learned hard-null run; online_mvdr at one 60 s clip with phase 17's
+launches), the card's name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1367,10 +1384,179 @@ def main() -> int:
         tick_ms_all=[round(t, 2) for t in f_ms], cpu_first2_wave_rel_l2=f"{f_rel:.3e}")
     del fsrv, f_mix
 
+    # 17. the low-latency path -----------------------------------------------------------
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr, online_mvdr_plain
+    from azoom_torch.masks.features import logmag_ipd_features
+    from azoom_torch.pipelines.online_learned import online_learned_enhance
+    from azoom_torch.stream.lowlat import OnlineEnhancer
+
+    lowlat = {}
+    F, T_ll = 513, 1875  # one stream, 60 s of frames
+    gen.manual_seed(17)
+    Y = torch.complex(torch.randn((2, F, T_ll), generator=gen, device=dev),
+                      torch.randn((2, F, T_ll), generator=gen, device=dev))
+    nmask = torch.rand((F, T_ll), generator=gen, device=dev)
+    freqs = rfft_freqs(1024, 16_000, device=dev)
+    d = steering_vector(freqs, 60.0, 0.04)
+    kw = dict(target_mask=1.0 - nmask, sigma=1e-7, hp_cutoff_hz=100.0, forget=0.98,
+              mask_floor=0.05)
+    st_k, st_p = initial_state((), F, device=dev), initial_state((), F, device=dev)
+    got = online_mvdr(Y, nmask, d, freqs, *st_k, **kw)
+    ref = online_mvdr_plain(Y, nmask, d, freqs, *st_p, **kw)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    st_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(st_k, st_p))
+    check(bool(torch.isfinite(torch.view_as_real(got)).all()), "online_mvdr: non-finite output")
+    check(rel <= 1e-4 and st_rel <= 1e-5,
+          f"online_mvdr: relative error {rel:.3e} (state {st_rel:.3e}) against the plain loop")
+    # T launches of one frame, the state carried through device memory
+    st_1 = initial_state((), F, device=dev)
+    st_T = initial_state((), F, device=dev)
+    whole = online_mvdr(Y, nmask, d, freqs, *st_T, **kw)
+    steps = [online_mvdr(Y[..., t:t + 1].contiguous(), nmask[:, t:t + 1].contiguous(), d, freqs,
+                         *st_1, **dict(kw, target_mask=kw["target_mask"][:, t:t + 1].contiguous()))
+             for t in range(T_ll)]
+    differ = int((torch.cat(steps, dim=-1) != whole).sum())
+    differ += sum(int((a != b).sum()) for a, b in zip(st_1, st_T))
+    check(differ == 0, f"online_mvdr: {differ} elements differ between one launch and T launches")
+    ms = device_ms(lambda: online_mvdr(Y, nmask, d, freqs, *st_k, **kw))
+    # one call: the plain loop launches ~15 small kernels a frame (~1.4 s)
+    plain_ms = time_ms(lambda: online_mvdr_plain(Y, nmask, d, freqs, *st_p, **kw), iters=1,
+                       warmup=0)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    # Y, noise and target masks in, S out, per (f, t); the state read and
+    # written; d and freqs. ~90 float32 operations per (f, t).
+    nbytes = F * T_ll * (16 + 4 + 4 + 8) + 2 * F * (32 + 4) + F * (16 + 4)
+    b_ms, b_by = bound(nbytes, F * T_ll * 90.0, FP32_FLOPS_PER_S)
+    chain_ms = T_ll * 4 / (mhz * 1e6) * 1e3  # one dependent 4-cycle FMA per frame
+    results["online_mvdr"] = dict(
+        name="online_mvdr", route="cuda", source="azoom_torch/csrc/online_mvdr_kernel.cu",
+        replaces="azoom/stream/online.py:61 (XLA lax.scan, no Pallas kernel)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    lowlat["kernel"] = dict(shape=(2, F, T_ll), rel_err=rel, state_rel_err=st_rel, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, chain_floor_ms=chain_ms,
+                            us_per_frame=ms / T_ll * 1e3, one_vs_T_launches_differ=differ)
+    log("online_mvdr", shape=(2, F, T_ll), max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+        state_rel_err=f"{st_rel:.3e}", one_vs_T_launches_elements_differ=differ,
+        ms=f"{ms:.4f}", us_per_frame=f"{ms / T_ll * 1e3:.3f}", plain_ms=f"{plain_ms:.1f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=b_by, chain_floor_ms=f"{chain_ms:.4f}",
+        max_sm_mhz=mhz)
+    del Y, nmask, got, ref, steps, whole
+
+    # the offline causal pipeline on a 60 s clip
+    ll_cfg = PipelineConfig(mic_dist=0.04, angle_target_deg=75.0)
+    crn, _ = load_bundled("crn_causal")
+    crn_cpu, _ = load_bundled("crn_causal", device="cpu")
+    rec = torch.from_numpy(far_field_scene(rng, 1, 60 * 16_000, angles=(75.0, 30.0, 140.0))[0][0])
+    rec_gpu = rec.to(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = online_learned_enhance(rec_gpu, crn, ll_cfg)
+    torch.cuda.synchronize()
+    ll_counts = active_launches()
+    check(ll_counts == {"online_mvdr": 1}, f"online_learned_enhance launches {ll_counts}")
+    check(out.shape == (60 * 16_000,) and bool(torch.isfinite(out).all()),
+          "online_learned_enhance: bad output")
+    results["online_mvdr"]["launches"] = ll_counts["online_mvdr"]
+    ll_ts = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        online_learned_enhance(rec_gpu, crn, ll_cfg)
+        torch.cuda.synchronize()
+        ll_ts.append((time.perf_counter() - t0) * 1e3)
+    ll_med = statistics.median(ll_ts[1:])
+    pre = rec[:, :6 * 16_000]
+    pre_gpu = online_learned_enhance(pre.to(dev), crn, ll_cfg).cpu()
+    pre_cpu = online_learned_enhance(pre, crn_cpu, ll_cfg)
+    ll_rel = float((pre_gpu - pre_cpu).norm() / pre_cpu.norm())
+    feats = logmag_ipd_features(stft(pre))[None]
+    with torch.inference_mode():
+        ll_mask_err = float((crn(feats.to(dev)).cpu() - crn_cpu(feats)).abs().max())
+    check(ll_mask_err <= 1e-5, f"crn_causal mask card vs CPU {ll_mask_err:.3e}")
+    check(ll_rel <= 1e-3, f"online_learned_enhance 6 s prefix: waveform vs CPU {ll_rel:.3e}")
+    lowlat["offline_60s"] = dict(launches=ll_counts, ms=ll_ts, ms_median=ll_med,
+                                 ms_per_recorded_second=ll_med / 60, cpu_prefix_wave_rel_l2=ll_rel,
+                                 cpu_prefix_mask_max_err=ll_mask_err)
+    log("lowlat_offline", seconds=60, launches=ll_counts, ms_median=f"{ll_med:.3f}",
+        ms_per_recorded_second=f"{ll_med / 60:.4f}", ms_all=[round(t, 2) for t in ll_ts],
+        prefix_wave_rel_l2=f"{ll_rel:.3e}", prefix_mask_max_err=f"{ll_mask_err:.3e}",
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    # the hop-by-hop stream: 10 s pushed one hop (512 samples) at a time
+    x10 = rec[:, :10 * 16_000].numpy()
+    off10 = online_learned_enhance(rec_gpu[:, :10 * 16_000], crn, ll_cfg).cpu().numpy()
+    # the offline call's device time by kernel, on the first 10 s (60 s
+    # would trace ~40,000 launches)
+    profile_call("profile_lowlat", lambda: online_learned_enhance(rec_gpu[:, :10 * 16_000], crn,
+                                                                  ll_cfg), "profile_lowlat.txt")
+    oe = OnlineEnhancer(ll_cfg, crn, steer_deg=75.0)
+    hop = ll_cfg.hop
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs, push_ms = [], []
+    for i in range(0, x10.shape[1], hop):
+        t0 = time.perf_counter()
+        outs.append(oe.push(x10[:, i:i + hop]))
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    hops = x10.shape[1] // hop
+    oe_counts = active_launches()
+    check(oe_counts == {"online_mvdr": hops}, f"OnlineEnhancer launches {oe_counts}, {hops} hops")
+    streamed = np.concatenate(outs)
+    oe_err = float(np.abs(streamed - off10[:streamed.shape[0]]).max())
+    check(streamed.shape[0] == (hops - 1) * hop and oe_err <= 1e-5,
+          f"OnlineEnhancer vs the card's offline output: {oe_err:.3e} ({streamed.shape})")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(20):
+            oe.push(x10[:, i * hop:(i + 1) * hop])
+        torch.cuda.synchronize()
+    dev_kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    dev_ms_hop = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA) / 1e3 / 20
+    push_med = statistics.median(push_ms[2:])
+    lowlat["stream_10s"] = dict(hops=hops, push_ms=push_ms, push_ms_median=push_med,
+                                online_mvdr_launches_per_hop=oe_counts["online_mvdr"] / hops,
+                                device_kernels_per_hop=dev_kernels / 20,
+                                device_ms_per_hop=dev_ms_hop, vs_offline_max_abs=oe_err)
+    log("lowlat_stream", seconds=10, hops=hops, push_ms_median=f"{push_med:.3f}",
+        hop_ms=f"{1e3 * hop / 16_000:.1f}", online_mvdr_per_hop=oe_counts["online_mvdr"] / hops,
+        device_kernels_per_hop=dev_kernels / 20, device_ms_per_hop=f"{dev_ms_hop:.3f}",
+        vs_offline_max_abs=f"{oe_err:.3e}")
+
+    # the facade at low latency, tracking, against the CPU port
+    z_kw = dict(cfg=PipelineConfig(mic_dist=0.04), direction_deg=70.0, fov_deg=60.0, zoom=0.4,
+                latency="low", track=True, tracker="momentum")
+    clip6 = far_field_scene(rng, 1, 6 * 16_000, angles=(65.0, 20.0, 130.0))[0][0]
+    zl_gpu, zl_cpu = AudioZoom(**z_kw), AudioZoom(device="cpu", **z_kw)
+    check(zl_gpu.model == "crn_causal", "latency='low' must default to crn_causal")
+    zl_out, zl_ref, zl_ms, zl_bear = [], [], [], []
+    for block in np.array_split(clip6, 12, axis=1):
+        t0 = time.perf_counter()
+        zl_out.append(zl_gpu.push(block))
+        zl_ms.append((time.perf_counter() - t0) * 1e3)
+        zl_ref.append(zl_cpu.push(block))
+        zl_bear.append(zl_gpu._track_theta)
+        check(zl_gpu._track_theta == zl_cpu._track_theta,
+              f"low-latency push: bearing {zl_gpu._track_theta} vs {zl_cpu._track_theta} on the CPU")
+    zl_out, zl_ref = np.concatenate(zl_out), np.concatenate(zl_ref)
+    zl_rel = float(np.linalg.norm(zl_out - zl_ref) / np.linalg.norm(zl_ref))
+    check(zl_out.shape[0] >= 6 * 16_000 - 2 * 1024 and bool(np.isfinite(zl_out).all()),
+          f"low-latency push: bad output {zl_out.shape}")
+    check(zl_rel <= 1e-3, f"low-latency push: waveform vs CPU {zl_rel:.3e}")
+    lowlat["facade_push_6s"] = dict(push_ms=zl_ms, bearings=zl_bear, wave_rel_l2=zl_rel)
+    log("lowlat_facade", seconds=6, pushes=len(zl_ms), ms_per_push=f"{statistics.median(zl_ms):.3f}",
+        bearings=zl_bear, wave_rel_l2=f"{zl_rel:.3e}")
+    del crn, rec_gpu
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "convt1x2", "hard_null", "hard_null_per_chunk",
-        "int8_mm")]}
+        "int8_mm", "online_mvdr")]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**line, "per_shape": {str(k): v for k, v in per_shape.items()},
          "qconv_server_families": families, "mvdr_forms": mvdr_forms,
@@ -1379,7 +1565,7 @@ def main() -> int:
          "main_ms": times, "main_hard_null_ms": hn_times, "stream_ms": st_times,
          "server": server_stats, "facade": facade, "tracked": tracked,
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
-         "qconv_sets": set_shapes, "nets": nets, "card": smi}, indent=1))
+         "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "card": smi}, indent=1))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

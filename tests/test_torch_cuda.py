@@ -396,3 +396,109 @@ def test_oracle_path_launches_once(cuda):
     ref = oracle_enhance(mix.cpu(), tgt.cpu(), itf.cpu(), PipelineConfig(mic_dist=0.04),
                          post_filter="irm")
     assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-4
+
+
+def _online_case(rng, dev, lead, F, T):
+    shape = lead + (2, F, T)
+    Y = torch.complex(_t(rng.standard_normal(shape).astype(np.float32), dev),
+                      _t(rng.standard_normal(shape).astype(np.float32), dev))
+    nm = _t(rng.random(lead + (F, T), dtype=np.float32), dev)
+    f = _t((np.arange(F) * 8000.0 / max(F - 1, 1)).astype(np.float32), dev)
+    return Y, nm, f, steering_vector(f, 60.0, 0.04)
+
+
+# one stream of 513 bins, ragged F with several streams, T = 1
+@pytest.mark.parametrize("lead,F,T", [((), 513, 300), ((3,), 37, 50), ((2,), 7, 1),
+                                      ((), 513, 1)])
+def test_online_mvdr_kernel_matches_plain(cuda, lead, F, T):
+    """Output and carried state against the plain loop, with and without the
+    floored target-mask gain, from a state warmed on 30 other frames, then
+    from the state each carried. (From a fresh state the first frames are
+    ill-posed: R is y y^H plus a 1e-6 prime, the beamformer nulls y itself,
+    and the tiny outputs carry float32 cancellation errors of a few %, in
+    the reference too.)"""
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr, online_mvdr_plain
+
+    rng = np.random.default_rng(F + T)
+    warm = initial_state(lead, F, device=cuda)
+    Yw, nmw, f, d = _online_case(rng, cuda, lead, F, 30)
+    online_mvdr_plain(Yw, nmw, d, f, *warm)
+    Y, nm, _, _ = _online_case(rng, cuda, lead, F, T)
+    for target, floor in ((None, 0.0), (1 - nm, 0.05)):
+        st_k, st_p = [t.clone() for t in warm], [t.clone() for t in warm]
+        for _ in range(2):  # the second call starts from the carried state
+            kw = dict(target_mask=target, sigma=1e-5, forget=0.98, mask_floor=floor)
+            kernels.reset_launches()
+            got = online_mvdr(Y, nm, d, f, *st_k, **kw)
+            assert kernels.launches["online_mvdr"] == 1
+            ref = online_mvdr_plain(Y, nm, d, f, *st_p, **kw)
+            torch.cuda.synchronize()
+            assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+            for a, b in zip(st_k, st_p):
+                assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_online_mvdr_one_launch_equals_one_launch_per_frame(cuda):
+    """T launches of one frame, the state carried through device memory,
+    give the bits of one launch over T frames: the same device code."""
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr
+
+    rng = np.random.default_rng(11)
+    T = 40
+    Y, nm, f, d = _online_case(rng, cuda, (), 513, T)
+    kw = dict(target_mask=1 - nm, sigma=1e-6, mask_floor=0.05)
+    st = initial_state((), 513, device=cuda)
+    whole = online_mvdr(Y, nm, d, f, *st, **kw)
+    st1 = initial_state((), 513, device=cuda)
+    steps = [online_mvdr(Y[..., t:t + 1].contiguous(), nm[:, t:t + 1].contiguous(), d, f, *st1,
+                         target_mask=kw["target_mask"][:, t:t + 1].contiguous(), sigma=1e-6,
+                         mask_floor=0.05) for t in range(T)]
+    assert torch.equal(torch.cat(steps, dim=-1), whole)
+    assert all(torch.equal(a, b) for a, b in zip(st, st1))
+
+
+def test_online_mvdr_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr
+
+    rng = np.random.default_rng(2)
+    Y, nm, f, d = _online_case(rng, cuda, (), 33, 4)
+    R, w = initial_state((), 33, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        online_mvdr(Y, nm.t().contiguous().t(), d, f, R, w)
+    with pytest.raises(ValueError, match="R_sum"):
+        online_mvdr(Y, nm, d, f, R[:, 0].contiguous(), w)
+    with pytest.raises(ValueError, match="on cpu"):
+        online_mvdr(Y, nm.cpu(), d, f, R, w)
+
+
+def test_low_latency_path_on_the_card(cuda):
+    """online_learned_enhance: one online_mvdr launch, the CRN mask and the
+    waveform against the CPU; OnlineEnhancer: one launch per hop and the
+    card's offline output on the finalized samples."""
+    from azoom_torch import load_bundled
+    from azoom_torch.dsp.stft import stft
+    from azoom_torch.masks.features import logmag_ipd_features
+    from azoom_torch.pipelines.online_learned import online_learned_enhance
+    from azoom_torch.stream.lowlat import OnlineEnhancer
+
+    rng = np.random.default_rng(4)
+    mix = torch.from_numpy((0.1 * rng.standard_normal((2, 32000))).astype(np.float32))
+    cfg = PipelineConfig(mic_dist=0.04, angle_target_deg=75.0)
+    net, _ = load_bundled("crn_causal")
+    net_cpu, _ = load_bundled("crn_causal", device="cpu")
+    kernels.reset_launches()
+    out = online_learned_enhance(mix.to(cuda), net, cfg)
+    torch.cuda.synchronize()
+    assert _active(kernels.launches) == {"online_mvdr": 1}
+    ref = online_learned_enhance(mix, net_cpu, cfg)
+    assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-3
+    feats = logmag_ipd_features(stft(mix))[None]
+    with torch.inference_mode():
+        m_err = float((net(feats.to(cuda)).cpu() - net_cpu(feats)).abs().max())
+    assert m_err <= 1e-5
+    oe = OnlineEnhancer(cfg, net, steer_deg=75.0)
+    kernels.reset_launches()
+    x = mix.numpy()
+    st = np.concatenate([oe.push(x[:, i:i + 2048]) for i in range(0, x.shape[1], 2048)])
+    assert kernels.launches["online_mvdr"] == x.shape[1] // cfg.hop
+    assert float(np.abs(st - out.cpu().numpy()[:st.shape[0]]).max()) <= 1e-5

@@ -203,8 +203,8 @@ def test_default_device_needs_cuda():
 
 
 def test_load_bundled_scope():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        load_bundled("crn_causal", device="cpu")
+    net, kind = load_bundled("crn_causal", device="cpu")  # the causal CRN of the low-latency path
+    assert type(net).__name__ == "CRNMaskNet" and kind == "logmag_ipd"
     with pytest.raises(KeyError):
         load_bundled("nope", device="cpu")
     assert bundled_train_mic_dist("tpufpu_nano") == 0.04

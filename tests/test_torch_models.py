@@ -160,9 +160,18 @@ def test_load_bundled_serves_every_conv_net(name, quant):
     assert mask.shape == (1, 9, 16) and bool(torch.isfinite(mask).all())
 
 
-def test_the_causal_crn_is_queued():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        load_bundled("crn_causal", quant=False, device="cpu")
+def test_the_causal_crn_loads():
+    """crn_causal, float only (quant is ignored), at the reference's widths:
+    513 bins padded to 520, 65 rows of 64 channels into a 128-wide LSTM."""
+    net, kind = load_bundled("crn_causal", quant=False, device="cpu")
+    assert kind == "logmag_ipd" and (net.base, net.hidden, net.n_lstm) == (16, 128, 2)
+    assert tuple(net.w_in.shape) == (4160, 128) and tuple(net.w_out.shape) == (128, 4160)
+    assert [tuple(c.weight.shape) for c in net.down] == [(10, 16), (80, 32), (160, 64)]
+    assert [tuple(c.weight.shape) for c in net.up] == [(384, 64), (192, 32), (96, 32)]
+    assert tuple(net.fwd[0].wi.shape) == (128, 512) and tuple(net.fwd[1].wh.shape) == (128, 512)
+    with torch.inference_mode():
+        mask = net(torch.zeros((1, 513, 3, 2)))
+    assert mask.shape == (1, 513, 3) and bool(torch.isfinite(mask).all())
 
 
 def test_from_flax_modes():

@@ -39,6 +39,16 @@ CENTER, FOV = 70.0, 60.0
 TWO_MIC = ((0.02, 0.0), (-0.02, 0.0))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread while this file runs (beside the
+    suite's other workers torch's intra-op threads oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene():
     sigs = speech_like_batch(jax.random.PRNGKey(17), 3, 3 * 16000, 16000)
@@ -227,7 +237,7 @@ def test_pipelined_push_is_the_plain_push_one_window_late(scene):
 
 
 QUEUED = {  # name: (AudioZoom keywords, what the message names)
-    "low_latency": (dict(latency="low"), "lowlat"),
+    "low_latency": (dict(latency="low", cfg=PipelineConfig(n_mics=3)), "linalgmm"),  # M = 3
 }
 
 
@@ -241,6 +251,13 @@ def test_unported_options_raise(case):
 def test_bad_arguments_raise():
     with pytest.raises(ValueError, match="latency"):
         AudioZoom(latency="medium", device="cpu")
+    with pytest.raises(ValueError, match="causal"):
+        AudioZoom(latency="low", model="tpufpu_nano", device="cpu")
+    with pytest.raises(ValueError, match="latency='high'"):
+        AudioZoom(latency="low", mask_reuse=True, device="cpu")
+    with pytest.raises(ValueError, match="per-frame"):
+        AudioZoom(cfg=PipelineConfig(win_size=32768), model="crn_causal", mask_reuse=True,
+                  device="cpu")
     with pytest.raises(ValueError, match="tracker"):
         AudioZoom(tracker="kalman", device="cpu")
     with pytest.raises(ValueError, match="mask net"):
@@ -259,3 +276,54 @@ def test_default_device_needs_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         AudioZoom()
+
+
+# -- latency="low": the causal CRN and the online MVDR, hop by hop -----------
+
+LOW_KW = dict(direction_deg=CENTER, fov_deg=FOV, zoom=0.4, latency="low")
+
+
+def test_low_latency_defaults_to_the_causal_crn():
+    z = AudioZoom(device="cpu", **LOW_KW)
+    assert z.model == "crn_causal" and type(z._mask_net).__name__ == "CRNMaskNet"
+    assert z._online.latency_samples == 1024 and z._online.sigma == pytest.approx(z.sigma)
+    z.set_zoom(direction_deg=80.0, zoom=0.9)  # pushed into the stream
+    assert (z._online.steer_deg, z._online.sigma) == (80.0, pytest.approx(z.sigma))
+
+
+@pytest.fixture(scope="module")
+def low_latency_reference(scene):
+    """JAX's low-latency facade on the 3 s scene: push in 2048-sample
+    blocks with the causal and the momentum tracker (bearings after each
+    push), then enhance() of the clip."""
+    mix = scene["mixture"]
+    out = {}
+    for tracker in ("causal", "momentum"):
+        kw = dict(LOW_KW, track=True, tracker=tracker)
+        z = azoom.AudioZoom(native=False, **kw)
+        outs, bearings = [], []
+        for i in range(0, mix.shape[1], 2048):
+            outs.append(z.push(mix[:, i:i + 2048]))
+            bearings.append(z._track_theta)
+        out[tracker] = (np.concatenate(outs), bearings)
+    out["enhance"] = azoom.AudioZoom(native=False, **LOW_KW).enhance(mix)
+    return out
+
+
+@pytest.mark.parametrize("tracker", ["causal", "momentum"])
+def test_low_latency_push_matches_jax(scene, low_latency_reference, tracker):
+    mix = scene["mixture"]
+    z = AudioZoom(device="cpu", track=True, tracker=tracker, **LOW_KW)
+    outs, bearings = [], []
+    for i in range(0, mix.shape[1], 2048):
+        outs.append(z.push(mix[:, i:i + 2048]))
+        bearings.append(z._track_theta)
+    ref, ref_bearings = low_latency_reference[tracker]
+    assert bearings == ref_bearings  # the same bearing after every push
+    print(f"[parity] low-latency push {tracker}: bearings {bearings[-1]}")
+    _check(f"low-latency push {tracker}", np.concatenate(outs), ref, scene)
+
+
+def test_low_latency_enhance_matches_jax(scene, low_latency_reference):
+    got = AudioZoom(device="cpu", **LOW_KW).enhance(scene["mixture"])
+    _check("low-latency enhance", got, low_latency_reference["enhance"], scene)

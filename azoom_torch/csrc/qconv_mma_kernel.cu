@@ -14,9 +14,12 @@
 //
 // This is the port's first conv kernel (mma.sync m16n8k32, ldmatrix, two
 // cp.async weight buffers). csrc/qconv_kernel.cu (wgmma, TMA-fed weights,
-// persistent warp-specialised blocks) has replaced it wherever the mask net
-// spends its time and is 1.3 to 2.2 times faster there; this one is kept,
-// chosen by shape alone (kernels/qconv_kernel.py:plan), for
+// persistent warp-specialised blocks) has replaced it wherever the mask nets
+// spend their time: its first instance at 1.3 to 2.2 times, its split
+// instance (Cout = 512, Cin = 512, 256 -> 256 at 6 frames) at 2.2 to 4.3
+// times this kernel's speed (H100 80GB HBM3, kernels/bench.py qconv). This
+// one is kept, chosen by shape alone
+// (kernels/qconv_kernel.py:plan), for
 //   - Cin % 32 != 0, the TPUFPU nets' 16-channel stem among them (K = 144: a
 //     32-byte wgmma K step would straddle two taps of the halo), and the
 //     stems of the unfolded nets, Cin = 2 (logmag_ipd) or 4 (physics): the
@@ -24,12 +27,13 @@
 //     their packed weights are zero there, so the int32 sums are the same;
 //   - Cout = 32, the first and last levels of the base-32 nets
 //     (FreqPreservingUNet, DeepFPU): a warp owns 64 pixels x 32 channels;
-//   - Cout = 512 (a wgmma instruction is at most 256 wide, and two of them
-//     per 64 pixels are 256 accumulator registers a thread);
-//   - shapes whose two halos leave no room for three weight stages;
-// and as the reference the wgmma kernel is held against bit for bit
-// (kernels/bench.py, tests/test_torch_cuda.py): same quotient, same codes,
-// same epilogue (csrc/qconv_common.cuh), with the older quantiser.
+//   - the shapes neither wgmma instance fits (Cout of 64 or 128 whose two
+//     halos leave no room for three weight stages, and one-frame planes at
+//     large Cin; no bundled net runs them);
+// and as the reference both wgmma instances are held against bit for bit
+// (kernels/bench.py, tests/test_torch_cuda.py, chip_smoke.py): same
+// quotient, same codes, same epilogue (csrc/qconv_common.cuh), with the
+// older quantiser.
 //
 // What bounds it: activation bytes, as in csrc/qconv_kernel.cu; it reaches a
 // quarter of the memory rate. Design: implicit GEMM, M = output pixels,

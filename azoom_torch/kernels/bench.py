@@ -13,20 +13,28 @@ same calls from a CUDA graph, which leaves out the host's time per call.
 
 ``qconv [--nets NET,...]``: each conv shape of a bundled net (default
 tpufpu_nano; any conv net of models.pretrained, e.g. ``--nets
-fpu,deepfpu,tpufpu``: the shapes are read from the net itself, on its plane
-of 129 folded rows for the TPUFPU nets and 513 bins for the others) at batch
-128, plain, with a residual and (where the net has it) with the two-tensor
-concat input: the kernel held bit for bit (``torch.equal``) against the
-plain version and the ``mma.sync`` kernel (the same kernel where the plan
-picks it), then both timed in turns (old, new, new, old), beside a
-device-to-device copy of as many bytes as the conv must move (``copy_ms``:
-what the card's memory gives a kernel that does nothing else).
+fpu,deepfpu,tpufpu``: the shapes are read from the net itself, on its plane of
+129 folded rows for the TPUFPU nets and 513 bins for the others; NET@N takes
+the net at N input frames, e.g. ``tpufpu_nano@48``, the server's reuse tick;
+CINxCOUTxT one shape on 129 rows, e.g. ``512x512x64``) at batch 128, plain,
+with a residual and (where the net has it) with the two-tensor concat input:
+the route the plan picks (``kernel``: wgmma, split or mma), held bit for bit
+(``torch.equal``) against the plain version and the ``mma.sync`` kernel (the
+same kernel where the plan picks it), then both timed in turns (old, new, new,
+old), beside a device-to-device copy of as many bytes as the conv must move
+(``copy_ms``: what the card's memory gives a kernel that does nothing else),
+``torch._int_mm`` on the conv's im2col'd int8 codes (``int_mm_ms``: the bare
+GEMM, made outside the timing) and the bound (``bound_ms``: bytes over 3.35
+TB/s or operations over 1,979 TOP/s, the larger).
 
-``clocks`` (alone): builds the ``wgmma`` conv with ``-DAZT_QCONV_CLOCKS`` and
-prints, per shape, the cycles per tile that block 0's first consumer thread
+``clocks [--nets NET,...]`` (alone): builds the ``wgmma`` conv with
+``-DAZT_QCONV_CLOCKS`` and prints, per shape of the nets that runs on it
+(either route), the cycles per tile that block 0's first consumer thread
 spends waiting for a halo, in the products and in the epilogue, and that its
 first producer thread spends waiting for a halo buffer and loading and
-quantising: which role bounds the kernel, where no profiler reads stalls.
+quantising (per tile: the split route makes a halo unit per part and slice,
+less the part two slices share): which role bounds the kernel, where no
+profiler reads stalls.
 
 ``convt``: the three upsamplings of the bundled net at batch 128 held
 against the plain version (the count of elements that are not bit-equal to
@@ -45,19 +53,19 @@ loading) at the server's tick, (128, 2, 513, 65), against an earlier tree's
 kernel: the elements that differ and both times in turns. chip_smoke.py
 phase 2 holds the shared and per-stream forms against the plain version.
 
-``online_mvdr``: the recursive online MVDR (the low-latency beamformer) on
-one stream of 513 bins at T = 1 (one hop), 64 and 1875 (a 60 s clip) and on
-128 streams at 1875, with the floored target-mask gain: held against the
-plain loop (relative error of the output and the state; the plain loop
-only at T <= 64 with ``--quick``), then timed as CUDA-graph replays beside
-the byte bound (Y, both masks and S once, the state read and written) and
-the floor of the frame-to-frame chain (T dependent FMAs of 4 cycles at the
-card's maximum SM clock); ``us_per_frame`` is the time over T. The plain
-check starts from a state warmed on 32 frames: from a fresh one the first
-frames are ill-posed (R = y y^H plus a 1e-6 prime). With ``--against DIR``
-it also builds DIR's ``online_mvdr_kernel.cu`` (the same C interface),
-counts the elements of S and of the state that differ from it, and times
-both in turns.
+``online_mvdr``: the recursive online MVDR (the low-latency beamformer) on one
+stream of 513 bins at T = 1 (one hop), 8 and 16 (either side of the kernel's
+switch from one thread per row to its chain-and-solver tiles), 64 and 1875 (a
+60 s clip) and on 128 streams at 1875, with the floored target-mask gain: held
+against the plain loop (relative error of the output and the state; the plain
+loop only at T <= 64 with ``--quick``), then timed as CUDA-graph replays
+beside the byte bound (Y, both masks and S once, the state read and written)
+and the floor of the frame-to-frame chain (T dependent FMAs of 4 cycles at the
+card's maximum SM clock); ``us_per_frame`` is the time over T. The plain check
+starts from a state warmed on 32 frames: from a fresh one the first frames are
+ill-posed (R = y y^H plus a 1e-6 prime). With ``--against DIR`` it also builds
+DIR's ``online_mvdr_kernel.cu`` (the same C interface), counts the elements of
+S and of the state that differ from it, and times both in turns.
 
 ``float_conv``: the float nets' 3x3 convs two ways, as ``models.unet.FConv``
 runs them (im2col and one float32 matrix product) and as cuDNN's
@@ -83,7 +91,8 @@ and times both in turns (earlier, current, current, earlier).
 
 ``--quick`` checks only (batch 8, or 3 for ``convt``, no timing): the first
 run of a new build.
-Prints ptxas's registers and spills per kernel first and stops before any
+Prints the card's name and power limit (``nvidia-smi``; also beside every
+row of the JSON file), then ptxas's registers and spills per kernel, and stops before any
 launch if a kernel that rebalances registers between its warpgroups
 (``setmaxnreg``) was not given the registers its block starts from (65,536
 over its threads). Writes ``chiprun_out/kernel_bench.json``
@@ -106,16 +115,10 @@ from azoom_torch.kernels import build
 from azoom_torch.kernels.int8_mm_kernel import MICROBENCH_SHAPES, int8_mm, int8_mm_plain
 
 BATCH, F_ROWS = 128, 129
-# (Cin, Cout, frames, launches in the net, the net also runs it on a concat input)
-NANO_SHAPES = (
-    (16, 64, 64, 1, False), (64, 64, 64, 2, False), (64, 64, 32, 5, False),
-    (64, 128, 16, 1, False), (128, 128, 16, 4, False), (128, 256, 8, 1, False),
-    (256, 256, 8, 4, False), (256, 128, 16, 1, True), (128, 64, 32, 1, True),
-    (128, 64, 64, 1, True),
-)
 # The net's three upsamplings: (K = Cin, Cout, input frames).
 NANO_CONVT = ((256, 128, 8), (128, 64, 16), (64, 64, 32))
 HBM_BYTES_PER_S, FP32_FLOPS_PER_S, FP64_FLOPS_PER_S = 3.35e12, 67e12, 34e12
+INT8_OPS_PER_S = 1979e12
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -188,14 +191,18 @@ def bench_int8_mm(dev, quick: bool) -> dict:
 
 def net_conv_shapes(net: str) -> tuple[int, dict]:
     """(plane rows, {(Cin, Cout, frames): (launches, variants the net runs)})
-    of a bundled net's 3x3 convs at 64 input frames; a variant is
-    (with residual, concat input)."""
+    of a bundled net's 3x3 convs at 64 input frames (``name@N``: at N); a
+    variant is (with residual, concat input). ``CINxCOUTxT`` is that one
+    shape on a plane of 129 rows, as no net runs it."""
     from azoom_torch.models.pretrained import load_bundled
     from azoom_torch.models.unet import TPUFPU, conv_shapes
 
-    model, _ = load_bundled(net, device="cpu")
+    if re.fullmatch(r"\d+x\d+x\d+", net):
+        return F_ROWS, {tuple(int(v) for v in net.split("x")): (1, {(False, False)})}
+    name, _, frames = net.partition("@")
+    model, _ = load_bundled(name, device="cpu")
     shapes: dict = {}
-    for cin, cout, t, res, cat in conv_shapes(model, 64):
+    for cin, cout, t, res, cat in conv_shapes(model, int(frames or 64)):
         n, variants = shapes.get((cin, cout, t), (0, set()))
         shapes[(cin, cout, t)] = (n + 1, variants | {(res, cat)})
     return (F_ROWS if isinstance(model, TPUFPU) else 513), shapes
@@ -254,6 +261,13 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
             f_old = lambda: qk.qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")  # noqa: E731
             t_old, t_new = time_ms(f_old), time_ms(f_new)
             row.update(ms=min(t_new, time_ms(f_new)), mma_ms=min(t_old, time_ms(f_old)))
+            if variant == "plain":
+                row["int_mm_ms"] = int_mm_ms(x, w_q, act_scale)
+            m = batch * f_rows * t
+            row["bound_ms"] = max(
+                (4 * m * cin + cout * 9 * cin + 4 * epi.numel()
+                 + 4 * m * cout * (2 if variant == "res" else 1)) / HBM_BYTES_PER_S,
+                2.0 * m * 9 * cin * cout / INT8_OPS_PER_S) * 1e3
         key = (net, cin, cout, t, variant)
         rows[str(key)] = row
         print(f"[qconv] {key} " + " ".join(
@@ -270,7 +284,25 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
     return rows
 
 
-def bench_clocks(dev) -> dict:
+def int_mm_ms(x, w_q, act_scale) -> float:
+    """``torch._int_mm`` on a conv's im2col'd int8 codes (a stem's channels
+    zero-extended, as the kernel takes them) and packed weights, both made
+    outside the timing: the bare GEMM, not the same function."""
+    from azoom_torch.kernels import qconv_kernel as qk
+
+    batch, rows, t, cin = x.shape
+    ck = qk.kernel_cin(cin)
+    xq = torch.clamp(torch.round(x / act_scale), -127, 127).to(torch.int8)
+    xq = torch.nn.functional.pad(xq, (0, ck - cin, 1, 1, 1, 1))
+    cols = torch.stack([xq[:, dy:dy + rows, dx:dx + t] for dy in range(3) for dx in range(3)],
+                       dim=3).reshape(batch * rows * t, 9 * ck)
+    cols = torch.nn.functional.pad(cols, (0, qk.k_padded(cin) - 9 * ck)).contiguous()
+    del xq
+    w_t = w_q.t()
+    return time_ms(lambda: torch._int_mm(cols, w_t))
+
+
+def bench_clocks(dev, nets=("tpufpu_nano",)) -> dict:
     import ctypes
 
     from azoom_torch.kernels import qconv_kernel as qk
@@ -281,16 +313,18 @@ def bench_clocks(dev) -> dict:
     names = ("wait_halo", "products", "epilogue", "wait_buffer", "load_quantise")
     rng = np.random.default_rng(2)
     rows = {}
-    for cin, cout, t, _, _ in NANO_SHAPES:
+    todo = [(f_rows, shape) for net in nets
+            for f_rows, shapes in [net_conv_shapes(net)] for shape in shapes]
+    for f_rows, (cin, cout, t) in dict.fromkeys(todo):
         how = qk.plan(cin, cout, t)
-        if how["kernel"] != "wgmma":
+        if how["kernel"] == "mma":
             continue
-        x = torch.from_numpy(np.abs(rng.standard_normal((BATCH, F_ROWS, t, cin)))
+        x = torch.from_numpy(np.abs(rng.standard_normal((BATCH, f_rows, t, cin)))
                              .astype(np.float32)).to(dev)
         w_q = qk.pack_weights(torch.from_numpy(
             rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8))).to(dev)
         epi = torch.ones((5, cout), dtype=torch.float32, device=dev)
-        res = torch.from_numpy(rng.standard_normal((BATCH, F_ROWS, t, cout))
+        res = torch.from_numpy(rng.standard_normal((BATCH, f_rows, t, cout))
                                .astype(np.float32)).to(dev)
         for variant in ("plain", "res"):
             for _ in range(3):
@@ -298,7 +332,9 @@ def bench_clocks(dev) -> dict:
             sums = (ctypes.c_longlong * 6)()
             build.check(read(sums), "qconv3x3 clocks")
             row = {n: round(sums[i] / sums[5]) for i, n in enumerate(names)}
-            row.update(tiles_of_block_0=int(sums[5]), m_tile=how["m_tile"],
+            parts = how.get("n_parts", 1)  # a slice shares its first part with the one before
+            row.update(tiles_of_block_0=int(sums[5]), m_tile=how["m_tile"], route=how["kernel"],
+                       halo_units_per_tile=1 if parts == 1 else how["n_slices"] * (parts - 1) + 1,
                        weights="resident" if how["resident"] else f"ring of {how['stages']}")
             rows[str((cin, cout, t, variant))] = row
             print(f"[clocks] {(cin, cout, t, variant)} per tile: " + " ".join(
@@ -535,7 +571,7 @@ def bench_online_mvdr(dev, quick: bool, against: Path | None) -> dict:
             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         old_fn.restype = ctypes.c_int
     rows = {}
-    for B, T in ((1, 1), (1, 64), (1, 1875), (128, 1875)):
+    for B, T in ((1, 1), (1, 8), (1, 16), (1, 64), (1, 1875), (128, 1875)):
         if quick and T > 64:
             continue
         lead = () if B == 1 else (B,)
@@ -651,7 +687,7 @@ def main(argv) -> int:
             print("kernels.bench: clocks runs alone (it loads another build of the conv)",
                   file=sys.stderr)
             return 2
-        out["qconv_clocks"] = bench_clocks(dev)
+        out["qconv_clocks"] = bench_clocks(dev, nets)
     if "int8_mm" in which:
         out["int8_mm"] = bench_int8_mm(dev, quick)
     if "qconv" in which:
@@ -668,6 +704,11 @@ def main(argv) -> int:
         out["float_conv"] = bench_float_conv(dev)
     if "fp32_peak" in which:
         out["fp32_peak"] = bench_fp32_peak(dev)
+    for rows in out.values():  # the card beside every time
+        if isinstance(rows, dict):
+            for row in rows.values():
+                if isinstance(row, dict):
+                    row["card"] = card
     Path("chiprun_out").mkdir(exist_ok=True)
     name = "kernel_clocks.json" if "clocks" in which else "kernel_bench.json"
     Path("chiprun_out", name).write_text(json.dumps(out, indent=1))

@@ -1,8 +1,9 @@
 """Int8 SAME 3x3 conv with a fused epilogue: the CUDA kernels
 ``csrc/qconv_kernel.cu`` (``wgmma``, TMA-fed weights, persistent
-warp-specialised blocks) and ``csrc/qconv_mma_kernel.cu`` (``mma.sync``; kept
-for the shapes the first does not take), their wrapper and its plain
-PyTorch version (counterpart of azoom.pallas.qconv_kernel.qconv3x3_pallas).
+warp-specialised blocks; two instances of it, the second the "split" route)
+and ``csrc/qconv_mma_kernel.cu`` (``mma.sync``; kept for the shapes neither
+instance takes), their wrapper and its plain PyTorch version (counterpart of
+azoom.pallas.qconv_kernel.qconv3x3_pallas).
 
     x_q = clip(round_half_even(x / act_scale), -127, 127)
     acc = conv3x3_same(x_q, w_q)                         (exact integers)
@@ -28,11 +29,15 @@ fills those channels with zero codes: the int32 sums are the same.
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it runs :func:`qconv3x3_plain`. Which kernel is a matter of shape alone
 (:func:`plan`): the ``wgmma`` kernel takes Cin % 32 == 0 with Cout of 64, 128
-or 256 (every conv of the TPUFPU nets but their 16-channel stem), the
-``mma.sync`` kernel the rest (Cin of 2, 4 or a multiple of 16; Cout of 32,
-64, 128, 256 or 512). The two agree bit for bit (``kernels/bench.py``
-checks it on the card); neither is a fallback for a failed build or launch
-of the other.
+or 256 where two halos of all channels and three weight stages fit (every
+conv of the nano net at 64 frames but its 16-channel stem); the "split"
+instance of the same kernel takes Cin % 32 == 0 with Cout of 256 or 512
+where that does not fit (Cout = 512, Cin = 512, 256 -> 256 at 6 frames):
+slices of 256 output channels, the halo in parts of Cs channels, a tile as
+wide as pads the frames least. The ``mma.sync`` kernel takes the rest (Cin
+of 2, 4 or a multiple of 16; Cout of 32, 64, 128, 256 or 512). All three
+agree bit for bit (``kernels/bench.py`` checks it on the card); none is a
+fallback for a failed build or launch of another.
 """
 
 from __future__ import annotations
@@ -56,8 +61,8 @@ SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on sm_90
 # Preprocessor macros of the wgmma kernel's build; kernels/bench.py sets
 # ("AZT_QCONV_CLOCKS",) before the first launch to time the kernel's roles.
 BUILD_DEFINES: tuple[str, ...] = ()
-# Launches by kernel since import (kernels.launches counts both as "qconv3x3").
-route_counts = {"wgmma": 0, "mma": 0}
+# Launches by route since import (kernels.launches counts all as "qconv3x3").
+route_counts = {"wgmma": 0, "split": 0, "mma": 0}
 
 # csrc/qconv_kernel.cu's shared memory, beside the weight stages and the two
 # halos: slack to align the swizzled tiles, the consumer warps' output
@@ -172,6 +177,41 @@ def _plan_mma(cin: int, cout: int, frames: int) -> dict:
                 k_chunks=-(-k_padded(cin) // 128), stages=2, resident=False, smem=smem)
 
 
+def _split_tile_w(frames: int) -> int:
+    """The split route's tile width: the power of two up to 64 that pads the
+    frames least (8 for 6 frames: one tile, two columns masked, against two
+    4-wide tiles of the same padding and taller halos), the wider on a tie."""
+    lo = _pow2_floor(frames, 64)
+    hi = min(2 * lo, 64) if lo < frames else lo
+    return min((lo, hi), key=lambda tw: (-(-frames // tw) * tw, -tw))
+
+
+def _plan_split(cin: int, cout: int, frames: int) -> dict | None:
+    """The split instance's plan (Cin % 32 == 0, Cout of 256 or 512): tiles
+    of 128 pixels, Cout / 256 slices of 256 channels, and the halo in
+    ``n_parts`` parts of ``part_channels`` = Cin / n channels (a multiple of
+    128 when n > 1), the fewest parts with which two halos and three weight
+    stages of 256 x 128 bytes fit; None if no part size does. Its weights
+    always stream through the ring."""
+    if cin % 32 or cout not in (256, 512):
+        return None
+    tile_w = _split_tile_w(frames)
+    tile_rows = 128 // tile_w
+    for n_parts in (1, 2, 4, 8):
+        cs = cin // n_parts
+        if cin % n_parts or (n_parts > 1 and cs % 128):
+            continue
+        halo = (tile_rows + 2) * (tile_w + 2) * (cs + 16)
+        fixed = _TILE_ALIGN + 2 * halo + _STAGING + 5 * cout * 4 + _BARRIERS
+        stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // (256 * 128))
+        if stages >= 3:
+            return dict(kernel="split", m_tile=128, tile_w=tile_w, tile_rows=tile_rows,
+                        k_chunks=-(-9 * cs // 128), stages=stages, resident=False,
+                        part_channels=cs, n_parts=n_parts, n_slices=cout // 256,
+                        smem=fixed + stages * 256 * 128)
+    return None
+
+
 @functools.cache
 def plan(cin: int, cout: int, frames: int) -> dict:
     """How the card runs a (Cin, Cout) conv on planes of ``frames`` frames:
@@ -184,11 +224,14 @@ def plan(cin: int, cout: int, frames: int) -> dict:
     ``stages`` weight chunks of Cout x 128 bytes and a fixed part. All
     ``k_chunks`` = ceil(9 Cin / 128) chunks are kept (``resident``) if they
     fit in 232,448 bytes, else as many stream through a ring as fit, at
-    least 3. ``kernel`` "mma": the ``mma.sync`` kernel's tile (256 * 64 / Cout
-    pixels) and bytes, for Cin % 32 != 0 (the
-    stems of Cin 2, 4 and 16 among them), Cout = 32 or 512, or when not even
-    3 stages fit. Raises ValueError for a shape neither kernel takes: Cin
-    must be 2, 4 or a positive multiple of 16, Cout one of :data:`COUTS`."""
+    least 3. ``kernel`` "split" (:func:`_plan_split`), where that does not
+    fit or Cout = 512, for Cout of 256 or 512: the same kernel walking
+    ``n_slices`` slices of 256 channels and ``n_parts`` halo parts of
+    ``part_channels`` channels. ``kernel`` "mma": the ``mma.sync`` kernel's
+    tile (256 * 64 / Cout pixels) and bytes, for Cin % 32 != 0 (the stems of
+    Cin 2, 4 and 16 among them), Cout = 32, or when neither ``wgmma`` plan
+    fits. Raises ValueError for a shape no kernel takes: Cin must be 2, 4 or
+    a positive multiple of 16, Cout one of :data:`COUTS`."""
     if cin not in STEM_CINS and (cin < 16 or cin % 16):
         raise ValueError(f"qconv3x3: Cin must be 2, 4 or a multiple of 16, got {cin}")
     if cout not in COUTS:
@@ -207,7 +250,7 @@ def plan(cin: int, cout: int, frames: int) -> dict:
             return dict(kernel="wgmma", m_tile=m_tile, tile_w=tile_w, tile_rows=tile_rows,
                         k_chunks=k_chunks, stages=stages, resident=stages == k_chunks,
                         smem=fixed + stages * cout * 128)
-    return _plan_mma(cin, cout, frames)
+    return _plan_split(cin, cout, frames) or _plan_mma(cin, cout, frames)
 
 
 @functools.cache
@@ -215,6 +258,9 @@ def _entry(kernel: str):
     if kernel == "wgmma":
         fn = build.load_library("qconv_kernel", BUILD_DEFINES).azt_qconv3x3
         ints = 10
+    elif kernel == "split":
+        fn = build.load_library("qconv_kernel", BUILD_DEFINES).azt_qconv3x3_split
+        ints = 11
     else:
         fn = build.load_library("qconv_mma_kernel").azt_qconv3x3_mma
         ints = 8
@@ -245,8 +291,8 @@ def qconv3x3(
     (B, F, T, Cout) float32. ``act_scale`` is the static activation scale
     (a positive float32 value). With ``x2`` the input is the channel concat
     [x, x2], which the kernel reads in place. ``_kernel="mma"`` runs the
-    ``mma.sync`` kernel where :func:`plan` would pick ``wgmma``: for the
-    bit-for-bit comparison of the two, not for callers."""
+    ``mma.sync`` kernel where :func:`plan` would pick ``wgmma`` or "split":
+    for the bit-for-bit comparison of the kernels, not for callers."""
     if x.device.type == "cpu":
         return qconv3x3_plain(x, w_q, epi, act_scale, residual, relu, x2)
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
@@ -291,6 +337,10 @@ def qconv3x3(
         if how["kernel"] == "wgmma":
             rc = _entry("wgmma")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
                                  how["tile_w"], how["stages"], how["smem"], stream)
+        elif how["kernel"] == "split":
+            rc = _entry("split")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
+                                 how["tile_w"], how["part_channels"], how["stages"], how["smem"],
+                                 stream)
         else:
             # A stem's channels beyond Cin1 (no x2) are zeros to the kernel.
             rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),

@@ -22,8 +22,12 @@ Phases, each printing its own line(s):
                timed beside it as the bare GEMM. Then every conv of the net
                (with and without a residual, and the concat convs) at the
                frame families of the server's full tick (80 / 40 / 20 / 10)
-               and reuse tick (48 / 24 / 12 / 6), with the elements that
-               differ from the plain version and the kernel's time.
+               and reuse tick (48 / 24 / 12 / 6), with each shape's route,
+               the elements that differ from the plain version and the
+               kernel's time; the reuse tick's 256 -> 256 at 6 frames runs on
+               the split route, held bit for bit against the plain version
+               and the mma.sync kernel, timed beside its plain version and
+               torch._int_mm.
   4. convt   - the upsampling kernel against its plain version at the net's
                three upsampling shapes, with the count of elements that are
                not bit-equal to it (the plain version rounds twice on rare
@@ -62,8 +66,9 @@ Phases, each printing its own line(s):
  12. server  - AudioZoomServer(128, win_size=32768, mask_reuse=True,
                wire="int16", track=True) on 128 far-field scenes, each stream
                steered and zoomed its own way: a prime, then one-hop ticks;
-               the launches of every tick (a reuse tick: 21 convs, 3
-               upsamplings, 1 MVDR); the first 4 streams against the CPU
+               the launches of every tick (a reuse tick: 21 convs, 4 of them
+               on the split route, 3 upsamplings, 1 MVDR); the first 4
+               streams against the CPU
                port's server on the same blocks (waveform and bearings);
                the median ms per tick, the bytes moved each way per tick and
                the streams served in real time at that tick; a profile of one
@@ -96,8 +101,10 @@ Phases, each printing its own line(s):
  16. nets    - every bundled conv net. The int8 conv at each conv shape of
                fpu and deepfpu (unfolded 513-row planes: stems of Cin 2 and 4,
                Cout 32, Cout 512 at 4 frames) and of tpufpu and tpufpu_slim
-               (129 rows) at batch 128, bit for bit against the plain version,
-               timed beside torch._int_mm on im2col'd int8. Then each of the
+               (129 rows) at batch 128, with its route (wgmma, split or mma),
+               bit for bit against the plain version (and a split-route shape
+               against the mma.sync kernel too), timed beside torch._int_mm
+               on im2col'd int8. Then each of the
                seven artifacts, int8 and float (its convs float32 matrix
                products, TF32 off), on the learned MVDR path at (128, 2, 32000)
                on phase 7's scenes: launch counts and conv kernels, chunk 0
@@ -126,10 +133,12 @@ Phases, each printing its own line(s):
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
-is a loop of calls from Python for both; B2 five times: qconv3x3 is the
+is a loop of calls from Python for both; B2 six times: qconv3x3 is the
 tpufpu_nano net of phase 3 with phase 5's launches, qconv3x3_<net> the conv
 set of fpu, deepfpu, tpufpu and tpufpu_slim with the launches of that int8
-net's phase-16 run; B3 twice: hard_null shared with
+net's phase-16 run, qconv3x3_split the split route's four convs of the
+reuse tick's net (phase 3's 48-frame family) with the split launches of
+phase 12's reuse ticks; B3 twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run; online_mvdr at one 60 s clip with phase 17's
 launches), the card's name and power limit, and a last line
@@ -254,10 +263,13 @@ def moving_scene(rng, n: int, glide=(60.0, 120.0), interferers=(30.0, 150.0), fs
 
 
 _T0 = time.perf_counter()
+_CARD = {}  # the card's name and power limit, once nvidia-smi has been read
 
 
 def log(phase: str, **kw) -> None:
-    """One line of a phase's results, ending with the seconds since the start."""
+    """One line of a phase's results, ending with the card (its name and
+    power limit beside every time) and the seconds since the start."""
+    kw.setdefault("card", f"'{_CARD.get('smi', '')}'")
     kw["t_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
@@ -283,7 +295,7 @@ def main() -> int:
     from azoom_torch.dsp.stft import rfft_freqs, stft
     from azoom_torch.eval.projection import osinr_osir
     from azoom_torch.kernels import build
-    from azoom_torch.kernels.bench import device_ms
+    from azoom_torch.kernels.bench import device_ms, int_mm_ms
     from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
     from azoom_torch.kernels.int8_mm_kernel import MICROBENCH_SHAPES, int8_mm, int8_mm_plain
     from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
@@ -339,9 +351,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    _CARD["smi"] = smi
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         per_source={k: round(v["seconds"], 2) for k, v in info.items()},
-        torch=torch.__version__, cuda=torch.version.cuda, card=f"'{smi}'")
+        torch=torch.__version__, cuda=torch.version.cuda)
     (out_dir / "build_log.txt").write_text(
         "\n".join(f"== {k}\n{v['log']}" for k, v in info.items()))
     rng = np.random.default_rng(0)
@@ -486,13 +499,7 @@ def main() -> int:
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                 not_bit_equal_to_plain=differ)
         # the bare int8 GEMM of the same conv, im2col'd outside the timing
-        xq = torch.clamp(torch.round(x / act_scale), -127, 127).to(torch.int8)
-        xp = torch.nn.functional.pad(xq, (0, 0, 1, 1, 1, 1))
-        cols = torch.stack([xp[:, dy:dy + F_ROWS, dx:dx + t] for dy in range(3) for dx in range(3)],
-                           dim=3).reshape(BATCH * F_ROWS * t, 9 * cin)
-        cols = torch.nn.functional.pad(cols, (0, k_padded(cin) - 9 * cin)).contiguous()
-        w_t = w_q.t()
-        lib_ms = time_ms(lambda: torch._int_mm(cols, w_t))
+        lib_ms = int_mm_ms(x, w_q, act_scale)
         for v in variants:
             per_shape[(cin, cout, t) + v]["library_ms"] = lib_ms
         plain = per_shape[(cin, cout, t, False, False)]
@@ -501,7 +508,7 @@ def main() -> int:
                 round(per_shape[(cin, cout, t) + v]["ms"], 4) for v in sorted(variants)},
             plain_ms=f"{plain['plain_ms']:.3f}", bound_ms=f"{plain['bound_ms']:.4f}",
             bound_by=plain["bound_by"], int_mm_ms=f"{lib_ms:.4f}")
-        del x, res, xq, xp, cols
+        del x, res
     net = [per_shape[s] for s in NANO_CONVS]
     results["qconv3x3"] = dict(
         name="qconv3x3", route="cuda", source="azoom_torch/csrc/qconv_kernel.cu",
@@ -514,31 +521,59 @@ def main() -> int:
         int_mm_ms=f"{results['qconv3x3']['library_ms']:.4f}", max_abs_err=f"{worst:.3e}")
 
     # the server's frame families: a full tick (80 frames: a 64-frame tile and
-    # a 16-frame tail) and a reuse tick (48 frames; 6 at the bottleneck)
-    families = {}
+    # a 16-frame tail) and a reuse tick (48 frames; 6 at the bottleneck, where
+    # 256 -> 256 runs on the split route). Split-route shapes are held bit for
+    # bit against the plain version and the mma.sync kernel.
+    families, split_parts = {}, []
     for t0 in SERVER_FRAMES:
         convs = nano_convs(t0)
         fam = {}
         for cin, cout, t in dict.fromkeys(c[:3] for c in convs):
             x, w_q, epi, res = conv_operands(cin, cout, t)
+            route = plan(cin, cout, t)["kernel"]
             for with_res, cat, xin, kw in conv_variants(convs, cin, cout, t, x, res):
                 err, differ, ms, b_ms, b_by = conv_check(cin, cout, t, with_res, cat, xin, w_q,
                                                          epi, kw)
                 worst = max(worst, err)
-                fam[(cin, cout, t, with_res, cat)] = dict(
-                    ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                    not_bit_equal_to_plain=differ, kernel=plan(cin, cout, t)["kernel"])
+                key = (cin, cout, t, with_res, cat)
+                fam[key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                                not_bit_equal_to_plain=differ, kernel=route)
+                if route == "split":
+                    vs_mma = int((qconv3x3(xin, w_q, epi, act_scale, **kw)
+                                  != qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")).sum())
+                    check(differ == 0 and vs_mma == 0,
+                          f"qconv split {key}: {differ} elements differ from the plain version, "
+                          f"{vs_mma} from the mma.sync kernel")
+                    fam[key].update(not_bit_equal_to_mma=vs_mma, plain_ms=time_ms(
+                        lambda: qconv3x3_plain(xin, w_q, epi, act_scale, **kw), iters=2, warmup=1))
+            if route == "split":
+                lib_ms = int_mm_ms(x, w_q, act_scale)
+                for key in fam:
+                    if key[:3] == (cin, cout, t):
+                        fam[key]["library_ms"] = lib_ms
             del x, res
         net_t = [fam[c] for c in convs]
+        if t0 == 48:  # the reuse tick's split launches, for the split route's line
+            split_parts = [p for p in net_t if p["kernel"] == "split"]
         families[t0] = {str(k): v for k, v in fam.items()}
         log("qconv_family", frames=t0, shapes_checked=len(fam), batch=BATCH,
             net_ms=f"{sum(p['ms'] for p in net_t):.4f}",
             net_bound_ms=f"{sum(p['bound_ms'] for p in net_t):.4f}",
             elements_not_bit_equal_to_plain=sum(p["not_bit_equal_to_plain"] for p in fam.values()),
             max_abs_err=f"{max(p['max_abs_err'] for p in fam.values()):.3e}",
-            per_shape={f"{k[0]}-{k[1]}@{k[2]}" + "+res" * k[3] + "+cat" * k[4]: round(v["ms"], 4)
-                       for k, v in fam.items()})
+            kernels={k: [p["kernel"] for p in net_t].count(k) for k in route_counts},
+            per_shape={f"{k[0]}-{k[1]}@{k[2]}" + "+res" * k[3] + "+cat" * k[4]:
+                       (v["kernel"], round(v["ms"], 4)) for k, v in fam.items()})
     results["qconv3x3"]["max_abs_err"] = worst
+    check(len(split_parts) == 4, f"reuse tick: {len(split_parts)} split-route convs, want 4")
+    results["qconv3x3_split"] = dict(
+        name="qconv3x3_split", route="cuda", source="azoom_torch/csrc/qconv_kernel.cu",
+        replaces="azoom/pallas/qconv_kernel.py:53 (the split instance: 256 -> 256 at 6 frames "
+                 "in the server's reuse tick)",
+        max_abs_err=max(p["max_abs_err"] for p in split_parts),
+        ms=sum(p["ms"] for p in split_parts), plain_ms=sum(p["plain_ms"] for p in split_parts),
+        bound_ms=sum(p["bound_ms"] for p in split_parts), bound_by=bound_by_of(split_parts),
+        library_ms=sum(p["library_ms"] for p in split_parts))
 
     # 4. upsampling -------------------------------------------------------------
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
@@ -617,7 +652,7 @@ def main() -> int:
     check(counts == {"qconv3x3": 21, "masked_mvdr": 1, "convt1x2": 3},
           f"main path launch counts {counts}")
     routes = {k: v - routes_before[k] for k, v in route_counts.items()}
-    check(routes == {"wgmma": 20, "mma": 1}, f"main path conv kernels {routes}")
+    check(routes == {"wgmma": 20, "split": 0, "mma": 1}, f"main path conv kernels {routes}")
     check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
           "main path: bad output")
     for name, n in counts.items():
@@ -897,16 +932,18 @@ def main() -> int:
         prime_ms = (time.perf_counter() - t0) * 1e3
         track_ms.clear()
         cpu_outs = [servers["cpu"].push(blocks[:4, :, :win])]
-        outs, tick_ms, tick_launches, moved = [], [], [], []
+        outs, tick_ms, tick_launches, tick_routes, moved = [], [], [], [], []
         for k in range(n_ticks):
             blk = blocks[:, :, win + k * hop:win + (k + 1) * hop]
             before = dict(srv.bytes_moved)
             torch.cuda.synchronize()
             kernels.reset_launches()
+            routes_before = dict(route_counts)
             t0 = time.perf_counter()
             out = srv.push(blk)
             tick_ms.append((time.perf_counter() - t0) * 1e3)
             tick_launches.append(active_launches())
+            tick_routes.append({r: route_counts[r] - routes_before[r] for r in route_counts})
             moved.append({d: srv.bytes_moved[d] - before[d] for d in before})
             outs.append(out)
             if k < n_cpu_ticks:
@@ -914,12 +951,18 @@ def main() -> int:
                 check(np.array_equal(srv.bearings[:4], servers["cpu"].bearings),
                       f"server {name}: bearings after tick {k} differ from the CPU's: "
                       f"{srv.bearings[:4]} vs {servers['cpu'].bearings}")
-        for k, c in enumerate(tick_launches):
+        # a reuse tick runs the net on 48 frames (256 -> 256 at 6 on the split
+        # route), a full one on 80
+        want_routes = ({"wgmma": 16, "split": 4, "mma": 1} if name == "reuse_int16"
+                       else {"wgmma": 20, "split": 0, "mma": 1})
+        for k, (c, r) in enumerate(zip(tick_launches, tick_routes)):
             check(c == {"qconv3x3": 21, "convt1x2": 3, "masked_mvdr": 1},
                   f"server {name}: tick {k} launch counts {c}")
+            check(r == want_routes, f"server {name}: tick {k} conv kernels {r}")
         if name == "reuse_int16":
             results["masked_mvdr_per_stream"]["launches"] = sum(
                 c["masked_mvdr"] for c in tick_launches)
+            results["qconv3x3_split"]["launches"] = sum(r["split"] for r in tick_routes)
         out = np.concatenate(outs, axis=1)
         check(out.dtype == want and out.shape == (BATCH, n_ticks * hop), f"server {name}: bad output")
         f_out = out.astype(np.float32) / (32767.0 if want == np.int16 else 1.0)
@@ -937,6 +980,7 @@ def main() -> int:
             bytes_per_tick=per_tick, streams_real_time=BATCH * (hop / scfg.fs) / (med / 1e3),
             cpu_wave_rel_l2=srv_rel, bearings=srv.bearings[:8].tolist())
         log("server", mode=name, streams=BATCH, ticks=n_ticks, launches_per_tick=tick_launches[-1],
+            conv_kernels_per_tick=tick_routes[-1],
             prime_ms=f"{prime_ms:.2f}", tick_ms_median=f"{med:.3f}",
             host_tracking_ms_median=f"{statistics.median(track_ms):.3f}",
             tick_ms_all=[round(t, 2) for t in tick_ms],
@@ -1187,7 +1231,7 @@ def main() -> int:
     del Y, S_bf
 
     # 16. every bundled conv net -----------------------------------------------------------
-    from azoom_torch.kernels.qconv_kernel import kernel_cin, pack_weights
+    from azoom_torch.kernels.qconv_kernel import pack_weights
     from azoom_torch.models.unet import ConvTranspose1x2, conv_shapes
 
     conv_sets = {"fpu": 513, "deepfpu": 513, "tpufpu": F_ROWS, "tpufpu_slim": F_ROWS}
@@ -1216,32 +1260,32 @@ def main() -> int:
                                                          epi, kw, rows=rows)
                 check(differ == 0, f"qconv {net} {(cin, cout, t, with_res, cat)}: {differ} "
                                    "elements differ from the plain version")
+                route = plan(cin, cout, t)["kernel"]
+                vs_mma = 0
+                if route == "split":  # the new route against the mma.sync kernel it replaced
+                    vs_mma = int((qconv3x3(xin, w_q, epi, act_scale, **kw)
+                                  != qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")).sum())
+                    check(vs_mma == 0, f"qconv {net} {(cin, cout, t, with_res, cat)}: {vs_mma} "
+                                       "elements differ from the mma.sync kernel")
                 plain_ms = time_ms(lambda: qconv3x3_plain(xin, w_q, epi, act_scale, **kw),
                                    iters=2, warmup=1)
                 shapes[(cin, cout, t, with_res, cat)] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                    not_bit_equal_to_plain=differ, kernel=plan(cin, cout, t)["kernel"])
+                    not_bit_equal_to_plain=differ, not_bit_equal_to_mma=vs_mma, kernel=route)
             # the bare int8 GEMM: im2col'd codes (a stem's channels zero-extended, as
             # the kernel takes them) times the packed weights, outside the timing
-            ck = kernel_cin(cin)
-            xq = torch.clamp(torch.round(x / act_scale), -127, 127).to(torch.int8)
-            xq = torch.nn.functional.pad(xq, (0, ck - cin, 1, 1, 1, 1))
-            cols = torch.stack([xq[:, dy:dy + rows, dx:dx + t] for dy in range(3)
-                                for dx in range(3)], dim=3).reshape(BATCH * rows * t, 9 * ck)
-            cols = torch.nn.functional.pad(cols, (0, k_padded(cin) - 9 * ck)).contiguous()
-            w_t = w_q.t()
-            lib_ms = time_ms(lambda: torch._int_mm(cols, w_t))
+            lib_ms = int_mm_ms(x, w_q, act_scale)
             for key in shapes:
                 if key[:3] == (cin, cout, t):
                     shapes[key]["library_ms"] = lib_ms
-            del x, res, xq, cols
+            del x, res
         parts = [shapes[c] for c in convs]
         kernel_of = [p["kernel"] for p in parts]
-        main_kernel = max(("wgmma", "mma"), key=kernel_of.count)
+        main_kernel = max(route_counts, key=kernel_of.count)
         results[f"qconv3x3_{net}"] = dict(
             name=f"qconv3x3_{net}", route="cuda",
-            source="azoom_torch/csrc/" + ("qconv_kernel.cu" if main_kernel == "wgmma"
-                                          else "qconv_mma_kernel.cu"),
+            source="azoom_torch/csrc/" + ("qconv_mma_kernel.cu" if main_kernel == "mma"
+                                          else "qconv_kernel.cu"),
             replaces="azoom/pallas/qconv_kernel.py:53 (the int8 QConv convs of "
                      "azoom/models/unet.py:96 in the bundled " + net + ")",
             max_abs_err=max(p["max_abs_err"] for p in parts),
@@ -1251,7 +1295,7 @@ def main() -> int:
         set_shapes[net] = {str(k): v for k, v in shapes.items()}
         log("qconv_set", net=net, rows=rows, frames=64, batch=BATCH, convs=len(convs),
             shapes_checked=len(shapes), elements_not_bit_equal_to_plain=0,
-            kernels={k: kernel_of.count(k) for k in ("wgmma", "mma")},
+            kernels={k: kernel_of.count(k) for k in route_counts},
             ms=f"{results[f'qconv3x3_{net}']['ms']:.4f}",
             bound_ms=f"{results[f'qconv3x3_{net}']['bound_ms']:.4f}",
             int_mm_ms=f"{results[f'qconv3x3_{net}']['library_ms']:.4f}",
@@ -1316,7 +1360,7 @@ def main() -> int:
                 conv_kernels=routes, ms_median=f"{med:.3f}",
                 audio_seconds_per_second=f"{BATCH * N_SAMPLES / 16_000 / (med / 1e3):.1f}",
                 **{f"cpu_chunk0_{k}": f"{v:.3e}" for k, v in cpu_err.items()},
-                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32, card=f"'{smi}'")
+                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
             del net_gpu, net_cpu, out
 
     # the facade with the reference's defaults for a real array: float fpu_multigeo
@@ -1555,8 +1599,13 @@ def main() -> int:
 
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
-        "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "convt1x2", "hard_null", "hard_null_per_chunk",
-        "int8_mm", "online_mvdr")]}
+        "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "convt1x2", "hard_null",
+        "hard_null_per_chunk", "int8_mm", "online_mvdr")]}
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    for k in line["kernels"]:
+        check(keys <= set(k) and k["launches"] > 0,
+              f"kernel line {k['name']}: keys {sorted(set(k))}, launches {k.get('launches')}")
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**line, "per_shape": {str(k): v for k, v in per_shape.items()},
          "qconv_server_families": families, "mvdr_forms": mvdr_forms,

@@ -124,6 +124,26 @@ def test_qconv_base32_shapes_bit_equal_to_plain(cuda, batch, f_rows, t, cin, cou
     assert torch.equal(got, ref)
 
 
+# The split route's shapes (Cout = 512, Cin = 512, 256 -> 256 at few frames)
+# on ragged 131-row planes at batch 2, and at 6 and 7 frames against the tile
+# of 8: Cin, Cout, T, residual, concat.
+@pytest.mark.parametrize("cin,cout,t,res,cat", [
+    (256, 512, 4, False, False), (512, 512, 4, True, False), (512, 256, 8, False, True),
+    (256, 512, 8, True, False), (512, 512, 8, False, False), (512, 256, 16, True, True),
+    (256, 256, 6, True, False), (256, 256, 7, False, False), (512, 512, 3, True, False),
+    (256, 512, 6, False, False)])
+def test_qconv_split_route_bit_equal_to_plain_and_mma(cuda, cin, cout, t, res, cat):
+    rng = np.random.default_rng(7 * cin + cout + t)
+    assert plan(cin, cout, t)["kernel"] == "split"
+    x, w, epi, r = _conv_case(rng, cuda, 2, 131, t, cin, cout, res)
+    kw = dict(residual=r)
+    if cat:
+        x, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+    got = qconv3x3(x, w, epi, 0.026, **kw)
+    assert torch.equal(got, qconv3x3_plain(x, w, epi, 0.026, **kw))
+    assert torch.equal(got, qconv3x3(x, w, epi, 0.026, **kw, _kernel="mma"))
+
+
 @pytest.mark.parametrize("name", ["fpu", "deepfpu", "tpufpu", "tpufpu_slim"])
 @pytest.mark.parametrize("quant", [True, False])
 def test_bundled_net_on_the_card_matches_the_cpu(cuda, name, quant):
@@ -407,9 +427,11 @@ def _online_case(rng, dev, lead, F, T):
     return Y, nm, f, steering_vector(f, 60.0, 0.04)
 
 
-# one stream of 513 bins, ragged F with several streams, T = 1
+# one stream of 513 bins, ragged F with several streams, T = 1, and T not a
+# multiple of the kernel's 32-frame tile
 @pytest.mark.parametrize("lead,F,T", [((), 513, 300), ((3,), 37, 50), ((2,), 7, 1),
-                                      ((), 513, 1)])
+                                      ((), 513, 1), ((), 513, 31), ((), 513, 1875),
+                                      ((2,), 513, 33)])
 def test_online_mvdr_kernel_matches_plain(cuda, lead, F, T):
     """Output and carried state against the plain loop, with and without the
     floored target-mask gain, from a state warmed on 30 other frames, then
@@ -438,21 +460,23 @@ def test_online_mvdr_kernel_matches_plain(cuda, lead, F, T):
                 assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
-def test_online_mvdr_one_launch_equals_one_launch_per_frame(cuda):
+# T of one frame (a hop), one short of the kernel's 32-frame tile, ragged
+# against it, and a 60 s clip; one stream or two (rows of both in a block)
+@pytest.mark.parametrize("lead,T", [((), 40), ((2,), 1), ((2,), 31), ((2,), 1875)])
+def test_online_mvdr_one_launch_equals_one_launch_per_frame(cuda, lead, T):
     """T launches of one frame, the state carried through device memory,
-    give the bits of one launch over T frames: the same device code."""
+    give the bits of one launch over T frames: the same per-frame code."""
     from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr
 
     rng = np.random.default_rng(11)
-    T = 40
-    Y, nm, f, d = _online_case(rng, cuda, (), 513, T)
+    Y, nm, f, d = _online_case(rng, cuda, lead, 513, T)
     kw = dict(target_mask=1 - nm, sigma=1e-6, mask_floor=0.05)
-    st = initial_state((), 513, device=cuda)
+    st = initial_state(lead, 513, device=cuda)
     whole = online_mvdr(Y, nm, d, f, *st, **kw)
-    st1 = initial_state((), 513, device=cuda)
-    steps = [online_mvdr(Y[..., t:t + 1].contiguous(), nm[:, t:t + 1].contiguous(), d, f, *st1,
-                         target_mask=kw["target_mask"][:, t:t + 1].contiguous(), sigma=1e-6,
-                         mask_floor=0.05) for t in range(T)]
+    st1 = initial_state(lead, 513, device=cuda)
+    steps = [online_mvdr(Y[..., t:t + 1].contiguous(), nm[..., t:t + 1].contiguous(), d, f,
+                         *st1, target_mask=kw["target_mask"][..., t:t + 1].contiguous(),
+                         sigma=1e-6, mask_floor=0.05) for t in range(T)]
     assert torch.equal(torch.cat(steps, dim=-1), whole)
     assert all(torch.equal(a, b) for a, b in zip(st, st1))
 

@@ -215,14 +215,17 @@ CLASSIC_WIDTHS = [
 
 
 def _smem_as_the_c_side_sums_it(cin, cout, how):
-    """Shared memory of a plan, restated from the two C entry points (a stem
-    of Cin 2 or 4 is 16 channels to the kernel)."""
-    halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (kernel_cin(cin) + 16)
+    """Shared memory of a plan, restated from the three C entry points (a
+    stem of Cin 2 or 4 is 16 channels to the kernel; a split halo holds one
+    part of the channels)."""
+    cs = how.get("part_channels", kernel_cin(cin))
+    halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (cs + 16)
     if how["kernel"] == "mma":  # csrc/qconv_mma_kernel.cu: halo + 2 buffers of Cout x (128 + 16)
         return halo + 2 * cout * 144
-    # csrc/qconv_kernel.cu: alignment slack, weight stages, two halos, the warps' output
-    # patches, 5 epilogue rows, barriers
-    return 1024 + how["stages"] * cout * 128 + 2 * halo + 8 * 16 * 40 * 4 + 5 * cout * 4 + 40 * 8
+    # csrc/qconv_kernel.cu: alignment slack, weight stages (N = Cout, or 256 on the split
+    # route), two halos, the warps' output patches, 5 epilogue rows, barriers
+    n = 256 if how["kernel"] == "split" else cout
+    return 1024 + how["stages"] * n * 128 + 2 * halo + 8 * 16 * 40 * 4 + 5 * cout * 4 + 40 * 8
 
 
 def _check_plan(cin, cout, frames, f_rows=F_ROWS):
@@ -230,7 +233,9 @@ def _check_plan(cin, cout, frames, f_rows=F_ROWS):
     assert how["smem"] <= SMEM_LIMIT == 232_448
     assert how["smem"] == _smem_as_the_c_side_sums_it(cin, cout, how)
     tw, rows = how["tile_w"], how["tile_rows"]
-    assert tw & (tw - 1) == 0 and tw <= max(frames, 1) and tw * rows == how["m_tile"]
+    # a tile no wider than the plane, but for the split route's (see below)
+    assert tw & (tw - 1) == 0 and tw * rows == how["m_tile"]
+    assert tw <= max(frames, 1) or how["kernel"] == "split"
     # whole tiles cover the ragged plane: ceil(F / rows) row tiles, ceil(T / tw) frame tiles
     assert -(-f_rows // rows) * rows >= f_rows and -(-frames // tw) * tw >= frames
     if how["kernel"] == "wgmma":
@@ -241,6 +246,22 @@ def _check_plan(cin, cout, frames, f_rows=F_ROWS):
         assert how["resident"] == (how["stages"] == how["k_chunks"])
         # one more stage would not have fit
         assert how["resident"] or how["stages"] == 18 or how["smem"] + cout * 128 > SMEM_LIMIT
+    elif how["kernel"] == "split":
+        assert cin % 32 == 0 and cout in (256, 512) and tw <= 64 and how["m_tile"] == 128
+        cs, parts = how["part_channels"], how["n_parts"]
+        assert cs * parts == cin and (parts == 1 or cs % 128 == 0)
+        assert how["n_slices"] == cout // 256
+        assert how["k_chunks"] == -(-9 * cs // 128) and 3 <= how["stages"] <= 18
+        # the widest part that fits: a part twice as wide would leave room for fewer than 3 stages
+        if parts > 1:
+            wider = dict(how, part_channels=2 * cs)
+            assert _smem_as_the_c_side_sums_it(cin, cout, wider) - how["stages"] * 256 * 128 \
+                + 3 * 256 * 128 > SMEM_LIMIT
+        # the tile is the power of two just below or just above the frames (up to 64) that
+        # pads them least: 8 for 6 or 7 frames, 4 for 4
+        lo = 1 << (min(frames, 64).bit_length() - 1)
+        widths = {lo, min(2 * lo, 64)}
+        assert tw in widths and -(-frames // tw) * tw == min(-(-frames // w) * w for w in widths)
     else:
         assert how["kernel"] == "mma" and how["m_tile"] == 256 * 64 // cout
     return how
@@ -265,8 +286,10 @@ def test_plan_keeps_weights_resident_for_15_of_the_21_convs():
 @pytest.mark.parametrize("cin,cout", CLASSIC_WIDTHS)
 def test_plan_of_the_classic_widths(cin, cout, frames):
     how = _check_plan(cin, cout, frames)
-    if cout == 512 or cin % 32:
+    if cin % 32:
         assert how["kernel"] == "mma"
+    elif cout == 512:  # split, but at one frame, where no split tile fits three stages
+        assert how["kernel"] == ("mma" if frames == 1 else "split")
 
 
 @pytest.mark.parametrize("cin,cout,frames", [
@@ -298,11 +321,49 @@ DEEPFPU_SHAPES = FPU_SHAPES[1:] + [(4, 32, 64), (256, 512, 4), (512, 512, 4), (5
 @pytest.mark.parametrize("cin,cout,frames", sorted(set(FPU_SHAPES + DEEPFPU_SHAPES)))
 def test_plan_of_the_base32_shapes(cin, cout, frames):
     how = _check_plan(cin, cout, frames, f_rows=513)
-    # mma.sync: the stems, Cout of 32 and 512, and 512 -> 256 (no 3 weight stages fit)
-    on_mma = cin in (2, 4) or cout in (32, 512) or (cin, cout) == (512, 256)
-    assert how["kernel"] == ("mma" if on_mma else "wgmma")
+    # mma.sync: the stems and Cout of 32; split: Cout of 512 and 512 -> 256 (two halos of all
+    # 512 channels leave no room for 3 weight stages)
+    on_mma = cin in (2, 4) or cout == 32
+    on_split = cout == 512 or (cin, cout) == (512, 256)
+    assert how["kernel"] == ("mma" if on_mma else "split" if on_split else "wgmma")
     if cout == 32:
         assert how["m_tile"] == 512 and how["tile_w"] * how["tile_rows"] == 512
+
+
+# (Cin, Cout, frames at T = 64) of the bundled tpufpu net (129 folded rows), whose
+# bottleneck is 512 wide, and of the nano net's tree, at the server's frame families
+TPUFPU_SHAPES = [
+    (16, 64, 64), (64, 64, 64), (64, 128, 32), (128, 64, 64), (128, 128, 32), (128, 256, 16),
+    (256, 128, 32), (256, 256, 16), (256, 512, 8), (512, 256, 16), (512, 512, 8),
+]
+
+
+def _family(shapes, frames):
+    """A net's shapes at ``frames`` input frames instead of 64."""
+    return [(cin, cout, t * frames // 64) for cin, cout, t in shapes]
+
+
+ROUTE_CASES = sorted(
+    {(shape, F_ROWS) for frames in (48, 80)
+     for shape in _family([s[:3] for s in NANO_SHAPES], frames)}
+    | {(shape, F_ROWS) for frames in (48, 64, 80) for shape in _family(TPUFPU_SHAPES, frames)}
+    | {(shape, 513) for frames in (48, 64, 80) for shape in _family(DEEPFPU_SHAPES, frames)})
+
+
+@pytest.mark.parametrize("shape,rows", ROUTE_CASES, ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_every_bundled_shape_has_a_route_that_fits(shape, rows):
+    """The server's frame families (48 and 80 frames) at every depth of the
+    nano tree, and tpufpu's and DeepFPU's shapes at 48, 64 and 80 frames:
+    each goes to a kernel whose shared memory fits, the stems and Cout = 32
+    on mma.sync and every other shape off it (the 256 -> 256 at 6 frames of
+    the reuse tick on the split route)."""
+    cin, cout, frames = shape
+    how = _check_plan(cin, cout, frames, f_rows=rows)
+    assert how["smem"] <= SMEM_LIMIT
+    assert (how["kernel"] == "mma") == (cin in (2, 4, 16) or cout == 32)
+    if (cin, cout, frames) == (256, 256, 6):
+        assert how["kernel"] == "split" and how["tile_w"] == 8 and how["stages"] == 3
 
 
 def test_stem_weights_pack_as_16_channels():

@@ -79,9 +79,36 @@
 //   - At 6 frames a 4-wide tile's halos are 13 % larger than an 8-wide
 //     tile's: the plan takes the tile width that pads the frames least
 //     (8 for 6 frames, its last two columns masked as at any ragged edge).
-// Cin % 32 != 0 (the net's 16-channel stem), Cout = 32 and the shapes that
-// neither instance fits stay on the mma.sync kernel; the wrapper picks by
-// shape (kernels/qconv_kernel.py:plan).
+// The narrow route (the stems and Cout = 32; "narrow" in the wrapper's plan):
+// the TPUFPU nets' 16-channel stem, the unfolded nets' stems of 2 or 4
+// channels and every Cout = 32 conv of the base-32 nets ran on the mma.sync
+// kernel at 2.5-3.6 times their byte bound. Three things kept them off this
+// kernel, and the instances answer each:
+//   - N = 32: instances on wgmma m64n32k32 (16 accumulators a thread per
+//     64 rows) with MI = 4, tiles of 512 pixels; their weights (at most
+//     32 x 576 bytes on the nets) always stay.
+//   - 16-channel taps (K = 144, packed to 160 with zeros; template flag
+//     Tap16, at N = 32 and 64): a 32-byte K step holds two taps, and the
+//     lanes whose ldmatrix rows are K bytes 16-31 point at the next tap; the
+//     fifth step's second half reads tap 8's pad bytes against zero weights.
+//     The tensor map reads the packed rows of 160 bytes; the second chunk's
+//     bytes past them are TMA's zero fill.
+//   - stems of Cin1 = 2 or 4 channels (x2 null, Cin = 16; Tap16 instances
+//     only): a producer item is one pixel, a float2 or float4 of x,
+//     quantised into the pixel's first four codes; the other 12 channels of
+//     both halos are zeroed once.
+//   The flag keeps the other instances' loops as they were: a per-lane tap
+//   walk and a stem test per item cost the split route 7-10 % and the
+//   large-Cin wgmma shapes 3-6 % when every instance carried them (H100
+//   80GB HBM3, kernels/bench.py qconv).
+//   What bounds it (the clocks build): the halo producers at Cin of 32 and
+//   64; at the stems the consumers, whose products and epilogue (128 or 256
+//   bytes written a pixel against 8 to 64 read) run in turn.
+// The shapes no route fits (Cout of 64 or 128 whose two halos leave no room
+// for three weight stages, Cout = 32 at Cin >= 256, Cin % 32 != 0 beyond the
+// 16-channel taps, stems at Cout >= 128, one-frame planes at large Cin; no
+// bundled net runs them at 48, 64 or 80 frames) stay on the mma.sync kernel;
+// the wrapper picks by shape (kernels/qconv_kernel.py:plan).
 //
 // Built with -DAZT_QCONV_CLOCKS (kernels/bench.py clocks), block 0 also sums
 // the cycles its first consumer thread and first producer thread spend
@@ -99,7 +126,8 @@ using namespace azt;
 // block starts with 65,536 registers over its threads, and ptxas holds the
 // whole kernel to that count whatever setmaxnreg grants later: 168 at 384
 // threads (PW = 4), which the 128 accumulators of Cout = 256 need; 128 at
-// 512 threads (PW = 8) for Cout <= 128, where more producers are worth more.
+// 512 threads (PW = 8) for Cout <= 128, where more producers are worth more
+// (Cout = 32: 4 x 16 accumulators, A fragments of 2 K steps at a time).
 constexpr int kConsumers = 256;
 constexpr int kStageRow = 40;          // floats per staged output row: 32 channels + 8 of padding
 constexpr int kStageBytes = 8 * 16 * kStageRow * 4;  // 16 rows for each consumer warp
@@ -144,18 +172,18 @@ struct HaloBatch {
   int first;  // item (float4 of the halo) of v[0]; v[u] is item first + u * n_halo
 };
 
-template <int N, int MI, int PW, bool Split>
+template <int N, int MI, int PW, bool Split, bool Tap16>
 __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_w, const Params p) {
   constexpr int kThreads = kConsumers + 32 * PW;
   constexpr int U = 6;                      // float4 loads per batch; two batches in flight
   constexpr int kMTile = 128 * MI;          // pixels of a tile
   constexpr int kWStage = N * kSwizzleRow;  // bytes of one K chunk of the weights
-  constexpr int G = N == 256 ? 2 : 4;       // K steps per group of products
+  constexpr int G = N == 256 || MI == 4 ? 2 : 4;  // K steps per group of products
   const int TW = 1 << p.tw_log2, HW = TW + 2;
   const int FR = kMTile >> p.tw_log2;
   // What the split route varies; constants of the other instances.
-  const int Cs = Split ? p.Cs : p.Cin;      // channels of a halo part
+  const int Cs = Split ? p.Cs : Tap16 ? 16 : p.Cin;  // channels of a halo part
   const int Cout = Split ? p.Cout : N;
   const int n_parts = Split ? p.n_parts : 1, n_slices = Split ? p.n_slices : 1;
   // Halo units a tile takes: one halo of all channels serves every slice;
@@ -164,6 +192,8 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
   const int units = n_parts == 1 ? 1 : n_slices * (n_parts - 1) + 1;
   const int CinP = Cs + 16;                 // pixel stride of the halo
   const int halo_bytes = (FR + 2) * HW * CinP;
+  // A stem: Cin1 = 2 or 4 channels of x, zero-extended to Cin = 16.
+  const bool stem = Tap16 && p.x2 == nullptr && p.Cin1 < p.Cin;
   const bool resident = !Split && p.stages == p.n_chunks;  // the split route's weights stream
   // The producer warps make the halos; one of them only feeds the weight ring, if there is one.
   const int n_halo = resident ? 32 * PW : 32 * (PW - 1);
@@ -192,6 +222,9 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
     mbar_init_fence();
   }
   for (int i = threadIdx.x; i < 5 * Cout; i += kThreads) epi_s[i] = p.epi[i];
+  if (stem)  // channels Cin1 .. 15 of every halo pixel stay zero codes
+    for (int i = threadIdx.x; i < 2 * halo_bytes / 16; i += kThreads)
+      reinterpret_cast<uint4*>(halo0)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
   // A block takes a contiguous run of tiles, in the order (stream, frame
@@ -237,8 +270,10 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
         }
       }
       // ---- the quantised halo -------------------------------------------------
+      // An item is a float4 of a pixel's channels, or a stem's whole pixel.
       const int cs4 = Cs >> 2, cin14 = p.Cin1 >> 2, cinp4 = CinP >> 2;
-      const int n_items = (FR + 2) * HW * cs4;  // float4s of a halo
+      const int ipp = stem ? 1 : cs4;           // items per halo pixel
+      const int n_items = (FR + 2) * HW * ipp;
       const float rs = 1.f / p.act_scale;
       // the part of a tile's halo unit: 0, 1, .., n_parts - 1, n_parts - 2, .., 0
       auto part_of = [&](int unit) {
@@ -270,7 +305,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
           uint4* dst = reinterpret_cast<uint4*>(halo32);
           for (int j = htid; j < 2 * HW * (CinP >> 4); j += n_halo) dst[j] = src[j];
         }
-        const int item0 = below ? 2 * HW * cs4 : 0;
+        const int item0 = below ? 2 * HW * ipp : 0;
 #ifdef AZT_QCONV_CLOCKS
         const long long tp1 = clock64();
 #endif
@@ -280,16 +315,21 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const int i = first + u * n_halo;
-            const int pix = __umulhi(i, p.magic_c4);   // i / cs4
-            const int c4 = c4_0 + i - pix * cs4;
+            const int pix = stem ? i : __umulhi(i, p.magic_c4);  // i / ipp
+            const int c4 = c4_0 + i - pix * ipp;
             const int hr = __umulhi(pix, p.magic_hw);  // pix / HW
             const int f = f0 + hr, t = t0 + (pix - hr * HW);
             bt.v[u] = make_float4(0.f, 0.f, 0.f, 0.f);  // outside the plane: zeros
             if (i < n_items && f >= 0 && f < p.F && t >= 0 && t < p.T) {
               const long at = ((long)b * p.F + f) * p.T + t;
-              const float* src = c4 < cin14 ? p.x + at * p.Cin1 + 4 * c4
-                                            : p.x2 + at * (p.Cin - p.Cin1) + 4 * (c4 - cin14);
-              bt.v[u] = __ldg(reinterpret_cast<const float4*>(src));
+              if (stem && p.Cin1 == 2) {  // the float4's last two channels stay zeros
+                const float2 v2 = __ldg(reinterpret_cast<const float2*>(p.x + at * 2));
+                bt.v[u].x = v2.x, bt.v[u].y = v2.y;
+              } else {
+                const float* src = c4 < cin14 ? p.x + at * p.Cin1 + 4 * c4
+                                              : p.x2 + at * (p.Cin - p.Cin1) + 4 * (c4 - cin14);
+                bt.v[u] = __ldg(reinterpret_cast<const float4*>(src));
+              }
             }
           }
         };
@@ -297,9 +337,9 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const int i = bt.first + u * n_halo;
-            const int pix = __umulhi(i, p.magic_c4);
+            const int pix = stem ? i : __umulhi(i, p.magic_c4);
             if (i < n_items)
-              halo32[pix * cinp4 + (i - pix * cs4)] = quant4_magic(bt.v[u], p.act_scale, rs);
+              halo32[pix * cinp4 + (i - pix * ipp)] = quant4_magic(bt.v[u], p.act_scale, rs);
           }
         };
         HaloBatch<U> b0, b1;
@@ -327,16 +367,18 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
     const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's matrix and row
     // First pixel of this warp's 16 rows in each of its MI 64-row subtiles.
     int row0[MI];
-    // A (pixels x K): matrices 0..3 = rows 0-7 / 8-15, K bytes 0-15 / 16-31.
+    // A (pixels x K): matrices 0..3 = rows 0-7 / 8-15, K bytes 0-15 / 16-31
+    // (of one tap; with Tap16 the lanes of bytes 16-31 are a tap ahead, below).
     uint32_t arow[MI];
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
       row0[mi] = (wg * MI + mi) * 64 + warp * 16;
       const int px = row0[mi] + (mat & 1) * 8 + mrow;
-      arow[mi] = ((px >> p.tw_log2) * HW + (px & (TW - 1))) * CinP + (mat >> 1) * 16;
+      arow[mi] = ((px >> p.tw_log2) * HW + (px & (TW - 1))) * CinP;
+      if (!Tap16) arow[mi] += (mat >> 1) * 16;
     }
     float* st = reinterpret_cast<float*>(stage0) + (threadIdx.x >> 5) * 16 * kStageRow;
-    const int n_ksteps = 9 * Cs / kWgmmaK;  // of one part
+    const int n_ksteps = (9 * Cs + kWgmmaK - 1) / kWgmmaK;  // of one part
 
     int acc[MI][N / 2];
 #pragma unroll
@@ -395,14 +437,23 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #pragma unroll
               for (int j = 0; j < G; ++j) {
                 if (j0 + j < steps) {
+                  if (Tap16) {
+                    // step 4c + j0 + j holds taps 2k and 2k + 1, this lane's the
+                    // second if it loads K bytes 16-31; past tap 8 (the weights'
+                    // zero padding) it reads tap 8's pad bytes
+                    const int t = 2 * (4 * c + j0 + j) + (mat >> 1);
+                    tap_off = t > 8 ? (2 * HW + 2) * CinP + 16 : ((t / 3) * HW + t % 3) * CinP;
+                  }
 #pragma unroll
                   for (int mi = 0; mi < MI; ++mi)
                     ldmatrix_x4(a[mi][j], halo + arow[mi] + tap_off + c0);
-                  c0 += kWgmmaK;
-                  if (c0 == Cs) {  // on to the next tap: (dy, dx + 1), or (dy + 1, 0)
-                    c0 = 0;
-                    tap_off += CinP;
-                    if (++dx == 3) { dx = 0; tap_off += (HW - 3) * CinP; }
+                  if (!Tap16) {
+                    c0 += kWgmmaK;
+                    if (c0 == Cs) {  // on to the next tap: (dy, dx + 1), or (dy + 1, 0)
+                      c0 = 0;
+                      tap_off += CinP;
+                      if (++dx == 3) { dx = 0; tap_off += (HW - 3) * CinP; }
+                    }
                   }
                 }
               }
@@ -521,7 +572,7 @@ long long* clocks_buffer() {
 }
 #endif
 
-template <int N, int MI, int PW, bool Split>
+template <int N, int MI, int PW, bool Split, bool Tap16 = false>
 int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t stream) {
   const int fr = (128 * MI) / tile_w;
   const int need = kTileAlign + p.stages * N * kSwizzleRow +
@@ -531,15 +582,18 @@ int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t st
   static int raised = 0;
   if (smem > raised) {  // dynamic shared memory above 48 KB must be opted into
     const cudaError_t e = cudaFuncSetAttribute(
-        qconv_wgmma_kernel<N, MI, PW, Split>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        qconv_wgmma_kernel<N, MI, PW, Split, Tap16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return (int)e;
     raised = smem;
   }
   CUtensorMap map_w;  // encoded once per layer: the table is keyed by the weights' address
-  const int rc = cached_tensor_map_s8(&map_w, w, p.Cout, 9 * (uint64_t)p.Cin, N);
+  const uint64_t kpad = (9 * (uint64_t)p.Cin + 31) / 32 * 32;  // packed row: 160 bytes at Cin = 16
+  const int rc = cached_tensor_map_s8(&map_w, w, p.Cout, kpad, N);
   if (rc != 0) return rc;
   const int grid = p.n_tiles < sm_count() ? p.n_tiles : sm_count();
-  qconv_wgmma_kernel<N, MI, PW, Split><<<grid, kConsumers + 32 * PW, smem, stream>>>(map_w, p);
+  qconv_wgmma_kernel<N, MI, PW, Split, Tap16>
+      <<<grid, kConsumers + 32 * PW, smem, stream>>>(map_w, p);
   return (int)cudaGetLastError();
 }
 
@@ -576,25 +630,32 @@ int log2_of(int tile_w) {  // -1 unless a power of two
 
 }  // namespace
 
-// x (B, F, T, Cin1) f32 and x2 (B, F, T, Cin - Cin1) f32 or null (then
-// Cin1 == Cin): the input is their channel concat. w (Cout, 9 * Cin) int8, K
-// index (3*dy+dx)*Cin + c; epi (5, Cout) f32 rows s1, b1, mean, mul, beta;
-// res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32. Needs
-// Cin % 32 == 0, Cin1 % 4 == 0 and Cout in {64, 128, 256}. tile_w (frames of
-// a tile, a power of two up to 64), stages (of the weight ring; the number of
-// 128-byte K chunks means the weights stay in shared memory) and smem (bytes
-// of shared memory) come from the wrapper's plan; smem is checked against
-// this file's own sum. A tile is 256 pixels at Cout = 64, else 128. Returns
-// 0, a cudaError_t, or 1000 + the CUresult of building the tensor map.
+// x (B, F, T, Cin1) f32 and x2 (B, F, T, Cin - Cin1) f32 or null: the input
+// is their channel concat, or without x2 x's channels then zeros up to Cin (a
+// stem: Cin1 of 2 or 4, Cin = 16). w (Cout, Kpad) int8, K index
+// (3*dy+dx)*Cin + c, Kpad = 9 * Cin rounded up to 32 (zeros beyond 9 * Cin);
+// epi (5, Cout) f32 rows s1, b1, mean, mul, beta; res (B, F, T, Cout) f32 or
+// null; out (B, F, T, Cout) f32. Needs Cin % 32 == 0 with Cout in {32, 64,
+// 128, 256}, or Cin = 16 with Cout in {32, 64}; Cin1 % 4 == 0 but for a
+// stem. tile_w (frames of a tile, a power of two up to 64), stages (of the
+// weight ring; the number of 128-byte K chunks means the weights stay in
+// shared memory) and smem (bytes of shared memory) come from the wrapper's
+// plan; smem is checked against this file's own sum. A tile is 512 pixels
+// at Cout = 32, 256 at 64, else 128. Returns 0, a cudaError_t, or 1000 + the
+// CUresult of building the tensor map.
 extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const void* epi,
                             const void* res, void* out, float act_scale, int relu, int B, int F,
                             int T, int Cin, int Cin1, int Cout, int tile_w, int stages, int smem,
                             void* stream) {
-  const int m_tile = Cout == 64 ? 256 : 128;
+  const int m_tile = Cout == 32 ? 512 : Cout == 64 ? 256 : 128;
   const int tw_log2 = log2_of(tile_w);
   const int n_chunks = (9 * Cin + kSwizzleRow - 1) / kSwizzleRow;
-  if (Cin % 32 || Cin1 % 4 || (Cout != 64 && Cout != 128 && Cout != 256) || tw_log2 < 0 ||
-      tile_w > 64 || tile_w > m_tile || stages < 1 || stages > n_chunks || stages > kMaxStages)
+  const bool stem = x2 == nullptr && Cin1 < Cin;
+  const bool cin_ok = Cin % 32 == 0 || (Cin == 16 && Cout <= 64);
+  const bool cin1_ok = stem ? Cin == 16 && (Cin1 == 2 || Cin1 == 4)
+                            : Cin1 > 0 && Cin1 <= Cin && Cin1 % 4 == 0;
+  if (!cin_ok || !cin1_ok || (Cout != 32 && Cout != 64 && Cout != 128 && Cout != 256) ||
+      tw_log2 < 0 || tile_w > 64 || stages < 1 || stages > n_chunks || stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(x, x2, epi, res, out, act_scale, relu, B, F, T, Cin, Cin1, Cout,
                                m_tile, tw_log2, Cin, 1, stages);
@@ -602,6 +663,10 @@ extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const 
 #ifdef AZT_QCONV_CLOCKS
   cudaMemsetAsync(p.clocks, 0, 6 * sizeof(long long), st);
 #endif
+  if (Cin == 16)  // 16-channel taps
+    return Cout == 32 ? launch<32, 4, 8, false, true>(p, w, smem, tile_w, st)
+                      : launch<64, 2, 8, false, true>(p, w, smem, tile_w, st);
+  if (Cout == 32) return launch<32, 4, 8, false>(p, w, smem, tile_w, st);
   if (Cout == 64) return launch<64, 2, 8, false>(p, w, smem, tile_w, st);
   if (Cout == 128) return launch<128, 1, 8, false>(p, w, smem, tile_w, st);
   return launch<256, 1, 4, false>(p, w, smem, tile_w, st);

@@ -14,25 +14,24 @@
 //
 // This is the port's first conv kernel (mma.sync m16n8k32, ldmatrix, two
 // cp.async weight buffers). csrc/qconv_kernel.cu (wgmma, TMA-fed weights,
-// persistent warp-specialised blocks) has replaced it wherever the mask nets
-// spend their time: its first instance at 1.3 to 2.2 times, its split
-// instance (Cout = 512, Cin = 512, 256 -> 256 at 6 frames) at 2.2 to 4.3
-// times this kernel's speed (H100 80GB HBM3, kernels/bench.py qconv). This
-// one is kept, chosen by shape alone
-// (kernels/qconv_kernel.py:plan), for
-//   - Cin % 32 != 0, the TPUFPU nets' 16-channel stem among them (K = 144: a
-//     32-byte wgmma K step would straddle two taps of the halo), and the
-//     stems of the unfolded nets, Cin = 2 (logmag_ipd) or 4 (physics): the
-//     halo load zero-extends them to 16 channels (x2 null, Cin1 < Cin), and
-//     their packed weights are zero there, so the int32 sums are the same;
-//   - Cout = 32, the first and last levels of the base-32 nets
-//     (FreqPreservingUNet, DeepFPU): a warp owns 64 pixels x 32 channels;
-//   - the shapes neither wgmma instance fits (Cout of 64 or 128 whose two
-//     halos leave no room for three weight stages, and one-frame planes at
-//     large Cin; no bundled net runs them);
-// and as the reference both wgmma instances are held against bit for bit
-// (kernels/bench.py, tests/test_torch_cuda.py, chip_smoke.py): same
-// quotient, same codes, same epilogue (csrc/qconv_common.cuh), with the
+// persistent warp-specialised blocks) has replaced it at every conv the
+// bundled nets run at 48, 64 and 80 frames: its wgmma route at 1.3 to 2.2
+// times this kernel's speed, its split route (Cout = 512, Cin = 512,
+// 256 -> 256 at 6 frames) at 2.2 to 4.3 times, its narrow route (the stems
+// of Cin 2, 4 and 16 and Cout = 32) at 1.4 to 1.9 times (H100 80GB HBM3,
+// kernels/bench.py qconv). This one is kept, chosen by shape alone
+// (kernels/qconv_kernel.py:plan), for the shapes no route of that kernel
+// fits, which no bundled net runs at those frame counts:
+//   - Cout of 64 or 128 at Cin of 256 or 512, whose two halos leave no room
+//     for three weight stages; Cout = 32 at Cin >= 256, or at few frames
+//     and Cin >= 64 (the 512-pixel tile's halos); one-frame planes at
+//     Cin >= 128; Cin % 32 == 16 beyond the 16-channel taps (48, 80, ...);
+//     stems at Cout >= 128. Its halo load zero-extends a stem of Cin1 = 2 or
+//     4 channels to 16 (x2 null, Cin1 < Cin), and the packed weights are zero
+//     there, so the int32 sums are the same;
+// and as the reference every route of csrc/qconv_kernel.cu is held against
+// bit for bit (kernels/bench.py, tests/test_torch_cuda.py, chip_smoke.py):
+// same quotient, same codes, same epilogue (csrc/qconv_common.cuh), with the
 // older quantiser.
 //
 // What bounds it: activation bytes, as in csrc/qconv_kernel.cu; it reaches a

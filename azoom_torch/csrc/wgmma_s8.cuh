@@ -8,7 +8,8 @@
 //   - wgmma: fence / commit_group / wait_group, the shared-memory matrix
 //     descriptor of a K-major tile in the 128-byte swizzle, and
 //     wgmma.mma_async m64n{64,128,256}k32 s32 += s8 * s8 with B from shared
-//     memory and A from shared memory (ss) or registers (rs);
+//     memory and A from shared memory (ss) or registers (rs), and
+//     m64n32k32 with A from registers;
 //   - setmaxnreg, so the producer warpgroup can hand registers to the consumers.
 //
 // Int8 wgmma takes both operands K-major only: a tile is rows of 128 K bytes
@@ -232,6 +233,21 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
 // listed.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void rs(int (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p;\n}\n"
+        : AZT_ACC8(d, 0), AZT_ACC8(d, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
 
 template <>
 struct Wgmma<64> {

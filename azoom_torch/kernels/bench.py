@@ -18,10 +18,10 @@ fpu,deepfpu,tpufpu``: the shapes are read from the net itself, on its plane of
 the net at N input frames, e.g. ``tpufpu_nano@48``, the server's reuse tick;
 CINxCOUTxT one shape on 129 rows, e.g. ``512x512x64``) at batch 128, plain,
 with a residual and (where the net has it) with the two-tensor concat input:
-the route the plan picks (``kernel``: wgmma, split or mma), held bit for bit
-(``torch.equal``) against the plain version and the ``mma.sync`` kernel (the
-same kernel where the plan picks it), then both timed in turns (old, new, new,
-old), beside a device-to-device copy of as many bytes as the conv must move
+the route the plan picks (``kernel``: wgmma, narrow, split or mma), held bit
+for bit (``torch.equal``) against the plain version and the ``mma.sync``
+kernel (the same kernel where the plan picks it), then both timed in turns
+(old, new, new, old), beside a device-to-device copy of as many bytes as the conv must move
 (``copy_ms``: what the card's memory gives a kernel that does nothing else),
 ``torch._int_mm`` on the conv's im2col'd int8 codes (``int_mm_ms``: the bare
 GEMM, made outside the timing) and the bound (``bound_ms``: bytes over 3.35
@@ -29,12 +29,12 @@ TB/s or operations over 1,979 TOP/s, the larger).
 
 ``clocks [--nets NET,...]`` (alone): builds the ``wgmma`` conv with
 ``-DAZT_QCONV_CLOCKS`` and prints, per shape of the nets that runs on it
-(either route), the cycles per tile that block 0's first consumer thread
-spends waiting for a halo, in the products and in the epilogue, and that its
-first producer thread spends waiting for a halo buffer and loading and
-quantising (per tile: the split route makes a halo unit per part and slice,
-less the part two slices share): which role bounds the kernel, where no
-profiler reads stalls.
+(any of its routes: wgmma, narrow, split), the cycles per tile that block
+0's first consumer thread spends waiting for a halo, in the products and in
+the epilogue (its stores), and that its first producer thread spends
+waiting for a halo buffer and loading and quantising (per tile: the split
+route makes a halo unit per part and slice, less the part two slices
+share): which role bounds the kernel, where no profiler reads stalls.
 
 ``convt``: the three upsamplings of the bundled net at batch 128 held
 against the plain version (the count of elements that are not bit-equal to

@@ -1,9 +1,9 @@
 """Int8 SAME 3x3 conv with a fused epilogue: the CUDA kernels
 ``csrc/qconv_kernel.cu`` (``wgmma``, TMA-fed weights, persistent
-warp-specialised blocks; two instances of it, the second the "split" route)
-and ``csrc/qconv_mma_kernel.cu`` (``mma.sync``; kept for the shapes neither
-instance takes), their wrapper and its plain PyTorch version (counterpart of
-azoom.pallas.qconv_kernel.qconv3x3_pallas).
+warp-specialised blocks; its instances serve three routes, "wgmma", "split"
+and "narrow") and ``csrc/qconv_mma_kernel.cu`` (``mma.sync``; kept for the
+shapes no route of the other takes), their wrapper and its plain PyTorch
+version (counterpart of azoom.pallas.qconv_kernel.qconv3x3_pallas).
 
     x_q = clip(round_half_even(x / act_scale), -127, 127)
     acc = conv3x3_same(x_q, w_q)                         (exact integers)
@@ -23,21 +23,28 @@ through the net.
 
 The stems of the unfolded nets take Cin = 2 (logmag_ipd features) or 4
 (physics features). Their weights are packed as if Cin were 16, the
-channels beyond Cin zero (:func:`kernel_cin`), and the kernel's halo load
-fills those channels with zero codes: the int32 sums are the same.
+channels beyond Cin zero (:func:`kernel_cin`), and the kernels' halo loads
+fill those channels with zero codes: the int32 sums are the same.
 
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it runs :func:`qconv3x3_plain`. Which kernel is a matter of shape alone
-(:func:`plan`): the ``wgmma`` kernel takes Cin % 32 == 0 with Cout of 64, 128
-or 256 where two halos of all channels and three weight stages fit (every
-conv of the nano net at 64 frames but its 16-channel stem); the "split"
-instance of the same kernel takes Cin % 32 == 0 with Cout of 256 or 512
-where that does not fit (Cout = 512, Cin = 512, 256 -> 256 at 6 frames):
-slices of 256 output channels, the halo in parts of Cs channels, a tile as
-wide as pads the frames least. The ``mma.sync`` kernel takes the rest (Cin
-of 2, 4 or a multiple of 16; Cout of 32, 64, 128, 256 or 512). All three
-agree bit for bit (``kernels/bench.py`` checks it on the card); none is a
-fallback for a failed build or launch of another.
+(:func:`plan`):
+  - "wgmma": Cin % 32 == 0 with Cout of 64, 128 or 256 where two halos of
+    all channels and three weight stages fit (every conv of the nano net at
+    64 frames but its 16-channel stem);
+  - "narrow", the same kernel at 16-channel taps or N = 32: the stems (Cin
+    of 2, 4 or 16, Cout of 32 or 64) and Cin % 32 == 0 with Cout = 32 (the
+    base-32 nets' first and last levels), where it fits;
+  - "split", the same kernel in slices of 256 output channels, the halo in
+    parts of Cs channels and a tile as wide as pads the frames least: Cin %
+    32 == 0 with Cout of 256 or 512 where "wgmma" does not fit (Cout = 512,
+    Cin = 512, 256 -> 256 at 6 frames);
+  - the ``mma.sync`` kernel takes the rest, which no bundled net runs at 48,
+    64 or 80 frames (Cout of 64 or 128 whose halos leave no room for three
+    weight stages, Cout = 32 at Cin >= 256, Cin % 32 == 16 beyond 16, stems
+    at Cout >= 128, one-frame planes at large Cin).
+All agree bit for bit (``kernels/bench.py`` checks it on the card); none is
+a fallback for a failed build or launch of another.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on sm_90
 # ("AZT_QCONV_CLOCKS",) before the first launch to time the kernel's roles.
 BUILD_DEFINES: tuple[str, ...] = ()
 # Launches by route since import (kernels.launches counts all as "qconv3x3").
-route_counts = {"wgmma": 0, "split": 0, "mma": 0}
+route_counts = {"wgmma": 0, "narrow": 0, "split": 0, "mma": 0}
 
 # csrc/qconv_kernel.cu's shared memory, beside the weight stages and the two
 # halos: slack to align the swizzled tiles, the consumer warps' output
@@ -217,45 +224,49 @@ def plan(cin: int, cout: int, frames: int) -> dict:
     """How the card runs a (Cin, Cout) conv on planes of ``frames`` frames:
     which kernel, its tile and its shared memory, from the shape alone.
 
-    ``kernel`` "wgmma": tiles of ``tile_rows`` x ``tile_w`` = ``m_tile``
-    pixels (256 at Cout = 64, else 128; ``tile_w`` the largest power of two
-    up to min(frames, 64)) by all Cout channels. Shared memory holds two int8
-    halos of (tile_rows + 2) x (tile_w + 2) pixels x (Cin + 16) bytes,
-    ``stages`` weight chunks of Cout x 128 bytes and a fixed part. All
-    ``k_chunks`` = ceil(9 Cin / 128) chunks are kept (``resident``) if they
-    fit in 232,448 bytes, else as many stream through a ring as fit, at
-    least 3. ``kernel`` "split" (:func:`_plan_split`), where that does not
-    fit or Cout = 512, for Cout of 256 or 512: the same kernel walking
-    ``n_slices`` slices of 256 channels and ``n_parts`` halo parts of
-    ``part_channels`` channels. ``kernel`` "mma": the ``mma.sync`` kernel's
-    tile (256 * 64 / Cout pixels) and bytes, for Cin % 32 != 0 (the stems of
-    Cin 2, 4 and 16 among them), Cout = 32, or when neither ``wgmma`` plan
-    fits. Raises ValueError for a shape no kernel takes: Cin must be 2, 4 or
-    a positive multiple of 16, Cout one of :data:`COUTS`."""
+    ``kernel`` "wgmma" or "narrow": tiles of ``tile_rows`` x ``tile_w`` =
+    ``m_tile`` pixels (512 at Cout = 32, 256 at 64, else 128; ``tile_w`` the
+    largest power of two up to min(frames, 64)) by all Cout channels. Shared
+    memory holds two int8 halos of (tile_rows + 2) x (tile_w + 2) pixels x
+    (kernel_cin(Cin) + 16) bytes, ``stages`` weight chunks of Cout x 128
+    bytes and a fixed part. All ``k_chunks`` = ceil(k_padded(Cin) / 128)
+    chunks are kept (``resident``) if they fit in 232,448 bytes, else as many
+    stream through a ring as fit, at least 3. "narrow" is this plan at
+    16-channel taps (the stems of Cin 2, 4 and 16, Cout of 32 or 64) or
+    Cout = 32; "wgmma" at Cin % 32 == 0 and Cout of 64, 128 or 256.
+    ``kernel`` "split" (:func:`_plan_split`), where that does not fit or
+    Cout = 512, for Cout of 256 or 512: the same kernel walking ``n_slices``
+    slices of 256 channels and ``n_parts`` halo parts of ``part_channels``
+    channels. ``kernel`` "mma": the ``mma.sync`` kernel's tile (256 * 64 /
+    Cout pixels) and bytes, for what no plan above fits or takes. Raises
+    ValueError for a shape no kernel takes: Cin must be 2, 4 or a positive
+    multiple of 16, Cout one of :data:`COUTS`."""
     if cin not in STEM_CINS and (cin < 16 or cin % 16):
         raise ValueError(f"qconv3x3: Cin must be 2, 4 or a multiple of 16, got {cin}")
     if cout not in COUTS:
         raise ValueError(f"qconv3x3: Cout must be one of {COUTS}, got {cout}")
     if frames < 1:
         raise ValueError(f"qconv3x3: frames must be positive, got {frames}")
-    if cin % 32 == 0 and 64 <= cout <= 256:
-        m_tile = 256 if cout == 64 else 128
+    ck = kernel_cin(cin)
+    narrow = (ck == 16 and cout <= 64) or (ck % 32 == 0 and cout == 32)
+    if narrow or (ck % 32 == 0 and 64 <= cout <= 256):
+        m_tile = {32: 512, 64: 256}.get(cout, 128)
         tile_w = _pow2_floor(frames, 64)
         tile_rows = m_tile // tile_w
-        halo = (tile_rows + 2) * (tile_w + 2) * (cin + 16)
+        halo = (tile_rows + 2) * (tile_w + 2) * (ck + 16)
         fixed = _TILE_ALIGN + 2 * halo + _STAGING + 5 * cout * 4 + _BARRIERS
-        k_chunks = -(-9 * cin // 128)
+        k_chunks = -(-k_padded(cin) // 128)
         stages = min(k_chunks, _MAX_STAGES, (SMEM_LIMIT - fixed) // (cout * 128))
         if stages >= min(3, k_chunks):
-            return dict(kernel="wgmma", m_tile=m_tile, tile_w=tile_w, tile_rows=tile_rows,
-                        k_chunks=k_chunks, stages=stages, resident=stages == k_chunks,
-                        smem=fixed + stages * cout * 128)
+            return dict(kernel="narrow" if narrow else "wgmma", m_tile=m_tile, tile_w=tile_w,
+                        tile_rows=tile_rows, k_chunks=k_chunks, stages=stages,
+                        resident=stages == k_chunks, smem=fixed + stages * cout * 128)
     return _plan_split(cin, cout, frames) or _plan_mma(cin, cout, frames)
 
 
 @functools.cache
 def _entry(kernel: str):
-    if kernel == "wgmma":
+    if kernel == "wgmma":  # the wgmma and narrow routes: instances chosen by Cout and Cin
         fn = build.load_library("qconv_kernel", BUILD_DEFINES).azt_qconv3x3
         ints = 10
     elif kernel == "split":
@@ -291,8 +302,8 @@ def qconv3x3(
     (B, F, T, Cout) float32. ``act_scale`` is the static activation scale
     (a positive float32 value). With ``x2`` the input is the channel concat
     [x, x2], which the kernel reads in place. ``_kernel="mma"`` runs the
-    ``mma.sync`` kernel where :func:`plan` would pick ``wgmma`` or "split":
-    for the bit-for-bit comparison of the kernels, not for callers."""
+    ``mma.sync`` kernel where :func:`plan` would pick another route: for the
+    bit-for-bit comparison of the kernels, not for callers."""
     if x.device.type == "cpu":
         return qconv3x3_plain(x, w_q, epi, act_scale, residual, relu, x2)
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
@@ -334,15 +345,15 @@ def qconv3x3(
             None if residual is None else residual.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        if how["kernel"] == "wgmma":
-            rc = _entry("wgmma")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
-                                 how["tile_w"], how["stages"], how["smem"], stream)
+        # A stem's channels beyond Cin1 (no x2) are zeros to the kernels.
+        if how["kernel"] in ("wgmma", "narrow"):
+            rc = _entry("wgmma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),
+                                 cin1, cout, how["tile_w"], how["stages"], how["smem"], stream)
         elif how["kernel"] == "split":
             rc = _entry("split")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
                                  how["tile_w"], how["part_channels"], how["stages"], how["smem"],
                                  stream)
         else:
-            # A stem's channels beyond Cin1 (no x2) are zeros to the kernel.
             rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),
                                cin1, cout, w_q.shape[1], stream)
     build.check(rc, f"qconv3x3 {how['kernel']} kernel")

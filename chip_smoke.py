@@ -16,18 +16,19 @@ Phases, each printing its own line(s):
                steering in every stream.
   3. qconv   - the int8 3x3 conv against its plain version at each of the ten
                conv shapes of the bundled tpufpu_nano net at batch 128, with
-               and without a residual (the wgmma kernel at nine shapes, the
-               mma.sync kernel at the 16-channel stem: the wrapper picks by
-               shape); torch._int_mm on explicitly im2col'd int8 operands is
-               timed beside it as the bare GEMM. Then every conv of the net
-               (with and without a residual, and the concat convs) at the
+               and without a residual (the wgmma route at nine shapes, the
+               narrow route at the 16-channel stem, held bit for bit against
+               the plain version and the mma.sync kernel: the wrapper picks
+               by shape); torch._int_mm on explicitly im2col'd int8 operands
+               is timed beside it as the bare GEMM. Then every conv of the
+               net (with and without a residual, and the concat convs) at the
                frame families of the server's full tick (80 / 40 / 20 / 10)
                and reuse tick (48 / 24 / 12 / 6), with each shape's route,
                the elements that differ from the plain version and the
                kernel's time; the reuse tick's 256 -> 256 at 6 frames runs on
-               the split route, held bit for bit against the plain version
-               and the mma.sync kernel, timed beside its plain version and
-               torch._int_mm.
+               the split route and the stem on the narrow route, both held
+               bit for bit against the plain version and the mma.sync kernel
+               and timed beside the plain version and torch._int_mm.
   4. convt   - the upsampling kernel against its plain version at the net's
                three upsampling shapes, with the count of elements that are
                not bit-equal to it (the plain version rounds twice on rare
@@ -67,7 +68,8 @@ Phases, each printing its own line(s):
                wire="int16", track=True) on 128 far-field scenes, each stream
                steered and zoomed its own way: a prime, then one-hop ticks;
                the launches of every tick (a reuse tick: 21 convs, 4 of them
-               on the split route, 3 upsamplings, 1 MVDR); the first 4
+               on the split route and the stem on the narrow route, 3
+               upsamplings, 1 MVDR); the first 4
                streams against the CPU
                port's server on the same blocks (waveform and bearings);
                the median ms per tick, the bytes moved each way per tick and
@@ -101,10 +103,11 @@ Phases, each printing its own line(s):
  16. nets    - every bundled conv net. The int8 conv at each conv shape of
                fpu and deepfpu (unfolded 513-row planes: stems of Cin 2 and 4,
                Cout 32, Cout 512 at 4 frames) and of tpufpu and tpufpu_slim
-               (129 rows) at batch 128, with its route (wgmma, split or mma),
-               bit for bit against the plain version (and a split-route shape
-               against the mma.sync kernel too), timed beside torch._int_mm
-               on im2col'd int8. Then each of the
+               (129 rows) at batch 128, with its route (wgmma, narrow or
+               split; none on mma.sync), bit for bit against the plain
+               version (and a narrow- or split-route shape against the
+               mma.sync kernel too), timed beside torch._int_mm on im2col'd
+               int8. Then each of the
                seven artifacts, int8 and float (its convs float32 matrix
                products, TF32 off), on the learned MVDR path at (128, 2, 32000)
                on phase 7's scenes: launch counts and conv kernels, chunk 0
@@ -113,7 +116,8 @@ Phases, each printing its own line(s):
                reference's default) enhance() of 2 s against the CPU; then
                AudioZoomServer(128, model="fpu", mask_reuse=True,
                wire="int16"): a prime (80 frames) and 4 reuse ticks (48), the
-               launches of each, the first 2 streams against a CPU server.
+               launches and routes of each, the first 2 streams against a
+               CPU server.
  17. lowlat  - the low-latency path with the bundled causal crn_causal net. The
                online_mvdr kernel against its plain loop at (2, 513, 1875)
                with a floored target mask (output and carried state); one
@@ -133,12 +137,14 @@ Phases, each printing its own line(s):
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
-is a loop of calls from Python for both; B2 six times: qconv3x3 is the
+is a loop of calls from Python for both; B2 seven times: qconv3x3 is the
 tpufpu_nano net of phase 3 with phase 5's launches, qconv3x3_<net> the conv
 set of fpu, deepfpu, tpufpu and tpufpu_slim with the launches of that int8
 net's phase-16 run, qconv3x3_split the split route's four convs of the
 reuse tick's net (phase 3's 48-frame family) with the split launches of
-phase 12's reuse ticks; B3 twice: hard_null shared with
+phase 12's reuse ticks, qconv3x3_narrow the narrow route's convs of those
+four conv sets (the stems and Cout = 32) with the narrow launches of their
+phase-16 int8 runs; B3 twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run; online_mvdr at one 60 s clip with phase 17's
 launches), the card's name and power limit, and a last line
@@ -469,6 +475,11 @@ def main() -> int:
                 kw["x2"] = x[..., cin // 2:].contiguous()
             yield with_res, cat, (x[..., :cin // 2].contiguous() if cat else x), kw
 
+    def mma_differ(xin, w_q, epi, kw) -> int:
+        """Elements where the route the plan picks differs from the mma.sync kernel."""
+        return int((qconv3x3(xin, w_q, epi, act_scale, **kw)
+                    != qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")).sum())
+
     def conv_check(cin, cout, t, with_res, cat, xin, w_q, epi, kw, rows=F_ROWS):
         """The kernel against the plain version on planes of ``rows`` rows:
         (max abs error, elements that differ, kernel ms, bound ms, bound by)."""
@@ -490,6 +501,7 @@ def main() -> int:
     for cin, cout, t in dict.fromkeys(c[:3] for c in NANO_CONVS):
         x, w_q, epi, res = conv_operands(cin, cout, t)
         variants = [v[:2] for v in conv_variants(NANO_CONVS, cin, cout, t, x, res)]
+        route = plan(cin, cout, t)["kernel"]
         for with_res, cat, xin, kw in conv_variants(NANO_CONVS, cin, cout, t, x, res):
             err, differ, ms, b_ms, b_by = conv_check(cin, cout, t, with_res, cat, xin, w_q, epi, kw)
             worst = max(worst, err)
@@ -497,13 +509,19 @@ def main() -> int:
                                iters=3, warmup=1)
             per_shape[(cin, cout, t, with_res, cat)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                not_bit_equal_to_plain=differ)
+                not_bit_equal_to_plain=differ, kernel=route)
+            if route == "narrow":  # the stem, off the mma.sync kernel: bit for bit to both
+                vs_mma = mma_differ(xin, w_q, epi, kw)
+                check(differ == 0 and vs_mma == 0,
+                      f"qconv narrow {(cin, cout, t, with_res, cat)}: {differ} elements differ "
+                      f"from the plain version, {vs_mma} from the mma.sync kernel")
+                per_shape[(cin, cout, t, with_res, cat)]["not_bit_equal_to_mma"] = vs_mma
         # the bare int8 GEMM of the same conv, im2col'd outside the timing
         lib_ms = int_mm_ms(x, w_q, act_scale)
         for v in variants:
             per_shape[(cin, cout, t) + v]["library_ms"] = lib_ms
         plain = per_shape[(cin, cout, t, False, False)]
-        log("qconv", cin=cin, cout=cout, frames=t, batch=BATCH, kernel=plan(cin, cout, t)["kernel"],
+        log("qconv", cin=cin, cout=cout, frames=t, batch=BATCH, kernel=route,
             ms={"+".join(n for n, on in zip(("res", "cat"), v) if on) or "plain":
                 round(per_shape[(cin, cout, t) + v]["ms"], 4) for v in sorted(variants)},
             plain_ms=f"{plain['plain_ms']:.3f}", bound_ms=f"{plain['bound_ms']:.4f}",
@@ -522,8 +540,8 @@ def main() -> int:
 
     # the server's frame families: a full tick (80 frames: a 64-frame tile and
     # a 16-frame tail) and a reuse tick (48 frames; 6 at the bottleneck, where
-    # 256 -> 256 runs on the split route). Split-route shapes are held bit for
-    # bit against the plain version and the mma.sync kernel.
+    # 256 -> 256 runs on the split route). Split- and narrow-route shapes are
+    # held bit for bit against the plain version and the mma.sync kernel.
     families, split_parts = {}, []
     for t0 in SERVER_FRAMES:
         convs = nano_convs(t0)
@@ -538,12 +556,11 @@ def main() -> int:
                 key = (cin, cout, t, with_res, cat)
                 fam[key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                 not_bit_equal_to_plain=differ, kernel=route)
-                if route == "split":
-                    vs_mma = int((qconv3x3(xin, w_q, epi, act_scale, **kw)
-                                  != qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")).sum())
+                if route in ("split", "narrow"):
+                    vs_mma = mma_differ(xin, w_q, epi, kw)
                     check(differ == 0 and vs_mma == 0,
-                          f"qconv split {key}: {differ} elements differ from the plain version, "
-                          f"{vs_mma} from the mma.sync kernel")
+                          f"qconv {route} {key}: {differ} elements differ from the plain "
+                          f"version, {vs_mma} from the mma.sync kernel")
                     fam[key].update(not_bit_equal_to_mma=vs_mma, plain_ms=time_ms(
                         lambda: qconv3x3_plain(xin, w_q, epi, act_scale, **kw), iters=2, warmup=1))
             if route == "split":
@@ -652,7 +669,8 @@ def main() -> int:
     check(counts == {"qconv3x3": 21, "masked_mvdr": 1, "convt1x2": 3},
           f"main path launch counts {counts}")
     routes = {k: v - routes_before[k] for k, v in route_counts.items()}
-    check(routes == {"wgmma": 20, "split": 0, "mma": 1}, f"main path conv kernels {routes}")
+    check(routes == {"wgmma": 20, "narrow": 1, "split": 0, "mma": 0},
+          f"main path conv kernels {routes}")
     check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
           "main path: bad output")
     for name, n in counts.items():
@@ -952,9 +970,9 @@ def main() -> int:
                       f"server {name}: bearings after tick {k} differ from the CPU's: "
                       f"{srv.bearings[:4]} vs {servers['cpu'].bearings}")
         # a reuse tick runs the net on 48 frames (256 -> 256 at 6 on the split
-        # route), a full one on 80
-        want_routes = ({"wgmma": 16, "split": 4, "mma": 1} if name == "reuse_int16"
-                       else {"wgmma": 20, "split": 0, "mma": 1})
+        # route), a full one on 80; the stem on the narrow route
+        want_routes = ({"wgmma": 16, "narrow": 1, "split": 4, "mma": 0} if name == "reuse_int16"
+                       else {"wgmma": 20, "narrow": 1, "split": 0, "mma": 0})
         for k, (c, r) in enumerate(zip(tick_launches, tick_routes)):
             check(c == {"qconv3x3": 21, "convt1x2": 3, "masked_mvdr": 1},
                   f"server {name}: tick {k} launch counts {c}")
@@ -1235,7 +1253,7 @@ def main() -> int:
     from azoom_torch.models.unet import ConvTranspose1x2, conv_shapes
 
     conv_sets = {"fpu": 513, "deepfpu": 513, "tpufpu": F_ROWS, "tpufpu_slim": F_ROWS}
-    set_shapes = {}
+    set_shapes, narrow_parts = {}, []
     # operands made on the card from a seed: numpy took ~6 s a shape at 513 rows
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
@@ -1262,9 +1280,8 @@ def main() -> int:
                                    "elements differ from the plain version")
                 route = plan(cin, cout, t)["kernel"]
                 vs_mma = 0
-                if route == "split":  # the new route against the mma.sync kernel it replaced
-                    vs_mma = int((qconv3x3(xin, w_q, epi, act_scale, **kw)
-                                  != qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")).sum())
+                if route in ("split", "narrow"):  # against the mma.sync kernel they replaced
+                    vs_mma = mma_differ(xin, w_q, epi, kw)
                     check(vs_mma == 0, f"qconv {net} {(cin, cout, t, with_res, cat)}: {vs_mma} "
                                        "elements differ from the mma.sync kernel")
                 plain_ms = time_ms(lambda: qconv3x3_plain(xin, w_q, epi, act_scale, **kw),
@@ -1281,11 +1298,11 @@ def main() -> int:
             del x, res
         parts = [shapes[c] for c in convs]
         kernel_of = [p["kernel"] for p in parts]
-        main_kernel = max(route_counts, key=kernel_of.count)
+        check("mma" not in kernel_of, f"qconv {net}: convs on the mma.sync kernel {kernel_of}")
+        narrow_parts += [p for p in parts if p["kernel"] == "narrow"]
         results[f"qconv3x3_{net}"] = dict(
             name=f"qconv3x3_{net}", route="cuda",
-            source="azoom_torch/csrc/" + ("qconv_mma_kernel.cu" if main_kernel == "mma"
-                                          else "qconv_kernel.cu"),
+            source="azoom_torch/csrc/qconv_kernel.cu",  # every route of these nets
             replaces="azoom/pallas/qconv_kernel.py:53 (the int8 QConv convs of "
                      "azoom/models/unet.py:96 in the bundled " + net + ")",
             max_abs_err=max(p["max_abs_err"] for p in parts),
@@ -1301,6 +1318,20 @@ def main() -> int:
             int_mm_ms=f"{results[f'qconv3x3_{net}']['library_ms']:.4f}",
             per_shape={f"{k[0]}-{k[1]}@{k[2]}" + "+res" * k[3] + "+cat" * k[4]:
                        (v["kernel"], round(v["ms"], 4)) for k, v in shapes.items()})
+    # the narrow route: the stems and Cout = 32 of the four sets, each conv as often as its net
+    # runs it; launches from the sets' int8 runs below
+    results["qconv3x3_narrow"] = dict(
+        name="qconv3x3_narrow", route="cuda", source="azoom_torch/csrc/qconv_kernel.cu",
+        replaces="azoom/pallas/qconv_kernel.py:53 (the narrow instances: the stems of Cin 2, 4 "
+                 "and 16 and the Cout = 32 convs of the bundled fpu, deepfpu, tpufpu and "
+                 "tpufpu_slim)",
+        max_abs_err=max(p["max_abs_err"] for p in narrow_parts), launches=0,
+        ms=sum(p["ms"] for p in narrow_parts), plain_ms=sum(p["plain_ms"] for p in narrow_parts),
+        bound_ms=sum(p["bound_ms"] for p in narrow_parts), bound_by=bound_by_of(narrow_parts),
+        library_ms=sum(p["library_ms"] for p in narrow_parts))
+    log("qconv_narrow", convs=len(narrow_parts), ms=f"{results['qconv3x3_narrow']['ms']:.4f}",
+        bound_ms=f"{results['qconv3x3_narrow']['bound_ms']:.4f}",
+        int_mm_ms=f"{results['qconv3x3_narrow']['library_ms']:.4f}")
 
     # each bundled conv net, int8 and float, on the learned MVDR path at batch 128
     nets = {}
@@ -1329,6 +1360,7 @@ def main() -> int:
                 want["qconv3x3"] = n_convs
                 if name in conv_sets:
                     results[f"qconv3x3_{name}"]["launches"] = counts["qconv3x3"]
+                    results["qconv3x3_narrow"]["launches"] += routes["narrow"]
             check(counts == want, f"{name} int8={quant}: launch counts {counts}, want {want}")
             check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
                   f"{name} int8={quant}: bad output")
@@ -1398,24 +1430,33 @@ def main() -> int:
             srv_f.set_zoom(st, direction_deg=60.0 + st % 60, zoom=0.5)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    routes_before = dict(route_counts)
     f_outs = [fsrv["cuda"].push(f_mix[:, :, :win])]
     torch.cuda.synchronize()
     f_prime = active_launches()
+    f_routes = [{r: route_counts[r] - routes_before[r] for r in route_counts}]
     f_cpu = [fsrv["cpu"].push(f_mix[:2, :, :win])]
     f_ms, f_launches = [], []
     for k in range(f_ticks):
         blk = f_mix[:, :, win + k * hop:win + (k + 1) * hop]
         torch.cuda.synchronize()
         kernels.reset_launches()
+        routes_before = dict(route_counts)
         t0 = time.perf_counter()
         f_outs.append(fsrv["cuda"].push(blk))
         f_ms.append((time.perf_counter() - t0) * 1e3)
         f_launches.append(active_launches())
+        f_routes.append({r: route_counts[r] - routes_before[r] for r in route_counts})
         if k < 2:
             f_cpu.append(fsrv["cpu"].push(blk[:2]))
     want = {"qconv3x3": 14, "convt1x2": 3, "masked_mvdr": 1}
     check(f_prime == want and all(c == want for c in f_launches),
           f"server fpu launches: prime {f_prime}, ticks {f_launches}")
+    # the prime on 80 frames, the reuse ticks on 48 (256 -> 256 at 6 frames on the split
+    # route); the stem, the two 32 -> 32 and the 32 || 32 concat on the narrow route
+    want_routes = [{"wgmma": 10, "narrow": 4, "split": 0, "mma": 0}] + \
+        [{"wgmma": 9, "narrow": 4, "split": 1, "mma": 0}] * f_ticks
+    check(f_routes == want_routes, f"server fpu conv kernels {f_routes}")
     a = np.concatenate(f_outs[1:3], axis=1)[:2].astype(np.float32)
     b = np.concatenate(f_cpu[1:], axis=1).astype(np.float32)
     f_rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
@@ -1424,7 +1465,8 @@ def main() -> int:
                                           tick_ms=f_ms, tick_ms_median=statistics.median(f_ms[1:]),
                                           cpu_wave_rel_l2=f_rel)
     log("server_fpu", streams=BATCH, ticks=f_ticks, prime_launches=f_prime,
-        tick_launches=f_launches[-1], tick_ms_median=f"{statistics.median(f_ms[1:]):.3f}",
+        tick_launches=f_launches[-1], prime_conv_kernels=f_routes[0],
+        tick_conv_kernels=f_routes[-1], tick_ms_median=f"{statistics.median(f_ms[1:]):.3f}",
         tick_ms_all=[round(t, 2) for t in f_ms], cpu_first2_wave_rel_l2=f"{f_rel:.3e}")
     del fsrv, f_mix
 
@@ -1599,7 +1641,8 @@ def main() -> int:
 
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
-        "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "convt1x2", "hard_null",
+        "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
+        "convt1x2", "hard_null",
         "hard_null_per_chunk", "int8_mm", "online_mvdr")]}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}

@@ -22,7 +22,7 @@ from azoom_torch.kernels.int8_mm_kernel import int8_mm, int8_mm_plain
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
 from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
 from azoom_torch.kernels.qconv_kernel import (
-    k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain,
+    k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain, route_counts,
 )
 
 pytestmark = pytest.mark.cuda
@@ -140,6 +140,39 @@ def test_qconv_split_route_bit_equal_to_plain_and_mma(cuda, cin, cout, t, res, c
     if cat:
         x, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
     got = qconv3x3(x, w, epi, 0.026, **kw)
+    assert torch.equal(got, qconv3x3_plain(x, w, epi, 0.026, **kw))
+    assert torch.equal(got, qconv3x3(x, w, epi, 0.026, **kw, _kernel="mma"))
+
+
+# The narrow route's shapes (stems of Cin1 2, 4 and 16; Cout = 32, the 32 || 32
+# concat among them; a weight ring at N = 32) on 131- and 513-row planes:
+# batch, F, T, Cin, Cout, residual, concat, relu.
+@pytest.mark.parametrize("batch,f_rows,t,cin,cout,res,cat,relu", [
+    (1, 513, 64, 2, 32, False, False, True), (3, 131, 7, 2, 32, True, False, False),
+    (1, 513, 64, 4, 32, False, False, True), (3, 131, 33, 4, 32, True, False, True),
+    (1, 131, 64, 16, 64, False, False, True), (3, 131, 1, 16, 64, True, False, False),
+    (1, 513, 48, 32, 32, True, False, True), (3, 131, 80, 32, 32, False, False, False),
+    (1, 513, 64, 64, 32, False, True, True), (3, 131, 48, 64, 32, True, True, True),
+    (1, 131, 80, 64, 32, False, True, False), (1, 131, 1, 32, 32, True, False, True),
+    (3, 131, 1, 4, 64, False, False, True), (1, 131, 7, 16, 32, False, False, True),
+    (3, 131, 80, 2, 64, True, False, True), (1, 131, 33, 128, 32, True, False, True)])
+def test_qconv_narrow_route_bit_equal_to_plain_and_mma(cuda, batch, f_rows, t, cin, cout, res,
+                                                       cat, relu):
+    rng = np.random.default_rng(11 * cin + cout + t + batch)
+    assert plan(cin, cout, t)["kernel"] == "narrow"
+    x = _t(np.abs(rng.standard_normal((batch, f_rows, t, cin))).astype(np.float32), cuda)
+    w = pack_weights(torch.from_numpy(
+        rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8))).to(cuda)
+    epi = _t(np.stack([np.full(cout, 2e-4), *(0.1 * rng.standard_normal((2, cout))),
+                       1 + 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout)])
+             .astype(np.float32), cuda)
+    kw = dict(relu=relu, residual=_t(rng.standard_normal((batch, f_rows, t, cout))
+                                     .astype(np.float32), cuda) if res else None)
+    if cat:
+        x, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+    before = route_counts["narrow"]
+    got = qconv3x3(x, w, epi, 0.026, **kw)
+    assert route_counts["narrow"] == before + 1
     assert torch.equal(got, qconv3x3_plain(x, w, epi, 0.026, **kw))
     assert torch.equal(got, qconv3x3(x, w, epi, 0.026, **kw, _kernel="mma"))
 
@@ -395,9 +428,13 @@ def test_main_path_launches_and_matches_cpu(cuda, beamformer, kernel):
     kw = dict(beamformer=beamformer, feature_kind="physics", steer_deg=60.0,
               fov_deg=30.0 if beamformer == "hard_null" else None)
     kernels.reset_launches()
+    routes_before = dict(route_counts)
     out = learned_enhance(mix.to(cuda), model, cfg, **kw)
     torch.cuda.synchronize()
     assert _active(kernels.launches) == {"qconv3x3": 21, kernel: 1, "convt1x2": 3}
+    # 20 convs on wgmma, the stem on the narrow route
+    assert {r: route_counts[r] - routes_before[r] for r in route_counts} == {
+        "wgmma": 20, "narrow": 1, "split": 0, "mma": 0}
     ref = learned_enhance(mix, load_bundled("tpufpu_nano", device="cpu")[0], cfg, **kw)
     assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
 

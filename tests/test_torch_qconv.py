@@ -216,8 +216,8 @@ CLASSIC_WIDTHS = [
 
 def _smem_as_the_c_side_sums_it(cin, cout, how):
     """Shared memory of a plan, restated from the three C entry points (a
-    stem of Cin 2 or 4 is 16 channels to the kernel; a split halo holds one
-    part of the channels)."""
+    stem of Cin 2 or 4 is 16 channels to the kernels; a split halo holds one
+    part of the channels; the narrow route is azt_qconv3x3 at N = Cout)."""
     cs = how.get("part_channels", kernel_cin(cin))
     halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (cs + 16)
     if how["kernel"] == "mma":  # csrc/qconv_mma_kernel.cu: halo + 2 buffers of Cout x (128 + 16)
@@ -238,10 +238,19 @@ def _check_plan(cin, cout, frames, f_rows=F_ROWS):
     assert tw <= max(frames, 1) or how["kernel"] == "split"
     # whole tiles cover the ragged plane: ceil(F / rows) row tiles, ceil(T / tw) frame tiles
     assert -(-f_rows // rows) * rows >= f_rows and -(-frames // tw) * tw >= frames
+    ck = kernel_cin(cin)
     if how["kernel"] == "wgmma":
         assert cin % 32 == 0 and cout in (64, 128, 256) and tw <= 64
         assert how["m_tile"] == (256 if cout == 64 else 128)
         assert how["k_chunks"] == -(-9 * cin // 128) and k_padded(cin) == 9 * cin
+    if how["kernel"] == "narrow":
+        # csrc/qconv_kernel.cu at 16-channel taps (the stems, Cout of 32 or 64) or N = 32
+        assert (ck == 16 and cout in (32, 64)) or (cin % 32 == 0 and cout == 32)
+        assert tw <= 64 and how["m_tile"] == (512 if cout == 32 else 256)
+        # the tensor map reads the packed rows: 160 bytes at 16-channel taps, else 9 * Cin
+        assert how["k_chunks"] == -(-k_padded(cin) // 128)
+        assert k_padded(cin) == (160 if ck == 16 else 9 * cin)
+    if how["kernel"] in ("wgmma", "narrow"):
         assert min(3, how["k_chunks"]) <= how["stages"] <= min(how["k_chunks"], 18)
         assert how["resident"] == (how["stages"] == how["k_chunks"])
         # one more stage would not have fit
@@ -270,24 +279,28 @@ def _check_plan(cin, cout, frames, f_rows=F_ROWS):
 @pytest.mark.parametrize("cin,cout,frames,launches", NANO_SHAPES)
 def test_plan_of_the_nano_shapes(cin, cout, frames, launches):
     how = _check_plan(cin, cout, frames)
-    # wgmma wherever the net spends its time; the 16-channel stem stays on mma.sync
-    assert how["kernel"] == ("mma" if cin == 16 else "wgmma")
+    # wgmma wherever the net spends its time; the 16-channel stem on the narrow route
+    assert how["kernel"] == ("narrow" if cin == 16 else "wgmma")
     if cin >= 64:  # the weights stay in shared memory unless they are 295 KB or more (147 KB fits)
         assert how["resident"] == (9 * cin * cout < 200_000)
 
 
 def test_plan_keeps_weights_resident_for_15_of_the_21_convs():
-    resident = sum(n for cin, cout, t, n in NANO_SHAPES if plan(cin, cout, t)["resident"])
-    on_wgmma = sum(n for cin, cout, t, n in NANO_SHAPES if plan(cin, cout, t)["kernel"] == "wgmma")
-    assert (resident, on_wgmma) == (14, 20)  # the 15th small conv is the stem, on mma.sync
+    def count(pred):
+        return sum(n for cin, cout, t, n in NANO_SHAPES if pred(plan(cin, cout, t)))
+
+    resident = count(lambda how: how["resident"])
+    on_wgmma = count(lambda how: how["kernel"] == "wgmma")
+    on_narrow = count(lambda how: how["kernel"] == "narrow")
+    assert (resident, on_wgmma, on_narrow) == (15, 20, 1)  # the 15th is the stem, on narrow
 
 
 @pytest.mark.parametrize("frames", [1, 7, 8, 64])
 @pytest.mark.parametrize("cin,cout", CLASSIC_WIDTHS)
 def test_plan_of_the_classic_widths(cin, cout, frames):
     how = _check_plan(cin, cout, frames)
-    if cin % 32:
-        assert how["kernel"] == "mma"
+    if cin % 32:  # the 16-channel stem
+        assert how["kernel"] == "narrow"
     elif cout == 512:  # split, but at one frame, where no split tile fits three stages
         assert how["kernel"] == ("mma" if frames == 1 else "split")
 
@@ -302,10 +315,14 @@ def test_plan_refuses_what_no_kernel_takes(cin, cout, frames):
 
 @pytest.mark.parametrize("cin", [32, 64, 96, 128, 256, 512])
 def test_packed_rows_have_no_padding_where_wgmma_reads_them(cin):
-    """The TMA tensor map of the wgmma kernel takes rows of exactly 9 * Cin
-    bytes (a multiple of 16); only Cin % 32 != 0 pads."""
+    """The TMA tensor map of the wgmma kernel takes the packed rows as they
+    are: exactly 9 * Cin bytes (a multiple of 16) at Cin % 32 == 0; only
+    Cin % 32 != 0 pads, and of those the kernel reads only the 16-channel
+    taps' rows (the narrow route: 144 bytes and 16 zeros, two K chunks)."""
     assert k_padded(cin) == 9 * cin and (9 * cin) % 16 == 0
-    assert k_padded(16) == 160 and k_padded(48) == 448
+    assert k_padded(16) == k_padded(2) == k_padded(4) == 160 and k_padded(48) == 448
+    assert plan(16, 64, 64)["k_chunks"] == plan(2, 32, 64)["k_chunks"] == 2
+    assert plan(48, 64, 64)["kernel"] == "mma"
 
 
 # (Cin, Cout, frames at T = 64) of the base-32 nets on unfolded 513-row planes:
@@ -321,11 +338,11 @@ DEEPFPU_SHAPES = FPU_SHAPES[1:] + [(4, 32, 64), (256, 512, 4), (512, 512, 4), (5
 @pytest.mark.parametrize("cin,cout,frames", sorted(set(FPU_SHAPES + DEEPFPU_SHAPES)))
 def test_plan_of_the_base32_shapes(cin, cout, frames):
     how = _check_plan(cin, cout, frames, f_rows=513)
-    # mma.sync: the stems and Cout of 32; split: Cout of 512 and 512 -> 256 (two halos of all
+    # narrow: the stems and Cout of 32; split: Cout of 512 and 512 -> 256 (two halos of all
     # 512 channels leave no room for 3 weight stages)
-    on_mma = cin in (2, 4) or cout == 32
+    on_narrow = cin in (2, 4) or cout == 32
     on_split = cout == 512 or (cin, cout) == (512, 256)
-    assert how["kernel"] == ("mma" if on_mma else "split" if on_split else "wgmma")
+    assert how["kernel"] == ("narrow" if on_narrow else "split" if on_split else "wgmma")
     if cout == 32:
         assert how["m_tile"] == 512 and how["tile_w"] * how["tile_rows"] == 512
 
@@ -347,23 +364,45 @@ ROUTE_CASES = sorted(
     {(shape, F_ROWS) for frames in (48, 80)
      for shape in _family([s[:3] for s in NANO_SHAPES], frames)}
     | {(shape, F_ROWS) for frames in (48, 64, 80) for shape in _family(TPUFPU_SHAPES, frames)}
-    | {(shape, 513) for frames in (48, 64, 80) for shape in _family(DEEPFPU_SHAPES, frames)})
+    | {(shape, 513) for frames in (48, 64, 80)
+       for shape in _family(DEEPFPU_SHAPES + FPU_SHAPES[:1], frames)})
 
 
 @pytest.mark.parametrize("shape,rows", ROUTE_CASES, ids=lambda v: "x".join(map(str, v))
                          if isinstance(v, tuple) else str(v))
 def test_every_bundled_shape_has_a_route_that_fits(shape, rows):
     """The server's frame families (48 and 80 frames) at every depth of the
-    nano tree, and tpufpu's and DeepFPU's shapes at 48, 64 and 80 frames:
-    each goes to a kernel whose shared memory fits, the stems and Cout = 32
-    on mma.sync and every other shape off it (the 256 -> 256 at 6 frames of
-    the reuse tick on the split route)."""
+    nano tree, and tpufpu's, DeepFPU's and fpu's shapes at 48, 64 and 80
+    frames: each goes to a kernel whose shared memory fits, none to
+    mma.sync: the stems and Cout = 32 on the narrow route, every other shape
+    on wgmma or split (the 256 -> 256 at 6 frames of the reuse tick on the
+    split route)."""
     cin, cout, frames = shape
     how = _check_plan(cin, cout, frames, f_rows=rows)
     assert how["smem"] <= SMEM_LIMIT
-    assert (how["kernel"] == "mma") == (cin in (2, 4, 16) or cout == 32)
+    assert how["kernel"] != "mma"
+    assert (how["kernel"] == "narrow") == (cin in (2, 4, 16) or cout == 32)
     if (cin, cout, frames) == (256, 256, 6):
         assert how["kernel"] == "split" and how["tile_w"] == 8 and how["stages"] == 3
+
+
+# (Cin, Cout) of the bundled nets' stems and Cout = 32 convs, and the other
+# stems the narrow route takes
+NARROW_WIDTHS = [(2, 32), (4, 32), (16, 64), (32, 32), (64, 32), (16, 32), (2, 64), (4, 64)]
+
+
+@pytest.mark.parametrize("rows", [513, 129, 131])
+@pytest.mark.parametrize("cin,cout", NARROW_WIDTHS)
+def test_stems_and_cout_32_fit_a_route_at_every_frame_count(cin, cout, rows):
+    """At T = 1 ... 80 frames each stem and Cout = 32 width gets a route
+    whose shared memory fits: the narrow route, but at one frame for
+    Cin = 64 (a 512-row tile's two halos of 80-byte pixels are 247 KB),
+    which mma.sync takes."""
+    for frames in range(1, 81):
+        how = _check_plan(cin, cout, frames, f_rows=rows)
+        assert how["kernel"] == ("mma" if (cin, frames) == (64, 1) else "narrow"), frames
+        assert how["tile_w"] == min(1 << (frames.bit_length() - 1), 64)
+        assert how["resident"] or how["kernel"] == "mma"  # at most 5 chunks of 32 x 128 bytes
 
 
 def test_stem_weights_pack_as_16_channels():

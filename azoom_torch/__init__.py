@@ -1,4 +1,5 @@
-"""azoom_torch: the PyTorch/CUDA port of azoom, the two-microphone audio zoom.
+"""azoom_torch: the PyTorch/CUDA port of azoom, the audio zoom of a
+two-microphone (or larger) array.
 
 The JAX package ``azoom`` is the reference; this package imports neither it
 nor JAX. Module names follow ``azoom``'s so each counterpart is easy to
@@ -7,23 +8,26 @@ find. Every TPU kernel of the ported path has a hand-written CUDA kernel in
 plain PyTorch version: a CUDA tensor launches the kernel, a CPU tensor takes
 the plain version.
 
-Ported so far: config, dsp (windows, stft, delays), beam (covariance,
-linalg2x2, mvdr with per-stream steering and loading, nullsteer at M = 2
-with per-chunk steering, zoom, the HRNR postfilter), masks (physics
+Ported so far: config (with the GEN1 preset), dsp (windows, stft, delays),
+beam (covariance, linalg2x2, linalgmm, mvdr with per-stream steering and
+loading at any M, nullsteer with per-chunk steering at M = 2 and the
+M-mic LCMV above, zoom, the HRNR postfilter), masks (physics
 features, bin_doa, geometric incl. the FOV gate and the IPD-deviation mask,
 oracle), localize (srp: SRP, GCC-PHAT, the IPD angle histogram; tracking:
 the Viterbi, causal, momentum, two-source and EMA trackers), models (quantize reader, unet TPUFPU, convert, pretrained
 ``tpufpu_nano``), eval.projection, stream (chunker, ``AudioZoomServer``:
 S live streams with mask reuse, an int16 wire and per-stream steer, zoom
 and tracking), kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
-int8 matmul), pipelines (``learned_enhance`` with the MVDR or hard-null
-beamformer, the FOV gate and the HRNR post-filter,
+int8 matmul, the online MVDR at 2 and at 3 to 8 mics), pipelines
+(``learned_enhance`` with the MVDR or hard-null beamformer, the FOV gate
+and the HRNR post-filter,
 ``learned_enhance_streaming``, ``autosteer_enhance``,
 ``tracked_autosteer_enhance``, ``oracle_enhance``, ``heuristic_enhance``)
-and the ``AudioZoom`` facade at high latency.
+and the ``AudioZoom`` facade at high and low latency, for any number of
+mics (the 2-mic kernels serve M = 2, as the reference's Pallas kernels do).
 """
 
-from azoom_torch.config import DEFAULT, PipelineConfig
+from azoom_torch.config import DEFAULT, GEN1, PipelineConfig
 from azoom_torch.models.pretrained import load_bundled
 from azoom_torch.pipelines.learned import (
     learned_enhance,
@@ -36,7 +40,7 @@ from azoom_torch.stream.server import AudioZoomServer
 from azoom_torch.zoom_api import AudioZoom
 
 __all__ = [
-    "DEFAULT", "PipelineConfig", "load_bundled", "learned_enhance",
+    "DEFAULT", "GEN1", "PipelineConfig", "load_bundled", "learned_enhance",
     "learned_enhance_streaming", "predict_mask", "oracle_enhance", "heuristic_enhance",
     "autosteer_enhance", "AudioZoomServer", "AudioZoom",
 ]

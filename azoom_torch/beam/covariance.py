@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["masked_covariance"]
+__all__ = ["masked_covariance", "recursive_covariance_update"]
 
 
 def masked_covariance(
@@ -28,3 +28,18 @@ def masked_covariance(
     R = torch.einsum("...mft,...nft->...fmn", Y * m.unsqueeze(-3), torch.conj(Y))
     norm = torch.sum(m, dim=-1) + eps  # (..., F)
     return R / norm[..., None, None]
+
+
+def recursive_covariance_update(
+    R_prev: torch.Tensor,
+    y_frame: torch.Tensor,
+    mask_frame: torch.Tensor,
+    weight_prev: torch.Tensor,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One frame of the running mask-weighted sums: R_prev (..., F, M, M),
+    y_frame (..., M, F), mask_frame and weight_prev (..., F). Returns
+    (R_new, weight_new); ``R_new / (weight_new + eps)[..., None, None]`` is
+    :func:`masked_covariance` over the frames seen so far."""
+    outer = torch.einsum("...mf,...nf->...fmn", y_frame, torch.conj(y_frame))
+    return R_prev + outer * mask_frame[..., None, None], weight_prev + mask_frame

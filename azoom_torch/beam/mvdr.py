@@ -1,11 +1,12 @@
 """MVDR beamformer in closed form over the (freq, time) grid, complex64
-(counterpart of azoom.beam.mvdr):
+(counterpart of azoom.beam.mvdr), for any number of mics M:
 
     w[f] = (R[f] + sigma I)^-1 d[f] / (d[f]^H (R[f]+sigma I)^-1 d[f])
     S_out[f, t] = w[f]^H Y[:, f, t]
 
-This is also the plain version of the fused CUDA kernel
-(azoom_torch.kernels.mvdr_kernel). Steering vectors d may be shared, (F, M),
+At M = 2 this is also the plain version of the fused CUDA kernel
+(azoom_torch.kernels.mvdr_kernel); at M > 2 it runs as it stands on any
+device, as the reference runs XLA there. Steering vectors d may be shared, (F, M),
 or one set per stream, (..., F, M) matching Y's leading dims; the loading
 sigma may be a scalar, per bin (F,), per stream (...,) or (..., 1), or both
 (..., F) (:func:`loading_strides`). The JAX package computes the per-stream form by
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from azoom_torch.beam.covariance import masked_covariance
-from azoom_torch.beam.linalg2x2 import solve_2x2_hermitian
+from azoom_torch.beam.linalgmm import solve_hermitian
 
 __all__ = ["mvdr_weights", "apply_weights", "mvdr_beamform", "masked_mvdr", "loading_strides"]
 
@@ -61,17 +62,12 @@ def mvdr_weights(
     R_noise: torch.Tensor, d: torch.Tensor, sigma=1e-7, eps: float = 1e-10
 ) -> torch.Tensor:
     """MVDR weights (..., F, M) from noise covariance (..., F, M, M) and
-    steering vectors (..., F, M). Only M = 2 is ported."""
+    steering vectors (..., F, M): the closed-form adjugate solve at M = 2,
+    the unrolled Cholesky of beam.linalgmm above."""
     M = R_noise.shape[-1]
-    if M != 2:
-        raise NotImplementedError(
-            "M > 2 MVDR needs the unrolled-Cholesky solve of "
-            "azoom/beam/linalgmm.py, which is queued for a later slice of "
-            "the port"
-        )
     eye = torch.eye(M, dtype=R_noise.dtype, device=R_noise.device)
     R_loaded = R_noise + _loading(sigma, R_noise) * eye
-    R_inv_d = solve_2x2_hermitian(R_loaded, d)
+    R_inv_d = solve_hermitian(R_loaded, d)
     denom = torch.sum(torch.conj(d) * R_inv_d, dim=-1, keepdim=True)
     return R_inv_d / (denom + eps)
 

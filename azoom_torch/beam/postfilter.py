@@ -67,6 +67,7 @@ def harmonic_regeneration(
     length: int,
     noise_psd: torch.Tensor | None = None,
     noise_quantile: float = 0.2,
+    precision: str = "exact",
     eps: float = 1e-12,
 ) -> torch.Tensor:
     """Stage-2 HRNR gain over a beamformed spectrum.
@@ -76,7 +77,9 @@ def harmonic_regeneration(
     ``n_fft`` / ``hop`` the STFT S_bf came from and ``length`` its signal's
     sample count (the round trip must give back T frames); ``noise_psd``
     (..., F, 1) overrides the minimum-statistics tracker of
-    ``noise_quantile``. Returns S_bf * max(g1, G2), complex64 (..., F, T).
+    ``noise_quantile``; ``precision`` ('exact' or 'fast') is checked and
+    selects nothing (the round trip is float64 inside either way). Returns
+    S_bf * max(g1, G2), complex64 (..., F, T).
     """
     S1 = S_bf * g1
     p1 = torch.abs(S1) ** 2
@@ -84,8 +87,8 @@ def harmonic_regeneration(
         noise_psd = min_stats_noise_psd(S_bf, noise_quantile, eps)
     # Half-wave rectification regenerates the stage-1 signal's harmonics;
     # the per-frame rescale keeps them on the stage-1 energy scale.
-    s1 = istft(S1, n_fft, hop, length=length)
-    S_h = stft(torch.clamp(s1, min=0.0), n_fft, hop)
+    s1 = istft(S1, n_fft, hop, length=length, precision=precision)
+    S_h = stft(torch.clamp(s1, min=0.0), n_fft, hop, precision=precision)
     ph = torch.abs(S_h) ** 2
     e1 = torch.sum(p1, dim=-2, keepdim=True)
     eh = torch.sum(ph, dim=-2, keepdim=True)

@@ -95,6 +95,9 @@ class PipelineConfig:
 
 DEFAULT = PipelineConfig()
 
+# The Gen-1 legacy configuration: a 512-point STFT at hop 256 on a 1 cm pair.
+GEN1 = PipelineConfig(n_fft=512, hop=256, mic_dist=0.01)
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA when ``device`` is None (and

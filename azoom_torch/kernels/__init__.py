@@ -10,7 +10,7 @@ from __future__ import annotations
 
 launches: dict[str, int] = {
     "masked_mvdr": 0, "qconv3x3": 0, "convt1x2": 0, "hard_null": 0, "int8_mm": 0,
-    "online_mvdr": 0,
+    "online_mvdr": 0, "online_mvdr_mmic": 0,
 }
 
 

@@ -4,7 +4,10 @@ wrapper (counterpart of azoom.pallas.mvdr_kernel.masked_mvdr_pallas).
 On a CUDA tensor the wrapper launches the kernel, one launch for the whole
 batch, or raises if the inputs are not what the kernel takes. On a CPU
 tensor it runs the plain PyTorch version, :func:`azoom_torch.beam.mvdr.masked_mvdr`,
-which computes the same function.
+which computes the same function. The kernel is the 2-mic closed form, as
+the Pallas kernel is: :func:`masked_mvdr_any` is the pipelines' MVDR stage,
+which takes it at M = 2 and the M-general plain function above, on the same
+device, as the reference takes XLA there.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from azoom_torch import kernels
 from azoom_torch.beam.mvdr import loading_strides, masked_mvdr
 from azoom_torch.kernels import build
 
-__all__ = ["masked_mvdr_fused"]
+__all__ = ["masked_mvdr_fused", "masked_mvdr_any"]
 
 _SIGNATURE = (
     [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
@@ -58,16 +61,18 @@ def masked_mvdr_fused(
     freqs_hz float32 (F,); sigma a Python scalar or a float32 tensor of
     shape (), (F,), (...,), (..., 1) or (..., F) (per bin, per stream or both:
     :func:`azoom_torch.beam.mvdr.loading_strides`). Returns complex64
-    (..., F, T). One launch serves the whole batch.
+    (..., F, T). One launch serves the whole batch. M = 2 only.
     """
+    _require(Y.ndim >= 3 and Y.shape[-3] == 2,
+             f"the kernel is the 2-mic closed form, got Y {tuple(Y.shape)} (masked_mvdr_any "
+             f"takes any M)")
     if Y.device.type == "cpu":
         return masked_mvdr(
             Y, noise_mask, d, freqs_hz, target_mask=target_mask, sigma=sigma,
             hp_cutoff_hz=hp_cutoff_hz, mask_floor=mask_floor,
         )
     _require(Y.device.type == "cuda", f"unsupported device {Y.device}")
-    _require(Y.dtype == torch.complex64 and Y.ndim >= 3 and Y.shape[-3] == 2,
-             f"Y must be complex64 (..., 2, F, T), got {Y.dtype} {tuple(Y.shape)}")
+    _require(Y.dtype == torch.complex64, f"Y must be complex64, got {Y.dtype}")
     lead, (F, T) = Y.shape[:-3], Y.shape[-2:]
     tensors = {"Y": Y, "noise_mask": noise_mask, "d": d, "freqs_hz": freqs_hz}
     if target_mask is not None:
@@ -114,3 +119,22 @@ def masked_mvdr_fused(
     build.check(rc, "masked_mvdr kernel")
     kernels.launches["masked_mvdr"] += 1
     return S
+
+
+def masked_mvdr_any(
+    Y: torch.Tensor,
+    noise_mask: torch.Tensor,
+    d: torch.Tensor,
+    freqs_hz: torch.Tensor,
+    target_mask: torch.Tensor | None = None,
+    sigma=1e-7,
+    hp_cutoff_hz: float = 100.0,
+    mask_floor: float = 0.0,
+) -> torch.Tensor:
+    """The masked MVDR stage for Y (..., M, F, T) of any M, chosen by the mic
+    count alone: :func:`masked_mvdr_fused` at M = 2 (the kernel on CUDA), the
+    plain :func:`azoom_torch.beam.mvdr.masked_mvdr` on Y's device above, as
+    the reference's pipelines use the Pallas kernel at M = 2 only."""
+    fn = masked_mvdr_fused if Y.shape[-3] == 2 else masked_mvdr
+    return fn(Y, noise_mask, d, freqs_hz, target_mask=target_mask, sigma=sigma,
+              hp_cutoff_hz=hp_cutoff_hz, mask_floor=mask_floor)

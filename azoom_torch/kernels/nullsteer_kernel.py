@@ -45,7 +45,7 @@ from azoom_torch.beam.linalg2x2 import cond_2x2
 from azoom_torch.beam.nullsteer import constraint_matrix, hybrid_hard_null_beamform
 from azoom_torch.kernels import build
 
-__all__ = ["hard_null_fused", "hard_null_plain", "hard_null_cond"]
+__all__ = ["hard_null_fused", "hard_null_any", "hard_null_plain", "hard_null_cond"]
 
 
 def hard_null_plain(
@@ -115,14 +115,16 @@ def hard_null_fused(
     stream (..., F, 2) (the tracked pipeline steers each chunk on its own);
     freqs_hz float32 (F,). Returns complex64 (..., F, T). On a CUDA tensor
     one kernel launch for the whole batch; on a CPU tensor
-    :func:`hard_null_plain`.
+    :func:`hard_null_plain`. M = 2 only (:func:`hard_null_any` takes any M).
     """
+    _require(Y.ndim >= 3 and Y.shape[-3] == 2,
+             f"the kernel is the 2-mic closed form, got Y {tuple(Y.shape)} (hard_null_any "
+             f"takes any M)")
     if Y.device.type == "cpu":
         return hard_null_plain(Y, target_mask, d, freqs_hz, post_mask, cond_threshold,
                                lowfreq_bypass_hz)
     _require(Y.device.type == "cuda", f"unsupported device {Y.device}")
-    _require(Y.dtype == torch.complex64 and Y.ndim >= 3 and Y.shape[-3] == 2,
-             f"Y must be complex64 (..., 2, F, T), got {Y.dtype} {tuple(Y.shape)}")
+    _require(Y.dtype == torch.complex64, f"Y must be complex64, got {Y.dtype}")
     lead, (F, T) = Y.shape[:-3], Y.shape[-2:]
     tensors = {"Y": Y, "target_mask": target_mask, "d": d, "freqs_hz": freqs_hz}
     if post_mask is not None:
@@ -159,3 +161,25 @@ def hard_null_fused(
     build.check(rc, "hard_null kernel")
     kernels.launches["hard_null"] += 1
     return S
+
+
+def hard_null_any(
+    Y: torch.Tensor,
+    target_mask: torch.Tensor,
+    d: torch.Tensor,
+    freqs_hz: torch.Tensor,
+    post_mask: torch.Tensor | None = None,
+    n_nulls: int = 1,
+    wng_limit: float = 10.0,
+) -> torch.Tensor:
+    """The hard-null stage for Y (..., M, F, T) of any M, chosen by the mic
+    count alone: :func:`hard_null_fused` at M = 2 (the kernel on CUDA; one
+    null by construction, ``n_nulls`` and ``wng_limit`` unused, as in the
+    reference), else the reference's M-mic LCMV,
+    :func:`azoom_torch.beam.nullsteer.hybrid_hard_null_beamform` in the
+    input's dtype on Y's device, times ``post_mask``."""
+    if Y.shape[-3] == 2:
+        return hard_null_fused(Y, target_mask, d, freqs_hz, post_mask=post_mask)
+    S = hybrid_hard_null_beamform(Y, target_mask, d, freqs_hz, n_nulls=n_nulls,
+                                  wng_limit=wng_limit)
+    return S if post_mask is None else S * post_mask

@@ -1,11 +1,14 @@
-"""Recursive (online) masked MVDR: the CUDA kernel
-``csrc/online_mvdr_kernel.cu``, its wrapper and its plain PyTorch version.
+"""Recursive (online) masked MVDR: the CUDA kernels
+``csrc/online_mvdr_kernel.cu`` (M = 2) and ``csrc/online_mvdr_mmic_kernel.cu``
+(M = 3 .. 8), their wrapper and their plain PyTorch version.
 
 The reference has no Pallas kernel here: it runs the recursion as an XLA
 ``lax.scan`` over STFT frames (azoom.stream.online.online_masked_mvdr and
 the one-hop step of azoom.stream.lowlat). On a CUDA tensor the wrapper
-launches the kernel, one launch for all T frames of every stream, or raises
-if the inputs are not what the kernel takes. On a CPU tensor it runs
+launches the kernel of its mic count, one launch for all T frames of every
+stream, or raises if the inputs are not what the kernel takes (M > 8: the
+M-general instance keeps its state and Cholesky factor in registers, which
+run out above 8 mics). On a CPU tensor it runs
 :func:`online_mvdr_plain`, the reference's scan as a Python loop over frames.
 Either way the state ``(R_sum, w_sum)`` is read before the first frame and
 written back, in place, after the last, so a stream carries it from one
@@ -20,7 +23,7 @@ import functools
 import torch
 
 from azoom_torch import kernels
-from azoom_torch.beam.linalg2x2 import solve_2x2_hermitian
+from azoom_torch.beam.linalgmm import solve_hermitian
 from azoom_torch.kernels import build
 
 __all__ = ["online_mvdr", "online_mvdr_plain", "initial_state"]
@@ -30,14 +33,25 @@ _SIGNATURE = (
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
-_M_GT_2 = ("the online MVDR at M > 2 needs the unrolled-Cholesky solve of azoom/beam/linalgmm.py, "
-           "queued in ROADMAP.md Queue A item 3")
+MAX_MICS = 8  # the M-general instance's register budget
+
+_M_GT_8 = (f"the online MVDR kernel takes at most {MAX_MICS} mics: its M-general instance "
+           "keeps each row's state and Cholesky factor in registers, which run out above "
+           "that (ROADMAP.md Queue B); the CPU plain version takes any M")
 
 
 @functools.cache
 def _entry():
     fn = build.load_library("online_mvdr_kernel").azt_online_mvdr
     fn.argtypes = _SIGNATURE
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _entry_m():
+    fn = build.load_library("online_mvdr_mmic_kernel").azt_online_mvdr_m
+    fn.argtypes = [ctypes.c_int] + _SIGNATURE
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,10 +84,9 @@ def online_mvdr_plain(
     """The kernel's function in plain PyTorch: the reference's scan step
     (azoom/stream/online.py:61-76) as a Python loop over frames, in its
     order, then the high-pass zeroing and the floored target-mask gain.
-    Shapes as :func:`online_mvdr`; M = 2 only."""
-    if Y.shape[-3] != 2:
-        raise NotImplementedError(_M_GT_2)
-    eye = torch.eye(2, dtype=Y.dtype, device=Y.device)
+    Shapes as :func:`online_mvdr`; any M (beam.linalgmm.solve_hermitian: the
+    closed form at M = 2, the unrolled Cholesky above)."""
+    eye = torch.eye(Y.shape[-3], dtype=Y.dtype, device=Y.device)
     R, w_acc = R_sum, w_sum
     out = []
     for t in range(Y.shape[-1]):
@@ -83,7 +96,7 @@ def online_mvdr_plain(
         R = forget * R + outer * m_t[..., None, None]
         w_acc = forget * w_acc + m_t
         R_loaded = R / (w_acc + eps)[..., None, None] + sigma * eye
-        Rinv_d = solve_2x2_hermitian(R_loaded, d)
+        Rinv_d = solve_hermitian(R_loaded, d)
         denom = torch.sum(torch.conj(d) * Rinv_d, dim=-1, keepdim=True)
         w = Rinv_d / (denom + 1e-10)
         out.append(torch.sum(torch.conj(w) * y_t, dim=-1))  # (..., F)
@@ -118,21 +131,24 @@ def online_mvdr(
 ) -> torch.Tensor:
     """Causal masked MVDR over T frames, the state carried in place.
 
-    Y complex64 (..., 2, F, T); noise_mask and target_mask float32
-    (..., F, T); d complex64 (F, 2); freqs_hz float32 (F,); R_sum complex64
-    (..., F, 2, 2) and w_sum float32 (..., F), updated in place; sigma, the
+    Y complex64 (..., M, F, T); noise_mask and target_mask float32
+    (..., F, T); d complex64 (F, M); freqs_hz float32 (F,); R_sum complex64
+    (..., F, M, M) and w_sum float32 (..., F), updated in place; sigma, the
     cutoff, forget, the floor and eps Python floats. Frame t's weights use
     frames <= t only. Returns S complex64 (..., F, T): w^H y, zero below the
     cutoff, times max(target_mask, mask_floor) when a target mask is given
-    (the raw mask when the floor is 0)."""
+    (the raw mask when the floor is 0). On CUDA, M = 2 launches the 2-mic
+    kernel and M = 3 .. 8 the M-general one (counted apart, as
+    "online_mvdr" and "online_mvdr_mmic"); M > 8 raises NotImplementedError."""
     if Y.device.type == "cpu":
         return online_mvdr_plain(Y, noise_mask, d, freqs_hz, R_sum, w_sum, target_mask, sigma,
                                  hp_cutoff_hz, forget, mask_floor, eps)
     _require(Y.device.type == "cuda", f"unsupported device {Y.device}")
-    _require(Y.dtype == torch.complex64 and Y.ndim >= 3,
-             f"Y must be complex64 (..., M, F, T), got {Y.dtype} {tuple(Y.shape)}")
-    if Y.shape[-3] != 2:
-        raise NotImplementedError(_M_GT_2)
+    _require(Y.dtype == torch.complex64 and Y.ndim >= 3 and Y.shape[-3] >= 2,
+             f"Y must be complex64 (..., M, F, T) with M >= 2, got {Y.dtype} {tuple(Y.shape)}")
+    M = Y.shape[-3]
+    if M > MAX_MICS:
+        raise NotImplementedError(_M_GT_8)
     lead, (F, T) = Y.shape[:-3], Y.shape[-2:]
     tensors = {"Y": Y, "noise_mask": noise_mask, "d": d, "freqs_hz": freqs_hz, "R_sum": R_sum,
                "w_sum": w_sum}
@@ -147,12 +163,12 @@ def online_mvdr(
             _require(t.dtype == torch.float32 and t.shape == lead + (F, T),
                      f"{name} must be float32 {tuple(lead + (F, T))}, got {t.dtype} "
                      f"{tuple(t.shape)}")
-    _require(d.dtype == torch.complex64 and tuple(d.shape) == (F, 2),
-             f"d must be complex64 ({F}, 2), got {d.dtype} {tuple(d.shape)}")
+    _require(d.dtype == torch.complex64 and tuple(d.shape) == (F, M),
+             f"d must be complex64 ({F}, {M}), got {d.dtype} {tuple(d.shape)}")
     _require(freqs_hz.dtype == torch.float32 and tuple(freqs_hz.shape) == (F,),
              f"freqs_hz must be float32 ({F},)")
-    _require(R_sum.dtype == torch.complex64 and R_sum.shape == lead + (F, 2, 2),
-             f"R_sum must be complex64 {tuple(lead + (F, 2, 2))}, got {R_sum.dtype} "
+    _require(R_sum.dtype == torch.complex64 and R_sum.shape == lead + (F, M, M),
+             f"R_sum must be complex64 {tuple(lead + (F, M, M))}, got {R_sum.dtype} "
              f"{tuple(R_sum.shape)}")
     _require(w_sum.dtype == torch.float32 and w_sum.shape == lead + (F,),
              f"w_sum must be float32 {tuple(lead + (F,))}, got {w_sum.dtype} "
@@ -163,14 +179,14 @@ def online_mvdr(
     _require(B * F * T > 0, "empty input")
 
     S = torch.empty(lead + (F, T), dtype=torch.complex64, device=Y.device)
-    with torch.cuda.device(Y.device):
-        rc = _entry()(
-            Y.data_ptr(), noise_mask.data_ptr(),
+    args = (Y.data_ptr(), noise_mask.data_ptr(),
             None if target_mask is None else target_mask.data_ptr(), d.data_ptr(),
             float(sigma), freqs_hz.data_ptr(), float(hp_cutoff_hz), float(forget), float(eps),
             float(mask_floor), R_sum.data_ptr(), w_sum.data_ptr(), S.data_ptr(), B, F, T,
-            torch.cuda.current_stream(Y.device).cuda_stream,
-        )
-    build.check(rc, "online_mvdr kernel")
-    kernels.launches["online_mvdr"] += 1
+            torch.cuda.current_stream(Y.device).cuda_stream)
+    with torch.cuda.device(Y.device):
+        rc = _entry()(*args) if M == 2 else _entry_m()(M, *args)
+    name = "online_mvdr" if M == 2 else "online_mvdr_mmic"
+    build.check(rc, f"{name} kernel")
+    kernels.launches[name] += 1
     return S

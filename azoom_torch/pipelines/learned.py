@@ -7,11 +7,15 @@ azoom.pipelines.learned for ``beamformer="mvdr"`` and ``"hard_null"``):
             mic-0 bypass -> (HRNR post-filter) -> iSTFT
 
 Everything runs on the device of the mixture. On CUDA the mask net's 3x3
-convs run on the int8 conv kernel and the beamformer on its fused kernel
-(MVDR or hard-null), one launch for the whole batch, with one steering
-vector shared or one per batch entry (the tracked pipeline steers each
-chunk at its own bearing); on the CPU they take
-their plain PyTorch versions. ``learned_enhance_streaming`` runs the 2 s /
+convs run on the int8 conv kernel and, for a 2-mic array, the beamformer on
+its fused kernel (MVDR or hard-null), one launch for the whole batch, with
+one steering vector shared or one per batch entry (the tracked pipeline
+steers each chunk at its own bearing); on the CPU they take their plain
+PyTorch versions. An array of M > 2 mics runs the same mask net (its
+features from the mean over pairs, or the first pair of an explicit
+geometry) and the M-mic beamformers of beam.mvdr and beam.nullsteer in
+torch on the mixture's device, as the reference runs XLA there (its Pallas
+kernels are 2-mic). ``learned_enhance_streaming`` runs the 2 s /
 50 % chunker with all chunks as one batch.
 """
 
@@ -22,9 +26,9 @@ import torch
 from azoom_torch.beam.postfilter import harmonic_regeneration
 from azoom_torch.config import PipelineConfig
 from azoom_torch.dsp.delays import steer_rotate, steering_vector
-from azoom_torch.dsp.stft import istft, rfft_freqs, stft
-from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
-from azoom_torch.kernels.nullsteer_kernel import hard_null_fused
+from azoom_torch.dsp.stft import _check_precision, istft, rfft_freqs, stft
+from azoom_torch.kernels.mvdr_kernel import masked_mvdr_any
+from azoom_torch.kernels.nullsteer_kernel import hard_null_any
 from azoom_torch.masks.features import logmag_ipd_features, physics_aware_features
 from azoom_torch.masks.geometric import apply_fov_gate, fov_noise_gate
 from azoom_torch.models.unet import pad_frames
@@ -77,6 +81,7 @@ def learned_enhance(
     fov_deg=None,
     steer_deg=None,
     train_mic_dist: float | None = None,
+    dsp_precision: str = "exact",
     n_nulls: int = 1,
     steer_align: bool = True,
     harmonic_regen: bool = False,
@@ -89,8 +94,11 @@ def learned_enhance(
     mic 0 passed through below 200 Hz). ``feature_kind`` must be the one
     the net was trained on (``load_bundled`` returns it). ``fov_deg`` gates the noise
     covariance of either by the camera's field of view around the look
-    direction (masks.geometric.fov_noise_gate). ``n_nulls`` acts at M > 2
-    only, which is not ported. ``harmonic_regen`` runs the HRNR stage-2
+    direction (masks.geometric.fov_noise_gate). ``n_nulls``: the hard nulls
+    the 'hard_null' beamformer places at M > 2 (an M-mic array pointed at K
+    interferers wants K; clamped to M - 1), unused at M = 2 and by MVDR.
+    ``dsp_precision`` ('exact' or 'fast') is checked and selects nothing
+    (the DSP is float64 inside). ``harmonic_regen`` runs the HRNR stage-2
     post-filter (beam.postfilter) on the beamformer's unmasked output with
     the stage-1 gain: the floored mask for MVDR, the raw mask for hard-null.
 
@@ -116,11 +124,8 @@ def learned_enhance(
         raise ValueError(
             f"mixture is on {mixture.device} but the model is on {_model_device(model)}"
         )
+    _check_precision(dsp_precision)
     cfg = cfg.for_input(mixture)
-    if cfg.n_mics != 2:
-        raise NotImplementedError(
-            "M > 2 beamforming needs azoom/beam/linalgmm.py, which is queued for a later slice"
-        )
     dev = mixture.device
     n = mixture.shape[-1]
     length = n if length is None else length
@@ -161,7 +166,7 @@ def learned_enhance(
         post = None if harmonic_regen else tgt_mask
         if beamformer == "mvdr":
             d = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics, positions=geom)
-            S = masked_mvdr_fused(
+            S = masked_mvdr_any(
                 Y, noise_mask, d, freqs, target_mask=post, sigma=cfg.sigma,
                 hp_cutoff_hz=cfg.hp_cutoff_hz, mask_floor=mask_floor,
             )
@@ -171,13 +176,14 @@ def learned_enhance(
             # The beamformer weights its interference covariance by 1 - its
             # mask argument, so the (gated) noise mask enters as 1 - noise
             # in float32, as in the reference; the post-filter is the raw mask.
-            S = hard_null_fused(Y, 1.0 - noise_mask, d, freqs, post_mask=post)
+            S = hard_null_any(Y, 1.0 - noise_mask, d, freqs, post_mask=post, n_nulls=n_nulls)
         if harmonic_regen:
             # The stage-1 gain: the floored mask (MVDR), the raw mask (hard-null).
             g1 = tgt_mask
             if beamformer == "mvdr" and mask_floor > 0:
                 g1 = torch.clamp(tgt_mask, min=mask_floor)
-            S = harmonic_regeneration(S, g1, cfg.n_fft, cfg.hop, length=n)
+            S = harmonic_regeneration(S, g1, cfg.n_fft, cfg.hop, length=n,
+                                      precision=dsp_precision)
         return istft(S, cfg.n_fft, cfg.hop, length=length)
 
 

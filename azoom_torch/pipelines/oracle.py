@@ -6,7 +6,8 @@ correctness harness (counterpart of azoom.pipelines.oracle):
 
 With an oracle mask a correct engine reaches a very high SIR (the
 reference reports 36.24 dB). Runs on the device of the mixture: on CUDA the
-MVDR stage is one launch of the fused MVDR kernel for the whole batch.
+MVDR stage of a 2-mic array is one launch of the fused MVDR kernel for the
+whole batch; M > 2 mics take the M-mic MVDR of beam.mvdr in torch.
 Arrays that are not tensors go to CUDA unless ``device`` says otherwise.
 """
 
@@ -17,7 +18,7 @@ import torch
 from azoom_torch.config import PipelineConfig, as_input
 from azoom_torch.dsp.delays import steering_vector
 from azoom_torch.dsp.stft import istft, rfft_freqs, stft
-from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
+from azoom_torch.kernels.mvdr_kernel import masked_mvdr_any
 from azoom_torch.masks.geometric import hard_geometric_noise_mask
 from azoom_torch.masks.oracle import ibm_noise_mask, irm_target_mask
 
@@ -60,9 +61,9 @@ def oracle_enhance(
         elif post_filter == "irm":
             tgt_mask = irm_target_mask(S_tgt, S_int)
         freqs = rfft_freqs(cfg.n_fft, cfg.fs, device=Y.device)
-        S = masked_mvdr_fused(Y, noise_mask, _steering(cfg, freqs), freqs,
-                              target_mask=tgt_mask, sigma=cfg.sigma,
-                              hp_cutoff_hz=cfg.hp_cutoff_hz)
+        S = masked_mvdr_any(Y, noise_mask, _steering(cfg, freqs), freqs,
+                            target_mask=tgt_mask, sigma=cfg.sigma,
+                            hp_cutoff_hz=cfg.hp_cutoff_hz)
         return istft(S, cfg.n_fft, cfg.hop, length=length)
 
 
@@ -77,7 +78,7 @@ def heuristic_enhance(mixture, cfg: PipelineConfig, length: int | None = None,
         Y = stft(mixture, cfg.n_fft, cfg.hop)
         noise_mask = hard_geometric_noise_mask(Y)
         freqs = rfft_freqs(cfg.n_fft, cfg.fs, device=Y.device)
-        S = masked_mvdr_fused(Y, noise_mask, _steering(cfg, freqs), freqs,
-                              target_mask=1.0 - noise_mask, mask_floor=0.05,
-                              sigma=cfg.sigma, hp_cutoff_hz=cfg.hp_cutoff_hz)
+        S = masked_mvdr_any(Y, noise_mask, _steering(cfg, freqs), freqs,
+                            target_mask=1.0 - noise_mask, mask_floor=0.05,
+                            sigma=cfg.sigma, hp_cutoff_hz=cfg.hp_cutoff_hz)
         return istft(S, cfg.n_fft, cfg.hop, length=length)

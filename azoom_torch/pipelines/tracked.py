@@ -7,8 +7,8 @@ noisy per-chunk spectra into a smooth bearing trajectory with a tracker
 (localize.tracking), enhances every chunk steered at its own bearing and
 overlap-adds. The reference vmaps the per-chunk enhancement; here all
 chunks go through ONE batched call with a (C,) bearing: on CUDA one launch
-of the MVDR or hard-null kernel for the whole clip, each chunk reading its
-own steering vector through a batch stride. The bearings stay on the device
+of the MVDR or hard-null kernel for the whole clip (2-mic arrays), each
+chunk reading its own steering vector through a batch stride. The bearings stay on the device
 from the histograms to the beamformer.
 
 ``steered_heuristic_enhance``: the IPD-deviation noise mask around a given
@@ -25,7 +25,7 @@ import torch
 from azoom_torch.config import PipelineConfig, as_input
 from azoom_torch.dsp.delays import _delays64, steering_vector
 from azoom_torch.dsp.stft import _check_precision, istft, rfft_freqs, stft
-from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
+from azoom_torch.kernels.mvdr_kernel import masked_mvdr_any
 from azoom_torch.localize import tracking
 from azoom_torch.localize.srp import ipd_angle_histogram
 from azoom_torch.masks.geometric import ipd_deviation_noise_mask
@@ -56,14 +56,17 @@ def steered_heuristic_spectrum(Y: torch.Tensor, cfg: PipelineConfig, theta_deg,
     expected = -2.0 * math.pi * freqs.to(torch.float64) * (tau[..., 0:1] - tau[..., 1:2])
     pair = "first" if cfg.mic_positions is not None else "mean"
     noise_mask = ipd_deviation_noise_mask(Y, expected, width=mask_width, pair_mode=pair)
-    return masked_mvdr_fused(Y, noise_mask, d, freqs, target_mask=1.0 - noise_mask,
-                             mask_floor=0.05, sigma=cfg.sigma, hp_cutoff_hz=cfg.hp_cutoff_hz)
+    return masked_mvdr_any(Y, noise_mask, d, freqs, target_mask=1.0 - noise_mask,
+                           mask_floor=0.05, sigma=cfg.sigma, hp_cutoff_hz=cfg.hp_cutoff_hz)
 
 
 def steered_heuristic_enhance(chunk: torch.Tensor, cfg: PipelineConfig, theta_deg,
-                              mask_width: float = 0.5) -> torch.Tensor:
+                              mask_width: float = 0.5,
+                              dsp_precision: str = "exact") -> torch.Tensor:
     """One chunk (M, n) -> (n,), heuristically masked and steered at
-    ``theta_deg``."""
+    ``theta_deg``. ``dsp_precision`` ('exact' or 'fast') is checked and
+    selects nothing."""
+    _check_precision(dsp_precision)
     cfg = cfg.for_input(chunk)
     with torch.inference_mode():
         Y = stft(chunk, cfg.n_fft, cfg.hop)

@@ -17,8 +17,9 @@ rounded once), so the stream equals the port's offline
 finalized samples to float tolerance (tests/test_torch_lowlat.py).
 
 Per hop on the device: the frame's rfft, the steer-align rotation and the
-features, the CRN at T = 1, ONE ``online_mvdr`` launch (T = 1), the frame's
-irfft and a one-hop overlap-add. The samples of a push go to the device in
+features, the CRN at T = 1, ONE ``online_mvdr`` launch (T = 1; the 2-mic
+kernel, or the M-general instance for 3 to 8 mics), the frame's irfft and a
+one-hop overlap-add. The samples of a push go to the device in
 one copy, and its finalized hops come back in one fetch.
 """
 
@@ -61,10 +62,6 @@ class OnlineEnhancer:
                  device=None):
         if cfg.n_fft != 2 * cfg.hop:
             raise ValueError("low-latency streaming requires 50% overlap (n_fft == 2*hop)")
-        if cfg.n_mics != 2:
-            raise NotImplementedError(
-                "the online MVDR at M > 2 needs the unrolled-Cholesky solve of "
-                "azoom/beam/linalgmm.py, queued in ROADMAP.md Queue A item 3")
         self.device = resolve_device(device)
         if model.w_in.device.type != self.device.type:
             raise ValueError(f"the model is on {model.w_in.device}, the stream on {self.device}")

@@ -7,10 +7,11 @@ frame: frame t uses frames <= t only, so the beamformer adds no latency
 beyond the STFT's hop. The recursion runs in the ``online_mvdr`` kernel
 (kernels.online_mvdr_kernel), one launch for all frames of a block; on the
 CPU it runs the kernel's plain version, the reference's scan as a Python
-loop over frames. The state is a (F, 2, 2) covariance sum and an (F,)
+loop over frames. The state is an (F, M, M) covariance sum and an (F,)
 weight sum per stream; :func:`online_masked_mvdr_state` takes it in and
 gives it back, so a stream carries it from one hop to the next
-(stream.lowlat). M = 2 only: M > 2 needs azoom/beam/linalgmm.py.
+(stream.lowlat). Any M: the solve is beam.linalgmm's (the closed form at
+M = 2); on CUDA the 2-mic kernel or the M-general instance (3 to 8 mics).
 """
 
 from __future__ import annotations

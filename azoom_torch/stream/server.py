@@ -8,7 +8,8 @@ the mask net's int8 convs are launches of the int8 conv kernel (21 for
 the TPUFPU nets; a float net's convs are float32 matrix products), its
 upsamplings launches of the upsampling kernel, and the beamformer ONE
 launch of the fused MVDR kernel with a steering vector and a loading per
-stream.
+stream (2-mic arrays; M > 2 mics, a rectangular array for one, take the
+M-mic MVDR of beam.mvdr in torch, as the reference takes XLA).
 
 * **Steer-aligned features**: the STFT is rotated by each stream's
   conjugate steering vector before the features (in complex128, rounded
@@ -44,7 +45,7 @@ from azoom_torch.beam.zoom import zoom_to_sigma
 from azoom_torch.config import PipelineConfig, resolve_device
 from azoom_torch.dsp.delays import steer_rotate, steering_vector
 from azoom_torch.dsp.stft import _check_precision, istft, rfft_freqs, stft
-from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
+from azoom_torch.kernels.mvdr_kernel import masked_mvdr_any
 from azoom_torch.localize.srp import ipd_angle_histogram
 from azoom_torch.models.pretrained import geo_adapt_dist, load_bundled
 from azoom_torch.pipelines.learned import predict_mask
@@ -332,11 +333,11 @@ class AudioZoomServer:
         return d, mask
 
     def _beamform(self, Y, mask, d, sigma) -> torch.Tensor:
-        """Masked MVDR (one launch for all streams) and iSTFT, Hann-weighted
-        for the overlap-add: (S, win)."""
+        """Masked MVDR (for 2 mics one launch for all streams; M > 2 the M-mic
+        MVDR in torch) and iSTFT, Hann-weighted for the overlap-add: (S, win)."""
         cfg = self.cfg
-        S = masked_mvdr_fused(Y, 1.0 - mask, d, self._freqs, target_mask=mask, mask_floor=0.05,
-                              sigma=sigma, hp_cutoff_hz=cfg.hp_cutoff_hz)
+        S = masked_mvdr_any(Y, 1.0 - mask, d, self._freqs, target_mask=mask, mask_floor=0.05,
+                            sigma=sigma, hp_cutoff_hz=cfg.hp_cutoff_hz)
         return istft(S, cfg.n_fft, cfg.hop, length=self._win) * self._hann
 
     def _track_update(self, Y: torch.Tensor) -> None:

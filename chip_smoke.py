@@ -134,6 +134,23 @@ Phases, each printing its own line(s):
                output on the finalized samples. AudioZoom(latency="low",
                track=True) pushing 6 s: bearings equal to and waveform
                against the CPU port.
+ 18. mmic    - arrays of more than two mics (a 4-mic linear array at 4 cm; the
+               reference runs its 2-mic Pallas kernels at M = 2 only, XLA
+               above): beam.linalgmm's solve and Jacobi EVD on 128 x 513
+               systems at M = 4 and 8 against the CPU port; learned_enhance at
+               M = 4 with the int8 tpufpu_nano, (128, 4, 32000), MVDR and
+               hard-null with 3 nulls: B2 and convt1x2 launched as in phase 5,
+               B1 and B3 not at all (the M-mic beamformers run in torch on
+               the card), the first 4 chunks against the CPU, ms per call;
+               AudioZoom(n_mics=4, model="fpu").enhance of 2 s against the
+               CPU; AudioZoomServer(128) on a 4-mic rectangle, a prime and 3
+               ticks, the first 2 streams against a CPU server; the M-general
+               online_mvdr instance at (4, 513, 1875) against its plain loop
+               from a warmed state, one launch bit for bit against 1,875
+               one-frame launches, its time as CUDA-graph replays; a 60 s
+               online_learned_enhance at M = 4 (ONE online_mvdr_mmic launch,
+               a 6 s prefix against the CPU) and OnlineEnhancer over 10 s hop
+               by hop (one launch a hop, equal to the card's offline output).
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
@@ -147,7 +164,8 @@ four conv sets (the stems and Cout = 32) with the narrow launches of their
 phase-16 int8 runs; B3 twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run; online_mvdr at one 60 s clip with phase 17's
-launches), the card's name and power limit, and a last line
+launches; online_mvdr_mmic, the M-general instance, at a 60 s 4-mic clip
+with phase 18's launches), the card's name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -202,14 +220,16 @@ SERVER_FRAMES = (80, 48)
 
 
 def far_field_scene(rng, batch: int, n: int, fs: int = 16_000, mic_dist: float = 0.04,
-                    angles=(90.0, 40.0, 130.0), rms: float = 0.1, c: float = 343.0):
+                    angles=(90.0, 40.0, 130.0), rms: float = 0.1, c: float = 343.0,
+                    n_mics: int = 2, positions=None):
     """Speech-like far-field scenes made with numpy: a target and two
     interferers (first angle is the target's; ``angles`` (3,) for all scenes
     or (batch, 3) for one triple each), each low-passed noise under a
-    syllable-rate envelope, delayed to a 2-mic linear array by an rFFT phase
-    ramp (fractional delays). Returns float32 (mixture (batch, 2, n),
-    target_ref (batch, n), interference_ref (batch, n)) at mic 0, the
-    mixture scaled to ``rms``."""
+    syllable-rate envelope, delayed to the mics by an rFFT phase ramp
+    (fractional delays): a linear array of ``n_mics`` at ``mic_dist``, or
+    the (M, 2) ``positions`` in meters. Returns float32 (mixture
+    (batch, M, n), target_ref (batch, n), interference_ref (batch, n)) at
+    mic 0, the mixture scaled to ``rms``."""
     import numpy as np
 
     f = np.fft.rfftfreq(n, 1.0 / fs)
@@ -219,10 +239,14 @@ def far_field_scene(rng, batch: int, n: int, fs: int = 16_000, mic_dist: float =
     env = 0.5 * (1.0 + np.sin(2 * np.pi * rate * t + 2 * np.pi * rng.random((batch, 3, 1))))
     src = src * env**2
     src /= np.sqrt(np.mean(src**2, axis=-1, keepdims=True))
-    pos = np.array([mic_dist / 2, -mic_dist / 2])  # mic m at ((M-1)/2 - m) d
-    tau = pos * np.cos(np.deg2rad(np.array(angles)))[..., None] / c  # ([batch,] 3, 2)
-    ramp = np.exp(-2j * np.pi * f * tau[..., None])  # ([batch,] 3, 2, F)
-    img = np.fft.irfft(np.fft.rfft(src)[:, :, None, :] * ramp, n)  # (batch, 3, 2, n)
+    if positions is None:  # mic m at ((M-1)/2 - m) d on the x axis
+        x = ((n_mics - 1) / 2 - np.arange(n_mics)) * mic_dist
+        positions = np.stack([x, np.zeros(n_mics)], axis=-1)
+    theta = np.deg2rad(np.array(angles))
+    u = np.stack([np.cos(theta), np.sin(theta)], axis=-1)  # ([batch,] 3, 2)
+    tau = u @ np.asarray(positions, np.float64).T / c  # ([batch,] 3, M)
+    ramp = np.exp(-2j * np.pi * f * tau[..., None])  # ([batch,] 3, M, F)
+    img = np.fft.irfft(np.fft.rfft(src)[:, :, None, :] * ramp, n)  # (batch, 3, M, n)
     mix = img.sum(axis=1)
     g = rms / np.sqrt(np.mean(mix**2))
     return ((mix * g).astype(np.float32), (img[:, 0, 0] * g).astype(np.float32),
@@ -266,6 +290,276 @@ def moving_scene(rng, n: int, glide=(60.0, 120.0), interferers=(30.0, 150.0), fs
         out[:, s:s + seg] += img[b].sum(axis=0)
     mix = out[:, block:block + n]
     return (mix * (rms / np.sqrt(np.mean(mix**2)))).astype(np.float32)
+
+
+RECT = ((-0.015, -0.01), (0.015, -0.01), (-0.015, 0.01), (0.015, 0.01))  # a 4-mic rectangle
+
+
+def phase_mmic(dev, rng, results: dict, time_ms, device_ms, bound) -> dict:
+    """Phase 18: arrays of more than two mics (module docstring). ``results``
+    gains the kernels line's "online_mvdr_mmic" entry; returns the phase's
+    numbers for chip_smoke.json."""
+    import numpy as np
+    import torch
+
+    from azoom_torch import AudioZoom, AudioZoomServer, kernels
+    from azoom_torch.beam.linalgmm import eigh_hermitian_small, solve_hermitian
+    from azoom_torch.config import PipelineConfig
+    from azoom_torch.dsp.delays import steering_vector
+    from azoom_torch.dsp.stft import rfft_freqs
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr, online_mvdr_plain
+    from azoom_torch.kernels.qconv_kernel import route_counts
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.pipelines.learned import learned_enhance
+    from azoom_torch.pipelines.online_learned import online_learned_enhance
+    from azoom_torch.stream.lowlat import OnlineEnhancer
+
+    def launched() -> dict:
+        return {k: v for k, v in kernels.launches.items() if v}
+
+    def kw_of(kw, t):  # the keywords of the first t frames
+        return dict(kw, target_mask=kw["target_mask"][:, :t].contiguous())
+
+    def rel(a, b) -> float:
+        return float(np.linalg.norm(np.asarray(a) - np.asarray(b)) / np.linalg.norm(np.asarray(b)))
+
+    mm = {}
+    F = 513
+    # linalgmm on (BATCH x 513) systems: the card against the CPU port
+    for M in (4, 8):
+        A = rng.standard_normal((BATCH, F, M, M)) + 1j * rng.standard_normal((BATCH, F, M, M))
+        hpd = np.einsum("...ij,...kj->...ik", A, A.conj()) / M
+        R = torch.from_numpy((hpd + 0.1 * np.eye(M)).astype(np.complex64))
+        Re = torch.from_numpy((hpd + 0.01 * np.eye(M)).astype(np.complex64))
+        d = torch.from_numpy((rng.standard_normal((BATCH, F, M))
+                              + 1j * rng.standard_normal((BATCH, F, M))).astype(np.complex64))
+        Rg, Reg, dg = R.to(dev), Re.to(dev), d.to(dev)
+        x_g, x_c = solve_hermitian(Rg, dg).cpu(), solve_hermitian(R, d)
+        solve_err = float(((x_g - x_c).abs().amax(-1) / x_c.abs().amax(-1)).max())
+        (ev_g, U_g), (ev_c, _) = eigh_hermitian_small(Reg), eigh_hermitian_small(Re)
+        scale = ev_c.abs().amax(-1)
+        ev_err = float(((ev_g.cpu() - ev_c).abs().amax(-1) / scale).max())
+        rec = U_g @ torch.diag_embed(ev_g.to(U_g.dtype)) @ U_g.conj().transpose(-1, -2)
+        rec_err = float(((rec - Reg).abs().amax((-2, -1)).cpu() / scale).max())
+        # the card against the CPU port to 1e-5 of scale; the EVD's own
+        # residual (6 float32 Jacobi sweeps) is the worst of BATCH x 513 systems
+        check(max(solve_err, ev_err) <= 1e-5 and rec_err <= 1e-4,
+              f"linalgmm M={M}: solve {solve_err:.3e}, eigenvalues {ev_err:.3e} of scale "
+              f"(card vs CPU), reconstruction {rec_err:.3e} of scale")
+        ms_solve = time_ms(lambda: solve_hermitian(Rg, dg), iters=5)
+        ms_eigh = time_ms(lambda: eigh_hermitian_small(Reg), iters=2, warmup=1)
+        mm[f"linalgmm_m{M}"] = dict(systems=BATCH * F, solve_err=solve_err, eig_err=ev_err,
+                                    reconstruction_err=rec_err, solve_ms=ms_solve,
+                                    eigh_ms=ms_eigh)
+        log("mmic_linalgmm", M=M, systems=BATCH * F, solve_err_of_scale=f"{solve_err:.3e}",
+            eig_err_of_scale=f"{ev_err:.3e}", reconstruction_err=f"{rec_err:.3e}",
+            solve_ms=f"{ms_solve:.3f}", eigh_ms=f"{ms_eigh:.3f}")
+        del A, hpd, R, Re, d, Rg, Reg, dg, x_g, x_c, ev_g, U_g, rec
+
+    # the learned path at M = 4: the int8 nano net, MVDR and hard-null (3 nulls)
+    cfg4 = PipelineConfig(mic_dist=0.04, n_mics=4)
+    model, _ = load_bundled("tpufpu_nano")
+    model_cpu, _ = load_bundled("tpufpu_nano", device="cpu")
+    mix = torch.from_numpy(far_field_scene(rng, BATCH, N_SAMPLES, n_mics=4,
+                                           angles=(60.0, 20.0, 130.0))[0])
+    mix_g = mix.to(dev)
+    for bf, n_nulls in (("mvdr", 1), ("hard_null", 3)):
+        kw = dict(beamformer=bf, n_nulls=n_nulls, feature_kind="physics", steer_deg=60.0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        routes_before = dict(route_counts)
+        out = learned_enhance(mix_g, model, cfg4, **kw)
+        torch.cuda.synchronize()
+        counts = launched()
+        routes = {k: v - routes_before[k] for k, v in route_counts.items()}
+        check(counts == {"qconv3x3": 21, "convt1x2": 3},
+              f"M = 4 {bf}: launches {counts} (B2 and convt1x2 as at M = 2, no B1/B3)")
+        check(routes == {"wgmma": 20, "narrow": 1, "split": 0, "mma": 0},
+              f"M = 4 {bf}: conv kernels {routes}")
+        check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
+              f"M = 4 {bf}: bad output")
+        wave = rel(out[:4].cpu(), learned_enhance(mix[:4], model_cpu, cfg4, **kw))
+        check(wave <= 1e-2, f"M = 4 {bf}: first 4 chunks vs CPU {wave:.3e}")
+        ts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learned_enhance(mix_g, model, cfg4, **kw)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(ts[1:])
+        mm[f"learned_{bf}"] = dict(launches=counts, routes=routes, ms=ts, ms_median=med,
+                                   cpu_first4_wave_rel_l2=wave)
+        log("mmic_learned", M=4, beamformer=bf, n_nulls=n_nulls, batch=BATCH, launches=counts,
+            conv_kernels=routes, ms_median=f"{med:.3f}", ms_all=[round(t, 2) for t in ts],
+            audio_seconds_per_second=f"{BATCH * N_SAMPLES / 16_000 / (med / 1e3):.1f}",
+            cpu_first4_wave_rel_l2=f"{wave:.3e}")
+    del mix, mix_g, out
+
+    # the facade at M = 4: the reference's M-mic call (float fpu), 2 s
+    clip = far_field_scene(rng, 1, N_SAMPLES, n_mics=4, angles=(95.0, 30.0, 140.0))[0][0]
+    zkw = dict(cfg=cfg4, model="fpu", direction_deg=90.0)
+    z_gpu, z_cpu = AudioZoom(**zkw), AudioZoom(device="cpu", **zkw)
+    kernels.reset_launches()
+    e_gpu = z_gpu.enhance(clip)
+    torch.cuda.synchronize()
+    z_counts = launched()
+    check(z_counts == {"convt1x2": 3}, f"M = 4 facade launches {z_counts}")
+    z_rel = rel(e_gpu, z_cpu.enhance(clip))
+    check(e_gpu.shape == (N_SAMPLES,) and z_rel <= 1e-3, f"M = 4 facade vs CPU {z_rel:.3e}")
+    z_ts = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        z_gpu.enhance(clip)
+        z_ts.append((time.perf_counter() - t0) * 1e3)
+    mm["facade_fpu"] = dict(launches=z_counts, ms=z_ts, wave_rel_l2=z_rel)
+    log("mmic_facade", M=4, model="fpu", launches=z_counts,
+        ms_median=f"{statistics.median(z_ts[1:]):.3f}", wave_rel_l2=f"{z_rel:.3e}")
+
+    # the server on the rectangle: BATCH streams, a prime and three ticks
+    scfg = PipelineConfig(mic_dist=0.04).with_geometry(RECT)
+    win, hop = scfg.win_size, scfg.win_size // 2
+    s_mix = far_field_scene(rng, BATCH, win + 3 * hop, positions=np.array(RECT))[0]
+    srv = {where: AudioZoomServer(S, cfg=scfg, device=where)
+           for where, S in (("cuda", BATCH), ("cpu", 2))}
+    s_out = [srv["cuda"].push(s_mix[:, :, :win])]
+    s_cpu = [srv["cpu"].push(s_mix[:2, :, :win])]
+    s_ms, s_counts = [], []
+    for k in range(3):
+        blk = s_mix[:, :, win + k * hop:win + (k + 1) * hop]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        s_out.append(srv["cuda"].push(blk))
+        s_ms.append((time.perf_counter() - t0) * 1e3)
+        s_counts.append(launched())
+        if k < 2:
+            s_cpu.append(srv["cpu"].push(blk[:2]))
+    check(all(c == {"qconv3x3": 21, "convt1x2": 3} for c in s_counts),
+          f"M = 4 server tick launches {s_counts}")
+    s_rel = rel(np.concatenate(s_out[1:3], axis=1)[:2], np.concatenate(s_cpu[1:], axis=1))
+    check(s_rel <= 1e-2, f"M = 4 server: first 2 streams vs CPU {s_rel:.3e}")
+    mm["server_rect"] = dict(streams=BATCH, tick_launches=s_counts, tick_ms=s_ms,
+                             cpu_first2_wave_rel_l2=s_rel)
+    log("mmic_server", geometry="rect4", streams=BATCH, ticks=3, tick_launches=s_counts[-1],
+        tick_ms_median=f"{statistics.median(s_ms):.3f}", tick_ms_all=[round(t, 2) for t in s_ms],
+        cpu_first2_wave_rel_l2=f"{s_rel:.3e}")
+    del srv, s_mix
+
+    # the M-general online_mvdr instance at (4, 513, 1875) against its plain loop
+    M, T = 4, 1875
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    Y = torch.complex(torch.randn((M, F, T), generator=gen, device=dev),
+                      torch.randn((M, F, T), generator=gen, device=dev))
+    nmask = torch.rand((F, T), generator=gen, device=dev)
+    freqs = rfft_freqs(1024, 16_000, device=dev)
+    d = steering_vector(freqs, 60.0, 0.04, n_mics=M)
+    kw = dict(target_mask=1.0 - nmask, sigma=1e-7, hp_cutoff_hz=100.0, forget=0.98,
+              mask_floor=0.05)
+    # from a warmed state: a fresh one is ill-posed on its first frames (R =
+    # y y^H + a 1e-6 prime, conditioned ~1e6 at M > 2), where float32 orders differ
+    st_k = initial_state((), F, M, dev)
+    online_mvdr_plain(Y[..., :64], nmask[:, :64], d, freqs, *st_k, **kw_of(kw, 64))
+    st_p = tuple(a.clone() for a in st_k)
+    got = online_mvdr(Y, nmask, d, freqs, *st_k, **kw)
+    ref = online_mvdr_plain(Y, nmask, d, freqs, *st_p, **kw)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    o_rel = err / float(ref.abs().max())
+    st_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(st_k, st_p))
+    check(bool(torch.isfinite(torch.view_as_real(got)).all()), "online_mvdr_mmic: non-finite")
+    check(o_rel <= 1e-4 and st_rel <= 1e-5,
+          f"online_mvdr_mmic: relative error {o_rel:.3e} (state {st_rel:.3e}) against plain")
+    st_1, st_T = initial_state((), F, M, dev), initial_state((), F, M, dev)
+    whole = online_mvdr(Y, nmask, d, freqs, *st_T, **kw)
+    steps = [online_mvdr(Y[..., t:t + 1].contiguous(), nmask[:, t:t + 1].contiguous(), d, freqs,
+                         *st_1, **dict(kw, target_mask=kw["target_mask"][:, t:t + 1].contiguous()))
+             for t in range(T)]
+    differ = int((torch.cat(steps, dim=-1) != whole).sum())
+    differ += sum(int((a != b).sum()) for a, b in zip(st_1, st_T))
+    check(differ == 0, f"online_mvdr_mmic: {differ} elements differ, one launch vs T launches")
+    ms = device_ms(lambda: online_mvdr(Y, nmask, d, freqs, *st_k, **kw))
+    plain_ms = time_ms(lambda: online_mvdr_plain(Y, nmask, d, freqs, *st_p, **kw), iters=1,
+                       warmup=0)
+    # Y's M channels, the noise and target masks in and S out per (f, t); the
+    # state (M^2 complex and w_sum) read and written; d and freqs. Operations
+    # per (f, t): the recursion's M (M + 1) / 2 entries (~6 each), the
+    # Cholesky's ~M^3 / 6 complex multiply-adds (8 each), two substitutions
+    # (~4 M^2) and the weights and output (~20 M).
+    nbytes = F * T * (8 * M + 4 + 4 + 8) + 2 * F * (8 * M * M + 4) + F * (8 * M + 4)
+    ops = F * T * (3.0 * M * (M + 1) + 8 * M ** 3 / 6 + 4 * M * M + 20 * M)
+    b_ms, b_by = bound(nbytes, ops, FP32_FLOPS_PER_S)
+    results["online_mvdr_mmic"] = dict(
+        name="online_mvdr_mmic", route="cuda", source="azoom_torch/csrc/online_mvdr_mmic_kernel.cu",
+        replaces="azoom/stream/online.py:61 (XLA lax.scan at M > 2, no Pallas kernel)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    mm["online_mvdr_mmic"] = dict(shape=(M, F, T), rel_err=o_rel, state_rel_err=st_rel, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  one_vs_T_launches_differ=differ)
+    log("online_mvdr_mmic", shape=(M, F, T), max_abs_err=f"{err:.3e}", rel_err=f"{o_rel:.3e}",
+        state_rel_err=f"{st_rel:.3e}", one_vs_T_launches_elements_differ=differ, ms=f"{ms:.4f}",
+        us_per_frame=f"{ms / T * 1e3:.3f}", plain_ms=f"{plain_ms:.1f}", bound_ms=f"{b_ms:.4f}",
+        bound_by=b_by)
+    del Y, nmask, got, ref, steps, whole
+
+    # the causal pipeline at M = 4: 60 s offline, then 10 s hop by hop
+    ll_cfg = PipelineConfig(mic_dist=0.04, n_mics=4, angle_target_deg=75.0)
+    crn, _ = load_bundled("crn_causal")
+    crn_cpu, _ = load_bundled("crn_causal", device="cpu")
+    rec = torch.from_numpy(far_field_scene(rng, 1, 60 * 16_000, n_mics=4,
+                                           angles=(75.0, 30.0, 140.0))[0][0])
+    rec_g = rec.to(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = online_learned_enhance(rec_g, crn, ll_cfg)
+    torch.cuda.synchronize()
+    ll_counts = launched()
+    check(ll_counts == {"online_mvdr_mmic": 1}, f"M = 4 online_learned_enhance launches {ll_counts}")
+    check(out.shape == (60 * 16_000,) and bool(torch.isfinite(out).all()),
+          "M = 4 online_learned_enhance: bad output")
+    results["online_mvdr_mmic"]["launches"] = ll_counts["online_mvdr_mmic"]
+    ll_ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        online_learned_enhance(rec_g, crn, ll_cfg)
+        torch.cuda.synchronize()
+        ll_ts.append((time.perf_counter() - t0) * 1e3)
+    pre = rec[:, :6 * 16_000]
+    ll_rel = rel(online_learned_enhance(pre.to(dev), crn, ll_cfg).cpu(),
+                 online_learned_enhance(pre, crn_cpu, ll_cfg))
+    check(ll_rel <= 1e-3, f"M = 4 online_learned_enhance 6 s prefix vs CPU {ll_rel:.3e}")
+    x10 = rec[:, :10 * 16_000].numpy()
+    off10 = online_learned_enhance(rec_g[:, :10 * 16_000], crn, ll_cfg).cpu().numpy()
+    oe = OnlineEnhancer(ll_cfg, crn, steer_deg=75.0)
+    hop = ll_cfg.hop
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs, push_ms = [], []
+    for i in range(0, x10.shape[1], hop):
+        t0 = time.perf_counter()
+        outs.append(oe.push(x10[:, i:i + hop]))
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    hops = x10.shape[1] // hop
+    oe_counts = launched()
+    check(oe_counts == {"online_mvdr_mmic": hops}, f"M = 4 OnlineEnhancer launches {oe_counts}")
+    streamed = np.concatenate(outs)
+    oe_err = float(np.abs(streamed - off10[:streamed.shape[0]]).max())
+    check(streamed.shape[0] == (hops - 1) * hop and oe_err <= 1e-5,
+          f"M = 4 OnlineEnhancer vs the card's offline output: {oe_err:.3e}")
+    ll_med = statistics.median(ll_ts)
+    mm["lowlat"] = dict(offline_60s_ms=ll_ts, ms_per_recorded_second=ll_med / 60,
+                        cpu_prefix_wave_rel_l2=ll_rel, push_ms=push_ms,
+                        push_ms_median=statistics.median(push_ms[2:]),
+                        launches_per_hop=oe_counts["online_mvdr_mmic"] / hops,
+                        vs_offline_max_abs=oe_err)
+    log("mmic_lowlat", M=4, offline_seconds=60, launches=ll_counts, ms_median=f"{ll_med:.3f}",
+        ms_per_recorded_second=f"{ll_med / 60:.4f}", prefix_wave_rel_l2=f"{ll_rel:.3e}",
+        stream_seconds=10, hops=hops, push_ms_median=f"{statistics.median(push_ms[2:]):.3f}",
+        online_mvdr_mmic_per_hop=oe_counts["online_mvdr_mmic"] / hops,
+        vs_offline_max_abs=f"{oe_err:.3e}")
+    return mm
 
 
 _T0 = time.perf_counter()
@@ -1639,11 +1933,14 @@ def main() -> int:
         bearings=zl_bear, wave_rel_l2=f"{zl_rel:.3e}")
     del crn, rec_gpu
 
+    # 18. arrays of more than two mics ------------------------------------------------
+    mmic = phase_mmic(dev, rng, results, time_ms, device_ms, bound)
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
         "convt1x2", "hard_null",
-        "hard_null_per_chunk", "int8_mm", "online_mvdr")]}
+        "hard_null_per_chunk", "int8_mm", "online_mvdr", "online_mvdr_mmic")]}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     for k in line["kernels"]:
@@ -1657,7 +1954,8 @@ def main() -> int:
          "main_ms": times, "main_hard_null_ms": hn_times, "stream_ms": st_times,
          "server": server_stats, "facade": facade, "tracked": tracked,
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
-         "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "card": smi}, indent=1))
+         "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic, "card": smi},
+        indent=1))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

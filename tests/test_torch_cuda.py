@@ -455,13 +455,13 @@ def test_oracle_path_launches_once(cuda):
     assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-4
 
 
-def _online_case(rng, dev, lead, F, T):
-    shape = lead + (2, F, T)
+def _online_case(rng, dev, lead, F, T, M=2):
+    shape = lead + (M, F, T)
     Y = torch.complex(_t(rng.standard_normal(shape).astype(np.float32), dev),
                       _t(rng.standard_normal(shape).astype(np.float32), dev))
     nm = _t(rng.random(lead + (F, T), dtype=np.float32), dev)
     f = _t((np.arange(F) * 8000.0 / max(F - 1, 1)).astype(np.float32), dev)
-    return Y, nm, f, steering_vector(f, 60.0, 0.04)
+    return Y, nm, f, steering_vector(f, 60.0, 0.04, n_mics=M)
 
 
 # one stream of 513 bins, ragged F with several streams, T = 1, and T not a
@@ -562,4 +562,127 @@ def test_low_latency_path_on_the_card(cuda):
     x = mix.numpy()
     st = np.concatenate([oe.push(x[:, i:i + 2048]) for i in range(0, x.shape[1], 2048)])
     assert kernels.launches["online_mvdr"] == x.shape[1] // cfg.hop
+    assert float(np.abs(st - out.cpu().numpy()[:st.shape[0]]).max()) <= 1e-5
+
+
+# -- arrays of more than two mics ---------------------------------------------
+
+# 3, 4 and 8 mics on one stream of 513 bins; several streams of a ragged F;
+# one frame (a hop)
+@pytest.mark.parametrize("M,lead,F,T", [(3, (), 513, 300), (4, (), 513, 300), (8, (), 513, 300),
+                                        (4, (3,), 37, 50), (4, (), 513, 1), (8, (2,), 65, 33)])
+def test_online_mvdr_mmic_matches_plain(cuda, M, lead, F, T):
+    """The M-general online_mvdr instance against its plain loop (beam.linalgmm's
+    Cholesky per frame): output and carried state, twice in a row from a
+    state the plain loop warmed on 32 frames (a fresh state is ill-posed on
+    its first frames, R = y y^H + a 1e-6 prime, where float32 orders part);
+    one launch, counted as online_mvdr_mmic."""
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr, online_mvdr_plain
+
+    rng = np.random.default_rng(M + T)
+    Y, nm, f, d = _online_case(rng, cuda, lead, F, T, M)
+    kw = dict(target_mask=1 - nm, sigma=1e-6, mask_floor=0.05)
+    st_k = initial_state(lead, F, M, cuda)
+    Yw, nw, _, _ = _online_case(rng, cuda, lead, F, 32, M)
+    online_mvdr_plain(Yw, nw, d, f, *st_k)
+    st_p = tuple(a.clone() for a in st_k)
+    for _ in range(2):
+        kernels.reset_launches()
+        got = online_mvdr(Y, nm, d, f, *st_k, **kw)
+        assert _active(kernels.launches) == {"online_mvdr_mmic": 1}
+        ref = online_mvdr_plain(Y, nm, d, f, *st_p, **kw)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+        for a, b in zip(st_k, st_p):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("M,lead,T", [(3, (), 40), (4, (2,), 33), (8, (), 40), (4, (), 1875)])
+def test_online_mvdr_mmic_one_launch_equals_one_launch_per_frame(cuda, M, lead, T):
+    """T launches of one frame, the state carried through device memory in
+    float32, give the bits of one launch over T frames."""
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr
+
+    rng = np.random.default_rng(5 + M)
+    Y, nm, f, d = _online_case(rng, cuda, lead, 513, T, M)
+    kw = dict(sigma=1e-6, mask_floor=0.05)
+    g = 1 - nm
+    st = initial_state(lead, 513, M, cuda)
+    whole = online_mvdr(Y, nm, d, f, *st, target_mask=g, **kw)
+    st1 = initial_state(lead, 513, M, cuda)
+    steps = [online_mvdr(Y[..., t:t + 1].contiguous(), nm[..., t:t + 1].contiguous(), d, f, *st1,
+                         target_mask=g[..., t:t + 1].contiguous(), **kw) for t in range(T)]
+    assert torch.equal(torch.cat(steps, dim=-1), whole)
+    assert all(torch.equal(a, b) for a, b in zip(st, st1))
+
+
+def test_online_mvdr_refuses_more_than_eight_mics_on_the_card(cuda):
+    from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr
+
+    rng = np.random.default_rng(3)
+    Y, nm, f, d = _online_case(rng, cuda, (), 33, 4, 9)
+    with pytest.raises(NotImplementedError, match="registers"):
+        online_mvdr(Y, nm, d, f, *initial_state((), 33, 9, cuda))
+    Y, nm, f, d = _online_case(rng, cuda, (), 33, 4, 4)
+    R, w = initial_state((), 33, 4, cuda)
+    with pytest.raises(ValueError, match="d must be"):
+        online_mvdr(Y, nm, d[:, :2].contiguous(), f, R, w)
+    with pytest.raises(ValueError, match="R_sum"):
+        online_mvdr(Y, nm, d, f, R[..., :2, :2].contiguous(), w)
+
+
+@pytest.mark.parametrize("beamformer,n_nulls", [("mvdr", 1), ("hard_null", 3)])
+def test_learned_path_at_four_mics_on_the_card(cuda, beamformer, n_nulls):
+    """Four mics: the int8 net's 21 convs and 3 upsamplings as at M = 2, no
+    launch of the 2-mic beamformer kernels (the M-mic MVDR or LCMV runs in
+    torch on the card), and the CPU's output; the fused wrappers refuse M = 4."""
+    from azoom_torch import learned_enhance, load_bundled
+
+    rng = np.random.default_rng(12)
+    mix = torch.from_numpy((0.1 * rng.standard_normal((2, 4, 32000))).astype(np.float32))
+    cfg = PipelineConfig(mic_dist=0.04, n_mics=4)
+    kw = dict(beamformer=beamformer, n_nulls=n_nulls, feature_kind="physics", steer_deg=60.0)
+    model, model_cpu = load_bundled("tpufpu_nano")[0], load_bundled("tpufpu_nano", device="cpu")[0]
+    kernels.reset_launches()
+    routes = dict(route_counts)
+    out = learned_enhance(mix.to(cuda), model, cfg, **kw)
+    torch.cuda.synchronize()
+    assert _active(kernels.launches) == {"qconv3x3": 21, "convt1x2": 3}
+    assert {k: v - routes[k] for k, v in route_counts.items()} == {
+        "wgmma": 20, "narrow": 1, "split": 0, "mma": 0}
+    ref = learned_enhance(mix, model_cpu, cfg, **kw)
+    assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
+    Y = torch.zeros((1, 4, 513, 8), dtype=torch.complex64, device=cuda)
+    m = torch.zeros((1, 513, 8), device=cuda)
+    f = torch.zeros(513, device=cuda)
+    d = torch.zeros((513, 4), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="2-mic"):
+        masked_mvdr_fused(Y, m, d, f)
+    with pytest.raises(ValueError, match="2-mic"):
+        hard_null_fused(Y, m, d, f)
+
+
+def test_low_latency_path_at_four_mics_on_the_card(cuda):
+    """online_learned_enhance at M = 4: one online_mvdr_mmic launch and the
+    CPU's waveform; OnlineEnhancer: one launch a hop and the card's offline
+    output on the finalized samples."""
+    from azoom_torch import load_bundled
+    from azoom_torch.pipelines.online_learned import online_learned_enhance
+    from azoom_torch.stream.lowlat import OnlineEnhancer
+
+    rng = np.random.default_rng(8)
+    mix = torch.from_numpy((0.1 * rng.standard_normal((4, 32000))).astype(np.float32))
+    cfg = PipelineConfig(mic_dist=0.04, n_mics=4, angle_target_deg=75.0)
+    net, net_cpu = load_bundled("crn_causal")[0], load_bundled("crn_causal", device="cpu")[0]
+    kernels.reset_launches()
+    out = online_learned_enhance(mix.to(cuda), net, cfg)
+    torch.cuda.synchronize()
+    assert _active(kernels.launches) == {"online_mvdr_mmic": 1}
+    ref = online_learned_enhance(mix, net_cpu, cfg)
+    assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-3
+    oe = OnlineEnhancer(cfg, net, steer_deg=75.0)
+    kernels.reset_launches()
+    x = mix.numpy()
+    st = np.concatenate([oe.push(x[:, i:i + 2048]) for i in range(0, x.shape[1], 2048)])
+    assert _active(kernels.launches) == {"online_mvdr_mmic": x.shape[1] // cfg.hop}
     assert float(np.abs(st - out.cpu().numpy()[:st.shape[0]]).max()) <= 1e-5

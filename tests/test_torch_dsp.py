@@ -109,3 +109,50 @@ def test_features_reject_unknown_pair_mode():
     Y = stft(torch.from_numpy(_signal(4000)))
     with pytest.raises(ValueError, match="pair_mode"):
         physics_aware_features(Y, pair_mode="all")
+
+
+def _precision_calls():
+    """name: a call taking a precision keyword, the reference's call forms
+    (learned_enhance and steered_heuristic_enhance: dsp_precision;
+    harmonic_regeneration: precision)."""
+    from azoom_torch.beam.postfilter import harmonic_regeneration
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.pipelines.learned import learned_enhance
+    from azoom_torch.pipelines.tracked import steered_heuristic_enhance
+
+    cfg = PipelineConfig(mic_dist=0.04)
+    x = torch.from_numpy(_signal(8000, seed=5))
+    net, kind = load_bundled("tpufpu_nano", device="cpu")
+    S = stft(x)[0]
+    g1 = torch.from_numpy(np.random.default_rng(6).random(tuple(S.shape), dtype=np.float32))
+    return {
+        "learned_enhance": lambda p: learned_enhance(x, net, cfg, feature_kind=kind,
+                                                     dsp_precision=p),
+        "steered_heuristic_enhance": lambda p: steered_heuristic_enhance(x, cfg, 70.0,
+                                                                         dsp_precision=p),
+        "harmonic_regeneration": lambda p: harmonic_regeneration(S, g1, 1024, 512, 8000,
+                                                                 precision=p),
+    }
+
+
+@pytest.mark.parametrize("name", ["learned_enhance", "steered_heuristic_enhance",
+                                  "harmonic_regeneration"])
+def test_precision_keyword_is_checked_and_selects_nothing(name):
+    """The reference's keyword picks the TPU's matmul-DFT precision; the port
+    is float64 inside either way: 'exact' and 'fast' give the same output,
+    another value raises."""
+    call = _precision_calls()[name]
+    assert torch.equal(call("exact"), call("fast"))
+    with pytest.raises(ValueError, match="precision"):
+        call("bf16")
+
+
+def test_gen1_preset_matches_the_reference():
+    from azoom.config import GEN1 as JAX_GEN1
+
+    import azoom_torch
+    from azoom_torch.config import GEN1
+
+    assert azoom_torch.GEN1 is GEN1 and "GEN1" in azoom_torch.__all__
+    assert dataclasses.asdict(GEN1) == dataclasses.asdict(JAX_GEN1)
+    assert (GEN1.n_fft, GEN1.hop, GEN1.mic_dist) == (512, 256, 0.01)

@@ -212,21 +212,49 @@ def test_load_bundled_scope():
     assert geo_adapt_dist("tpufpu_nano", 0.08) is None
 
 
-UNPORTED = {  # name: (learned_enhance keywords, number of mics)
-    "rmvb": ({"beamformer": "rmvb"}, 2),
-    "rtf": ({"beamformer": "rtf"}, 2),
-    "wpd": ({"beamformer": "wpd"}, 2),
-    "mvdr_three_mics": ({}, 3),
-    "hard_null_three_mics": ({"beamformer": "hard_null"}, 3),
+UNPORTED = {  # name: learned_enhance keywords
+    "rmvb": {"beamformer": "rmvb"},
+    "rtf": {"beamformer": "rtf"},
+    "wpd": {"beamformer": "wpd"},
 }
 
 
 @pytest.mark.parametrize("option", list(UNPORTED))
 def test_unported_options_raise(models, option):
     _, _, tm = models
-    kw, n_mics = UNPORTED[option]
-    with pytest.raises(NotImplementedError):
-        learned_enhance(torch.zeros(n_mics, 8000), tm, PipelineConfig(mic_dist=0.04), **kw)
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        learned_enhance(torch.zeros(2, 8000), tm, PipelineConfig(mic_dist=0.04), **UNPORTED[option])
+
+
+THREE_MICS = {  # name: learned_enhance keywords; the bundled float fpu, 1 s, 3 mics at 4 cm
+    "mvdr_three_mics": {"steer_deg": 60.0},
+    "hard_null_three_mics": {"beamformer": "hard_null"},
+}
+
+
+@pytest.fixture(scope="module")
+def fpu_three_mics():
+    """The float fpu (the reference's M-mic facade net) on both sides and a
+    1 s 3-mic scene: target at 60 deg, interferers at 40 and 130."""
+    sigs = speech_like_batch(jax.random.PRNGKey(7), 3, 16000, 16000)
+    sc = make_scene(sigs[0], sigs[1:], 60.0, jnp.array([40.0, 130.0]), 0.04, 16000, n_mics=3)
+    jm, jv, _ = jax_load_bundled("fpu", quant=False)
+    tm, _ = load_bundled("fpu", quant=False, device="cpu")
+    return jm, jv, tm, {k: np.asarray(v) for k, v in sc.items()}
+
+
+@pytest.mark.parametrize("option", list(THREE_MICS))
+def test_three_mics_match_jax(fpu_three_mics, option):
+    """Three mics: the conv net on the mean over pairs, the M-mic MVDR or
+    hard-null (one null) of beam.mvdr / beam.nullsteer; at the 2-mic
+    cases' bounds (waveform 1e-2, SIR 0.05 dB)."""
+    jm, jv, tm, sc = fpu_three_mics
+    kw = THREE_MICS[option]
+    ref = np.asarray(jax_learned_enhance(jnp.asarray(sc["mixture"]), jm, jv,
+                                         JaxConfig(mic_dist=0.04, n_mics=3), **kw))
+    got = learned_enhance(torch.tensor(sc["mixture"]), tm,
+                          PipelineConfig(mic_dist=0.04, n_mics=3), **kw).numpy()
+    _check_parity(option, got, ref, sc)
 
 
 def test_bad_arguments_raise(models):

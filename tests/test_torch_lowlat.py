@@ -139,8 +139,9 @@ def test_online_mvdr_state_carries_across_calls():
 
 
 def test_online_mvdr_wrapper_on_the_cpu():
-    """A CPU tensor takes the plain loop (no launch); M > 2 raises naming
-    linalgmm, as the batch MVDR does."""
+    """A CPU tensor takes the plain loop (no launch), at M = 2 and, through
+    beam.linalgmm's Cholesky, at M = 3, there against JAX's scan at this
+    file's online-MVDR bound."""
     Y, m, freqs = (torch.from_numpy(a) for a in _mvdr_inputs(2, T=3))
     d = steering_vector(freqs, 90.0, 0.04)
     before = dict(kernels.launches)
@@ -148,9 +149,18 @@ def test_online_mvdr_wrapper_on_the_cpu():
     online_mvdr(Y, m, d, freqs, R, w)
     assert kernels.launches == before
     assert not torch.equal(w, torch.full_like(w, 1e-6))  # the state moved
-    Y3 = torch.cat([Y, Y[:1]])
-    with pytest.raises(NotImplementedError, match="linalgmm"):
-        online_masked_mvdr(Y3, m, steering_vector(freqs, 90.0, 0.04, n_mics=3), freqs)
+    rng = np.random.default_rng(9)  # a third, independent channel
+    Y3 = torch.cat([Y, torch.complex(*(torch.from_numpy(rng.standard_normal((1,) + m.shape))
+                                         .float() for _ in range(2)))])
+    d3 = steering_vector(freqs, 70.0, 0.04, n_mics=3)
+    got = online_masked_mvdr(Y3, m, d3, freqs, sigma=1e-3)
+    assert kernels.launches == before
+    ref = np.asarray(jax_online_mvdr(jnp.asarray(Y3.numpy()), jnp.asarray(m.numpy()),
+                                     jax_steering(jnp.asarray(freqs.numpy()), 70.0, 0.04, n_mics=3),
+                                     jnp.asarray(freqs.numpy()), sigma=1e-3))
+    err = float(np.abs(got.numpy() - ref).max() / np.abs(ref).max())
+    print(f"[parity] online_masked_mvdr at three mics: rel={err:.3e}")
+    assert err <= 1e-4
 
 
 @pytest.mark.parametrize("forget", [0.98, 1.0])
@@ -239,8 +249,11 @@ def test_online_enhancer_rejects():
     tm, _ = load_bundled("crn_causal", device="cpu")
     with pytest.raises(ValueError, match="50%"):
         OnlineEnhancer(PipelineConfig(n_fft=1024, hop=256), tm, device="cpu")
-    with pytest.raises(NotImplementedError, match="linalgmm"):
-        OnlineEnhancer(PipelineConfig(n_mics=3), tm, device="cpu")
+    # three mics stream (tests/test_torch_mmic_live.py holds M = 4 against JAX)
+    oe = OnlineEnhancer(PipelineConfig(n_mics=3), tm, device="cpu")
+    assert oe._R.shape == (513, 3, 3)
+    with pytest.raises(ValueError, match="channels|shape|size"):
+        oe.push(np.zeros((2, 512), np.float32))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             OnlineEnhancer(CFG, tm)

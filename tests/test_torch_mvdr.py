@@ -108,9 +108,26 @@ def test_covariance_and_solve_match_jax():
 
 
 def test_more_than_two_mics_is_queued():
+    """M = 3 (beam.linalgmm's Cholesky): the masked MVDR on a 3-mic scene
+    against JAX at this file's batched bound, and the fused wrapper, the
+    2-mic kernel's, refusing it. (Its name is older than the M-mic port.)"""
+    sigs = speech_like_batch(jax.random.PRNGKey(5), 3, 8_000, CFG.fs)
+    sc = make_scene(sigs[0], sigs[1:], 90.0, jnp.array([40.0, 130.0]), CFG.mic_dist, CFG.fs,
+                    n_mics=3)
+    Y = np.asarray(stft(sc["mixture"], CFG.n_fft, CFG.hop))
+    mask = np.asarray(ibm_noise_mask(stft(sc["target_ref"], CFG.n_fft, CFG.hop),
+                                     stft(sc["interference_ref"], CFG.n_fft, CFG.hop)), np.float32)
+    freqs = np.asarray(rfft_freqs(CFG.n_fft, CFG.fs))
+    d = np.asarray(steering_vector(freqs, 90.0, CFG.mic_dist, n_mics=3))
+    ref = np.asarray(jax_masked_mvdr(Y, mask, d, freqs, target_mask=1.0 - mask, sigma=1e-7))
+    got = masked_mvdr(_t(Y), _t(mask), _t(d), _t(freqs), target_mask=_t(1.0 - mask),
+                      sigma=1e-7).numpy()
+    np.testing.assert_allclose(got, ref, atol=5e-4)
     R = torch.eye(3, dtype=torch.complex64).expand(5, 3, 3)
-    with pytest.raises(NotImplementedError, match="linalgmm"):
-        mvdr_weights(R, torch.ones(5, 3, dtype=torch.complex64))
+    w = mvdr_weights(R, torch.ones(5, 3, dtype=torch.complex64))
+    torch.testing.assert_close(w, torch.full((5, 3), 1 / 3, dtype=torch.complex64))
+    with pytest.raises(ValueError, match="2-mic"):
+        masked_mvdr_fused(_t(Y), _t(mask), _t(d), _t(freqs))
 
 
 # -- per-stream steering and loading (the server's form) ---------------------

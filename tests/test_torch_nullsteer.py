@@ -199,6 +199,25 @@ def test_plain_per_chunk_steering_is_a_loop_of_shared_calls(scene):
 
 
 def test_more_than_two_mics_is_queued():
+    """M = 3 (the norm-constrained LCMV over beam.linalgmm): the hybrid pass
+    on a 3-mic scene against the XLA function at this file's row bound, an
+    isotropic covariance giving delay-and-sum, and the fused wrapper, the
+    2-mic kernel's, refusing it. (Its name is older than the M-mic port.)"""
+    sigs = speech_like_batch(jax.random.PRNGKey(13), 3, 16_000, CFG.fs)
+    sc = make_scene(sigs[0], sigs[1:], 90.0, jnp.array([40.0, 130.0]), CFG.mic_dist, CFG.fs,
+                    n_mics=3)
+    Y = np.asarray(stft(sc["mixture"], CFG.n_fft, CFG.hop))
+    tm = np.asarray(ibm_target_mask(stft(sc["target_ref"], CFG.n_fft, CFG.hop),
+                                    stft(sc["interference_ref"], CFG.n_fft, CFG.hop)), np.float32)
+    freqs = np.asarray(rfft_freqs(CFG.n_fft, CFG.fs))
+    d = np.asarray(steering_vector(freqs, 90.0, CFG.mic_dist, n_mics=3, normalize_phase=True))
+    ref = np.asarray(jax_hybrid(Y, tm, d, freqs, n_nulls=2))
+    got = hybrid_hard_null_beamform(_t(Y), _t(tm), _t(d), _t(freqs), n_nulls=2).numpy()
+    row = np.linalg.norm(got - ref, axis=-1) / np.maximum(np.linalg.norm(ref, axis=-1), 1e-30)
+    print(f"[nullsteer] three mics row_rel_err={row.max():.3e}")
+    assert row.max() <= 1e-3
     R = torch.eye(3, dtype=torch.complex64).expand(5, 3, 3)
-    with pytest.raises(NotImplementedError, match="linalgmm"):
-        hard_null_weights(R, torch.ones(5, 3, dtype=torch.complex64))
+    d3 = torch.ones(5, 3, dtype=torch.complex64)
+    assert torch.equal(hard_null_weights(R, d3), d3 / 3)  # no direction earns a null
+    with pytest.raises(ValueError, match="2-mic"):
+        hard_null_fused(_t(Y), _t(tm), _t(d), _t(freqs))

@@ -236,16 +236,22 @@ def test_pipelined_push_is_the_plain_push_one_window_late(scene):
     assert piped.flush().size == 0
 
 
-QUEUED = {  # name: (AudioZoom keywords, what the message names)
-    "low_latency": (dict(latency="low", cfg=PipelineConfig(n_mics=3)), "linalgmm"),  # M = 3
-}
-
-
-@pytest.mark.parametrize("case", list(QUEUED))
-def test_unported_options_raise(case):
-    kw, match = QUEUED[case]
-    with pytest.raises(NotImplementedError, match=match):
-        AudioZoom(device="cpu", **kw)
+def test_low_latency_at_three_mics_matches_jax():
+    """A 3-mic array at low latency (the online MVDR over beam.linalgmm's
+    Cholesky): enhance() and a push against the JAX facade, at the
+    low-latency cases' bound."""
+    sigs = speech_like_batch(jax.random.PRNGKey(9), 3, 16_000, 16_000)
+    sc = {k: np.asarray(v) for k, v in make_scene(
+        sigs[0], sigs[1:], CENTER, jnp.asarray([40.0, 130.0]), 0.04, 16_000, n_mics=3).items()}
+    kw = dict(LOW_KW, track=True)
+    ref = azoom.AudioZoom(cfg=JaxConfig(mic_dist=0.04, n_mics=3), native=False, **LOW_KW)
+    got = AudioZoom(cfg=PipelineConfig(mic_dist=0.04, n_mics=3), device="cpu", **LOW_KW)
+    _check("low latency three mics enhance", got.enhance(sc["mixture"]),
+           ref.enhance(sc["mixture"]), sc)
+    ref = azoom.AudioZoom(cfg=JaxConfig(mic_dist=0.04, n_mics=3), native=False, **kw)
+    got = AudioZoom(cfg=PipelineConfig(mic_dist=0.04, n_mics=3), device="cpu", **kw)
+    _check("low latency three mics push", got.push(sc["mixture"]), ref.push(sc["mixture"]))
+    assert got._track_theta == ref._track_theta
 
 
 def test_bad_arguments_raise():

@@ -11,16 +11,16 @@ the plain version.
 Ported so far: config (with the GEN1 preset), dsp (windows, stft, delays),
 beam (covariance, linalg2x2, linalgmm, mvdr with per-stream steering and
 loading at any M, nullsteer with per-chunk steering at M = 2 and the
-M-mic LCMV above, zoom, the HRNR postfilter), masks (physics
-features, bin_doa, geometric incl. the FOV gate and the IPD-deviation mask,
-oracle), localize (srp: SRP, GCC-PHAT, the IPD angle histogram; tracking:
+M-mic LCMV above, zoom, the HRNR postfilter, gev, rmvb, rtf, wpd), wpe
+(dereverb), masks (physics features, bin_doa and duet_masks, geometric
+incl. the FOV gate and the IPD-deviation mask, oracle, postfilter), localize (srp: SRP, GCC-PHAT, the IPD angle histogram; tracking:
 the Viterbi, causal, momentum, two-source and EMA trackers), models (quantize reader, unet TPUFPU, convert, pretrained
 ``tpufpu_nano``), eval.projection, stream (chunker, ``AudioZoomServer``:
 S live streams with mask reuse, an int16 wire and per-stream steer, zoom
 and tracking), kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
 int8 matmul, the online MVDR at 2 and at 3 to 8 mics), pipelines
-(``learned_enhance`` with the MVDR or hard-null beamformer, the FOV gate
-and the HRNR post-filter,
+(``learned_enhance`` with the MVDR, hard-null, RMVB, RTF or WPD
+beamformer, the FOV gate and the HRNR post-filter,
 ``learned_enhance_streaming``, ``autosteer_enhance``,
 ``tracked_autosteer_enhance``, ``oracle_enhance``, ``heuristic_enhance``)
 and the ``AudioZoom`` facade at high and low latency, for any number of

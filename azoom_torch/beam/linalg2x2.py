@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["solve_2x2_hermitian", "solve_2x2_general", "eigh_2x2_hermitian", "cond_2x2"]
+__all__ = ["solve_2x2_hermitian", "solve_2x2_general", "eigh_2x2_hermitian", "cond_2x2",
+           "csqrt_cut"]
 
 
 def solve_2x2_hermitian(R: torch.Tensor, d: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -93,3 +94,17 @@ def cond_2x2(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     s_min = torch.sqrt(torch.clamp(eigvals[..., 0], min=0.0))
     s_max = torch.sqrt(torch.clamp(eigvals[..., 1], min=0.0))
     return s_max / torch.clamp(s_min, min=eps)
+
+
+def csqrt_cut(z: torch.Tensor) -> torch.Tensor:
+    """sqrt(z + 0j) of a complex z, as the reference writes it: adding a
+    complex zero turns an imaginary -0 into +0, so a negative real z (on
+    the square root's branch cut) takes the root +i sqrt(|z|). On the real
+    axis the root is built from the real square root, exactly and on every
+    device (CUDA's complex sqrt leaves a rounding of cos(pi / 2) in the
+    real part there, which breaks the tie between a conjugate pair of
+    eigenvalues); elsewhere it is torch.sqrt."""
+    zero = torch.zeros_like(z.real)
+    s = torch.sqrt(torch.abs(z.real))
+    axis = torch.where(z.real < 0, torch.complex(zero, s), torch.complex(s, zero))
+    return torch.where(z.imag == 0, axis, torch.sqrt(z))

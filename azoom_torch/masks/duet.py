@@ -1,5 +1,8 @@
-"""Per-bin DOA from the inter-channel phase (counterpart of
-azoom.masks.duet.bin_doa; ``duet_masks`` is not ported yet)."""
+"""DUET-style spatial clustering masks (counterpart of azoom.masks.duet):
+every time-frequency bin votes for a bearing from its inter-channel phase
+(``bin_doa``), and a soft assignment around each source's bearing gives
+per-source masks (``duet_masks``): separation masks, or a post-process that
+cleans a learned mask."""
 
 from __future__ import annotations
 
@@ -7,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["bin_doa"]
+__all__ = ["duet_masks", "bin_doa"]
 
 
 def bin_doa(Y: torch.Tensor, mic_dist, fs: int, c: float = 343.0):
@@ -32,3 +35,26 @@ def bin_doa(Y: torch.Tensor, mic_dist, fs: int, c: float = 343.0):
     valid = (torch.abs(cos_t) <= 1.0) & alias_ok
     theta = torch.rad2deg(torch.arccos(torch.clamp(cos_t, -1.0, 1.0)))
     return theta.to(torch.float32), valid
+
+
+def duet_masks(
+    Y: torch.Tensor,
+    source_angles_deg,
+    mic_dist,
+    fs: int,
+    c: float = 343.0,
+    width_deg: float = 15.0,
+    invalid_value: float = 0.5,
+) -> torch.Tensor:
+    """Soft per-source masks by nearest-bearing assignment of an STFT Y
+    (..., M, F, T) to the K bearings ``source_angles_deg`` (K,): a softmax
+    over the sources of -0.5 ((theta - bearing) / width_deg)^2, float32
+    (..., K, F, T) in [0, 1]; bins with no usable spatial cue (aliased, or
+    |cos| > 1) take ``invalid_value`` (0.5: undecided)."""
+    theta, valid = bin_doa(Y, mic_dist, fs, c)
+    angles = torch.as_tensor(source_angles_deg, dtype=torch.float32, device=Y.device)
+    diff = theta[..., None, :, :] - angles[:, None, None]  # (..., K, F, T)
+    logits = -0.5 * (diff / width_deg) ** 2
+    masks = torch.softmax(logits, dim=-3)
+    return torch.where(valid[..., None, :, :], masks,
+                       torch.full((), invalid_value, dtype=masks.dtype, device=masks.device))

@@ -1,21 +1,27 @@
 """Learned-mask enhancement, the serving path (counterpart of
-azoom.pipelines.learned for ``beamformer="mvdr"`` and ``"hard_null"``):
+azoom.pipelines.learned):
 
     STFT -> steer-align -> features (logmag_ipd or physics) -> conv mask net
-         -> (FOV covariance gate) -> masked MVDR + floored mask post-filter
-            + high-pass, or hybrid hard-null + raw mask post-filter + 200 Hz
-            mic-0 bypass -> (HRNR post-filter) -> iSTFT
+         -> (FOV covariance gate) -> beamformer + post-filter
+            -> (HRNR post-filter) -> iSTFT
+
+with the beamformer one of: masked MVDR + floored mask post-filter +
+high-pass; hybrid hard-null + raw mask post-filter + 200 Hz mic-0 bypass;
+robust Capon ('rmvb', beam.rmvb), RTF-steered MVDR ('rtf', beam.rtf) or the
+WPD convolutional beamformer ('wpd', beam.wpd: joint dereverberation), each
++ floored mask post-filter + high-pass.
 
 Everything runs on the device of the mixture. On CUDA the mask net's 3x3
-convs run on the int8 conv kernel and, for a 2-mic array, the beamformer on
-its fused kernel (MVDR or hard-null), one launch for the whole batch, with
-one steering vector shared or one per batch entry (the tracked pipeline
-steers each chunk at its own bearing); on the CPU they take their plain
-PyTorch versions. An array of M > 2 mics runs the same mask net (its
+convs run on the int8 conv kernel and, for a 2-mic array, the MVDR and
+hard-null beamformers on their fused kernels, one launch for the whole
+batch, with one steering vector shared or one per batch entry (the tracked
+pipeline steers each chunk at its own bearing); on the CPU they take their
+plain PyTorch versions. An array of M > 2 mics runs the same mask net (its
 features from the mean over pairs, or the first pair of an explicit
 geometry) and the M-mic beamformers of beam.mvdr and beam.nullsteer in
 torch on the mixture's device, as the reference runs XLA there (its Pallas
-kernels are 2-mic). ``learned_enhance_streaming`` runs the 2 s /
+kernels are 2-mic); 'rmvb', 'rtf' and 'wpd' run in torch at every M, as
+the reference runs them in XLA. ``learned_enhance_streaming`` runs the 2 s /
 50 % chunker with all chunks as one batch.
 """
 
@@ -24,6 +30,9 @@ from __future__ import annotations
 import torch
 
 from azoom_torch.beam.postfilter import harmonic_regeneration
+from azoom_torch.beam.rmvb import rmvb_beamform
+from azoom_torch.beam.rtf import rtf_mvdr_beamform
+from azoom_torch.beam.wpd import masked_wpd, wpd_beamform
 from azoom_torch.config import PipelineConfig
 from azoom_torch.dsp.delays import steer_rotate, steering_vector
 from azoom_torch.dsp.stft import _check_precision, istft, rfft_freqs, stft
@@ -89,18 +98,25 @@ def learned_enhance(
     """Whole-signal learned enhancement: (..., M, n) -> (..., n), float32.
 
     ``beamformer``: 'mvdr' (post-filter: the mask floored at ``mask_floor``,
-    high-pass at cfg.hp_cutoff_hz) or 'hard_null' (the Final-generation
+    high-pass at cfg.hp_cutoff_hz), 'hard_null' (the Final-generation
     hybrid: phase-normalised steering, raw un-floored mask post-filter,
-    mic 0 passed through below 200 Hz). ``feature_kind`` must be the one
+    mic 0 passed through below 200 Hz), 'rmvb' (robust Capon: the steering
+    corrected toward the target-weighted covariance, cfg.sigma loading),
+    'rtf' (MVDR steered by the covariance-whitened RTF, the geometric
+    steering where its confidence is low) or 'wpd' (joint dereverberation
+    and beamforming; its own trace-relative loading, not cfg.sigma); the
+    last three with the floored mask post-filter and the high-pass.
+    ``feature_kind`` must be the one
     the net was trained on (``load_bundled`` returns it). ``fov_deg`` gates the noise
-    covariance of either by the camera's field of view around the look
+    covariance of any of them by the camera's field of view around the look
     direction (masks.geometric.fov_noise_gate). ``n_nulls``: the hard nulls
     the 'hard_null' beamformer places at M > 2 (an M-mic array pointed at K
-    interferers wants K; clamped to M - 1), unused at M = 2 and by MVDR.
+    interferers wants K; clamped to M - 1), unused at M = 2 and by the others.
     ``dsp_precision`` ('exact' or 'fast') is checked and selects nothing
     (the DSP is float64 inside). ``harmonic_regen`` runs the HRNR stage-2
     post-filter (beam.postfilter) on the beamformer's unmasked output with
-    the stage-1 gain: the floored mask for MVDR, the raw mask for hard-null.
+    the stage-1 gain: the floored mask for MVDR, RMVB and RTF, the raw mask
+    for hard-null, the floored complement of the gated noise mask for WPD.
 
     ``steer_deg`` overrides ``cfg.angle_target_deg``: a float, a 0-d tensor or
     one bearing per leading index of the mixture (a (C,) tensor for C
@@ -112,12 +128,7 @@ def learned_enhance(
     by train_mic_dist / the first pair's spacing). The mixture and the
     model must be on the same device.
     """
-    if beamformer in ("rmvb", "rtf", "wpd"):
-        raise NotImplementedError(
-            f"beamformer {beamformer!r} is not ported; it is queued "
-            "(ROADMAP.md Queue A item 9)"
-        )
-    if beamformer not in ("mvdr", "hard_null"):
+    if beamformer not in ("mvdr", "hard_null", "rmvb", "rtf", "wpd"):
         raise ValueError(f"unknown beamformer {beamformer!r}")
     mixture = torch.as_tensor(mixture)
     if mixture.device != _model_device(model):
@@ -164,24 +175,47 @@ def learned_enhance(
         # With harmonic_regen the beamformer applies no post-filter; the HRNR
         # stage takes its output and the stage-1 gain g1 instead.
         post = None if harmonic_regen else tgt_mask
-        if beamformer == "mvdr":
-            d = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics, positions=geom)
-            S = masked_mvdr_any(
-                Y, noise_mask, d, freqs, target_mask=post, sigma=cfg.sigma,
-                hp_cutoff_hz=cfg.hp_cutoff_hz, mask_floor=mask_floor,
-            )
-        else:
-            d = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics,
-                                normalize_phase=True, positions=geom)
+        g1 = torch.clamp(tgt_mask, min=mask_floor) if mask_floor > 0 else tgt_mask
+        # hard-null steers with the mic-0 phase normalised (the Final generation)
+        d = steering_vector(freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics,
+                            normalize_phase=beamformer == "hard_null", positions=geom)
+        if beamformer == "hard_null":
             # The beamformer weights its interference covariance by 1 - its
             # mask argument, so the (gated) noise mask enters as 1 - noise
             # in float32, as in the reference; the post-filter is the raw mask.
             S = hard_null_any(Y, 1.0 - noise_mask, d, freqs, post_mask=post, n_nulls=n_nulls)
-        if harmonic_regen:
-            # The stage-1 gain: the floored mask (MVDR), the raw mask (hard-null).
             g1 = tgt_mask
-            if beamformer == "mvdr" and mask_floor > 0:
-                g1 = torch.clamp(tgt_mask, min=mask_floor)
+        elif beamformer == "mvdr":
+            S = masked_mvdr_any(
+                Y, noise_mask, d, freqs, target_mask=post, sigma=cfg.sigma,
+                hp_cutoff_hz=cfg.hp_cutoff_hz, mask_floor=mask_floor,
+            )
+        elif beamformer == "rmvb":
+            # the steering correction sees 1 - the gated noise mask; the
+            # post-filter is the floored ungated mask, even at mask_floor 0
+            S = rmvb_beamform(Y, noise_mask, d, freqs, sigma=cfg.sigma,
+                              hp_cutoff_hz=cfg.hp_cutoff_hz)
+            if not harmonic_regen:
+                S = S * torch.clamp(tgt_mask, min=mask_floor)
+        elif beamformer == "rtf":
+            # the ungated mask splits the target covariance and post-filters;
+            # the gated noise mask builds R_n; the geometric d is the fallback
+            S = rtf_mvdr_beamform(
+                Y, noise_mask, freqs, target_mask=tgt_mask, d_fallback=d, sigma=cfg.sigma,
+                hp_cutoff_hz=cfg.hp_cutoff_hz, mask_floor=mask_floor,
+                apply_post_filter=not harmonic_regen,
+            )
+        else:  # wpd
+            # the target mask is 1 - the gated noise mask; the loading is the
+            # module's trace-relative one, not cfg.sigma
+            wpd_tgt = 1.0 - noise_mask
+            if harmonic_regen:
+                S = wpd_beamform(Y, wpd_tgt, d, freqs, hp_cutoff_hz=cfg.hp_cutoff_hz)
+                g1 = torch.clamp(wpd_tgt, min=mask_floor) if mask_floor > 0 else wpd_tgt
+            else:
+                S = masked_wpd(Y, wpd_tgt, d, freqs, hp_cutoff_hz=cfg.hp_cutoff_hz,
+                               mask_floor=mask_floor)
+        if harmonic_regen:
             S = harmonic_regeneration(S, g1, cfg.n_fft, cfg.hop, length=n,
                                       precision=dsp_precision)
         return istft(S, cfg.n_fft, cfg.hop, length=length)

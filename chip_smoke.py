@@ -151,6 +151,22 @@ Phases, each printing its own line(s):
                online_learned_enhance at M = 4 (ONE online_mvdr_mmic launch,
                a 6 s prefix against the CPU) and OnlineEnhancer over 10 s hop
                by hop (one launch a hop, equal to the card's offline output).
+ 19. beamformers - the reference's other beamformers and dereverberation,
+               torch code on the card as the reference's are XLA (no kernel
+               of their own). learned_enhance with the int8 tpufpu_nano at
+               (128, 2, 32000) on phase 7's scenes with rmvb, rtf and wpd,
+               and wpd with harmonic_regen and fov_deg=30: B2 and convt1x2
+               launched as in phase 5, B1 and B3 not at all; the first 4
+               chunks against the CPU; the median ms per call; a profile of
+               one wpd call and one rmvb call (chiprun_out/profile_wpd.txt,
+               profile_rmvb.txt: the batched solves' share of the device
+               time, the bisection's launches). The three at M = 4 (phase
+               18's 4-mic line) with the float fpu against the CPU;
+               tracked_autosteer_enhance(beamformer="rmvb") on phase 14's
+               clip (bearings equal to the CPU port's, a 6 s prefix against
+               it); wpe_dereverb of a numpy-seeded 10 s two-channel clip (a
+               dry far-field mixture through a decaying tail) and duet_masks
+               at (128, 2, 513, 64), each against the CPU.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
@@ -175,6 +191,7 @@ Without CUDA it exits non-zero at once. Imports nothing of JAX or azoom.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -560,6 +577,227 @@ def phase_mmic(dev, rng, results: dict, time_ms, device_ms, bound) -> dict:
         online_mvdr_mmic_per_hop=oe_counts["online_mvdr_mmic"] / hops,
         vs_offline_max_abs=f"{oe_err:.3e}")
     return mm
+
+
+SOLVE_KERNELS = re.compile(r"getrf|getrs|trsm|trsv|laswp|magma|lu_factor|lu_solve|pivot", re.I)
+
+
+def phase_beamformers(dev, rng, mix_s, clip, theta_cpu, model, model_cpu, profile_call) -> dict:
+    """Phase 19: the RMVB, RTF and WPD beamformers and dereverberation
+    (module docstring). ``mix_s`` is phase 7's (BATCH, 2, N_SAMPLES)
+    far-field mixture on the card, ``clip`` phase 14's moving talker (numpy)
+    and ``theta_cpu`` the CPU port's viterbi bearings of it; ``model`` and
+    ``model_cpu`` the int8 tpufpu_nano on the card and on the CPU. Returns
+    the phase's numbers for chip_smoke.json."""
+    import numpy as np
+    import torch
+
+    from azoom_torch import kernels
+    from azoom_torch.beam.rmvb import rmvb_beamform
+    from azoom_torch.beam.rtf import rtf_mvdr_beamform
+    from azoom_torch.beam.wpd import masked_wpd
+    from azoom_torch.config import PipelineConfig
+    from azoom_torch.dsp.delays import steer_rotate, steering_vector
+    from azoom_torch.dsp.stft import istft, rfft_freqs, stft
+    from azoom_torch.eval.projection import osinr_osir
+    from azoom_torch.masks.duet import duet_masks
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.pipelines.learned import learned_enhance, predict_mask
+    from azoom_torch.pipelines.tracked import tracked_autosteer_enhance
+    from azoom_torch.wpe import wpe_dereverb
+
+    def launched() -> dict:
+        return {k: v for k, v in kernels.launches.items() if v}
+
+    def rel(a, b) -> float:
+        a, b = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x) for x in (a, b))
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def call_ms(fn, n: int = 6) -> list:
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return ts
+
+    def stage_floor(mix, net, cfg, name: str) -> float:
+        """The float32 floor of a beamformer on these CPU chunks: its output
+        in complex64 against complex128 (float64 masks), with the CPU port's
+        masks and steering at 60 deg, as learned_enhance routes them."""
+        Y, f = stft(mix), rfft_freqs(1024, 16_000)
+        d = steering_vector(f, 60.0, cfg.mic_dist, n_mics=cfg.n_mics)
+        tm = predict_mask(net, steer_rotate(Y, d), "logmag_ipd")
+
+        def run(cdt, rdt):
+            Yx, dx, t = Y.to(cdt), d.to(cdt), tm.to(rdt)
+            nm = 1.0 - t
+            if name == "rmvb":
+                S = rmvb_beamform(Yx, nm, dx, f, sigma=cfg.sigma) * torch.clamp(t, min=0.05)
+            elif name == "rtf":
+                S = rtf_mvdr_beamform(Yx, nm, f, target_mask=t, d_fallback=dx, sigma=cfg.sigma,
+                                      mask_floor=0.05)
+            else:
+                S = masked_wpd(Yx, 1.0 - nm, dx, f)
+            return istft(S.to(torch.complex64), 1024, 512, length=mix.shape[-1])
+
+        return rel(run(torch.complex64, torch.float32), run(torch.complex128, torch.float64))
+
+    bf = {}
+    cfg = PipelineConfig(mic_dist=0.04)
+    cases = {  # name: learned_enhance keywords beyond the int8 nano net's
+        "rmvb": dict(beamformer="rmvb"),
+        "rtf": dict(beamformer="rtf"),
+        "wpd": dict(beamformer="wpd"),
+        "wpd_hrnr_fov30": dict(beamformer="wpd", harmonic_regen=True, fov_deg=30.0),
+    }
+    for name, bkw in cases.items():
+        kw = dict(feature_kind="physics", steer_deg=60.0, **bkw)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = learned_enhance(mix_s, model, cfg, **kw)
+        torch.cuda.synchronize()
+        counts = launched()
+        check(counts == {"qconv3x3": 21, "convt1x2": 3},
+              f"{name}: launches {counts} (B2 and convt1x2 as in phase 5, no B1/B3)")
+        check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
+              f"{name}: bad output")
+        wave = rel(out[:4], learned_enhance(mix_s[:4].cpu(), model_cpu, cfg, **kw))
+        check(wave <= 1e-2, f"{name}: first 4 chunks vs CPU {wave:.3e}")
+        ts = call_ms(lambda: learned_enhance(mix_s, model, cfg, **kw))
+        med = statistics.median(ts[1:])
+        bf[name] = dict(launches=counts, ms=ts, ms_median=med, cpu_first4_wave_rel_l2=wave)
+        log("beamformers", M=2, case=name, batch=BATCH, launches=counts, ms_median=f"{med:.3f}",
+            ms_all=[round(t, 2) for t in ts],
+            audio_seconds_per_second=f"{BATCH * N_SAMPLES / 16_000 / (med / 1e3):.1f}",
+            cpu_first4_wave_rel_l2=f"{wave:.3e}")
+    # where one call's device time goes: WPD (its batched solves) and RMVB
+    # (its 30 bisection steps), by kernel
+    for name, path in (("wpd", "profile_wpd.txt"), ("rmvb", "profile_rmvb.txt")):
+        kw = dict(feature_kind="physics", steer_deg=60.0, **cases[name])
+        rows, wall_ms, dev_ms = profile_call(f"profile_{name}",
+                                             lambda: learned_enhance(mix_s, model, cfg, **kw), path)
+        solve = [r for r in rows if SOLVE_KERNELS.search(r[0])]
+        solve_ms = sum(r[1] for r in solve)
+        bf[f"profile_{name}"] = dict(wall_ms=wall_ms, device_ms=dev_ms,
+                                     kernel_launches=sum(r[2] for r in rows),
+                                     solve_ms=solve_ms, solve_share=solve_ms / dev_ms,
+                                     solve_kernels=[(k[:80], t, n) for k, t, n in solve])
+        log(f"profile_{name}_solve", kernel_launches=sum(r[2] for r in rows),
+            device_ms=f"{dev_ms:.3f}", solve_ms=f"{solve_ms:.3f}",
+            solve_share=f"{solve_ms / dev_ms:.3f}",
+            solve_kernels=[(k[:40], round(t, 3), n) for k, t, n in solve[:4]])
+
+    # the same three at M = 4 (phase 18's 4-mic line) with the float fpu
+    cfg4 = PipelineConfig(mic_dist=0.04, n_mics=4)
+    fpu, _ = load_bundled("fpu", quant=False)
+    fpu_cpu, _ = load_bundled("fpu", quant=False, device="cpu")
+    mix4, tgt4, itf4 = (torch.from_numpy(a) for a in far_field_scene(
+        rng, BATCH, N_SAMPLES, n_mics=4, angles=(60.0, 20.0, 130.0)))
+    mix4_g = mix4.to(dev)
+    for name in ("rmvb", "rtf", "wpd"):
+        kw = dict(beamformer=name, steer_deg=60.0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = learned_enhance(mix4_g, fpu, cfg4, **kw)
+        torch.cuda.synchronize()
+        counts = launched()
+        check(counts == {"convt1x2": 3}, f"M = 4 {name}: launches {counts} (the float fpu)")
+        check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
+              f"M = 4 {name}: bad output")
+        out_cpu = learned_enhance(mix4[:4], fpu_cpu, cfg4, **kw)
+        wave = rel(out[:4], out_cpu)
+        # the card within 1e-2 of the CPU plus 4x the float32 floor of the
+        # beamformer on these chunks (the card's roundings are a second draw
+        # of the CPU's), and the SIR within 0.1 dB: RTF's steering is
+        # ill-determined in bins whose confidence sits near its 0.7 gate,
+        # where one float32 rounding moves the output by percents
+        floor = stage_floor(mix4[:4], fpu_cpu, cfg4, name)
+        d_sir = float((osinr_osir(out[:4].cpu(), tgt4[:4], itf4[:4])[1]
+                       - osinr_osir(out_cpu, tgt4[:4], itf4[:4])[1]).mean())
+        check(wave <= 1e-2 + 4.0 * floor and abs(d_sir) <= 0.1,
+              f"M = 4 {name}: first 4 chunks vs CPU {wave:.3e} (float32 floor {floor:.3e}), "
+              f"SIR {d_sir:+.4f} dB")
+        ts = call_ms(lambda: learned_enhance(mix4_g, fpu, cfg4, **kw), n=4)
+        med = statistics.median(ts[1:])
+        bf[f"m4_{name}"] = dict(launches=counts, ms=ts, ms_median=med, cpu_first4_wave_rel_l2=wave,
+                                cpu_float32_floor=floor, cpu_first4_dsir_db=d_sir)
+        log("beamformers", M=4, case=name, net="fpu", batch=BATCH, launches=counts,
+            ms_median=f"{med:.3f}", ms_all=[round(t, 2) for t in ts],
+            cpu_first4_wave_rel_l2=f"{wave:.3e}", cpu_complex64_vs_128=f"{floor:.3e}",
+            cpu_first4_dsir_db=f"{d_sir:+.4f}")
+    del mix4, mix4_g, tgt4, itf4, out
+
+    # the tracked path with RMVB on phase 14's clip: one batched call, a
+    # steering vector per chunk
+    seconds = clip.shape[-1] // 16_000
+    clip_g = torch.from_numpy(clip).to(dev)
+    kw = dict(model=model, feature_kind="physics", beamformer="rmvb", tracker="viterbi",
+              fov_center_deg=90.0, fov_width_deg=90.0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out, theta = tracked_autosteer_enhance(clip_g, cfg, **kw)
+    torch.cuda.synchronize()
+    counts = launched()
+    check(counts == {"qconv3x3": 21, "convt1x2": 3}, f"tracked rmvb: launches {counts}")
+    check(out.shape == (seconds * 16_000,) and bool(torch.isfinite(out).all()),
+          "tracked rmvb: bad output")
+    check(torch.equal(theta.cpu(), theta_cpu), "tracked rmvb: bearings differ from the CPU's")
+    pre = clip[:, :6 * 16_000]
+    p_g, th_g = tracked_autosteer_enhance(torch.from_numpy(pre).to(dev), cfg, **kw)
+    p_c, th_c = tracked_autosteer_enhance(pre, cfg, device="cpu", **{**kw, "model": model_cpu})
+    check(torch.equal(th_g.cpu(), th_c), "tracked rmvb: prefix bearings")
+    wave = rel(p_g, p_c)
+    check(wave <= 1e-2, f"tracked rmvb: 6 s prefix vs CPU {wave:.3e}")
+    ts = call_ms(lambda: tracked_autosteer_enhance(clip_g, cfg, **kw), n=4)
+    med = statistics.median(ts[1:])
+    bf["tracked_rmvb"] = dict(launches=counts, ms=ts, ms_median=med, seconds=seconds,
+                              ms_per_recorded_second=med / seconds, prefix_wave_rel_l2=wave)
+    log("beamformers_tracked", beamformer="rmvb", seconds=seconds, chunks=int(theta.shape[0]),
+        launches=counts, ms_median=f"{med:.3f}", ms_per_recorded_second=f"{med / seconds:.4f}",
+        prefix_wave_rel_l2=f"{wave:.3e}", bearings_first_last=[float(theta[0]), float(theta[-1])])
+    del clip_g, out
+
+    # WPE on 10 s of two channels: a dry far-field mixture through a decaying
+    # noise tail per channel (~0.3 s to -60 dB)
+    n = 10 * 16_000
+    dry = far_field_scene(rng, 1, n)[0][0].astype(np.float64)
+    t = np.arange(4_800) / 16_000
+    tails = rng.standard_normal((2, t.size)) * np.exp(-t / 0.043)
+    tails[:, 0] = 1.0
+    wet = np.stack([np.convolve(dry[c], tails[c])[:n] for c in range(2)])
+    wet = (0.1 * wet / np.sqrt(np.mean(wet**2))).astype(np.float32)
+    wcfg = PipelineConfig()
+    got = wpe_dereverb(wet, wcfg)
+    torch.cuda.synchronize()
+    check(got.device.type == dev.type and got.shape == (2, n) and bool(torch.isfinite(got).all()),
+          "wpe_dereverb: bad output")
+    wave = rel(got, wpe_dereverb(wet, wcfg, device="cpu"))
+    check(wave <= 1e-3, f"wpe_dereverb: vs CPU {wave:.3e}")
+    wet_g = torch.from_numpy(wet).to(dev)
+    ts = call_ms(lambda: wpe_dereverb(wet_g, wcfg), n=4)
+    med = statistics.median(ts[1:])
+    bf["wpe_dereverb"] = dict(seconds=10, ms=ts, ms_median=med, wave_rel_l2=wave,
+                              removed_rel_l2=rel(got, wet))
+    log("beamformers_wpe", seconds=10, ms_median=f"{med:.3f}", wave_rel_l2_vs_cpu=f"{wave:.3e}",
+        change_vs_input=f"{rel(got, wet):.3e}")
+
+    # DUET masks on phase 7's scenes
+    Y = stft(mix_s)
+    angles = (60.0, 40.0, 130.0)
+    m_g = duet_masks(Y, angles, 0.04, 16_000)
+    m_c = duet_masks(Y.cpu(), angles, 0.04, 16_000)
+    err = float((m_g.cpu() - m_c).abs().max())
+    check(m_g.shape == (BATCH, 3, 513, Y.shape[-1]) and err <= 1e-5,
+          f"duet_masks: shape {tuple(m_g.shape)}, vs CPU {err:.3e}")
+    ts = call_ms(lambda: duet_masks(Y, angles, 0.04, 16_000), n=6)
+    med = statistics.median(ts[1:])
+    bf["duet_masks"] = dict(shape=list(Y.shape), ms=ts, ms_median=med, max_abs_err=err)
+    log("beamformers_duet", shape=tuple(Y.shape), sources=3, ms_median=f"{med:.3f}",
+        max_abs_err_vs_cpu=f"{err:.3e}")
+    return bf
 
 
 _T0 = time.perf_counter()
@@ -1002,7 +1240,9 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_call(phase: str, fn, path: str) -> None:
+    def profile_call(phase: str, fn, path: str):
+        """Profile one call of fn into chiprun_out/path; returns (rows of
+        (kernel, device ms, launches), wall ms, device-busy ms)."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1018,6 +1258,7 @@ def main() -> int:
         log(phase, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{dev_ms:.3f}",
             idle_share=f"{max(0.0, 1 - dev_ms / wall_ms):.3f}",
             top=[(k[:48], round(t, 3), n) for k, t, n in rows[:8]])
+        return rows, wall_ms, dev_ms
 
     profile_call("profile", lambda: learned_enhance(mix, model, cfg, **main_kw),
                  "profile.txt")
@@ -1936,6 +2177,10 @@ def main() -> int:
     # 18. arrays of more than two mics ------------------------------------------------
     mmic = phase_mmic(dev, rng, results, time_ms, device_ms, bound)
 
+    # 19. the other beamformers and dereverberation -------------------------------------
+    beamformers = phase_beamformers(dev, rng, mix_s, clip, theta_cpu_of["viterbi"], model,
+                                    model_cpu, profile_call)
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
@@ -1954,7 +2199,8 @@ def main() -> int:
          "main_ms": times, "main_hard_null_ms": hn_times, "stream_ms": st_times,
          "server": server_stats, "facade": facade, "tracked": tracked,
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
-         "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic, "card": smi},
+         "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic,
+         "beamformers": beamformers, "card": smi},
         indent=1))
     print(json.dumps(line))
     print(smi)

@@ -686,3 +686,101 @@ def test_low_latency_path_at_four_mics_on_the_card(cuda):
     st = np.concatenate([oe.push(x[:, i:i + 2048]) for i in range(0, x.shape[1], 2048)])
     assert _active(kernels.launches) == {"online_mvdr_mmic": x.shape[1] // cfg.hop}
     assert float(np.abs(st - out.cpu().numpy()[:st.shape[0]]).max()) <= 1e-5
+
+
+def _cut_matrices_cpu():
+    """Real 2x2 matrices with +0 and -0 imaginary parts, many on the complex
+    square root's branch cut (tests/test_torch_beamformers.py)."""
+    import itertools
+
+    vals = np.array([-2.0, -1.0, 1.0, 3.0], np.float32)
+    re = np.array(list(itertools.product(vals, repeat=4)), np.float32)
+    sg = np.array(list(itertools.product([0.0, -0.0], repeat=4)), np.float32)
+    A = np.empty((len(re) * len(sg), 4), np.complex64)
+    A.real, A.imag = np.repeat(re, len(sg), axis=0), np.tile(sg, (len(re), 1))
+    return torch.from_numpy(A.reshape(-1, 2, 2))
+
+
+def test_eig_principal_on_the_branch_cut_on_the_card(cuda):
+    """The card picks the same root as the CPU on the branch cut, whatever
+    sign its complex products give the operand's imaginary zero."""
+    from azoom_torch.beam.gev import eig_principal_2x2
+
+    A = _cut_matrices_cpu()
+    got, ref = eig_principal_2x2(A.to(cuda)).cpu(), eig_principal_2x2(A)
+    bad = (got - ref).abs().amax(-1) > 1e-6
+    assert not bool(bad.any()), f"{int(bad.sum())} matrices differ, e.g. {A[bad][:2]}"
+
+
+@pytest.mark.parametrize("beamformer,kw", [("rmvb", {}), ("rtf", {}), ("wpd", {}),
+                                           ("wpd", dict(fov_deg=30.0, harmonic_regen=True))])
+def test_new_beamformers_on_the_card(cuda, beamformer, kw):
+    """rmvb, rtf and wpd on the learned path: the int8 net's 21 convs and 3
+    upsamplings, no B1 or B3 launch (the beamformers run in torch on the
+    card), and the CPU's output."""
+    from azoom_torch import learned_enhance, load_bundled
+
+    rng = np.random.default_rng(5)
+    mix = torch.from_numpy((0.1 * rng.standard_normal((2, 2, 32000))).astype(np.float32))
+    cfg = PipelineConfig(mic_dist=0.04)
+    kw = dict(beamformer=beamformer, feature_kind="physics", steer_deg=60.0, **kw)
+    model, model_cpu = load_bundled("tpufpu_nano")[0], load_bundled("tpufpu_nano", device="cpu")[0]
+    kernels.reset_launches()
+    out = learned_enhance(mix.to(cuda), model, cfg, **kw)
+    torch.cuda.synchronize()
+    assert _active(kernels.launches) == {"qconv3x3": 21, "convt1x2": 3}
+    ref = learned_enhance(mix, model_cpu, cfg, **kw)
+    assert float((out.cpu() - ref).norm() / ref.norm()) <= 1e-2
+
+
+def test_beamformer_solves_do_not_wait_for_the_host(cuda):
+    """The WPD and WPE batched solves, RMVB's bisection and RTF's gate run
+    without a host synchronisation (torch's sync debug mode raises on one),
+    and a singular WPE bin gives NaN on the card as on the CPU, not an error."""
+    from azoom_torch.beam.rmvb import rmvb_beamform
+    from azoom_torch.beam.rtf import rtf_mvdr_beamform
+    from azoom_torch.beam.wpd import wpd_beamform
+    from azoom_torch.wpe import wpe
+
+    rng = np.random.default_rng(6)
+    Y = _t((rng.standard_normal((4, 2, 513, 64)) + 1j * rng.standard_normal((4, 2, 513, 64)))
+           .astype(np.complex64), cuda)
+    m = _t(rng.random((4, 513, 64), dtype=np.float32), cuda)
+    f = rfft_freqs(1024, 16_000, device=cuda)
+    d = steering_vector(f, 70.0, 0.04)
+    Yw = Y[0].transpose(0, 1).contiguous()  # (F, C, T)
+    Yw[100] = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [wpd_beamform(Y, m, d, f, iterations=2), rmvb_beamform(Y, 1 - m, d, f),
+                rtf_mvdr_beamform(Y, 1 - m, f, target_mask=m, d_fallback=d), wpe(Yw)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    refs = [wpd_beamform(Y.cpu(), m.cpu(), d.cpu(), f.cpu(), iterations=2),
+            rmvb_beamform(Y.cpu(), 1 - m.cpu(), d.cpu(), f.cpu()),
+            rtf_mvdr_beamform(Y.cpu(), 1 - m.cpu(), f.cpu(), target_mask=m.cpu(), d_fallback=d.cpu()),
+            wpe(Yw.cpu())]
+    # random covariances are ill-conditioned: the card's float32 roundings
+    # move the output by up to ~1e-3 of the CPU's (measured 1.0e-3)
+    for name, got, ref in zip(("wpd", "rmvb", "rtf", "wpe"), outs, refs):
+        got = got.cpu()
+        assert torch.equal(torch.isfinite(got), torch.isfinite(ref)), name
+        fin = torch.isfinite(ref)
+        err = float((got[fin] - ref[fin]).norm() / ref[fin].norm())
+        assert err <= 1e-2, f"{name}: {err:.3e}"
+    assert not bool(torch.isfinite(outs[-1][100].cpu()).any())
+
+
+def test_wpe_dereverb_on_the_card(cuda):
+    from azoom_torch.wpe import wpe_dereverb
+
+    rng = np.random.default_rng(9)
+    n = 48_000
+    dry = rng.standard_normal((2, n)) * np.exp(-np.arange(n) / 8000.0)
+    tail = rng.standard_normal(4000) * np.exp(-np.arange(4000) / 800.0)
+    x = np.stack([np.convolve(c, tail)[:n] for c in dry]).astype(np.float32)
+    got = wpe_dereverb(x, PipelineConfig())
+    assert got.device.type == "cuda" and got.shape == (2, n)
+    ref = wpe_dereverb(x, PipelineConfig(), device="cpu")
+    assert float((got.cpu() - ref).norm() / ref.norm()) <= 1e-3

@@ -213,16 +213,17 @@ def test_load_bundled_scope():
 
 
 UNPORTED = {  # name: learned_enhance keywords
-    "rmvb": {"beamformer": "rmvb"},
-    "rtf": {"beamformer": "rtf"},
-    "wpd": {"beamformer": "wpd"},
+    "nope": {"beamformer": "nope"},
 }
 
 
 @pytest.mark.parametrize("option", list(UNPORTED))
 def test_unported_options_raise(models, option):
+    """Every beamformer of the reference is served (rmvb, rtf and wpd:
+    tests/test_torch_learned_beamformers*.py); a name it does not know
+    raises ValueError, as the reference's."""
     _, _, tm = models
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(ValueError, match="unknown beamformer 'nope'"):
         learned_enhance(torch.zeros(2, 8000), tm, PipelineConfig(mic_dist=0.04), **UNPORTED[option])
 
 

@@ -15,9 +15,11 @@ M-mic LCMV above, zoom, the HRNR postfilter, gev, rmvb, rtf, wpd), wpe
 (dereverb), masks (physics features, bin_doa and duet_masks, geometric
 incl. the FOV gate and the IPD-deviation mask, oracle, postfilter), localize (srp: SRP, GCC-PHAT, the IPD angle histogram; tracking:
 the Viterbi, causal, momentum, two-source and EMA trackers), models (quantize reader, unet TPUFPU, convert, pretrained
-``tpufpu_nano``), eval.projection, stream (chunker, ``AudioZoomServer``:
-S live streams with mask reuse, an int16 wire and per-stream steer, zoom
-and tracking), kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
+``tpufpu_nano``), eval (projection, stoi, bss, pesq_native and pesq_bridge,
+reports), io (wav), dsp.resample and dsp.params, utils (host, profiling,
+flops), stream (chunker, native: the C++ stream engine under
+``AudioZoom.push``, ``AudioZoomServer``: S live streams with mask reuse, an
+int16 wire and per-stream steer, zoom and tracking), kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
 int8 matmul, the online MVDR at 2 and at 3 to 8 mics), pipelines
 (``learned_enhance`` with the MVDR, hard-null, RMVB, RTF or WPD
 beamformer, the FOV gate and the HRNR post-filter,

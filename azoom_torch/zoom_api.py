@@ -42,13 +42,11 @@ from azoom_torch.pipelines.learned import learned_enhance
 from azoom_torch.pipelines.online_learned import online_learned_enhance
 from azoom_torch.pipelines.tracked import steered_heuristic_enhance, tracked_autosteer_enhance
 from azoom_torch.stream.lowlat import OnlineEnhancer
+from azoom_torch.stream.native import NativeStream
 from azoom_torch.stream.server import AudioZoomServer, _MomentumBank
+from azoom_torch.utils.host import to_numpy
 
 __all__ = ["AudioZoom"]
-
-
-def _to_numpy(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @dataclasses.dataclass
@@ -84,9 +82,14 @@ class AudioZoom:
         once per second of received audio and retargets the stream, whose
         output latency stays one hop; enhance() runs the causal pipeline on
         the whole clip.
-      native: accepted; push() buffers in NumPy either way (the reference's
-        own path without its C++ engine, with the same output) until
-        azoom/stream/native.py is ported.
+      native: push() at high latency buffers and overlap-adds in the C++
+        stream engine (stream.native, built with g++ into
+        azoom_torch/_build/ on first use); False buffers in NumPy. Both give
+        the same output (within 1e-6: the engine's Hann window is computed
+        in double). Unlike the reference, which falls back to NumPy when the
+        engine cannot be built, construction raises then. ``pipelined``
+        always buffers in NumPy: the engine's in-order peek/commit cannot
+        defer a window.
       pipelined: push() starts window N on the device and returns window
         N-1's finished result, so the device's compute overlaps the time
         between pushes; one extra hop of output latency, and a failure
@@ -276,8 +279,8 @@ class AudioZoom:
                 fov_width_deg=float(self.fov_deg),
                 tracker="momentum" if self.tracker == "momentum" else "viterbi",
                 dsp_precision=self.dsp_precision, **kw)
-            return _to_numpy(out)
-        return _to_numpy(self._enhance_window(x))
+            return to_numpy(out)
+        return to_numpy(self._enhance_window(x))
 
     # -- live streaming -----------------------------------------------------
 
@@ -307,6 +310,8 @@ class AudioZoom:
             return
         self._win = self.cfg.win_size
         self._hop = self._win // 2
+        self._native = (NativeStream(self.cfg.n_mics, self._win)
+                        if self.native and not self.pipelined else None)
         self._inbuf = np.zeros((self.cfg.n_mics, 0), np.float32)
         self._pipe_pending = None  # the last window's result, on its way to the host
         self._tail = np.zeros(self._hop, np.float32)
@@ -331,6 +336,10 @@ class AudioZoom:
             self._online.reset()
             self._track_buf = np.zeros((self.cfg.n_mics, 0), np.float32)
             return
+        if self._native is not None:
+            self._native.reset()
+            self._out_pending = []
+            return
         self._reset_stream()
 
     @staticmethod
@@ -350,7 +359,7 @@ class AudioZoom:
         host, done = pending
         if done is not None:
             done.synchronize()
-        return _to_numpy(host)
+        return to_numpy(host)
 
     def push(self, samples) -> np.ndarray:
         """Feed (M, k) new samples; returns the enhanced audio that is ready
@@ -375,6 +384,18 @@ class AudioZoom:
                 self._track_buf = buf
             return self._online.push(samples)
         out = self._out_pending
+        if self._native is not None:
+            # Peek, enhance, commit: a window whose enhancement raises stays
+            # in the engine and is presented again by the next push. The
+            # engine reuses its window buffer, so the enhancer gets a copy.
+            self._native.push(samples)
+            for window in self._native.windows():
+                enhanced = to_numpy(self._enhance_window(self._as_input(window.copy())))
+                done = self._native.commit(enhanced)
+                if done.size:
+                    out.append(done)
+            self._out_pending = []
+            return np.concatenate(out) if out else np.zeros(0, np.float32)
         self._inbuf = np.concatenate([self._inbuf, samples], axis=1)
         while self._inbuf.shape[1] >= self._win:
             dev = self._enhance_window(self._as_input(self._inbuf[:, :self._win]))
@@ -386,7 +407,7 @@ class AudioZoom:
                 if pending is not None:
                     self._ola_finalize(self._finish_fetch(pending), out)
             else:
-                self._ola_finalize(_to_numpy(dev), out)
+                self._ola_finalize(to_numpy(dev), out)
                 self._inbuf = self._inbuf[:, self._hop:]
         self._out_pending = []
         return np.concatenate(out) if out else np.zeros(0, np.float32)

@@ -167,6 +167,24 @@ Phases, each printing its own line(s):
                it); wpe_dereverb of a numpy-seeded 10 s two-channel clip (a
                dry far-field mixture through a decaying tail) and duet_masks
                at (128, 2, 513, 64), each against the CPU.
+ 20. native_stream - AudioZoom(model="tpufpu_nano", int8=True) on the card
+               pushing a 12 s far-field scene in ragged blocks (1, 7, 160,
+               997, 16000 samples, repeated), once on the C++ stream engine
+               (native=True, the default: the engine must be in use) and once
+               on the NumPy buffer (native=False): the launches of the native
+               run (21 convs, 3 upsamplings, 1 MVDR a window), both outputs of
+               the same length and within 1e-6; host ms per push that runs no
+               window (the buffer alone) and per window for both buffers, the
+               buffers alone with the window step on the host; the device time
+               of one window (chiprun_out/profile_native_window.txt).
+ 21. eval    - the measurement layer on the card against the CPU: stoi on three
+               10 s clips at 0, 10 and 20 dB SNR (within 1e-5, rising with the
+               SNR; the batch of three equal to the clips one by one),
+               bss_eval_sources on 3 sources x 4 s at filter_len 512 (within
+               0.05 dB), resample_poly 16 -> 10 kHz and resample_fft (within
+               1e-5 of the peak); compute_run_metrics on phase 20's output
+               against the stems (STOI within 1e-5 of the CPU's, SIR
+               improvement positive), its report's lines; ms of each call.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
@@ -798,6 +816,175 @@ def phase_beamformers(dev, rng, mix_s, clip, theta_cpu, model, model_cpu, profil
     log("beamformers_duet", shape=tuple(Y.shape), sources=3, ms_median=f"{med:.3f}",
         max_abs_err_vs_cpu=f"{err:.3e}")
     return bf
+
+
+def phase_native_eval(dev, rng, profile_call) -> dict:
+    """Phases 20 and 21: the facade's push on the C++ stream engine and the
+    measurement layer (module docstring). Returns their numbers for
+    chip_smoke.json."""
+    import numpy as np
+    import torch
+
+    from azoom_torch import AudioZoom, kernels
+    from azoom_torch.dsp.resample import resample_fft, resample_poly
+    from azoom_torch.eval import bss_eval_sources, stoi
+    from azoom_torch.eval.reports import compute_run_metrics, format_report
+    from azoom_torch.stream.native import NativeStream, library_path
+
+    def call_ms(fn, n: int = 5) -> list:
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return ts
+
+    def pushed(z, x, blocks) -> tuple:
+        """Push x in the repeating block pattern; (output, host ms of each
+        push, windows each push ran)."""
+        def ready(t):  # windows in the first t samples
+            return 0 if t < z.cfg.win_size else (t - z.cfg.win_size) // (z.cfg.win_size // 2) + 1
+
+        outs, ms, wins, pos, i = [], [], [], 0, 0
+        while pos < x.shape[1]:
+            k = min(blocks[i % len(blocks)], x.shape[1] - pos)
+            i += 1
+            t0 = time.perf_counter()
+            outs.append(z.push(x[:, pos:pos + k]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            wins.append(ready(pos + k) - ready(pos))
+            pos += k
+        return np.concatenate(outs), ms, wins
+
+    def push_stats(ms, wins) -> dict:
+        idle = [t for t, w in zip(ms, wins) if w == 0]
+        busy = [t / w for t, w in zip(ms, wins) if w > 0]
+        return dict(pushes=len(ms), windows=sum(wins), total_ms=sum(ms),
+                    buffer_push_ms_median=statistics.median(idle),
+                    ms_per_window_median=statistics.median(busy))
+
+    # 20. the facade's push on the C++ engine -----------------------------------
+    n = 12 * 16_000
+    mix, tgt, itf = far_field_scene(rng, 1, n, angles=(75.0, 25.0, 140.0))
+    mix, tgt, itf = mix[0], tgt[0], itf[0]
+    blocks = (1, 7, 160, 997, 16_000)
+    kw = dict(model="tpufpu_nano", int8=True, direction_deg=75.0, fov_deg=60.0, zoom=0.4)
+    z_nat, z_np = AudioZoom(native=True, **kw), AudioZoom(native=False, **kw)
+    check(isinstance(z_nat._native, NativeStream) and z_np._native is None,
+          "AudioZoom(native=True) must buffer in the C++ engine")
+    check(library_path().exists(), f"stream engine library {library_path()} missing")
+    for z in (z_nat, z_np):  # warm-up: the card's first windows
+        pushed(z, mix[:, :3 * 16_000], blocks)
+        z.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out_nat, ms_nat, win_nat = pushed(z_nat, mix, blocks)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    windows = (n - 32_000) // 16_000 + 1
+    check(counts == {"qconv3x3": 21 * windows, "convt1x2": 3 * windows,
+                     "masked_mvdr": windows},
+          f"native push launches {counts} for {windows} windows")
+    out_np, ms_np, win_np = pushed(z_np, mix, blocks)
+    diff = float(np.abs(out_nat - out_np).max())
+    check(out_nat.shape == out_np.shape == ((windows - 1) * 16_000,)
+          and bool(np.isfinite(out_nat).all()),
+          f"native push: shapes {out_nat.shape} and {out_np.shape}")
+    check(diff <= 1e-6, f"native push vs the NumPy buffer: {diff:.3e}")
+    check(sum(win_nat) == sum(win_np) == windows, f"windows {sum(win_nat)}, {sum(win_np)}")
+    # the buffers alone, the window step on the host (channel 0)
+    b_ms = {}
+    for nat in (True, False):
+        zb = AudioZoom(enhance_fn=lambda w: w[0], native=nat, device="cpu")
+        b_ms[nat] = pushed(zb, mix, blocks)[1]
+    window = torch.from_numpy(mix[:, :32_000]).to(dev)
+    _, win_wall, win_dev = profile_call("native_window", lambda: z_nat._enhance_window(window),
+                                        "profile_native_window.txt")
+    stats_nat, stats_np = push_stats(ms_nat, win_nat), push_stats(ms_np, win_np)
+    native_stream = dict(seconds=12, blocks=blocks, launches=counts, vs_numpy_max_abs=diff,
+                         native=stats_nat, numpy=stats_np,
+                         buffer_only_total_ms={"native": sum(b_ms[True]),
+                                               "numpy": sum(b_ms[False])},
+                         buffer_only_push_ms_median={"native": statistics.median(b_ms[True]),
+                                                     "numpy": statistics.median(b_ms[False])},
+                         window_wall_ms=win_wall, window_device_ms=win_dev,
+                         library=library_path().name)
+    log("native_stream", seconds=12, pushes=stats_nat["pushes"], windows=windows,
+        launches=counts, vs_numpy_max_abs=f"{diff:.3e}",
+        native_buffer_push_ms=f"{stats_nat['buffer_push_ms_median']:.4f}",
+        numpy_buffer_push_ms=f"{stats_np['buffer_push_ms_median']:.4f}",
+        native_ms_per_window=f"{stats_nat['ms_per_window_median']:.3f}",
+        numpy_ms_per_window=f"{stats_np['ms_per_window_median']:.3f}",
+        buffer_only_total_ms=f"{sum(b_ms[True]):.2f}/{sum(b_ms[False]):.2f}",
+        window_device_ms=f"{win_dev:.3f}", window_wall_ms=f"{win_wall:.3f}")
+
+    # 21. the measurement layer -----------------------------------------------
+    ev = {}
+    src = far_field_scene(rng, 3, 10 * 16_000)[1]  # three speech-like 10 s clips
+    noise = rng.standard_normal(src.shape).astype(np.float32)
+    snrs = (0.0, 10.0, 20.0)
+    noisy = np.stack([s + noise[i] * np.float32(np.linalg.norm(s) / np.linalg.norm(noise[i])
+                                                  * 10 ** (-snr / 20))
+                      for i, (s, snr) in enumerate(zip(src, snrs))]).astype(np.float32)
+    clean_d, noisy_d = torch.from_numpy(src).to(dev), torch.from_numpy(noisy).to(dev)
+    scores, cpu_scores, st_ms = [], [], []
+    for i in range(3):
+        scores.append(float(stoi(clean_d[i], noisy_d[i])))
+        cpu_scores.append(float(stoi(src[i], noisy[i], device="cpu")))
+        st_ms.append(statistics.median(call_ms(lambda: stoi(clean_d[i], noisy_d[i]))))
+    batch = stoi(clean_d, noisy_d).cpu().numpy()
+    st_err = max(abs(a - b) for a, b in zip(scores, cpu_scores))
+    check(st_err <= 1e-5, f"stoi card vs CPU {st_err:.3e}")
+    check(float(np.abs(batch - np.array(scores)).max()) <= 1e-6, "batched stoi vs per clip")
+    check(0.0 < scores[0] < scores[1] < scores[2] < 1.0, f"stoi not rising with SNR: {scores}")
+    ev["stoi"] = dict(snr_db=snrs, scores=scores, cpu_max_abs=st_err, ms=st_ms,
+                      batch3_ms=statistics.median(call_ms(lambda: stoi(clean_d, noisy_d))))
+    log("eval_stoi", seconds=10, snr_db=snrs, scores=[round(s, 5) for s in scores],
+        cpu_max_abs=f"{st_err:.3e}", ms=[round(t, 3) for t in st_ms],
+        batch3_ms=f"{ev['stoi']['batch3_ms']:.3f}")
+
+    S = far_field_scene(rng, 3, 4 * 16_000)[1]
+    e = (S[0] + 0.3 * S[1] + 0.1 * S[0].std() * rng.standard_normal(4 * 16_000)).astype(np.float32)
+    S_d, e_d = torch.from_numpy(S).to(dev), torch.from_numpy(e).to(dev)
+    got = {k: float(v) for k, v in bss_eval_sources(S_d, e_d, filter_len=512).items()}
+    ref = {k: float(v) for k, v in bss_eval_sources(S, e, filter_len=512, device="cpu").items()}
+    bss_err = max(abs(got[k] - ref[k]) for k in got)
+    check(bss_err <= 0.05, f"bss_eval_sources card vs CPU {got} {ref}")
+    check(got["sdr"] <= min(got["sir"], got["sar"]) and got["sir"] > 5.0,
+          f"bss_eval_sources implausible: {got}")
+    ev["bss"] = dict(sources=3, seconds=4, filter_len=512, card=got, cpu=ref, max_abs_db=bss_err,
+                     ms=call_ms(lambda: bss_eval_sources(S_d, e_d, filter_len=512)))
+    log("eval_bss", **{k: f"{v:.4f}" for k, v in got.items()}, max_abs_db_vs_cpu=f"{bss_err:.2e}",
+        ms_median=f"{statistics.median(ev['bss']['ms']):.3f}")
+
+    x = noisy[:2]
+    x_d = noisy_d[:2]
+    rs = {}
+    for name, fn in (("resample_poly_16k_10k", lambda a, **k: resample_poly(a, 5, 8, **k)),
+                     ("resample_fft_16k_10k", lambda a, **k: resample_fft(a, 100_000, **k))):
+        g, r = fn(x_d), fn(x, device="cpu")
+        err = float((g.cpu() - r).abs().max() / r.abs().max())
+        check(g.shape == r.shape == (2, 100_000) and err <= 1e-5, f"{name} card vs CPU {err:.3e}")
+        rs[name] = dict(rel_max_err=err, ms=statistics.median(call_ms(lambda: fn(x_d))))
+    ev["resample"] = rs
+    log("eval_resample", **{k: f"err={v['rel_max_err']:.2e},ms={v['ms']:.3f}"
+                            for k, v in rs.items()})
+
+    seg = slice(16_000, 16_000 + out_nat.shape[0])  # output sample 0 is input sample hop
+    args = (out_nat, mix[0, seg], tgt[seg], itf[seg])
+    t0 = time.perf_counter()
+    m = compute_run_metrics(*args)
+    run_ms = (time.perf_counter() - t0) * 1e3
+    m_cpu = compute_run_metrics(*args, device="cpu")
+    check(abs(m["stoi"] - m_cpu["stoi"]) <= 1e-5 and abs(m["imp"] - m_cpu["imp"]) <= 1e-3,
+          f"run metrics card vs CPU: {m} {m_cpu}")
+    check(m["imp"] > 0.0, f"the native push output does not improve the SIR: {m}")
+    ev["run_metrics"] = dict(card=m, cpu=m_cpu, ms=run_ms)
+    report = format_report("native_stream", m).splitlines()
+    log("eval_report", ms=f"{run_ms:.1f}", report=" | ".join(l.strip() for l in report[3:] if ":" in l))
+    return dict(native_stream=native_stream, eval=ev)
 
 
 _T0 = time.perf_counter()
@@ -2181,6 +2368,9 @@ def main() -> int:
     beamformers = phase_beamformers(dev, rng, mix_s, clip, theta_cpu_of["viterbi"], model,
                                     model_cpu, profile_call)
 
+    # 20.-21. the native stream engine and the measurement layer ---------------------
+    native_eval = phase_native_eval(dev, rng, profile_call)
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
@@ -2200,7 +2390,7 @@ def main() -> int:
          "server": server_stats, "facade": facade, "tracked": tracked,
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
          "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic,
-         "beamformers": beamformers, "card": smi},
+         "beamformers": beamformers, **native_eval, "card": smi},
         indent=1))
     print(json.dumps(line))
     print(smi)

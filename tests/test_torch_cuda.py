@@ -784,3 +784,51 @@ def test_wpe_dereverb_on_the_card(cuda):
     assert got.device.type == "cuda" and got.shape == (2, n)
     ref = wpe_dereverb(x, PipelineConfig(), device="cpu")
     assert float((got.cpu() - ref).norm() / ref.norm()) <= 1e-3
+
+
+def test_native_engine_under_the_cards_facade(cuda):
+    """AudioZoom's default push (the C++ engine) on the card against its
+    NumPy buffer (native=False): the same windows go to the card, only the
+    overlap-add differs (within 1e-6)."""
+    from azoom_torch import AudioZoom
+    from azoom_torch.stream.native import NativeStream
+
+    rng = np.random.default_rng(13)
+    clip = (0.1 * rng.standard_normal((2, 5 * 16_000))).astype(np.float32)
+    kw = dict(model="tpufpu_nano", int8=True, direction_deg=75.0)
+    z_nat, z_np = AudioZoom(**kw), AudioZoom(native=False, **kw)
+    assert isinstance(z_nat._native, NativeStream) and z_np._native is None
+    outs = []
+    for z in (z_nat, z_np):
+        outs.append(np.concatenate([z.push(clip[:, s:s + 997])
+                                    for s in range(0, clip.shape[1], 997)]))
+    assert outs[0].shape == outs[1].shape == (3 * 16_000,)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=1e-6)
+
+
+def test_measurement_layer_on_the_card_matches_the_cpu(cuda):
+    """stoi, bss_eval_sources and the resamplers on the card against the CPU:
+    STOI within 1e-5, SDR and SIR within 0.05 dB, resampling within 1e-5 of
+    the signal's peak."""
+    from azoom_torch.dsp.resample import resample_fft, resample_poly
+    from azoom_torch.eval import bss_eval_sources, stoi
+
+    rng = np.random.default_rng(5)
+    clean = rng.standard_normal((3, 48_000)).astype(np.float32)
+    clean *= np.sin(np.linspace(0, 20, 48_000)).astype(np.float32) ** 2  # pauses
+    noisy = clean + np.float32(0.5) * rng.standard_normal((3, 48_000)).astype(np.float32)
+    got = stoi(clean, noisy)
+    assert got.device.type == "cuda" and got.shape == (3,)
+    assert float((got.cpu() - stoi(clean, noisy, device="cpu")).abs().max()) <= 1e-5
+    x = rng.standard_normal((2, 137_815)).astype(np.float32)
+    for fn, args in ((resample_poly, (20, 17)), (resample_poly, (5, 8)),
+                     (resample_fft, (90_000,))):
+        g, r = fn(x, *args), fn(x, *args, device="cpu")
+        assert g.device.type == "cuda" and g.shape == r.shape
+        assert float((g.cpu() - r).abs().max() / r.abs().max()) <= 1e-5
+    S = rng.standard_normal((3, 16_000)).astype(np.float32)
+    e = (S[0] + 0.3 * S[1] + 0.1 * rng.standard_normal(16_000)).astype(np.float32)
+    g, r = bss_eval_sources(S, e, filter_len=128), bss_eval_sources(S, e, filter_len=128,
+                                                                    device="cpu")
+    for k in ("sdr", "sir", "sar"):
+        assert g[k].device.type == "cuda" and abs(float(g[k]) - float(r[k])) <= 0.05, k

@@ -228,7 +228,10 @@ def test_audiozoom_push_matches_jax(scene, case):
 def test_pipelined_push_is_the_plain_push_one_window_late(scene):
     mix = scene["mixture"][:, :24000]
     kw = dict(cfg=PipelineConfig(mic_dist=0.04, win_size=16000), device="cpu")
-    plain, piped = AudioZoom(**kw), AudioZoom(pipelined=True, **kw)
+    # pipelined pushes buffer in NumPy; the plain push does too with
+    # native=False (the C++ engine's overlap-add is within 1e-6 of NumPy's,
+    # not bit-equal: tests/test_torch_native.py)
+    plain, piped = AudioZoom(native=False, **kw), AudioZoom(pipelined=True, **kw)
     a = [plain.push(mix[:, :20000]), plain.push(mix[:, 20000:])]
     b = [piped.push(mix[:, :20000]), piped.push(mix[:, 20000:])]
     assert a[1].size == 8000 and b[0].size == 0 and b[1].size == 0

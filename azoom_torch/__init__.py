@@ -8,7 +8,8 @@ find. Every TPU kernel of the ported path has a hand-written CUDA kernel in
 plain PyTorch version: a CUDA tensor launches the kernel, a CPU tensor takes
 the plain version.
 
-Ported so far: config (with the GEN1 preset), dsp (windows, stft, delays),
+Ported so far: config (with the GEN1 preset and RoomConfig), dsp (windows,
+stft, delays with fractional_delay),
 beam (covariance, linalg2x2, linalgmm, mvdr with per-stream steering and
 loading at any M, nullsteer with per-chunk steering at M = 2 and the
 M-mic LCMV above, zoom, the HRNR postfilter, gev, rmvb, rtf, wpd), wpe
@@ -26,10 +27,13 @@ beamformer, the FOV gate and the HRNR post-filter,
 ``learned_enhance_streaming``, ``autosteer_enhance``,
 ``tracked_autosteer_enhance``, ``oracle_enhance``, ``heuristic_enhance``)
 and the ``AudioZoom`` facade at high and low latency, for any number of
-mics (the 2-mic kernels serve M = 2, as the reference's Pallas kernels do).
+mics (the 2-mic kernels serve M = 2, as the reference's Pallas kernels do),
+and sim (synthetic signals, far-field, moving-source and shoebox-room scenes,
+the C++ RIR and corpus engines, local corpora; a ``torch.Generator`` where
+the reference takes a JAX key).
 """
 
-from azoom_torch.config import DEFAULT, GEN1, PipelineConfig
+from azoom_torch.config import DEFAULT, GEN1, PipelineConfig, RoomConfig
 from azoom_torch.models.pretrained import load_bundled
 from azoom_torch.pipelines.learned import (
     learned_enhance,
@@ -42,7 +46,7 @@ from azoom_torch.stream.server import AudioZoomServer
 from azoom_torch.zoom_api import AudioZoom
 
 __all__ = [
-    "DEFAULT", "GEN1", "PipelineConfig", "load_bundled", "learned_enhance",
+    "DEFAULT", "GEN1", "PipelineConfig", "RoomConfig", "load_bundled", "learned_enhance",
     "learned_enhance_streaming", "predict_mask", "oracle_enhance", "heuristic_enhance",
     "autosteer_enhance", "AudioZoomServer", "AudioZoom",
 ]

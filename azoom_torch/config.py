@@ -4,7 +4,8 @@
 package's config, so one configuration describes the same pipeline in both
 packages. The only difference is :meth:`PipelineConfig.geometry`, which
 returns a float32 ``torch.Tensor`` (on the CPU; callers move it with
-``.to(device)``) instead of a JAX array. :func:`resolve_device` is the
+``.to(device)``) instead of a JAX array. ``RoomConfig`` is the reference's
+room-simulation configuration, field for field. :func:`resolve_device` is the
 entry points' rule for their ``device`` argument.
 """
 
@@ -97,6 +98,62 @@ DEFAULT = PipelineConfig()
 
 # The Gen-1 legacy configuration: a 512-point STFT at hop 256 on a 1 cm pair.
 GEN1 = PipelineConfig(n_fft=512, hop=256, mic_dist=0.01)
+
+
+@dataclasses.dataclass(frozen=True)
+class RoomConfig:
+    """Room-acoustics simulation defaults (counterpart of azoom.config.RoomConfig):
+    a 4.9 m cube at RT60 0.5 s, an 8 cm mic pair at 1.5 m, the target 1 m in
+    front of it, the fixed interferer at ~40 deg, image order 15. Frozen and
+    hashable, as the reference's."""
+
+    room_dim: tuple[float, float, float] = (4.9, 4.9, 4.9)
+    rt60_target: float = 0.5
+    sir_target_db: float = 0.0
+    mic_locs: tuple[tuple[float, float, float], ...] = (
+        (2.41, 2.45, 1.5),
+        (2.49, 2.45, 1.5),
+    )
+    target_pos: tuple[float, float, float] = (2.45, 3.45, 1.5)
+    interferer_pos_fixed: tuple[float, float, float] = (3.22, 3.06, 1.5)
+    max_order: int = 15
+
+    def _center(self) -> tuple[float, float, float]:
+        (x0, y, z), (x1, _, _) = self.mic_locs[0], self.mic_locs[1]
+        return 0.5 * (x0 + x1), y, z
+
+    def with_mic_dist(self, mic_dist: float) -> "RoomConfig":
+        """Same room, the mic pair re-spaced to ``mic_dist`` around the same
+        center (to keep the room in step with ``PipelineConfig.mic_dist``)."""
+        cx, y, z = self._center()
+        locs = ((cx - mic_dist / 2, y, z), (cx + mic_dist / 2, y, z))
+        return dataclasses.replace(self, mic_locs=locs)
+
+    def with_linear_array(self, n_mics: int, mic_dist: float) -> "RoomConfig":
+        """Same room, an ``n_mics``-element uniform linear array spaced
+        ``mic_dist`` apart along x, centered where the original pair was."""
+        cx, y, z = self._center()
+        span = (n_mics - 1) * mic_dist
+        locs = tuple((cx - span / 2 + m * mic_dist, y, z) for m in range(n_mics))
+        return dataclasses.replace(self, mic_locs=locs)
+
+    def with_array_positions(self, positions) -> "RoomConfig":
+        """An explicit mic array in the room: ``positions`` is the
+        ``PipelineConfig.mic_positions`` tuple of per-mic (x,), (x, y) or
+        (x, y, z) offsets in meters, array-centered; the center stays where
+        the original pair's was, array-x along room-x, array-y along room-y."""
+        cx, y0, z0 = self._center()
+        locs = []
+        for p in positions:
+            p = tuple(p) if hasattr(p, "__len__") else (float(p),)
+            px = p[0]
+            py = p[1] if len(p) > 1 else 0.0
+            pz = p[2] if len(p) > 2 else 0.0
+            locs.append((cx + px, y0 + py, z0 + pz))
+        return dataclasses.replace(self, mic_locs=tuple(locs))
+
+
+ROOM_DEFAULT = RoomConfig()
 
 
 def resolve_device(device=None) -> torch.device:

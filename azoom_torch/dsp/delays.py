@@ -1,4 +1,4 @@
-"""Far-field array geometry: TDOA delays and steering vectors.
+"""Far-field array geometry: TDOA delays, steering vectors, fractional delay.
 
 Geometry convention (as azoom.dsp.delays): mic m of a uniform linear array
 sits at ``x_m = ((M-1)/2 - m) * d`` on the array axis; a far-field plane
@@ -14,9 +14,11 @@ import math
 
 import torch
 
+from azoom_torch.config import as_input
+
 __all__ = [
     "mic_positions", "positions_2d", "far_field_delays", "steering_vector", "steering_matrix",
-    "steer_rotate",
+    "steer_rotate", "fractional_delay",
 ]
 
 
@@ -108,3 +110,28 @@ def steer_rotate(Y: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     every device."""
     rot = torch.conj(d).transpose(-1, -2)[..., None].to(torch.complex128)
     return (Y.to(torch.complex128) * rot).to(torch.complex64)
+
+
+def fractional_delay(x, delay_sec, fs: float, device=None) -> torch.Tensor:
+    """Delay a real signal (..., n) by a (possibly fractional-sample) time
+    through an rFFT phase ramp, the anechoic mixing primitive; ``delay_sec``
+    is a scalar or broadcasts against ``x``'s leading dims. float32 in the
+    reference's order: the bin frequencies as float32 (``k / (n / fs)``), the
+    phase ``-2 pi f tau``, its cos and sin, the product with the spectrum,
+    the inverse FFT. NumPy input goes to CUDA unless ``device`` says
+    otherwise; a tensor stays where it is."""
+    x = as_input(x, device).to(torch.float32)
+    n = x.shape[-1]
+    X = torch.fft.rfft(x, dim=-1)
+    # A device tensor as the divisor: CUDA turns division by a host scalar
+    # into a product with its reciprocal, which rounds otherwise.
+    span = torch.tensor(1.0 / fs * n, dtype=torch.float32, device=x.device)
+    freqs = torch.arange(n // 2 + 1, dtype=torch.float32, device=x.device) / span
+    delay = torch.as_tensor(delay_sec, dtype=torch.float32, device=x.device)[..., None]
+    phase = -2.0 * math.pi * freqs * delay
+    Y = X * torch.complex(torch.cos(phase), torch.sin(phase))
+    if n % 2 == 0:
+        # The ramp turns the Nyquist bin; a real signal's is real: pocketfft's
+        # C2R drops its imaginary part, some cuFFT plans fold it in.
+        Y[..., -1] = Y[..., -1].real
+    return torch.fft.irfft(Y, n=n, dim=-1)

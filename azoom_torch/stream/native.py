@@ -8,11 +8,8 @@ per-block NumPy reallocation. The source is the reference's, unchanged.
 
 The port builds it itself, on first use, with the compiler and flags of
 ``cpp/Makefile`` (``$CXX``, else ``g++``; ``-O3 -march=native -fPIC -Wall
--Wextra -shared``), into ``azoom_torch/_build/libstream-<hash>.so``: the hash
-covers the source, the flags and what ``-march=native`` expands to on this
-host, so a checkout shared by two kinds of CPU keeps one library for each.
-The compiler writes a temporary file that is renamed into place, so processes
-building at once never load a half-written library.
+-Wextra -shared``), into ``azoom_torch/_build/libstream-<hash>.so``
+(``azoom_torch.utils.cxx`` says how).
 
 Unlike the reference, a failed build or load raises (with the compiler's
 output) instead of falling back: the caller asked for the engine. Callers
@@ -22,59 +19,28 @@ that want the NumPy buffer ask for it (``AudioZoom(native=False)``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import subprocess
-import tempfile
 import threading
-from pathlib import Path
 
 import numpy as np
 
+from azoom_torch.utils import cxx
+
 __all__ = ["native_available", "NativeStream", "library_path"]
 
-SOURCE = Path(__file__).resolve().parents[2] / "cpp" / "stream_engine.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-Wall", "-Wextra", "-shared")
+SOURCE = cxx.CPP_DIR / "stream_engine.cpp"
+BUILD_DIR = cxx.BUILD_DIR
+CXX_FLAGS = cxx.MAKEFILE_FLAGS + ("-shared",)
 
 _lock = threading.Lock()
 _lib = None
 _error: str | None = None
+_cxx = cxx.compiler
 
 
-def _cxx() -> str:
-    return os.environ.get("CXX", "g++")
-
-
-def _native_arch() -> bytes:
-    """What ``-march=native`` means on this host: the compiler's own command
-    line for an empty C++ input (the target CPU and its feature flags)."""
-    out = subprocess.run([_cxx(), "-march=native", "-x", "c++", "-E", "-v", "-"],
-                         input=b"", capture_output=True, timeout=60)
-    return b"\n".join(line for line in out.stderr.splitlines() if b"cc1" in line)
-
-
-def library_path() -> Path:
+def library_path():
     """The library this host builds and loads."""
-    h = hashlib.sha256(" ".join((_cxx(),) + CXX_FLAGS).encode() + b"\0" + _native_arch())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libstream-{h.hexdigest()[:16]}.so"
-
-
-def _build(target: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=target.stem + ".", suffix=".tmp", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_cxx(), *CXX_FLAGS, str(SOURCE), "-o", tmp],
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building the stream engine failed (rc {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    return cxx.library_path("stream", SOURCE, CXX_FLAGS, BUILD_DIR)
 
 
 def _load() -> ctypes.CDLL:
@@ -85,10 +51,7 @@ def _load() -> ctypes.CDLL:
         if _error is not None:
             raise RuntimeError(_error)
         try:
-            target = library_path()
-            if not target.exists():
-                _build(target)
-            lib = ctypes.CDLL(str(target))
+            lib = cxx.load("stream", SOURCE, CXX_FLAGS, BUILD_DIR, "the stream engine")
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
             _error = f"native stream engine unavailable: {e}"
             raise RuntimeError(_error) from e

@@ -185,6 +185,26 @@ Phases, each printing its own line(s):
                1e-5 of the peak); compute_run_metrics on phase 20's output
                against the stems (STOI within 1e-5 of the CPU's, SIR
                improvement positive), its report's lines; ms of each call.
+ 22. sim     - the port's scene simulation at the reference's full width, its
+               random draws from seeded CPU generators (the card and the CPU
+               see the same numbers): generate_scene of 4 s with three
+               interferers in RoomConfig() (a 4.9 m cube, RT60 0.5 s, image
+               order 15, 9,600-tap RIRs) against the CPU (within 1e-3; the
+               RIRs at the C++ engine test's bounds; two runs on the card
+               bit for bit), ms per scene and a profile
+               (chiprun_out/profile_sim.txt); rir_matrix at order 15 for 4
+               sources x 2 mics x 9,600 taps against the reference's C++
+               engine on the host (same bounds), ms of both; make_scene at
+               (128, 3 sources, 2 s, 4 cm) into learned_enhance (int8
+               tpufpu_nano, MVDR and hard-null with fov_deg=30) and
+               oracle_enhance: the launches (B1, B2, convt1x2, B3), ms and SIR
+               of each (the oracle beside the reference's published 36.24
+               dB); make_moving_scene of 128 s (a glide 40 -> 140 deg) into
+               the learned tracked path: bearings against the trajectory (the
+               median within 10 deg), ms; make_moving_room_scene of 4 s at
+               order 15 (33 anchors' RIRs in one pass) against the CPU (within
+               1e-3), ms; NativeCorpus (the C++ corpus engine) over 64
+               synthetic wavs: batches per second beside LocalCorpus.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
@@ -985,6 +1005,225 @@ def phase_native_eval(dev, rng, profile_call) -> dict:
     report = format_report("native_stream", m).splitlines()
     log("eval_report", ms=f"{run_ms:.1f}", report=" | ".join(l.strip() for l in report[3:] if ":" in l))
     return dict(native_stream=native_stream, eval=ev)
+
+
+def phase_sim(dev, model, profile_call) -> dict:
+    """Phase 22: the port's scene simulation at the reference's full width
+    (module docstring). Returns the phase's numbers for chip_smoke.json."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from azoom_torch import kernels
+    from azoom_torch.config import PipelineConfig, RoomConfig
+    from azoom_torch.eval.projection import osinr_osir
+    from azoom_torch.io.wav import write_wav
+    from azoom_torch.pipelines.learned import learned_enhance
+    from azoom_torch.pipelines.oracle import oracle_enhance
+    from azoom_torch.pipelines.tracked import tracked_autosteer_enhance
+    from azoom_torch.sim import (linear_trajectory, make_moving_room_scene, make_moving_scene,
+                                 make_scene, speech_like_batch, traj_block_count)
+    from azoom_torch.sim.corpus_native import NativeCorpus
+    from azoom_torch.sim.datasets import LocalCorpus
+    from azoom_torch.sim.native import build_flags, rir_matrix_native
+    from azoom_torch.sim.room import inverse_sabine, rir_matrix
+    from azoom_torch.sim.scene import SceneSpec, generate_scene
+
+    def gen(seed: int):  # draws on the host: the card and the CPU see the same numbers
+        return torch.Generator().manual_seed(seed)
+
+    def host_ms(fn, n: int = 5, warmup: int = 1) -> list:
+        for _ in range(warmup):
+            fn()
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return ts
+
+    def rel(got, ref) -> float:
+        got, ref = torch.as_tensor(got).cpu().double(), torch.as_tensor(ref).cpu().double()
+        return float((got - ref).norm() / ref.norm())
+
+    out = {}
+    room = RoomConfig()
+    # a reverberant scene at the reference's defaults: a 4.9 m cube, RT60
+    # 0.5 s, order 15 (4,991 images), 9,600-tap RIRs, 4 s, three interferers
+    spec = SceneSpec(reverb=True, n_interferers=3, duration_s=4.0)
+    sc = generate_scene(gen(22), spec, room)
+    sc2 = generate_scene(gen(22), spec, room)
+    torch.cuda.synchronize()
+    sc_cpu = generate_scene(gen(22), spec, room, device="cpu")
+    bits_equal = all(torch.equal(sc[k], sc2[k]) for k in sc)
+    errs = {k: rel(sc[k], sc_cpu[k]) for k in sc}
+    rir_diff = float((sc["rirs"].cpu() - sc_cpu["rirs"]).abs().max())
+    check(sc["mixture"].shape == (2, 64_000) and sc["rirs"].shape == (4, 2, 9_600)
+          and sc["mixture"].device.type == "cuda" and bool(torch.isfinite(sc["mixture"]).all()),
+          f"generate_scene: {sc['mixture'].shape} {sc['rirs'].shape} on {sc['mixture'].device}")
+    check(max(errs.values()) <= 1e-3, f"generate_scene card vs CPU {errs}")
+    check(torch.allclose(sc["rirs"].cpu(), sc_cpu["rirs"], atol=1e-4, rtol=1e-3),
+          f"generate_scene RIRs card vs CPU {rir_diff:.3e}")
+    check(bits_equal, "generate_scene: two runs on the card differ")
+    ts = host_ms(lambda: generate_scene(gen(22), spec, room))
+    _, g_wall, g_dev = profile_call("sim_profile", lambda: generate_scene(gen(22), spec, room),
+                                    "profile_sim.txt")
+    out["generate_scene"] = dict(seconds=4.0, n_interferers=3, max_order=15, card_vs_cpu=errs,
+                                 rir_max_abs_vs_cpu=rir_diff, card_runs_bit_equal=bits_equal,
+                                 ms=ts, profile_wall_ms=g_wall, profile_device_ms=g_dev)
+    log("sim_scene", seconds=4, interferers=3, order=15, ms_median=f"{statistics.median(ts):.3f}",
+        vs_cpu_rel_l2_max=f"{max(errs.values()):.2e}", rir_max_abs_vs_cpu=f"{rir_diff:.2e}",
+        rir_peak=f"{float(sc_cpu['rirs'].abs().max()):.4f}", card_runs_bit_equal=bits_equal,
+        device_ms=f"{g_dev:.3f}")
+
+    # the RIR table alone: the card's ISM against the reference's C++ engine
+    srcs = sc["rirs"].new_tensor([[2.45, 3.45, 1.5], [3.22, 3.06, 1.5], [1.6, 1.4, 1.5],
+                                  [3.9, 1.2, 1.5]])
+    a = inverse_sabine(room.rt60_target, room.room_dim)
+    args = (room.mic_locs, room.room_dim, a, 15, 16_000, 9_600)
+    R = rir_matrix(srcs, *args)
+    t0 = time.perf_counter()
+    R_cxx = rir_matrix_native(srcs.cpu().numpy(), *args)
+    cxx_first = (time.perf_counter() - t0) * 1e3
+    cxx_ms = [cxx_first] + host_ms(lambda: rir_matrix_native(srcs.cpu().numpy(), *args), n=3,
+                                   warmup=0)
+    card_ms = host_ms(lambda: rir_matrix(srcs, *args), n=10, warmup=2)
+    d = np.abs(R.cpu().numpy() - R_cxx)
+    check(np.allclose(R.cpu().numpy(), R_cxx, atol=1e-4, rtol=1e-3),
+          f"rir_matrix card vs the C++ engine: max |diff| {float(d.max()):.3e}")
+    omp = "-fopenmp" in build_flags()  # the engine's threads: OpenMP's, or one
+    out["rir_matrix"] = dict(shape=(4, 2, 9_600), order=15, card_ms=card_ms, cxx_host_ms=cxx_ms,
+                             max_abs_vs_cxx=float(d.max()), peak=float(np.abs(R_cxx).max()),
+                             cxx_openmp=omp)
+    log("sim_rir", shape=(4, 2, 9_600), order=15, card_ms=f"{statistics.median(card_ms):.3f}",
+        cxx_host_ms=f"{statistics.median(cxx_ms):.2f}", cxx_openmp=omp,
+        max_abs_vs_cxx=f"{float(d.max()):.2e}", peak=f"{float(np.abs(R_cxx).max()):.4f}")
+    del sc, sc2, R
+
+    # far-field scenes into the kernels: B1, B2, convt1x2 and B3 on the port's
+    # own scenes (batch 128, 3 sources, 2 s, 4 cm; the target at 60 deg)
+    cfg = PipelineConfig(mic_dist=0.04)
+    src = speech_like_batch(gen(23), 3 * BATCH, N_SAMPLES).reshape(BATCH, 3, N_SAMPLES)
+    ff = make_scene(src[:, 0], src[:, 1:], 60.0, [20.0, 130.0], 0.04, 16_000)
+    mix, tgt, itf = ff["mixture"], ff["target_ref"], ff["interference_ref"]
+    sir_in = float(osinr_osir(mix[:, 0], tgt, itf)[1].mean())
+    calls = {
+        "learned_mvdr": (lambda: learned_enhance(mix, model, cfg, feature_kind="physics",
+                                                 steer_deg=60.0), {"masked_mvdr"}),
+        "learned_hard_null": (lambda: learned_enhance(mix, model, cfg, feature_kind="physics",
+                                                      beamformer="hard_null", steer_deg=60.0,
+                                                      fov_deg=30.0), {"hard_null"}),
+        "oracle": (lambda: oracle_enhance(mix, tgt, itf, cfg, post_filter="irm"), set()),
+    }
+    ff_out = dict(batch=BATCH, seconds=2, angles=(60.0, 20.0, 130.0), sir_in_db=sir_in)
+    for name, (fn, beam) in calls.items():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        y = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        want = ({"masked_mvdr": 1} if name == "oracle"
+                else {"qconv3x3": 21, "convt1x2": 3, **{k: 1 for k in beam}})
+        check(counts == want, f"{name} on the port's scenes: launches {counts}")
+        check(y.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(y).all()), f"{name}: bad output")
+        sir = float(osinr_osir(y, tgt, itf)[1].mean())
+        ts = host_ms(fn, n=5, warmup=1)
+        ff_out[name] = dict(launches=counts, ms=ts, sir_db=sir)
+        log("sim_kernels", call=name, launches=counts, ms_median=f"{statistics.median(ts):.3f}",
+            sir_in_db=f"{sir_in:.2f}", sir_db=f"{sir:.2f}",
+            **({"reference_oracle_sir_db": 36.24} if name == "oracle" else {}))
+    check(ff_out["oracle"]["sir_db"] > sir_in + 20.0,
+          f"oracle on the port's scenes: SIR {ff_out['oracle']['sir_db']:.2f} dB")
+    out["far_field"] = ff_out
+    del src, ff, mix, tgt, itf
+
+    # a 128 s moving talker (40 -> 140 deg, interferers fixed at 15 and 165)
+    # into the learned tracked path
+    n = 128 * 16_000
+    B = traj_block_count(n, 2_048)
+    glide = linear_trajectory(40.0, 140.0, B)
+    src = speech_like_batch(gen(24), 3, n)
+    t0 = time.perf_counter()
+    mv = make_moving_scene(src[0], src[1:], glide, [15.0, 165.0], 0.04, 16_000)
+    torch.cuda.synchronize()
+    mv_first = (time.perf_counter() - t0) * 1e3
+    mv_ms = host_ms(lambda: make_moving_scene(src[0], src[1:], glide, [15.0, 165.0], 0.04,
+                                              16_000), n=3, warmup=0)
+    tr_kw = dict(fov_center_deg=90.0, fov_width_deg=120.0, tracker="viterbi", model=model,
+                 feature_kind="physics")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    y, theta = tracked_autosteer_enhance(mv["mixture"], cfg, **tr_kw)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    check(counts == {"qconv3x3": 21, "convt1x2": 3, "masked_mvdr": 1},
+          f"tracked on the port's moving scene: launches {counts}")
+    hop = cfg.win_size // 2
+    centers = torch.arange(theta.shape[0], dtype=torch.float64) * hop + cfg.win_size / 2
+    truth = 40.0 + 100.0 * (centers / n).clamp(max=1.0)
+    err = (theta.cpu().double() - truth).abs()
+    check(y.shape == (n,) and bool(torch.isfinite(y).all()), "tracked: bad output")
+    check(float(err.median()) <= 10.0, f"tracked bearings vs the trajectory: median "
+          f"{float(err.median()):.2f} deg")
+    tr_ms = host_ms(lambda: tracked_autosteer_enhance(mv["mixture"], cfg, **tr_kw), n=3)
+    out["moving"] = dict(seconds=128, blocks=B, scene_first_ms=mv_first, scene_ms=mv_ms,
+                         launches=counts, tracked_ms=tr_ms,
+                         bearing_err_deg=dict(median=float(err.median()), p90=float(err.quantile(0.9)),
+                                              max=float(err.max())),
+                         bearings_first_last=[float(theta[0]), float(theta[-1])])
+    log("sim_moving", seconds=128, blocks=B, scene_ms=f"{statistics.median(mv_ms):.3f}",
+        tracked_launches=counts, tracked_ms=f"{statistics.median(tr_ms):.3f}",
+        bearing_err_median_deg=f"{float(err.median()):.2f}",
+        bearing_err_p90_deg=f"{float(err.quantile(0.9)):.2f}",
+        bearing_err_max_deg=f"{float(err.max()):.2f}")
+    del src, mv, y
+
+    # a 4 s moving talker in the room at order 15: 33 anchors' RIRs in one pass
+    n = 4 * 16_000
+    B = traj_block_count(n, 2_048)
+    src = speech_like_batch(gen(25), 3, n)
+    glide = linear_trajectory(60.0, 120.0, B)
+    mr = make_moving_room_scene(gen(26), src[0], src[1:], glide, room)
+    mr_cpu = make_moving_room_scene(gen(26), src[0].cpu(), src[1:].cpu(), glide.cpu(), room)
+    mr_err = {k: rel(mr[k], mr_cpu[k]) for k in mr}
+    check(max(mr_err.values()) <= 1e-3, f"moving room scene card vs CPU {mr_err}")
+    mr_ms = host_ms(lambda: make_moving_room_scene(gen(26), src[0], src[1:], glide, room), n=3)
+    out["moving_room"] = dict(seconds=4, anchors=B + 1, max_order=15, ms=mr_ms,
+                              card_vs_cpu=mr_err)
+    log("sim_moving_room", seconds=4, anchors=B + 1, order=15,
+        ms_median=f"{statistics.median(mr_ms):.3f}",
+        vs_cpu_rel_l2_max=f"{max(mr_err.values()):.2e}")
+    del src, mr
+
+    # the corpus engine over 64 synthetic wavs (3 s each, float32)
+    with tempfile.TemporaryDirectory() as d:
+        wavs = speech_like_batch(gen(27), 64, 3 * 16_000).cpu().numpy()
+        for i, w in enumerate(wavs):
+            write_wav(Path(d) / f"spk{i % 8}" / f"{i:03d}.wav", 0.5 * w, 16_000)
+        with NativeCorpus(d, n_signals=32, n_samples=32_000, seed=0, depth=4) as c:
+            check(len(c) == 64 and c.n_dropped == 0, f"corpus: {len(c)} files")
+            first = c.next_batch()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                b = c.next_batch()
+            nat_s = time.perf_counter() - t0
+        check(first.shape == (32, 32_000) and bool(np.isfinite(b).all())
+              and float(np.abs(b).max()) > 0.1, "corpus: bad batch")
+        lc = LocalCorpus(d)
+        r = np.random.default_rng(0)
+        lc.sample_batch(r, 32, 32_000)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            lc.sample_batch(r, 32, 32_000)
+        loc_s = (time.perf_counter() - t0) / 10
+    out["corpus"] = dict(files=64, batch=(32, 32_000), native_batches_per_s=50 / nat_s,
+                         local_batches_per_s=1 / loc_s)
+    log("sim_corpus", files=64, batch=(32, 32_000), native_batches_per_s=f"{50 / nat_s:.1f}",
+        local_corpus_batches_per_s=f"{1 / loc_s:.1f}")
+    return out
 
 
 _T0 = time.perf_counter()
@@ -2371,6 +2610,9 @@ def main() -> int:
     # 20.-21. the native stream engine and the measurement layer ---------------------
     native_eval = phase_native_eval(dev, rng, profile_call)
 
+    # 22. scene simulation ----------------------------------------------------------
+    sim = phase_sim(dev, model, profile_call)
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
@@ -2390,7 +2632,7 @@ def main() -> int:
          "server": server_stats, "facade": facade, "tracked": tracked,
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
          "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic,
-         "beamformers": beamformers, **native_eval, "card": smi},
+         "beamformers": beamformers, **native_eval, "sim": sim, "card": smi},
         indent=1))
     print(json.dumps(line))
     print(smi)

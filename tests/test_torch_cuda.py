@@ -832,3 +832,55 @@ def test_measurement_layer_on_the_card_matches_the_cpu(cuda):
                                                                     device="cpu")
     for k in ("sdr", "sir", "sar"):
         assert g[k].device.type == "cuda" and abs(float(g[k]) - float(r[k])) <= 0.05, k
+
+
+def test_scene_simulation_on_the_card_matches_the_cpu(cuda):
+    """sim/ on the card from a CPU generator's draws against the same calls
+    on the CPU: signals within 1e-4 relative L2 (music within 1e-3: a one-ulp
+    note frequency from pow shifts its cumulative phase), RIRs at the C++
+    engine test's bounds and the same bits in two runs (the sort-based
+    scatter-add), scenes within 1e-3."""
+    from azoom_torch.config import RoomConfig
+    from azoom_torch.sim import make_moving_room_scene, make_moving_scene, make_scene
+    from azoom_torch.sim.room import inverse_sabine, rir_matrix
+    from azoom_torch.sim.scene import SceneSpec, generate_scene
+    from azoom_torch.sim.signals import INTERFERER_KINDS, interferer_signal
+
+    def g(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).norm() / b.double().norm())
+
+    for kind in INTERFERER_KINDS:
+        got = interferer_signal(g(1), 64_000, kind=kind, f0=150.0)
+        assert got.device.type == "cuda"
+        ref = interferer_signal(g(1), 64_000, kind=kind, f0=150.0, device="cpu")
+        assert rel(got, ref) <= (1e-3 if kind == "music" else 1e-4), kind
+    room = RoomConfig()
+    srcs = [[2.45, 3.45, 1.5], [3.22, 3.06, 1.5], [1.6, 1.4, 1.5]]
+    a = inverse_sabine(0.5, room.room_dim)
+    R1, R2 = (rir_matrix(srcs, room.mic_locs, room.room_dim, a, 15, 16_000, 9_600)
+              for _ in range(2))
+    R_cpu = rir_matrix(srcs, room.mic_locs, room.room_dim, a, 15, 16_000, 9_600, device="cpu")
+    assert torch.equal(R1, R2)
+    assert torch.allclose(R1.cpu(), R_cpu, atol=1e-4, rtol=1e-3)
+    spec = SceneSpec(reverb=True, n_interferers=2, duration_s=2.0)
+    sc = generate_scene(g(2), spec, room, max_order=6)
+    sc_cpu = generate_scene(g(2), spec, room, max_order=6, device="cpu")
+    for k in sc:
+        assert sc[k].device.type == "cuda" and rel(sc[k], sc_cpu[k]) <= 1e-3, k
+    src = torch.randn((3, 40_000), generator=g(3))
+    ff = make_scene(src[0].to(cuda), src[1:].to(cuda), 70.0, [20.0, 140.0], 0.04, 16_000)
+    ff_cpu = make_scene(src[0], src[1:], 70.0, [20.0, 140.0], 0.04, 16_000)
+    mv = make_moving_scene(src[0].to(cuda), src[1:].to(cuda), torch.linspace(40, 140, 20),
+                           [20.0, 160.0], 0.04, 16_000)
+    mv_cpu = make_moving_scene(src[0], src[1:], torch.linspace(40, 140, 20), [20.0, 160.0],
+                               0.04, 16_000)
+    mr = make_moving_room_scene(g(4), src[0, :16_000].to(cuda), src[1:, :16_000].to(cuda),
+                                torch.linspace(60, 120, 8), room, max_order=3)
+    mr_cpu = make_moving_room_scene(g(4), src[0, :16_000], src[1:, :16_000],
+                                    torch.linspace(60, 120, 8), room, max_order=3)
+    for got, ref in ((ff, ff_cpu), (mv, mv_cpu), (mr, mr_cpu)):
+        for k in ref:
+            assert got[k].device.type == "cuda" and rel(got[k], ref[k]) <= 1e-4, k

@@ -28,9 +28,12 @@ beamformer, the FOV gate and the HRNR post-filter,
 ``tracked_autosteer_enhance``, ``oracle_enhance``, ``heuristic_enhance``)
 and the ``AudioZoom`` facade at high and low latency, for any number of
 mics (the 2-mic kernels serve M = 2, as the reference's Pallas kernels do),
-and sim (synthetic signals, far-field, moving-source and shoebox-room scenes,
+sim (synthetic signals, far-field, moving-source and shoebox-room scenes,
 the C++ RIR and corpus engines, local corpora; a ``torch.Generator`` where
-the reference takes a JAX key).
+the reference takes a JAX key), parallel (device meshes, the oracle and
+learned batch sweeps sharded over them, the multi-process layer; the
+server's ``mesh=`` and ``stream.chunker.streaming_enhance_sharded``) and
+cli (``python -m azoom_torch.cli.batch``, the vectorized batch sweep).
 """
 
 from azoom_torch.config import DEFAULT, GEN1, PipelineConfig, RoomConfig

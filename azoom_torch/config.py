@@ -5,8 +5,9 @@ package's config, so one configuration describes the same pipeline in both
 packages. The only difference is :meth:`PipelineConfig.geometry`, which
 returns a float32 ``torch.Tensor`` (on the CPU; callers move it with
 ``.to(device)``) instead of a JAX array. ``RoomConfig`` is the reference's
-room-simulation configuration, field for field. :func:`resolve_device` is the
-entry points' rule for their ``device`` argument.
+room-simulation configuration, field for field. :func:`parse_geometry` reads
+the CLI's ``--geometry``. :func:`resolve_device` is the entry points' rule for
+their ``device`` argument.
 """
 
 from __future__ import annotations
@@ -16,6 +17,25 @@ import dataclasses
 import torch
 
 SPEED_OF_SOUND = 343.0  # m/s
+
+
+def parse_geometry(spec: str) -> tuple[tuple[float, ...], ...]:
+    """Parse a CLI ``--geometry`` string into a ``mic_positions`` tuple:
+    semicolon-separated mics, comma-separated coordinates in meters, ``"x"``,
+    ``"x,y"`` or ``"x,y,z"`` per mic. Example, a 4-mic 3 x 2 cm rectangle:
+    ``"-0.015,-0.01;0.015,-0.01;-0.015,0.01;0.015,0.01"``."""
+    mics = []
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        coords = tuple(float(v) for v in part.split(","))
+        if not 1 <= len(coords) <= 3:
+            raise ValueError(f"--geometry mic '{part}': expected 1-3 coordinates")
+        mics.append(coords)
+    if len(mics) < 2:
+        raise ValueError("--geometry needs at least 2 mics")
+    return tuple(mics)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -109,5 +109,5 @@ def convt1x2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(rc, "convt1x2 kernel")
-    kernels.launches["convt1x2"] += 1
+    kernels.count(kernels.launches, "convt1x2")
     return out

@@ -117,7 +117,7 @@ def masked_mvdr_fused(
             torch.cuda.current_stream(Y.device).cuda_stream,
         )
     build.check(rc, "masked_mvdr kernel")
-    kernels.launches["masked_mvdr"] += 1
+    kernels.count(kernels.launches, "masked_mvdr")
     return S
 
 

@@ -159,7 +159,7 @@ def hard_null_fused(
             torch.cuda.current_stream(Y.device).cuda_stream,
         )
     build.check(rc, "hard_null kernel")
-    kernels.launches["hard_null"] += 1
+    kernels.count(kernels.launches, "hard_null")
     return S
 
 

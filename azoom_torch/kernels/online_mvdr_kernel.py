@@ -188,5 +188,5 @@ def online_mvdr(
         rc = _entry()(*args) if M == 2 else _entry_m()(M, *args)
     name = "online_mvdr" if M == 2 else "online_mvdr_mmic"
     build.check(rc, f"{name} kernel")
-    kernels.launches[name] += 1
+    kernels.count(kernels.launches, name)
     return S

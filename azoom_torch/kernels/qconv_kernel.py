@@ -357,6 +357,6 @@ def qconv3x3(
             rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),
                                cin1, cout, w_q.shape[1], stream)
     build.check(rc, f"qconv3x3 {how['kernel']} kernel")
-    kernels.launches["qconv3x3"] += 1
-    route_counts[how["kernel"]] += 1
+    kernels.count(kernels.launches, "qconv3x3")
+    kernels.count(route_counts, how["kernel"])
     return out

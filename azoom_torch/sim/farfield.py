@@ -40,17 +40,20 @@ def make_scene(target, interferers, target_angle_deg: float, interferer_angles_d
                mic_dist: float, fs: float, c: float = 343.0, n_mics: int = 2,
                normalize: bool = True, positions=None, device=None) -> dict:
     """A far-field scene with its answer key: ``target`` (..., n) and
-    ``interferers`` (..., K, n) (K may be 0) at their azimuths. Returns
+    ``interferers`` (..., K, n) (K may be 0) at their azimuths
+    (``interferer_angles_deg`` (K,), or (..., K): one set per scene). Returns
     ``mixture`` (..., M, n), ``target_ref`` (..., n) (the target as heard at
     mic 0) and ``interference_ref`` (..., n) (the interferers at mic 0), all
     three sharing the mixture's peak normalisation."""
     target = as_input(target, device).to(torch.float32)
     interferers = torch.as_tensor(interferers, dtype=torch.float32, device=target.device)
     sources = torch.cat([target[..., None, :], interferers], dim=-2)
-    angles = torch.cat([
-        torch.tensor([float(target_angle_deg)], dtype=torch.float32, device=target.device),
-        torch.as_tensor(interferer_angles_deg, dtype=torch.float32,
-                        device=target.device).reshape(-1)])
+    itf = torch.as_tensor(interferer_angles_deg, dtype=torch.float32, device=target.device)
+    if itf.ndim < 2:
+        itf = itf.reshape(-1)
+    tgt = torch.full(itf.shape[:-1] + (1,), float(target_angle_deg), dtype=torch.float32,
+                     device=target.device)
+    angles = torch.cat([tgt, itf], dim=-1)
     imgs = _delayed_images(sources, angles, mic_dist, c, n_mics, fs, positions)  # (..., S, M, n)
     mixture = imgs.sum(dim=-3)
     target_ref = imgs[..., 0, 0, :]

@@ -7,7 +7,7 @@ is processed on its own (its covariance is chunk-local) and the results are
 overlap-added with a normalising window sum. As the reference vmaps its
 chunk processor, the port hands all chunks to it at once as a leading
 batch axis, so one call enhances the whole recording.
-``streaming_enhance_sharded`` (chunks over a device mesh) is not ported.
+``streaming_enhance_sharded`` splits the chunk axis over a device mesh.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["chunk_signal", "overlap_add_chunks", "streaming_enhance"]
+__all__ = ["chunk_signal", "overlap_add_chunks", "streaming_enhance", "streaming_enhance_sharded"]
 
 
 def chunk_signal(x: torch.Tensor, win_size: int, hop: int) -> tuple[torch.Tensor, int]:
@@ -63,3 +63,36 @@ def streaming_enhance(
     (n_chunks, ..., win_size), e.g. a batched learned_enhance."""
     chunks, n = chunk_signal(mixture, win_size, hop)
     return overlap_add_chunks(process_fn(chunks), hop, n)
+
+
+def streaming_enhance_sharded(
+    mixture: torch.Tensor,
+    process_fn: Callable[[torch.Tensor], torch.Tensor],
+    mesh,
+    win_size: int = 32_000,
+    hop: int = 16_000,
+) -> torch.Tensor:
+    """Sequence-parallel streaming: the chunk axis of one recording (M, n)
+    is padded with silent chunks to a multiple of the mesh size and split
+    into contiguous runs, each run goes through ``process_fn`` on its device
+    (every distinct device in a thread of its own, issued together), and the
+    results are overlap-added on the mixture's device. Each chunk carries its
+    window's overlap, so no halo is exchanged; chunks are processed on their
+    own (their covariances are chunk-local), so the output equals
+    :func:`streaming_enhance`'s.
+
+    ``process_fn`` gets each run on its device. One that closes over a net
+    picks the net's copy on that device, e.g. ``reps = replicated(mesh,
+    model)`` (parallel.mesh) and then
+    ``learned_enhance(chunks, reps[chunks.device], cfg)``."""
+    from azoom_torch.parallel.mesh import data_sharding, run_on_devices
+
+    chunks, n = chunk_signal(mixture, win_size, hop)
+    n_chunks = chunks.shape[0]
+    pad = (-n_chunks) % mesh.size
+    if pad:
+        chunks = torch.cat([chunks, chunks.new_zeros((pad,) + tuple(chunks.shape[1:]))])
+    shards = data_sharding(mesh, chunks)
+    outs = run_on_devices([(d, lambda c=c: process_fn(c)) for d, c in zip(mesh.devices, shards)])
+    processed = torch.cat([o.to(mixture.device) for o in outs])[:n_chunks]
+    return overlap_add_chunks(processed, hop, n)

@@ -31,9 +31,14 @@ M-mic MVDR of beam.mvdr in torch, as the reference takes XLA).
   filter per stream (host NumPy) on each tick's DOA histograms; the new
   bearing steers the next tick. ``attach``/``detach`` reuse slots within
   the fixed S; a re-attached slot's state is reset inside the next tick.
-
-Stream sharding over several devices (``mesh=``) is not ported (ROADMAP.md
-Queue A item 8).
+* **Several devices** (``mesh=``, parallel.mesh): the streams split into
+  contiguous groups of S / n, one per mesh position. Each group keeps its
+  device state (window, overlap-add tail, previous masks, controls) on its
+  device with that device's replica of the net, and runs its own batched
+  step (one MVDR launch per group and tick); a tick issues every group's
+  step before it fetches any output. The host side stays whole: the input
+  buffer, the momentum filters, steer, zoom, field of view, churn and
+  ``bytes_moved`` cover all S streams.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from azoom_torch.dsp.stft import _check_precision, istft, rfft_freqs, stft
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_any
 from azoom_torch.localize.srp import ipd_angle_histogram
 from azoom_torch.models.pretrained import geo_adapt_dist, load_bundled
+from azoom_torch.parallel.mesh import make_mesh, replicated, shard_ranges
 from azoom_torch.pipelines.learned import predict_mask
 
 __all__ = ["AudioZoomServer"]
@@ -100,6 +106,26 @@ class _MomentumBank:
         return np.where(active, theta, center).astype(np.float32)
 
 
+class _Shard:
+    """One mesh position's group of streams ``sl``: its device, its replica of
+    the net, its constants and its device state (the rolling window, the
+    overlap-add tail, the previous masks, the uploaded controls)."""
+
+    def __init__(self, sl: slice, device: torch.device, model, cfg: PipelineConfig, win: int):
+        self.sl, self.device, self.model = sl, device, model
+        self.freqs = rfft_freqs(cfg.n_fft, cfg.fs, device=device)
+        geom = cfg.geometry()
+        self.geom = None if geom is None else geom.to(device)
+        hann = torch.from_numpy(np.hanning(win + 1)[:-1].astype(np.float32)).to(device)
+        self.hann = hann
+        self.ola_norm = torch.clamp(hann[:win // 2] + hann[win // 2:], min=1e-6)
+        self.reset()
+
+    def reset(self) -> None:
+        self.win = self.tail = self.mask = None
+        self.ctrl = None  # (2, streams) float32: bearings, loadings
+
+
 class AudioZoomServer:
     """S concurrent live audio-zoom streams, one batched step per tick.
 
@@ -124,7 +150,9 @@ class AudioZoomServer:
         camera field of view; the bearing from a tick's audio steers the
         next tick.
       fov_deg: default camera field of view of the tracking gate.
-      mesh: not ported; raises NotImplementedError.
+      mesh: a single-axis parallel.mesh.Mesh; the streams split over its
+        devices in contiguous groups (S % mesh.size == 0), and ``device`` is
+        not used.
       device: None for CUDA (raises without a card), or "cpu" for the plain
         PyTorch path.
 
@@ -138,16 +166,19 @@ class AudioZoomServer:
                  dsp_precision: str = "fast", mask_reuse: bool = False,
                  reuse_context: int = 16, wire: str = "float32",
                  track: bool = False, fov_deg: float = 60.0, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "stream sharding over several devices (mesh=) is not ported; it is "
-                "queued as multi-GPU serving (ROADMAP.md Queue A item 8)")
         _check_precision(dsp_precision)
         if wire not in ("float32", "int16"):
             raise ValueError(f"wire must be 'float32' or 'int16', got {wire!r}")
         self.S = int(n_streams)
         self.cfg = cfg or PipelineConfig(mic_dist=0.04)
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if len(mesh.axis_names) != 1:
+                raise ValueError("mesh must have exactly one axis")
+            if self.S % mesh.size != 0:
+                raise ValueError(f"n_streams={self.S} not divisible by mesh size {mesh.size}")
+        else:
+            mesh = make_mesh(devices=[resolve_device(device)])
+        self.device = mesh.devices[0]
         self._model, self._fk = load_bundled(model, quant=int8, device=self.device)
         self._wire_i16 = wire == "int16"
         self._track = bool(track)
@@ -179,13 +210,9 @@ class AudioZoomServer:
                 raise ValueError(f"reuse_context={ctx} out of range for T={T}, shift={shift}")
             self._reuse = (shift, ctx)
 
-        dev = self.device
-        self._freqs = rfft_freqs(self.cfg.n_fft, self.cfg.fs, device=dev)
-        geom = self.cfg.geometry()
-        self._geom = None if geom is None else geom.to(dev)
-        hann = torch.from_numpy(np.hanning(self._win + 1)[:-1].astype(np.float32)).to(dev)
-        self._hann = hann
-        self._ola_norm = torch.clamp(hann[:self._hop] + hann[self._hop:], min=1e-6)
+        nets = replicated(mesh, self._model)
+        self._shards = [_Shard(slice(r.start, r.stop), d, nets[d], self.cfg, self._win)
+                        for r, d in zip(shard_ranges(self.S, mesh), mesh.devices)]
 
         self._steer = np.full(self.S, 90.0, np.float32)
         self._center = np.full(self.S, 90.0, np.float32)
@@ -206,8 +233,8 @@ class AudioZoomServer:
         dt = np.int16 if self._wire_i16 else np.float32
         self._inbuf = np.zeros((self.S, self.cfg.n_mics, 0), dt)
         self._primed = False
-        self._dev_win = self._dev_tail = self._dev_mask = None
-        self._dev_ctrl = None  # (2, S) float32: bearings, loadings
+        for sh in self._shards:
+            sh.reset()
         self._pending_reset = np.zeros(self.S, bool)
         if self._tracker is not None:
             self._tracker.reset()
@@ -220,14 +247,14 @@ class AudioZoomServer:
         if direction_deg is not None:
             self._center[stream] = float(direction_deg)
             self._steer[stream] = float(direction_deg)
-            self._dev_ctrl = None
+            self._controls_changed()
             if self._tracker is not None:
                 self._tracker.reset(stream)  # re-aimed: a fresh prior
         if fov_deg is not None:
             self._fov[stream] = float(fov_deg)
         if zoom is not None:
             self._sigma[stream] = float(zoom_to_sigma(float(zoom)))
-            self._dev_ctrl = None
+            self._controls_changed()
 
     @property
     def bearings(self) -> np.ndarray:
@@ -299,101 +326,125 @@ class AudioZoomServer:
             return np.zeros((self.S, 0), np.int16 if self._wire_i16 else np.float32)
         return np.concatenate(outs, axis=1)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
+    def _controls_changed(self) -> None:
+        for sh in self._shards:
+            sh.ctrl = None
+
+    def _upload(self, a: np.ndarray, device: torch.device) -> torch.Tensor:
         self.bytes_moved["to_device"] += a.nbytes
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         a = t.cpu().numpy()
         self.bytes_moved["to_host"] += a.nbytes
         return a
 
-    def _decode(self, a: np.ndarray) -> torch.Tensor:
+    def _decode(self, a: np.ndarray, device: torch.device) -> torch.Tensor:
         """Host samples -> float32 on the device; int16 PCM goes up as int16
         and is scaled to [-1, 1) there."""
-        x = self._upload(a)
+        x = self._upload(a, device)
         return x.to(torch.float32) * (1.0 / 32768.0) if x.dtype == torch.int16 else x
 
-    def _controls(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-stream bearings (S,) and loadings (S, 1) on the device,
-        uploaded when one has changed. The loadings' trailing 1 says "per
-        stream" to the beamformer even when S equals the number of bins."""
-        if self._dev_ctrl is None:
-            self._dev_ctrl = self._upload(np.stack([self._steer, self._sigma]))
-        return self._dev_ctrl[0], self._dev_ctrl[1][:, None]
+    def _controls(self, sh: _Shard) -> tuple[torch.Tensor, torch.Tensor]:
+        """A group's per-stream bearings (s,) and loadings (s, 1) on its
+        device, uploaded when one has changed. The loadings' trailing 1 says
+        "per stream" to the beamformer even when s equals the number of
+        bins."""
+        if sh.ctrl is None:
+            sh.ctrl = self._upload(np.stack([self._steer[sh.sl], self._sigma[sh.sl]]), sh.device)
+        return sh.ctrl[0], sh.ctrl[1][:, None]
 
-    def _steer_and_mask(self, Y: torch.Tensor, steer: torch.Tensor, frames_from: int = 0):
-        """Steering vectors (S, F, M) and the net's target masks (S, F, T')
+    def _steer_and_mask(self, sh: _Shard, Y: torch.Tensor, steer: torch.Tensor,
+                        frames_from: int = 0):
+        """Steering vectors (s, F, M) and the net's target masks (s, F, T')
         over frames [frames_from:] of the steer-aligned STFT."""
         cfg = self.cfg
-        d = steering_vector(self._freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics,
-                            positions=self._geom)
-        mask = predict_mask(self._model, steer_rotate(Y[..., frames_from:], d), self._fk,
+        d = steering_vector(sh.freqs, steer, cfg.mic_dist, cfg.c, cfg.n_mics, positions=sh.geom)
+        mask = predict_mask(sh.model, steer_rotate(Y[..., frames_from:], d), self._fk,
                             ipd_scale=self._ipd_scale, pair_mode=self._pair_mode)
         return d, mask
 
-    def _beamform(self, Y, mask, d, sigma) -> torch.Tensor:
-        """Masked MVDR (for 2 mics one launch for all streams; M > 2 the M-mic
-        MVDR in torch) and iSTFT, Hann-weighted for the overlap-add: (S, win)."""
+    def _beamform(self, sh: _Shard, Y, mask, d, sigma) -> torch.Tensor:
+        """Masked MVDR (for 2 mics one launch for the group's streams; M > 2
+        the M-mic MVDR in torch) and iSTFT, Hann-weighted for the
+        overlap-add: (s, win)."""
         cfg = self.cfg
-        S = masked_mvdr_any(Y, 1.0 - mask, d, self._freqs, target_mask=mask, mask_floor=0.05,
+        S = masked_mvdr_any(Y, 1.0 - mask, d, sh.freqs, target_mask=mask, mask_floor=0.05,
                             sigma=sigma, hp_cutoff_hz=cfg.hp_cutoff_hz)
-        return istft(S, cfg.n_fft, cfg.hop, length=self._win) * self._hann
+        return istft(S, cfg.n_fft, cfg.hop, length=self._win) * sh.hann
 
-    def _track_update(self, Y: torch.Tensor) -> None:
+    def _track_update(self, Ys: list) -> None:
         """With tracking, one momentum-filter step per stream on this tick's
-        DOA histograms (fetched: (S, 181) float32)."""
+        DOA histograms (every group's computed, then fetched: (S, 181)
+        float32)."""
         if self._track:
-            hist = self._fetch(ipd_angle_histogram(Y, self.cfg.mic_dist, self.cfg.fs, c=self.cfg.c)[1])
+            cfg = self.cfg
+            hists = [ipd_angle_histogram(Y, cfg.mic_dist, cfg.fs, c=cfg.c)[1] for Y in Ys]
+            hist = np.concatenate([self._fetch(h) for h in hists])
             # The new bearings steer the next tick (the histogram is past audio).
             self._steer = self._tracker.update(hist, self._center, self._fov, self._active)
-            self._dev_ctrl = None
+            self._controls_changed()
 
     def _prime(self, window: np.ndarray) -> None:
         """First tick: a full (S, M, win) window primes the device state and
         gives no output (the overlap-add warm-up hop)."""
         cfg = self.cfg
         with torch.inference_mode():
-            w = self._decode(window)
-            steer, sigma = self._controls()
-            Y = stft(w, cfg.n_fft, cfg.hop)
-            d, mask = self._steer_and_mask(Y, steer)
-            weighted = self._beamform(Y, mask, d, sigma)
-            self._dev_win, self._dev_tail, self._dev_mask = w, weighted[:, self._hop:], mask
+            Ys = []
+            for sh in self._shards:
+                w = self._decode(window[sh.sl], sh.device)
+                steer, sigma = self._controls(sh)
+                Y = stft(w, cfg.n_fft, cfg.hop)
+                d, mask = self._steer_and_mask(sh, Y, steer)
+                weighted = self._beamform(sh, Y, mask, d, sigma)
+                sh.win, sh.tail, sh.mask = w, weighted[:, self._hop:], mask
+                Ys.append(Y)
             self._primed = True
             self._pending_reset[:] = False
-            self._track_update(Y)
+            self._track_update(Ys)
+
+    def _tick_shard(self, sh: _Shard, new_hop: np.ndarray, reset: np.ndarray | None):
+        """Issue one group's tick: (its finished hop on the device, its STFT)."""
+        cfg, hop = self.cfg, self._hop
+        x = self._decode(new_hop, sh.device)
+        steer, sigma = self._controls(sh)
+        win, tail, prev = sh.win, sh.tail, sh.mask
+        rs = None
+        if reset is not None:
+            # Churned slots start from silence; their reused masks are ones
+            # (delay-and-sum) until the net has seen them.
+            rs = self._upload(reset, sh.device)
+            win = torch.where(rs[:, None, None], 0.0, win)
+            tail = torch.where(rs[:, None], 0.0, tail)
+        win = torch.cat([win[:, :, hop:], x], dim=2)
+        Y = stft(win, cfg.n_fft, cfg.hop)
+        if self._reuse is None:
+            d, mask = self._steer_and_mask(sh, Y, steer)
+        else:
+            shift, ctx = self._reuse
+            if rs is not None:
+                prev = torch.where(rs[:, None, None], 1.0, prev)
+            d, new = self._steer_and_mask(sh, Y, steer, frames_from=Y.shape[-1] - shift - ctx)
+            mask = torch.cat([prev[:, :, shift:], new[:, :, ctx:]], dim=-1)
+        weighted = self._beamform(sh, Y, mask, d, sigma)
+        out = (tail + weighted[:, :hop]) / sh.ola_norm
+        if self._wire_i16:
+            out = torch.clamp(out * 32767.0, -32767.0, 32767.0).to(torch.int16)
+        sh.win, sh.tail, sh.mask = win, weighted[:, hop:], mask
+        return out, Y
 
     def _tick(self, new_hop: np.ndarray) -> np.ndarray:
-        """One hop of new samples in, one finished hop out."""
-        cfg, hop = self.cfg, self._hop
+        """One hop of new samples in, one finished hop out: every group's
+        step is issued before any output is fetched."""
+        reset = self._pending_reset.copy() if self._pending_reset.any() else None
+        self._pending_reset[:] = False
         with torch.inference_mode():
-            x = self._decode(new_hop)
-            steer, sigma = self._controls()
-            win, tail, prev = self._dev_win, self._dev_tail, self._dev_mask
-            rs = None
-            if self._pending_reset.any():
-                # Churned slots start from silence; their reused masks are
-                # ones (delay-and-sum) until the net has seen them.
-                rs = self._upload(self._pending_reset)
-                self._pending_reset[:] = False
-                win = torch.where(rs[:, None, None], 0.0, win)
-                tail = torch.where(rs[:, None], 0.0, tail)
-            win = torch.cat([win[:, :, hop:], x], dim=2)
-            Y = stft(win, cfg.n_fft, cfg.hop)
-            if self._reuse is None:
-                d, mask = self._steer_and_mask(Y, steer)
-            else:
-                shift, ctx = self._reuse
-                if rs is not None:
-                    prev = torch.where(rs[:, None, None], 1.0, prev)
-                d, new = self._steer_and_mask(Y, steer, frames_from=Y.shape[-1] - shift - ctx)
-                mask = torch.cat([prev[:, :, shift:], new[:, :, ctx:]], dim=-1)
-            weighted = self._beamform(Y, mask, d, sigma)
-            out = (tail + weighted[:, :hop]) / self._ola_norm
-            if self._wire_i16:
-                out = torch.clamp(out * 32767.0, -32767.0, 32767.0).to(torch.int16)
-            self._dev_win, self._dev_tail, self._dev_mask = win, weighted[:, hop:], mask
-            out = self._fetch(out)
-            self._track_update(Y)
+            outs, Ys = [], []
+            for sh in self._shards:
+                out, Y = self._tick_shard(sh, new_hop[sh.sl],
+                                          None if reset is None else reset[sh.sl])
+                outs.append(out)
+                Ys.append(Y)
+            out = np.concatenate([self._fetch(o) for o in outs])
+            self._track_update(Ys)
         return out

@@ -205,6 +205,25 @@ Phases, each printing its own line(s):
                order 15 (33 anchors' RIRs in one pass) against the CPU (within
                1e-3), ms; NativeCorpus (the C++ corpus engine) over 64
                synthetic wavs: batches per second beside LocalCorpus.
+ 23. sweep   - the batch sweeps at full width: oracle_sweep over 128 randomized
+               anechoic 2 s scenes at 4 cm with STOI (one B1 launch), and
+               learned_sweep over 128 reverberant 2 s scenes in RoomConfig()
+               (RT60 0.5 s, order 15, 2 interferers) with the int8
+               tpufpu_nano net and hard-null (B2 per route, convt1x2, B3):
+               launches (after a warm-up at 128 scenes), scenes per second
+               (median of 5 sweeps), the steps' shares (synthesis,
+               enhancement, scoring) from the median of 5 runs synchronised
+               between steps, a profile's idle share
+               (chiprun_out/profile_sweep_{oracle,learned}.txt), the first 4
+               scenes against the CPU (metrics within 0.05 dB, STOI within
+               1e-4), sharded_sweep on ["cuda:0", "cuda:0"] against one
+               shard; a mesh of two distinct devices, ["cuda:0", "cpu"]
+               (a thread each): both sweeps and the learned chunker against
+               the card alone, and a failing shard raising; phase 12's server (reuse, int16, tracking) on two
+               shards of the card against one (relative 1e-4), tick ms of
+               both; initialize() of a one-process NCCL group and a
+               sharded_sweep over global_data_mesh() against the unsharded
+               sweep.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
@@ -1223,6 +1242,275 @@ def phase_sim(dev, model, profile_call) -> dict:
                          local_batches_per_s=1 / loc_s)
     log("sim_corpus", files=64, batch=(32, 32_000), native_batches_per_s=f"{50 / nat_s:.1f}",
         local_corpus_batches_per_s=f"{1 / loc_s:.1f}")
+    return out
+
+
+def phase_sweep(dev, model, model_cpu, profile_call) -> dict:
+    """Phase 23: the sweeps and the shards (module docstring). Returns the
+    phase's numbers for chip_smoke.json."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from azoom_torch import AudioZoomServer, kernels
+    from azoom_torch.config import PipelineConfig, RoomConfig
+    from azoom_torch.kernels.qconv_kernel import route_counts
+    from azoom_torch.parallel import make_mesh, sharded_sweep, sweep_summary
+    from azoom_torch.parallel.multihost import global_data_mesh, initialize, is_primary
+    from azoom_torch.parallel.sweep import (learned_step, learned_sweep, oracle_step,
+                                            oracle_sweep, score_scenes, sweep_scenes)
+    from azoom_torch.pipelines.learned import learned_enhance
+    from azoom_torch.pipelines.oracle import oracle_enhance
+
+    cfg = PipelineConfig(mic_dist=0.04)
+    n_scenes, seed = BATCH, 23
+    sweeps = {
+        # 128 randomized anechoic 2 s scenes, with STOI
+        "oracle": (oracle_sweep, (cfg,), dict(n_samples=N_SAMPLES, with_stoi=True,
+                                              randomize=True), {"masked_mvdr": 1}),
+        # the reference's flagship campaign: reverberant (RoomConfig(): RT60
+        # 0.5 s, order 15), 2 interferers, the int8 net and hard-null
+        "learned": (learned_sweep, (cfg, model),
+                    dict(n_samples=N_SAMPLES, room=RoomConfig(), beamformer="hard_null",
+                         feature_kind="physics"),
+                    {"qconv3x3": 21, "convt1x2": 3, "hard_null": 1}),
+    }
+    out = {}
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def metric_diff(a: dict, b: dict) -> dict:
+        return {k: float((a[k].cpu().double() - b[k].cpu().double()).abs().max()) for k in b}
+
+    def close(diff: dict) -> bool:  # the metrics within 0.05 dB, STOI within 1e-4
+        return all(v <= (1e-4 if k == "stoi" else 0.05) for k, v in diff.items())
+
+    for name, (fn, args, kw, want) in sweeps.items():
+        full = dict(kw)
+        scene_kw = {k: v for k, v in kw.items() if k in ("n_samples", "randomize", "room")}
+        if name == "learned":
+            scene_kw["reverb"] = True
+        fn(seed, *args, n_scenes=n_scenes, **full)  # warm-up at the timed shape
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        routes0 = dict(route_counts)
+        res, wall = sync_ms(lambda: fn(seed, *args, n_scenes=n_scenes, **full))
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        routes = {r: route_counts[r] - routes0[r] for r in route_counts}
+        check(counts == want, f"{name} sweep: launches {counts}")
+        check(all(v.shape == (n_scenes,) for v in res.values())
+              and all(bool(torch.isfinite(v).all()) for v in res.values()),
+              f"{name} sweep: bad metrics {[(k, v.shape) for k, v in res.items()]}")
+        summ = sweep_summary(res)
+        # end to end: the sweep as a user calls it, 5 runs
+        walls = [wall] + [sync_ms(lambda: fn(seed, *args, n_scenes=n_scenes, **full))[1]
+                          for _ in range(4)]
+        wall_med = statistics.median(walls)
+
+        # instrumented: the same sweep with the card synchronised between its
+        # steps (synthesis, enhancement, scoring), 5 runs; the shares are
+        # those of the run whose total is the median
+        def steps():
+            sc, t_syn = sync_ms(lambda: sweep_scenes(seed, cfg, n_scenes, device=dev, **scene_kw))
+            if name == "oracle":
+                y, t_enh = sync_ms(lambda: oracle_enhance(sc["mixture"], sc["target_ref"],
+                                                          sc["interference_ref"], cfg))
+            else:
+                y, t_enh = sync_ms(lambda: learned_enhance(sc["mixture"], model, cfg,
+                                                           beamformer="hard_null",
+                                                           feature_kind="physics"))
+            _, t_sco = sync_ms(lambda: score_scenes(y, sc, cfg, True))
+            return dict(synthesis=t_syn, enhancement=t_enh, scoring=t_sco,
+                        total=t_syn + t_enh + t_sco)
+
+        runs = sorted((steps() for _ in range(5)), key=lambda r: r["total"])
+        med = runs[2]
+        share = {k: med[k] / med["total"] for k in ("synthesis", "enhancement", "scoring")}
+        _, p_wall, p_dev = profile_call(f"sweep_{name}_profile",
+                                        lambda: fn(seed, *args, n_scenes=n_scenes, **full),
+                                        f"profile_sweep_{name}.txt")
+        # the card against the CPU on the first 4 scenes: the enhance-and-score
+        # step on the same scenes (the kernels against their plain versions),
+        # then the whole sweep, scenes drawn on each side
+        sc4 = sweep_scenes(seed, cfg, 4, device=dev, **scene_kw)
+        sc4_cpu = {k: v.cpu() for k, v in sc4.items()}
+        if name == "oracle":
+            d_step = metric_diff(oracle_step(sc4, cfg, True), oracle_step(sc4_cpu, cfg, True))
+        else:
+            step_kw = dict(beamformer="hard_null", feature_kind="physics")
+            d_step = metric_diff(learned_step(sc4, cfg, model, **step_kw),
+                                 learned_step(sc4_cpu, cfg, model_cpu, **step_kw))
+        check(close(d_step), f"{name} sweep step: card vs CPU on 4 scenes {d_step}")
+        args_cpu = (cfg, model_cpu) if name == "learned" else (cfg,)
+        res_cpu = fn(seed, *args_cpu, n_scenes=4, device="cpu", **full)
+        d_cpu = metric_diff({k: v[:4] for k, v in res.items()}, res_cpu)
+        # the learned path's int8 codes flip under the scenes' ulps (the room's
+        # RIRs differ by ~1e-6 of their peak between card and CPU): the
+        # facade's bound there, 0.1 dB (STOI 2e-3, the CPU parity test's)
+        check(close(d_cpu) if name == "oracle" else
+              all(v <= (2e-3 if k == "stoi" else 0.1) for k, v in d_cpu.items()),
+              f"{name} sweep: card vs CPU on 4 scenes {d_cpu}")
+        # two shards on the card against one
+        mesh2 = make_mesh(devices=["cuda:0"] * 2)
+        shd, shd_ms = sync_ms(lambda: sharded_sweep(fn, seed, mesh2, n_scenes, *args, **full))
+        d_shd = metric_diff(shd, res)
+        bits = all(torch.equal(shd[k], res[k]) for k in res)
+        check(close(d_shd), f"{name} sweep: 2 shards vs 1 {d_shd}")
+        out[name] = dict(scenes=n_scenes, seconds=N_SAMPLES / 16_000, launches=counts,
+                         conv_routes=routes, wall_ms=walls, wall_ms_median=wall_med,
+                         scenes_per_s=n_scenes / (wall_med / 1e3), instrumented_runs=runs,
+                         instrumented_median=med, shares=share,
+                         profile_wall_ms=p_wall, profile_device_ms=p_dev,
+                         idle_share=max(0.0, 1 - p_dev / p_wall), step_card_vs_cpu_4=d_step,
+                         card_vs_cpu_4=d_cpu,
+                         sharded2_ms=shd_ms, sharded2_vs_one=d_shd, sharded2_bit_equal=bits,
+                         summary={k: summ[k] for k in ("sir_imp", "sinr_out", "stoi")})
+        log(f"sweep_{name}", scenes=n_scenes, launches=counts,
+            conv_routes=routes if name == "learned" else "-",
+            wall_ms=[round(w, 1) for w in walls], wall_ms_median=f"{wall_med:.1f}",
+            scenes_per_s=f"{out[name]['scenes_per_s']:.1f}",
+            instrumented_ms=f"{med['total']:.1f}", synthesis_ms=f"{med['synthesis']:.1f}",
+            enhancement_ms=f"{med['enhancement']:.1f}", scoring_ms=f"{med['scoring']:.1f}",
+            shares={k: f"{v:.3f}" for k, v in share.items()},
+            idle_share=f"{out[name]['idle_share']:.3f}",
+            sir_imp_mean_db=f"{summ['sir_imp']['mean']:.2f}",
+            stoi_mean=f"{summ['stoi']['mean']:.4f}",
+            step_vs_cpu_max={k: f"{v:.2e}" for k, v in d_step.items()},
+            vs_cpu_max={k: f"{v:.2e}" for k, v in d_cpu.items()},
+            sharded2_ms=f"{shd_ms:.1f}", sharded2_bit_equal=bits,
+            sharded2_vs_one_max=f"{max(d_shd.values()):.2e}")
+
+    # a mesh of two distinct devices, the card and the host's CPU: a thread
+    # each (run_on_devices' threaded path), the net replicated to the CPU;
+    # the sweeps against the card alone at the card-against-CPU bounds, the
+    # learned chunker within 1e-2 relative, and a shard's exception raised
+    import threading
+
+    from azoom_torch.parallel import replicated
+    from azoom_torch.stream.chunker import streaming_enhance, streaming_enhance_sharded
+
+    mixed = make_mesh(devices=["cuda:0", "cpu"])
+    okw = dict(n_samples=N_SAMPLES, with_stoi=True, randomize=True)
+    mo, mo_ms = sync_ms(lambda: sharded_sweep(oracle_sweep, seed, mixed, 4, cfg, **okw))
+    d_mo = metric_diff(mo, oracle_sweep(seed, cfg, n_scenes=4, **okw))
+    check(close(d_mo) and all(v.device == mixed.devices[0] for v in mo.values()),
+          f"oracle sweep on the card and the CPU vs the card {d_mo}")
+    lkw = dict(sweeps["learned"][2])
+    kernels.reset_launches()
+    ml, ml_ms = sync_ms(lambda: sharded_sweep(learned_sweep, seed, mixed, 2, cfg, model, **lkw))
+    ml_launches = {k: v for k, v in kernels.launches.items() if v}
+    check(ml_launches == sweeps["learned"][3],
+          f"learned sweep on the card and the CPU: the card's launches {ml_launches}")
+    d_ml = metric_diff(ml, learned_sweep(seed, cfg, model, n_scenes=2, **lkw))
+    check(all(v <= (2e-3 if k == "stoi" else 0.1) for k, v in d_ml.items()),
+          f"learned sweep on the card and the CPU vs the card {d_ml}")
+    reps, seen = replicated(mixed, model), {}
+
+    def process(chunks):
+        seen[chunks.device.type] = threading.get_ident()
+        return learned_enhance(chunks, reps[chunks.device], cfg, feature_kind="physics",
+                               steer_deg=70.0)
+
+    rec = torch.from_numpy(far_field_scene(np.random.default_rng(23), 1, 6 * 16_000)[0][0]).to(dev)
+    st, st_ms = sync_ms(lambda: streaming_enhance_sharded(rec, process, mixed))
+    threads = dict(seen)
+    check(len(set(threads.values()) | {threading.get_ident()}) == 3,
+          f"chunker on the card and the CPU: threads {threads}")
+    st_ref = streaming_enhance(rec, process)
+    st_rel = float((st - st_ref).norm() / st_ref.norm())
+    check(st_rel <= 1e-2, f"chunker on the card and the CPU vs the card: relative {st_rel:.3e}")
+
+    def failing(seed_, *a, device=None, **k):
+        if torch.device(device).type == "cpu":
+            raise FloatingPointError("the CPU's shard")
+        return oracle_sweep(seed_, *a, device=device, **k)
+
+    try:
+        sharded_sweep(failing, seed, mixed, 4, cfg, **okw)
+        raised = False
+    except FloatingPointError:
+        raised = True
+    check(raised, "a failing shard on the CPU did not raise")
+    out["two_devices"] = dict(mesh=[str(d) for d in mixed.devices], oracle_scenes=4,
+                              oracle_ms=mo_ms, oracle_vs_card=d_mo, learned_scenes=2,
+                              learned_ms=ml_ms, learned_card_launches=ml_launches,
+                              learned_vs_card=d_ml, chunker_ms=st_ms, chunker_rel_l2=st_rel,
+                              shard_error_raised=raised)
+    log("sweep_two_devices", mesh=out["two_devices"]["mesh"], oracle_ms=f"{mo_ms:.1f}",
+        oracle_vs_card_max=f"{max(d_mo.values()):.2e}", learned_ms=f"{ml_ms:.1f}",
+        learned_card_launches=ml_launches, learned_vs_card_max=f"{max(d_ml.values()):.2e}",
+        chunker_ms=f"{st_ms:.1f}", chunker_rel_l2=f"{st_rel:.3e}", shard_error_raised=raised)
+
+    # the live server of phase 12 on two shards of the card against one
+    scfg = PipelineConfig(mic_dist=0.04, win_size=32_768)
+    win, hop, n_ticks = scfg.win_size, scfg.win_size // 2, 6
+    steers, zooms = np.linspace(30.0, 150.0, BATCH), np.linspace(0.0, 1.0, BATCH)
+    itf = np.stack([np.clip(steers - 45.0, 5.0, 175.0), np.clip(steers + 45.0, 5.0, 175.0)], 1)
+    mix = far_field_scene(np.random.default_rng(12), BATCH, win + n_ticks * hop,
+                          angles=np.concatenate([steers[:, None], itf], axis=1))[0]
+    blocks = np.clip(mix * 32767.0, -32767, 32767).astype(np.int16)
+    srv_out = {}
+    for tag, mesh in (("one", None), ("two_shards", make_mesh(devices=["cuda:0"] * 2))):
+        srv = AudioZoomServer(BATCH, cfg=scfg, mask_reuse=True, wire="int16", track=True,
+                              mesh=mesh)
+        for st in range(BATCH):
+            srv.set_zoom(st, direction_deg=float(steers[st]), zoom=float(zooms[st]))
+        outs, ms, launches = [srv.push(blocks[:, :, :win])], [], []
+        for k in range(n_ticks):
+            kernels.reset_launches()
+            o, t = sync_ms(lambda: srv.push(blocks[:, :, win + k * hop:win + (k + 1) * hop]))
+            outs.append(o)
+            ms.append(t)
+            launches.append({k2: v for k2, v in kernels.launches.items() if v})
+        shards = 1 if mesh is None else 2
+        want = {"qconv3x3": 21 * shards, "convt1x2": 3 * shards, "masked_mvdr": shards}
+        check(all(c == want for c in launches), f"server {tag}: tick launches {launches}")
+        srv_out[tag] = dict(out=np.concatenate(outs, 1).astype(np.float32), tick_ms=ms,
+                            launches=launches[-1], bearings=srv.bearings)
+        del srv
+    a, b = srv_out["two_shards"]["out"], srv_out["one"]["out"]
+    srv_rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    srv_bits = bool(np.array_equal(a, b))
+    check(srv_rel <= 1e-4, f"server: two shards vs one, waveform relative L2 {srv_rel:.3e}")
+    out["server"] = dict(streams=BATCH, ticks=n_ticks, wave_rel_l2=srv_rel, bit_equal=srv_bits,
+                         bearings_equal=bool(np.array_equal(srv_out["one"]["bearings"],
+                                                            srv_out["two_shards"]["bearings"])),
+                         **{f"{t}_tick_ms": v["tick_ms"] for t, v in srv_out.items()},
+                         **{f"{t}_launches": v["launches"] for t, v in srv_out.items()})
+    log("sweep_server", streams=BATCH, ticks=n_ticks,
+        tick_ms_median_one=f"{statistics.median(srv_out['one']['tick_ms'][1:]):.3f}",
+        tick_ms_median_two_shards=f"{statistics.median(srv_out['two_shards']['tick_ms'][1:]):.3f}",
+        launches_two_shards=srv_out["two_shards"]["launches"], wave_rel_l2=f"{srv_rel:.3e}",
+        bit_equal=srv_bits, bearings_equal=out["server"]["bearings_equal"])
+
+    # a process group of one on NCCL, and a sweep over its global mesh
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        gmesh = global_data_mesh()
+        check(gmesh.size == 1 and is_primary() and dist.get_backend() == "nccl",
+              f"global mesh {gmesh}, backend {dist.get_backend()}")
+        g, g_ms = sync_ms(lambda: sharded_sweep(oracle_sweep, seed, gmesh, 8, cfg,
+                                                n_samples=N_SAMPLES, with_stoi=True,
+                                                randomize=True))
+        ref8 = oracle_sweep(seed, cfg, n_scenes=8, n_samples=N_SAMPLES, with_stoi=True,
+                            randomize=True)
+        d_g = metric_diff(g, ref8)
+        check(close(d_g), f"multihost sweep vs unsharded {d_g}")
+    finally:
+        dist.destroy_process_group()
+    out["multihost"] = dict(backend="nccl", world_size=1, scenes=8, ms=g_ms, vs_unsharded=d_g)
+    log("sweep_multihost", backend="nccl", world_size=1, scenes=8, ms=f"{g_ms:.1f}",
+        vs_unsharded_max=f"{max(d_g.values()):.2e}")
     return out
 
 
@@ -2613,6 +2901,9 @@ def main() -> int:
     # 22. scene simulation ----------------------------------------------------------
     sim = phase_sim(dev, model, profile_call)
 
+    # 23. sweeps and shards -----------------------------------------------------------
+    sweep = phase_sweep(dev, model, model_cpu, profile_call)
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
@@ -2632,7 +2923,8 @@ def main() -> int:
          "server": server_stats, "facade": facade, "tracked": tracked,
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
          "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic,
-         "beamformers": beamformers, **native_eval, "sim": sim, "card": smi},
+         "beamformers": beamformers, **native_eval, "sim": sim, "sweep": sweep,
+         "card": smi},
         indent=1))
     print(json.dumps(line))
     print(smi)

@@ -884,3 +884,127 @@ def test_scene_simulation_on_the_card_matches_the_cpu(cuda):
     for got, ref in ((ff, ff_cpu), (mv, mv_cpu), (mr, mr_cpu)):
         for k in ref:
             assert got[k].device.type == "cuda" and rel(got[k], ref[k]) <= 1e-4, k
+
+
+def _metric_diff(a: dict, b: dict) -> dict:
+    return {k: float((a[k].cpu().double() - b[k].cpu().double()).abs().max()) for k in b}
+
+
+def _metrics_close(diff: dict) -> bool:
+    """The metrics within 0.05 dB, STOI within 1e-4."""
+    return all(v <= (1e-4 if k == "stoi" else 0.05) for k, v in diff.items())
+
+
+def test_sweeps_on_the_card_match_the_cpu(cuda):
+    """A few scenes of each sweep: B1 for the oracle, B2, convt1x2 and B3
+    for the learned hard-null sweep in a reverberant room. The learned
+    step on the same scenes is held at 0.05 dB; the whole learned sweep,
+    scenes drawn on each side, at the facade's 0.1 dB and STOI 2e-3 (the
+    int8 net flips codes under the room scenes' ulps, as phase 23 shows)."""
+    from azoom_torch.config import RoomConfig
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.parallel.sweep import learned_step, learned_sweep, oracle_sweep, sweep_scenes
+
+    cfg = PipelineConfig(mic_dist=0.04)
+    kw = dict(n_scenes=4, n_samples=16_000, with_stoi=True, randomize=True)
+    kernels.reset_launches()
+    got = oracle_sweep(1, cfg, **kw)
+    assert {k: v for k, v in kernels.launches.items() if v} == {"masked_mvdr": 1}
+    assert _metrics_close(_metric_diff(got, oracle_sweep(1, cfg, device="cpu", **kw)))
+    net, fk = load_bundled("tpufpu_nano")
+    net_cpu, _ = load_bundled("tpufpu_nano", device="cpu")
+    kw = dict(n_scenes=2, n_samples=32_000, room=RoomConfig(max_order=6), beamformer="hard_null",
+              feature_kind=fk)
+    kernels.reset_launches()
+    got = learned_sweep(2, cfg, net, **kw)
+    assert {k: v for k, v in kernels.launches.items() if v} == {
+        "qconv3x3": 21, "convt1x2": 3, "hard_null": 1}
+    whole = _metric_diff(got, learned_sweep(2, cfg, net_cpu, **kw))
+    assert all(v <= (2e-3 if k == "stoi" else 0.1) for k, v in whole.items()), whole
+    sc = sweep_scenes(2, cfg, 2, n_samples=32_000, reverb=True, randomize=True,
+                      room=RoomConfig(max_order=6))
+    step_kw = dict(beamformer="hard_null", feature_kind=fk)
+    step = _metric_diff(learned_step(sc, cfg, net, **step_kw),
+                        learned_step({k: v.cpu() for k, v in sc.items()}, cfg, net_cpu, **step_kw))
+    assert _metrics_close(step), step
+
+
+def test_two_shards_on_the_card_match_one(cuda):
+    """sharded_sweep and the server on ["cuda:0", "cuda:0"] against one shard."""
+    import numpy as np
+
+    from azoom_torch import AudioZoomServer
+    from azoom_torch.parallel import make_mesh, oracle_sweep, sharded_sweep
+
+    cfg = PipelineConfig(mic_dist=0.04)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    kw = dict(n_samples=16_000, with_stoi=True, randomize=True)
+    assert _metrics_close(_metric_diff(sharded_sweep(oracle_sweep, 4, mesh, 8, cfg, **kw),
+                                       oracle_sweep(4, cfg, n_scenes=8, **kw)))
+    scfg = PipelineConfig(mic_dist=0.04, win_size=32_768)
+    rng = np.random.default_rng(6)
+    x = (0.1 * rng.standard_normal((4, 2, 32_768 + 3 * 16_384))).astype(np.float32)
+    outs = []
+    for m in (None, mesh):
+        srv = AudioZoomServer(4, cfg=scfg, mask_reuse=True, wire="int16", track=True, mesh=m)
+        for s in range(4):
+            srv.set_zoom(s, direction_deg=50.0 + 25.0 * s, zoom=0.2 * s)
+        outs.append(srv.push(x).astype(np.float32))
+    rel = np.linalg.norm(outs[1] - outs[0]) / np.linalg.norm(outs[0])
+    assert outs[0].shape == (4, 3 * 16_384) and rel <= 1e-4
+
+
+def test_a_mesh_of_the_card_and_the_cpu_runs_a_thread_each(cuda):
+    """A mesh of two distinct devices, ["cuda:0", "cpu"], takes
+    run_on_devices' threaded path: each device's shard runs in a thread of
+    its own (the card's with cuda:0 current), the net is replicated to the
+    CPU, and the results gather on the card. Held at the card-against-CPU
+    bounds: the oracle sweep 0.05 dB / STOI 1e-4, the learned sweep the
+    facade's 0.1 dB / 2e-3, the learned chunker 1e-2 relative; an
+    exception in the CPU's shard is raised."""
+    import threading
+
+    from azoom_torch import learned_enhance
+    from azoom_torch.config import RoomConfig
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.parallel import make_mesh, oracle_sweep, replicated, sharded_sweep
+    from azoom_torch.parallel.sweep import learned_sweep
+    from azoom_torch.stream.chunker import streaming_enhance, streaming_enhance_sharded
+
+    cfg = PipelineConfig(mic_dist=0.04)
+    mesh = make_mesh(devices=["cuda:0", "cpu"])
+    kw = dict(n_samples=16_000, with_stoi=True, randomize=True)
+    got = sharded_sweep(oracle_sweep, 4, mesh, 4, cfg, **kw)
+    assert all(v.device == mesh.devices[0] for v in got.values())
+    assert _metrics_close(_metric_diff(got, oracle_sweep(4, cfg, n_scenes=4, **kw)))
+
+    net, fk = load_bundled("tpufpu_nano")
+    lkw = dict(n_samples=32_000, room=RoomConfig(max_order=6), beamformer="hard_null",
+               feature_kind=fk)
+    kernels.reset_launches()
+    got = sharded_sweep(learned_sweep, 2, mesh, 2, cfg, net, **lkw)
+    assert _active(kernels.launches) == {"qconv3x3": 21, "convt1x2": 3, "hard_null": 1}
+    whole = _metric_diff(got, learned_sweep(2, cfg, net, n_scenes=2, **lkw))
+    assert all(v <= (2e-3 if k == "stoi" else 0.1) for k, v in whole.items()), whole
+
+    reps, seen = replicated(mesh, net), {}
+
+    def process(chunks):
+        seen[chunks.device.type] = threading.get_ident()
+        return learned_enhance(chunks, reps[chunks.device], cfg, feature_kind=fk, steer_deg=70.0)
+
+    mix = torch.from_numpy((0.1 * np.random.default_rng(9).standard_normal(
+        (2, 80_000))).astype(np.float32)).to(cuda)
+    out = streaming_enhance_sharded(mix, process, mesh)
+    threads = dict(seen)
+    assert len(set(threads.values()) | {threading.get_ident()}) == 3, threads
+    ref = streaming_enhance(mix, process)
+    assert out.device.type == "cuda" and float((out - ref).norm() / ref.norm()) <= 1e-2
+
+    def failing(seed, *a, device=None, **k):
+        if torch.device(device).type == "cpu":
+            raise FloatingPointError("the CPU's shard")
+        return oracle_sweep(seed, *a, device=device, **k)
+
+    with pytest.raises(FloatingPointError, match="the CPU's shard"):
+        sharded_sweep(failing, 4, mesh, 4, cfg, **kw)

@@ -193,20 +193,22 @@ def test_server_loadings_stay_per_stream_when_streams_equal_bins():
     srv = AudioZoomServer(S, cfg=cfg, device="cpu")
     for s in range(S):
         srv.set_zoom(s, direction_deg=steers[s], zoom=zooms[s])
-    steer, sigma = srv._controls()
+    sh = srv._shards[0]
+    steer, sigma = srv._controls(sh)
     assert sigma.shape == (S, 1)
     Y = stft(torch.from_numpy(0.1 * rng.standard_normal((S, 2, 2048)).astype(np.float32)),
              cfg.n_fft, cfg.hop)
     assert Y.shape[-2] == S
     mask = torch.from_numpy(rng.random((S, S, Y.shape[-1]), dtype=np.float32))
-    d = steering_vector(srv._freqs, steer, cfg.mic_dist)
-    out = srv._beamform(Y, mask, d, sigma)
+    d = steering_vector(sh.freqs, steer, cfg.mic_dist)
+    out = srv._beamform(sh, Y, mask, d, sigma)
     for s in (0, 200, 512):
         one = AudioZoomServer(1, cfg=cfg, device="cpu")
         one.set_zoom(0, direction_deg=steers[s], zoom=zooms[s])
-        steer1, sigma1 = one._controls()
-        alone = one._beamform(Y[s:s + 1], mask[s:s + 1],
-                              steering_vector(one._freqs, steer1, cfg.mic_dist), sigma1)
+        sh1 = one._shards[0]
+        steer1, sigma1 = one._controls(sh1)
+        alone = one._beamform(sh1, Y[s:s + 1], mask[s:s + 1],
+                              steering_vector(sh1.freqs, steer1, cfg.mic_dist), sigma1)
         np.testing.assert_allclose(out[s].numpy(), alone[0].numpy(), rtol=1e-5, atol=1e-8)
 
 
@@ -246,9 +248,20 @@ def test_server_attach_detach_and_accounting():
     assert srv.bearings[1] == 100.0
 
 
-def test_server_mesh_is_queued():
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        AudioZoomServer(2, mesh=object(), device="cpu")
+def test_server_mesh_argument_checks():
+    """The reference's checks of ``mesh=``: one axis, and a stream count
+    that divides over it (the sharded server itself:
+    tests/test_torch_parallel.py)."""
+    from azoom_torch.parallel.mesh import Mesh, make_mesh
+
+    with pytest.raises(ValueError, match="exactly one axis"):
+        AudioZoomServer(2, mesh=Mesh((torch.device("cpu"),) * 2, ("data", "model")))
+    with pytest.raises(ValueError, match="n_streams=3 not divisible by mesh size 2"):
+        AudioZoomServer(3, mesh=make_mesh(devices=["cpu", "cpu"]))
+    srv = AudioZoomServer(4, mesh=make_mesh(devices=["cpu", "cpu"]))
+    assert [(sh.sl.start, sh.sl.stop, sh.device.type) for sh in srv._shards] == [
+        (0, 2, "cpu"), (2, 4, "cpu")]
+    assert srv._shards[0].model is srv._shards[1].model
 
 
 def test_server_bad_arguments():

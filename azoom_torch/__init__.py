@@ -15,8 +15,8 @@ loading at any M, nullsteer with per-chunk steering at M = 2 and the
 M-mic LCMV above, zoom, the HRNR postfilter, gev, rmvb, rtf, wpd), wpe
 (dereverb), masks (physics features, bin_doa and duet_masks, geometric
 incl. the FOV gate and the IPD-deviation mask, oracle, postfilter), localize (srp: SRP, GCC-PHAT, the IPD angle histogram; tracking:
-the Viterbi, causal, momentum, two-source and EMA trackers), models (quantize reader, unet TPUFPU, convert, pretrained
-``tpufpu_nano``), eval (projection, stoi, bss, pesq_native and pesq_bridge,
+the Viterbi, causal, momentum, two-source and EMA trackers), models (quantize, unet with TPUFPU's tfold and fattn, crn, blstm,
+qcnn, convert, pretrained), eval (projection, stoi, bss, pesq_native and pesq_bridge,
 reports), io (wav), dsp.resample and dsp.params, utils (host, profiling,
 flops), stream (chunker, native: the C++ stream engine under
 ``AudioZoom.push``, ``AudioZoomServer``: S live streams with mask reuse, an
@@ -32,8 +32,13 @@ sim (synthetic signals, far-field, moving-source and shoebox-room scenes,
 the C++ RIR and corpus engines, local corpora; a ``torch.Generator`` where
 the reference takes a JAX key), parallel (device meshes, the oracle and
 learned batch sweeps sharded over them, the multi-process layer; the
-server's ``mesh=`` and ``stream.chunker.streaming_enhance_sharded``) and
-cli (``python -m azoom_torch.cli.batch``, the vectorized batch sweep).
+server's ``mesh=`` and ``stream.chunker.streaming_enhance_sharded``),
+training (``train``: on-the-fly batches and the train loop with
+checkpoints; ``models.trainable``, ``models.blstm`` and ``models.qcnn``:
+the nets in trainable form; ``models.quantize``: calibration and the int8
+export) and cli (``python -m azoom_torch.cli.batch``, the vectorized batch
+sweep; ``python -m azoom_torch.cli.train``). Each subpackage re-exports the
+names of its ``azoom`` counterpart.
 """
 
 from azoom_torch.config import DEFAULT, GEN1, PipelineConfig, RoomConfig
@@ -48,8 +53,10 @@ from azoom_torch.pipelines.oracle import heuristic_enhance, oracle_enhance
 from azoom_torch.stream.server import AudioZoomServer
 from azoom_torch.zoom_api import AudioZoom
 
+__version__ = "0.1.0"
+
 __all__ = [
     "DEFAULT", "GEN1", "PipelineConfig", "RoomConfig", "load_bundled", "learned_enhance",
     "learned_enhance_streaming", "predict_mask", "oracle_enhance", "heuristic_enhance",
-    "autosteer_enhance", "AudioZoomServer", "AudioZoom",
+    "autosteer_enhance", "AudioZoomServer", "AudioZoom", "__version__",
 ]

@@ -9,8 +9,8 @@ whatever the chunk size (its draws come from (seed, i) alone). Runs on the
 card unless ``--device cpu``.
 
 Not ported: ``--per-run`` (the serial per-scene file pipeline; it needs
-``cli/run.py``, ROADMAP.md Queue A item 10) and an orbax ``--ckpt``
-directory (training checkpoints, item 9); both raise NotImplementedError.
+``cli/run.py``, ROADMAP.md Queue A item 10) and a ``--ckpt`` checkpoint
+directory (Queue A item 9d); both raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -93,8 +93,8 @@ def _load_sweep_model(args, cfg, device):
         ckpt = Path(args.ckpt)
         if ckpt.suffix != ".npz":
             raise NotImplementedError(
-                f"--ckpt {ckpt}: orbax training checkpoints are not ported; they come "
-                "with training (ROADMAP.md Queue A item 9). Pass an int8 .npz artifact")
+                f"--ckpt {ckpt}: checkpoint directories are not read yet (ROADMAP.md "
+                "Queue A item 9d). Pass an int8 .npz artifact")
         from azoom_torch.models.convert import from_flax
         from azoom_torch.models.quantize import load_quantized
 

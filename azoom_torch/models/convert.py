@@ -20,6 +20,7 @@ import torch
 
 from azoom_torch.kernels.qconv_kernel import epilogue_params, pack_weights, quantize_weights
 from azoom_torch.models.crn import CRNMaskNet
+from azoom_torch.models.layers import FreqAttention
 from azoom_torch.models.unet import (
     TPUFPU, ConvBNRelu, ConvTranspose1x2, FConv, Head, QConv, ResBlock,
 )
@@ -82,6 +83,8 @@ def _load_conv(conv, p: dict, s: dict, q: dict | None, i: int) -> None:
         load_fconv(conv, p[f"Conv_{i}"], bn_p, bn_s)
     else:
         load_qconv(conv, p[f"Conv_{i}"], q[f"Conv_{i}"]["act_scale"], bn_p, bn_s)
+        # where it came from, for quantize.calibrate_act_scales
+        conv.flax_source = (p[f"Conv_{i}"], bn_p, bn_s, q[f"Conv_{i}"])
 
 
 def _load_cell(m, p: dict, s: dict, q: dict | None) -> None:
@@ -108,13 +111,20 @@ def from_flax(cls, variables: dict, model_kwargs: dict, quant: bool = True, devi
             "(variables['quant_stats'])"
         )
     kw = {k: v for k, v in model_kwargs.items() if k not in ("quant", "dtype")}
-    model = cls(**kw, quant=quant)
     p, s = variables["params"], variables["batch_stats"]
+    if cls is TPUFPU and "FreqAttention_0" in p and "n_freqs" not in kw:
+        # the position embedding's rows are the folded rows it was made for
+        kw["n_freqs"] = np.shape(p["FreqAttention_0"]["pos_emb"])[0] * kw.get("fold", 4)
+    model = cls(**kw, quant=quant)
     q = variables["quant_stats"] if quant else None
     with torch.no_grad():
         for attr, name in cls.FLAX_NAMES.items():
             m = getattr(model, attr)
-            if isinstance(m, ConvTranspose1x2):
+            if m is None:  # an optional block the net was built without
+                continue
+            if isinstance(m, FreqAttention):
+                m.load_variables({"params": p[name], "batch_stats": {}})
+            elif isinstance(m, ConvTranspose1x2):
                 load_conv_transpose(m, p[name])
             elif isinstance(m, Head):
                 m.weight.copy_(_t(p[name]["kernel"])[0, 0])

@@ -18,10 +18,10 @@ from pathlib import Path
 
 from azoom_torch.config import resolve_device
 from azoom_torch.models.convert import crn_from_flax, from_flax
-from azoom_torch.models.quantize import load_quantized
+from azoom_torch.models.quantize import fold_batchnorm, load_quantized
 from azoom_torch.models.unet import TPUFPU, DeepFPU, FreqPreservingUNet
 
-__all__ = ["load_bundled", "bundled_train_mic_dist", "geo_adapt_dist", "ASSETS"]
+__all__ = ["load_bundled", "bundled_train_mic_dist", "geo_adapt_dist", "artifact_name", "ASSETS"]
 
 ASSETS = Path(__file__).resolve().parents[2] / "azoom" / "assets"
 
@@ -75,14 +75,25 @@ def geo_adapt_dist(model: str, actual_mic_dist: float) -> float | None:
     return train
 
 
-def load_bundled(name: str, quant: bool = True, device=None):
+def artifact_name(name: str) -> tuple[str, str]:
+    """(artifact file under ASSETS, feature kind) of a bundled net."""
+    if name == "crn_causal":
+        return _CRN_CAUSAL[0], _CRN_CAUSAL[2]
+    if name not in _PORTED:
+        raise KeyError(f"unknown bundled model {name!r}; have {sorted(_TRAIN_MIC_DIST)}")
+    return _PORTED[name][0], _PORTED[name][3]
+
+
+def load_bundled(name: str, quant: bool = True, device=None, fold_bn: bool = False):
     """Returns (model, feature_kind) for a bundled artifact, the model on
     ``device`` in eval mode: the int8 net with ``quant=True``, the float net
     of the same checkpoint otherwise (``crn_causal`` is float only and
     ignores ``quant``). ``device=None`` means CUDA and raises when there is
     no CUDA device; pass ``device="cpu"`` for the plain path. (The reference
     defaults to ``quant=False``; the port keeps ``True``, the serving path it
-    had first.)"""
+    had first.) ``fold_bn`` absorbs every Conv -> BatchNorm pair into the
+    conv's kernel and bias first (``quantize.fold_batchnorm``; the conv nets
+    only, as in the reference)."""
     if name not in _TRAIN_MIC_DIST:
         raise KeyError(f"unknown bundled model {name!r}; have {sorted(_TRAIN_MIC_DIST)}")
     device = resolve_device(device)
@@ -94,4 +105,7 @@ def load_bundled(name: str, quant: bool = True, device=None):
         _, kwargs, feature_kind = _CRN_CAUSAL
         return crn_from_flax(load_quantized(path), kwargs, device), feature_kind
     _, cls, kwargs, feature_kind = _PORTED[name]
-    return from_flax(cls, load_quantized(path), kwargs, bool(quant), device), feature_kind
+    variables = load_quantized(path)
+    if fold_bn:
+        variables = fold_batchnorm(variables)
+    return from_flax(cls, variables, kwargs, bool(quant), device), feature_kind

@@ -30,11 +30,12 @@ from torch import nn
 
 from azoom_torch.kernels.convt_kernel import convt1x2
 from azoom_torch.kernels.qconv_kernel import k_padded, qconv3x3
+from azoom_torch.models.layers import FreqAttention
 
 __all__ = [
     "FreqPreservingUNet", "DeepFPU", "TPUFPU", "QConv", "FConv", "ConvBNRelu", "ResBlock",
     "DoubleConv", "ConvTranspose1x2", "Head", "fold_freq", "unfold_freq", "pad_frames",
-    "pool_time", "conv_shapes",
+    "pool_time", "conv_shapes", "fold_time", "unfold_time", "time_pool_factor",
 ]
 
 
@@ -57,6 +58,29 @@ def unfold_freq(y: torch.Tensor, fold: int, n_freqs: int) -> torch.Tensor:
     y = y.transpose(-1, -2)  # (..., Fp, fold, T)
     y = y.reshape(*y.shape[:-3], y.shape[-3] * fold, y.shape[-1])
     return y[..., :n_freqs, :]
+
+
+def fold_time(x: torch.Tensor, tfold: int) -> torch.Tensor:
+    """Space-to-depth on time: (..., T, C) -> (..., ceil(T/tfold), tfold*C),
+    zero-padding T. Frame t lands in row t//tfold, channel (t % tfold)*C + c."""
+    t = x.shape[-2]
+    pad_t = (-t) % tfold
+    if pad_t:
+        x = nn.functional.pad(x, (0, 0, 0, pad_t))
+    *lead, tp, c = x.shape
+    return x.reshape(*lead, tp // tfold, tfold * c)
+
+
+def unfold_time(y: torch.Tensor, tfold: int, n_frames: int) -> torch.Tensor:
+    """Inverse of :func:`fold_time`: (..., Tp, tfold*C) -> (..., min(Tp*tfold,
+    n_frames), C)."""
+    *lead, tp, ch = y.shape
+    return y.reshape(*lead, tp * tfold, ch // tfold)[..., :n_frames, :]
+
+
+def time_pool_factor(depth: int) -> int:
+    """Total time-axis downsampling of a depth-level U-Net."""
+    return 2**depth
 
 
 def pad_frames(x: torch.Tensor, multiple: int, axis: int = -2) -> tuple[torch.Tensor, int]:
@@ -307,8 +331,12 @@ class TPUFPU(nn.Module):
     ``bneck`` sets the bottleneck width (base * bneck); ``dec_div`` and
     ``enc_div`` divide the width of the non-final decoder and non-first
     encoder levels, as in azoom.models.unet.TPUFPU. ``quant`` picks the int8
-    or the float convs. ``tfold`` and ``fattn`` are not ported (no bundled
-    artifact uses them).
+    or the float convs. ``tfold`` folds time into channels at the stem as
+    ``fold`` folds frequency (the stem conv takes fold * tfold *
+    in_channels, the head predicts fold * tfold lanes per grid position);
+    ``fattn`` heads of :class:`azoom_torch.models.layers.FreqAttention` (float32
+    matrix products, in the int8 net too) follow the bottleneck, over the
+    ceil(n_freqs / fold) folded rows its position embedding was made for.
     """
 
     # attribute -> flax module name, in the flax tree's creation order
@@ -317,6 +345,7 @@ class TPUFPU(nn.Module):
         "e2_conv": "ConvBNRelu_0", "e2_res": "ResBlock_0",
         "e3_conv": "ConvBNRelu_1", "e3_res": "ResBlock_1",
         "b_conv": "ConvBNRelu_2", "b_res0": "ResBlock_2", "b_res1": "ResBlock_3",
+        "attn": "FreqAttention_0",
         "up3": "ConvTranspose_0", "d3_conv": "ConvBNRelu_3", "d3_res": "ResBlock_4",
         "up2": "ConvTranspose_1", "d2_conv": "ConvBNRelu_4", "d2_res": "ResBlock_5",
         "up1": "ConvTranspose_2", "d1": "DoubleConv_1",
@@ -325,42 +354,48 @@ class TPUFPU(nn.Module):
 
     def __init__(self, base: int = 64, fold: int = 4, in_channels: int = 4,
                  bneck: int = 8, dec_div: int = 1, enc_div: int = 1,
-                 tfold: int = 1, fattn: int = 0, quant: bool = True):
+                 tfold: int = 1, fattn: int = 0, quant: bool = True, n_freqs: int = 513):
         super().__init__()
-        if tfold > 1:
-            raise NotImplementedError("TPUFPU tfold > 1 is not ported (no bundled artifact uses it)")
-        if fattn > 0:
-            raise NotImplementedError("TPUFPU fattn > 0 is not ported (no bundled artifact uses it)")
-        self.fold, self.in_channels = fold, in_channels
+        self.fold, self.tfold, self.in_channels = fold, tfold, in_channels
         w_e2, w_e3 = base * 2 // enc_div, base * 4 // enc_div
         w_b = base * bneck
         w_d3, w_d2 = base * 4 // dec_div, base * 2 // dec_div
         q = quant
-        self.e1 = DoubleConv(fold * in_channels, base, q)
+        self.e1 = DoubleConv(fold * tfold * in_channels, base, q)
         self.e2_conv, self.e2_res = ConvBNRelu(base, w_e2, q), ResBlock(w_e2, q)
         self.e3_conv, self.e3_res = ConvBNRelu(w_e2, w_e3, q), ResBlock(w_e3, q)
         self.b_conv = ConvBNRelu(w_e3, w_b, q)
         self.b_res0, self.b_res1 = ResBlock(w_b, q), ResBlock(w_b, q)
+        self.attn = FreqAttention(-(-n_freqs // fold), w_b, fattn) if fattn > 0 else None
         self.up3 = ConvTranspose1x2(w_b, w_d3)
         self.d3_conv, self.d3_res = ConvBNRelu(w_d3 + w_e3, w_d3, q), ResBlock(w_d3, q)
         self.up2 = ConvTranspose1x2(w_d3, w_d2)
         self.d2_conv, self.d2_res = ConvBNRelu(w_d2 + w_e2, w_d2, q), ResBlock(w_d2, q)
         self.up1 = ConvTranspose1x2(w_d2, base)
         self.d1 = DoubleConv(2 * base, base, q)
-        self.head = Head(base, fold)
+        self.head = Head(base, fold * tfold)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        F = x.shape[-3]
-        h = fold_freq(x.to(torch.float32), self.fold).contiguous()
-        e1 = self.e1(h)
+        F, T = x.shape[-3], x.shape[-2]
+        h = fold_freq(x.to(torch.float32), self.fold)
+        if self.tfold > 1:
+            h = fold_time(h, self.tfold)
+        e1 = self.e1(h.contiguous())
         e2 = self.e2_res(self.e2_conv(pool_time(e1)))
         e3 = self.e3_res(self.e3_conv(pool_time(e2)))
         b = self.b_res1(self.b_res0(self.b_conv(pool_time(e3))))
+        if self.attn is not None:
+            b = self.attn(b).contiguous()
         # decoder: conv(concat([upsampled, skip])), the concat read in place
         h = self.d3_res(self.d3_conv(self.up3(b), e3))
         h = self.d2_res(self.d2_conv(self.up2(h), e2))
         h = self.d1(self.up1(h), e1)
-        return torch.sigmoid(unfold_freq(self.head(h), self.fold, F))
+        out = self.head(h)
+        if self.tfold > 1:
+            # (..., Fp, Tp, tfold * fold) -> (..., Fp, T, fold): lanes
+            # (tfold, fold), time-major, so time unfolds first
+            out = unfold_time(out, self.tfold, T)
+        return torch.sigmoid(unfold_freq(out, self.fold, F))
 
 
 def conv_shapes(model: nn.Module, frames: int) -> list[tuple[int, int, int, bool, bool]]:
@@ -380,7 +415,9 @@ def conv_shapes(model: nn.Module, frames: int) -> list[tuple[int, int, int, bool
     handles = [m.register_forward_hook(hook, with_kwargs=True)
                for m in probe.modules() if isinstance(m, (QConv, FConv))]
     with torch.inference_mode():
-        probe(torch.zeros((1, 3, frames, probe.in_channels)))
+        attn = getattr(probe, "attn", None)  # its position embedding fixes the rows
+        rows = 3 if attn is None else attn.pos_emb.shape[0] * probe.fold
+        probe(torch.zeros((1, rows, frames, probe.in_channels)))
     for h in handles:
         h.remove()
     return shapes

@@ -127,16 +127,23 @@ def run_on_devices(jobs: Sequence[tuple[torch.device, Callable[[], Any]]]) -> li
     device current, for CUDA); the threads start together and are joined
     after, so every device's work is issued before any is waited on. The
     first exception of any job is raised once all threads have ended, so no
-    shard is dropped silently.
+    shard is dropped silently. A CPU device's thread takes the caller's
+    intra-op thread count through ``torch.set_num_threads``, which also
+    turns off MKL's dynamic choice of threads: left on, a thread beside
+    another device's picks its own count, and the CPU's FFTs round
+    otherwise than the caller's would.
     """
     results: list = [None] * len(jobs)
     errors: list[BaseException] = []
     by_device: dict[torch.device, list[int]] = {}
     for i, (d, _) in enumerate(jobs):
         by_device.setdefault(_device(d), []).append(i)
+    n_threads = torch.get_num_threads()
 
     def work(d: torch.device, idx: list[int]) -> None:
         try:
+            if d.type == "cpu" and len(by_device) > 1:
+                torch.set_num_threads(n_threads)
             with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
                 for i in idx:
                     results[i] = jobs[i][1]()

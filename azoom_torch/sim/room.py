@@ -15,10 +15,11 @@ Sizes: the lattice before truncation has (2N + 1)^3 x 8 points (238,328 at
 the reference's N = 15); after it, 4,991 images remain at N = 15 (231 at
 N = 5, 63 at N = 3). One (source, mic) RIR at N = 15 is ~80k taps, so every
 (source, mic) pair is computed in one batched pass: the (S, M, I, 16) taps
-and one scatter-add. The scatter-add is ``index_put_(accumulate=True)``: on
-the CPU it adds in index order, as XLA's scatter does; on CUDA PyTorch runs
-it as a sort by index and a sum per index in the original order, so two
-runs on the card give the same bits.
+and one scatter-add, a sum per index in the original order, as XLA's
+scatter adds: on CUDA ``index_put_(accumulate=True)``, which PyTorch runs as
+a sort by index and such a sum, so two runs on the card give the same bits;
+on the CPU ``index_add_``, a serial loop (the CPU's ``index_put_`` adds
+from its threads in any order, so its bits change from run to run).
 
 The lattice is host NumPy, cached per order; the taps are float32 in the
 reference's order (``dist`` as the square root of the summed squares, not a
@@ -104,8 +105,11 @@ def _rirs(sources: torch.Tensor, mics: torch.Tensor, room_dim, absorption: float
     S, M = d.shape[:2]
     row = torch.arange(S * M, device=dev).reshape(S, M, 1, 1) * rir_length
     rir = torch.zeros(S * M * rir_length, dtype=torch.float32, device=dev)
-    rir.index_put_(((idx + row).reshape(-1),), torch.where(valid, taps, 0.0).reshape(-1),
-                   accumulate=True)
+    flat_idx, flat_taps = (idx + row).reshape(-1), torch.where(valid, taps, 0.0).reshape(-1)
+    if dev.type == "cuda":
+        rir.index_put_((flat_idx,), flat_taps, accumulate=True)
+    else:
+        rir.index_add_(0, flat_idx, flat_taps)
     return rir.reshape(S, M, rir_length)
 
 

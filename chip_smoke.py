@@ -224,6 +224,26 @@ Phases, each printing its own line(s):
                both; initialize() of a one-process NCCL group and a
                sharded_sweep over global_data_mesh() against the unsharded
                sweep.
+ 24. train   - training (models.trainable, train.loop): one step of the
+               tpufpu_nano architecture at batch 2 from the same init and
+               batch on the card and the CPU in float32 and on the card in
+               float64, each leaf held on its own (train/rounding.py: every
+               gradient's relative L2 distance from float64 within
+               GRAD_BOUND on both devices, each BatchNorm statistic's update
+               and the loss on the card within 3x the CPU's + 1e-6); the
+               median ms of a step (5 after 2 warm-ups) and the
+               peak memory of each bundled architecture at its published
+               widths (tpufpu_nano warm-started from its artifact, tpufpu,
+               tpufpu_slim, fpu, deepfpu with and without remat, crn_causal)
+               at batch 16 on 2 s crops (513 bins, 64 frames); a 6-step fit
+               checkpointed every 3 against 3 steps resumed to 6 (the largest
+               difference, expected 0); the trained nano net calibrated on the
+               card (calibrate_act_scales: every conv on the int8 kernel),
+               exported (save_quantized), reloaded and served by
+               learned_enhance at (128, 2, 32000) on phase 7's scenes:
+               launches and routes as in phase 5, its SIR gain beside the
+               bundled net's, and its 21 convs bit for bit against their plain
+               version on 4 chunks.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
@@ -1516,6 +1536,195 @@ def phase_sweep(dev, model, model_cpu, profile_call) -> dict:
 
 _T0 = time.perf_counter()
 _CARD = {}  # the card's name and power limit, once nvidia-smi has been read
+
+
+def phase_train(dev, mix_s, tgt_s, itf_s) -> dict:
+    """24. training (module docstring). ``mix_s``, ``tgt_s``, ``itf_s`` are
+    phase 7's far-field scenes on the card. Returns the phase's numbers for
+    chip_smoke.json."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from azoom_torch import kernels
+    from azoom_torch.config import PipelineConfig
+    from azoom_torch.eval.projection import osinr_osir
+    from azoom_torch.kernels.qconv_kernel import qconv3x3, qconv3x3_plain, route_counts
+    from azoom_torch.models import trainable
+    from azoom_torch.models.convert import from_flax
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.models.quantize import calibrate_act_scales, load_quantized, save_quantized
+    from azoom_torch.models.unet import TPUFPU, QConv
+    from azoom_torch.pipelines.learned import learned_enhance
+    from azoom_torch.train import rounding
+    from azoom_torch.train.data import synth_batch
+    from azoom_torch.train.loop import create_state, fit, make_train_step
+
+    cfg = PipelineConfig(mic_dist=0.04)
+    nano = dict(base=64, fold=4, bneck=4, dec_div=2, enc_div=2)
+    res: dict = {}
+
+    def sync():
+        torch.cuda.synchronize()
+
+    # one nano step at batch 2 from the same init and batch, on the card and on
+    # the CPU in float32, and on the card in float64 as the rounding reference:
+    # a float32 step is ill-conditioned, so each float32 run is measured leaf by
+    # leaf by its distance from float64, and each leaf held to its bound
+    # (train/rounding.py: every gradient within GRAD_BOUND, every BatchNorm
+    # statistic's update and the loss on the card within CARD_FACTOR times the
+    # CPU's distance + FLOOR)
+    kw, n_samples, shape = rounding.CONFIGS["nano"]
+    b2 = synth_batch(0, 2, cfg, "physics", n_samples=n_samples, device="cpu")
+    dist = rounding.step_distances(lambda: trainable.TPUFPU(**kw), shape, b2["features"],
+                                   b2["label"], dev)
+    bad = rounding.over_bound(dist)
+    check(not bad, f"train step: leaves beyond their bounds from float64: {bad[:5]}")
+    log("train_step", batch=2, leaves=len(dist["card"]["grad"]), statistics=len(dist["card"]["bn"]),
+        loss_from_f64_card=f"{dist['card']['loss']:.3e}", loss_from_f64_cpu=f"{dist['cpu']['loss']:.3e}",
+        **{k: f"{v:.3e}" for k, v in rounding.summary(dist).items()},
+        grad_bound=rounding.GRAD_BOUND, over_bound=len(bad))
+    res["card_vs_cpu"] = dist
+
+    # steps per second and peak memory of each bundled architecture at batch 16
+    # (2 s crops: 513 bins, 64 frames); the nano net warm-starts from its artifact
+    batches = {k: synth_batch(1, 16, cfg, k, device=dev) for k in ("physics", "logmag_ipd")}
+    data_times = []
+    for i in range(3):  # a step's batch: host draws, the render, STFTs, features, labels
+        sync()
+        t0 = time.perf_counter()
+        synth_batch(10 + i, 16, cfg, "physics", device=dev)
+        sync()
+        data_times.append((time.perf_counter() - t0) * 1e3)
+    data_ms = statistics.median(data_times)
+    archs = [
+        ("tpufpu_nano", lambda: trainable.TPUFPU(**nano), "physics", False),
+        ("tpufpu", lambda: trainable.TPUFPU(base=64, fold=4), "physics", False),
+        ("tpufpu_slim", lambda: trainable.TPUFPU(base=64, fold=4, bneck=4), "physics", False),
+        ("fpu", lambda: trainable.FreqPreservingUNet(base=32), "logmag_ipd", False),
+        ("deepfpu", lambda: trainable.DeepFPU(base=32), "physics", False),
+        ("deepfpu_remat", lambda: trainable.DeepFPU(base=32), "physics", True),
+        ("crn_causal", lambda: trainable.CRNMaskNet(base=16, hidden=128), "logmag_ipd", False),
+    ]
+    steps, trained = {}, None
+    for name, make, kind, remat in archs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = create_state(make(), 0, (1, 513, 64, 4 if kind == "physics" else 2), device=dev)
+        if name == "tpufpu_nano":
+            st.model.load_variables(trainable.from_bundled("tpufpu_nano")[0].variables())
+        step = make_train_step(remat=remat)
+        b = batches[kind]
+        times = []
+        for i in range(7):
+            sync()
+            t1 = time.perf_counter()
+            _, loss = step(st, b["features"], b["label"])
+            sync()
+            if i >= 2:
+                times.append((time.perf_counter() - t1) * 1e3)
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(np.isfinite(float(loss)), f"train {name}: loss {float(loss)}")
+        steps[name] = dict(ms=ms, steps_per_s=1e3 / ms, peak_gib=peak, loss=float(loss),
+                           ms_all=[round(t, 3) for t in times])
+        log("train_speed", net=name, remat=remat, batch=16, ms_median=f"{ms:.3f}",
+            steps_per_s=f"{1e3 / ms:.2f}", peak_gib=f"{peak:.3f}", loss=f"{float(loss):.4f}")
+        if name == "tpufpu_nano":
+            trained = st.model
+        del st
+    res["steps"], res["data_ms_per_batch16"] = steps, data_ms
+    log("train_data", batch=16, ms_per_batch=f"{data_ms:.3f}",
+        ms_all=[round(t, 3) for t in data_times])
+
+    # a 6-step fit checkpointed every 3, against 3 steps and a resume to 6
+    tmp = Path(tempfile.mkdtemp(prefix="azt_train_"))
+    try:
+        kw = dict(batch_size=2, feature_kind="physics", checkpoint_every=3, log_every=3,
+                  log_fn=lambda s: None, device=dev)
+        t1 = time.perf_counter()
+        whole = fit(trainable.TPUFPU(**nano), cfg, n_steps=6, checkpoint_dir=tmp / "a", **kw)
+        fit_s = time.perf_counter() - t1
+        fit(trainable.TPUFPU(**nano), cfg, n_steps=3, checkpoint_dir=tmp / "b", **kw)
+        resumed = fit(trainable.TPUFPU(**nano), cfg, n_steps=6, checkpoint_dir=tmp / "b", **kw)
+        check(resumed.steps_run == 3 and resumed.state.step == 6, "resume: steps")
+        a, b = whole.state.model.state_dict(), resumed.state.model.state_dict()
+        resume_diff = max(float((a[k] - b[k]).abs().max()) for k in a)
+        resume_diff = max([resume_diff] + [float((whole.state.nu[k] - resumed.state.nu[k]).abs().max())
+                                           for k in whole.state.nu])
+        log("train_resume", steps=6, checkpoint_every=3, fit_s=f"{fit_s:.2f}",
+            max_abs_diff=f"{resume_diff:.3e}", bits_equal=resume_diff == 0.0)
+        res["resume_max_abs_diff"] = resume_diff
+
+        # fit end to end at the CLI's batch: each step's batch made, then the step
+        t1 = time.perf_counter()
+        fit(trainable.TPUFPU(**nano), cfg, n_steps=4, batch_size=16, feature_kind="physics",
+            log_fn=lambda s: None, device=dev)
+        sync()
+        fit16_ms = (time.perf_counter() - t1) * 1e3 / 4
+        log("train_fit", net="tpufpu_nano", batch=16, steps=4, ms_per_step=f"{fit16_ms:.3f}",
+            steps_per_s=f"{1e3 / fit16_ms:.2f}")
+        res["fit_batch16_ms_per_step"] = fit16_ms
+
+        # calibrate the trained nano net on the card, export, reload, serve
+        calib = [synth_batch(2 + i, 16, cfg, "physics", device=dev)["features"] for i in range(2)]
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        variables = calibrate_act_scales(trained, trained.variables(), calib, device=dev)
+        sync()
+        calib_s = time.perf_counter() - t1
+        calib_launches = {k: v for k, v in kernels.launches.items() if v}
+        check(calib_launches == {"qconv3x3": 42, "convt1x2": 6},
+              f"calibration launches {calib_launches}")
+        nbytes = save_quantized(tmp / "nano_finetuned_int8.npz", variables)
+        served = from_flax(TPUFPU, load_quantized(tmp / "nano_finetuned_int8.npz"),
+                           dict(nano, in_channels=4), True, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sync()
+    kernels.reset_launches()
+    before = dict(route_counts)
+    out = learned_enhance(mix_s, served, cfg, feature_kind="physics")
+    sync()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    routes = {k: v - before[k] for k, v in route_counts.items() if v - before[k]}
+    check(counts == {"qconv3x3": 21, "convt1x2": 3, "masked_mvdr": 1},
+          f"exported net: launch counts {counts}")
+    check(routes == {"wgmma": 20, "narrow": 1}, f"exported net: conv kernels {routes}")
+    check(out.shape == mix_s.shape[::2] and bool(torch.isfinite(out).all()), "exported net output")
+    bundled, _ = load_bundled("tpufpu_nano", device=dev)
+    ref = learned_enhance(mix_s, bundled, cfg, feature_kind="physics")
+    sir = {k: float((osinr_osir(o, tgt_s, itf_s)[1] - osinr_osir(mix_s[:, 0], tgt_s, itf_s)[1])
+                    .mean()) for k, o in (("exported", out), ("bundled", ref))}
+    check(sir["exported"] > sir["bundled"] - 3.0, f"exported net SIR gain {sir}")
+
+    # the exported net's convs against their plain version, on 4 chunks' inputs
+    calls = []
+
+    def grab(conv, args, kwargs):
+        calls.append((conv, args[0], kwargs))
+
+    handles = [m.register_forward_pre_hook(grab, with_kwargs=True)
+               for m in served.modules() if isinstance(m, QConv)]
+    with torch.inference_mode():
+        served(calib[0][:4])
+    for h in handles:
+        h.remove()
+    differ = 0
+    for conv, x, kw in calls:
+        k = dict(residual=kw.get("residual"), relu=kw.get("relu", True), x2=kw.get("x2"))
+        got = qconv3x3(x, conv.w_q, conv.epi, conv.act_scale, **k)
+        differ += int((got != qconv3x3_plain(x, conv.w_q, conv.epi, conv.act_scale, **k)).sum())
+    check(differ == 0 and len(calls) == 21, f"exported convs: {differ} elements differ")
+    log("train_export", calib_batches=2, calib_s=f"{calib_s:.2f}", calib_launches=calib_launches,
+        npz_bytes=nbytes, launches=counts, conv_kernels=routes,
+        sir_gain_db=f"{sir['exported']:.2f}", sir_gain_bundled_db=f"{sir['bundled']:.2f}",
+        convs_vs_plain=f"{len(calls)} convs, {differ} elements differ")
+    res["export"] = dict(calib_s=calib_s, npz_bytes=nbytes, launches=counts, routes=routes,
+                         sir_gain_db=sir, convs_differ=differ)
+    return res
 
 
 def log(phase: str, **kw) -> None:
@@ -2904,6 +3113,9 @@ def main() -> int:
     # 23. sweeps and shards -----------------------------------------------------------
     sweep = phase_sweep(dev, model, model_cpu, profile_call)
 
+    # 24. training --------------------------------------------------------------------
+    train = phase_train(dev, mix_s, tgt_s, itf_s)
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
@@ -2923,7 +3135,7 @@ def main() -> int:
          "server": server_stats, "facade": facade, "tracked": tracked,
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
          "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic,
-         "beamformers": beamformers, **native_eval, "sim": sim, "sweep": sweep,
+         "beamformers": beamformers, **native_eval, "sim": sim, "sweep": sweep, "train": train,
          "card": smi},
         indent=1))
     print(json.dumps(line))

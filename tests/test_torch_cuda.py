@@ -1008,3 +1008,135 @@ def test_a_mesh_of_the_card_and_the_cpu_runs_a_thread_each(cuda):
 
     with pytest.raises(FloatingPointError, match="the CPU's shard"):
         sharded_sweep(failing, 4, mesh, 4, cfg, **kw)
+
+
+def test_a_train_step_on_the_card_matches_the_cpu(cuda):
+    """One step of a narrow TPUFPU from the same init and batch on the card
+    and the CPU in float32 and on the card in float64: a float32 step is
+    ill-conditioned (BatchNorm's fast variance over few bottleneck frames,
+    ReLU and max-pool decisions near ties), so each float32 run is measured
+    leaf by leaf by its distance from float64 and each leaf held to its
+    bound (azoom_torch.train.rounding: every gradient within GRAD_BOUND,
+    every BatchNorm statistic's update and the loss on the card within
+    CARD_FACTOR times the CPU's distance + FLOOR), as chip_smoke.py's phase
+    24 holds the nano net."""
+    from azoom_torch.models import trainable
+    from azoom_torch.train import rounding
+    from azoom_torch.train.data import synth_batch
+
+    kw, n_samples, shape = rounding.CONFIGS["narrow"]
+    b = synth_batch(0, 2, PipelineConfig(mic_dist=0.04), "physics", n_samples=n_samples,
+                    device="cpu")
+    dist = rounding.step_distances(lambda: trainable.TPUFPU(**kw), shape, b["features"],
+                                   b["label"], cuda)
+    assert len(dist["card"]["grad"]) > 50 and len(dist["card"]["bn"]) > 30
+    assert not rounding.over_bound(dist), rounding.over_bound(dist)
+
+
+def test_the_export_round_trip_serves_on_the_card(cuda, tmp_path):
+    """A narrow trained TPUFPU calibrated on the card (every conv on the
+    int8 kernel), saved, reloaded and served: its convs bit for bit against
+    their plain version, its mask within the int8 nets' bound of the CPU's."""
+    from azoom_torch.models import trainable
+    from azoom_torch.models.convert import from_flax
+    from azoom_torch.models.quantize import calibrate_act_scales, load_quantized, save_quantized
+    from azoom_torch.models.unet import TPUFPU, QConv
+    from azoom_torch.train.data import synth_batch
+
+    cfg = PipelineConfig(mic_dist=0.04)
+    kw = dict(base=32, fold=4, bneck=4, dec_div=2, enc_div=2)
+    net = trainable.TPUFPU(**kw).init(torch.Generator().manual_seed(0), (1, 513, 64, 4))
+    feats = synth_batch(3, 4, cfg, "physics", device=cuda)["features"]
+    kernels.reset_launches()
+    v = calibrate_act_scales(net, net.variables(), [feats], device=cuda)
+    assert kernels.launches["qconv3x3"] == 21
+    save_quantized(tmp_path / "net.npz", v)
+    served = {d: from_flax(TPUFPU, load_quantized(tmp_path / "net.npz"), dict(kw, in_channels=4),
+                           True, d) for d in ("cpu", cuda)}
+    calls = []
+    handles = [m.register_forward_pre_hook(lambda c, a, k: calls.append((c, a[0], k)),
+                                           with_kwargs=True)
+               for m in served[cuda].modules() if isinstance(m, QConv)]
+    with torch.inference_mode():
+        got = served[cuda](feats).cpu()
+        ref = served["cpu"](feats.cpu())
+    for h in handles:
+        h.remove()
+    assert len(calls) == 21
+    for conv, x, k in calls:
+        k = dict(residual=k.get("residual"), relu=k.get("relu", True), x2=k.get("x2"))
+        assert torch.equal(qconv3x3(x, conv.w_q, conv.epi, conv.act_scale, **k),
+                           qconv3x3_plain(x, conv.w_q, conv.epi, conv.act_scale, **k))
+    assert float((got - ref).abs().max()) < 1e-2 and float((got - ref).abs().mean()) < 5e-4
+
+
+def test_a_tfold_fattn_net_serves_its_convs_on_the_card(cuda):
+    """An int8 TPUFPU(tfold=2, fattn=2) at the nano widths, calibrated on the
+    card: its stem takes fold x tfold x 4 = 32 channels, which ``plan``
+    routes to ``wgmma``; every conv runs on the route ``plan`` gives it, bit
+    for bit against its plain version, and the mask is within the int8 nets'
+    bound of the CPU's."""
+    from azoom_torch.models import trainable
+    from azoom_torch.models.convert import from_flax
+    from azoom_torch.models.quantize import calibrate_act_scales
+    from azoom_torch.models.unet import QConv
+    from azoom_torch.train.data import synth_batch
+
+    kw = dict(base=64, fold=4, bneck=4, dec_div=2, enc_div=2, tfold=2, fattn=2)
+    net = trainable.TPUFPU(**kw).init(torch.Generator().manual_seed(0), (1, 513, 64, 4))
+    feats = synth_batch(4, 2, PipelineConfig(mic_dist=0.04), "physics", device=cuda)["features"]
+    cls, skw = net.serving_spec()
+    kernels.reset_launches()
+    v = calibrate_act_scales(net, net.variables(), [feats], device=cuda)
+    calib_launches = kernels.launches["qconv3x3"]
+    served = {d: from_flax(cls, v, skw, True, d) for d in ("cpu", cuda)}
+    n_convs = sum(isinstance(m, QConv) for m in served[cuda].modules())
+    assert calib_launches == n_convs == 21
+    calls = []
+    handles = [m.register_forward_pre_hook(lambda c, a, k: calls.append((c, a[0], k)),
+                                           with_kwargs=True)
+               for m in served[cuda].modules() if isinstance(m, QConv)]
+    routes0 = dict(route_counts)
+    with torch.inference_mode():
+        got = served[cuda](feats).cpu()
+        ref = served["cpu"](feats.cpu())
+    routes = {r: route_counts[r] - routes0[r] for r in route_counts}
+    for h in handles:
+        h.remove()
+    assert len(calls) == n_convs
+    stem = calls[0][1]
+    assert stem.shape[-1] == 32 and plan(32, 64, stem.shape[-2])["kernel"] == "wgmma"
+    want = {}
+    for conv, x, k in calls:
+        cin = x.shape[-1] + (k["x2"].shape[-1] if k.get("x2") is not None else 0)
+        r = plan(cin, conv.w_q.shape[0], x.shape[-2])["kernel"]
+        want[r] = want.get(r, 0) + 1
+        k = dict(residual=k.get("residual"), relu=k.get("relu", True), x2=k.get("x2"))
+        assert torch.equal(qconv3x3(x, conv.w_q, conv.epi, conv.act_scale, **k),
+                           qconv3x3_plain(x, conv.w_q, conv.epi, conv.act_scale, **k))
+    assert routes == {r: want.get(r, 0) for r in route_counts}, (routes, want)
+    assert got.shape == (2, 513, 64) and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) < 1e-2 and float((got - ref).abs().mean()) < 5e-4
+
+
+def test_the_train_cli_trains_and_resumes_on_the_card_by_default(cuda, tmp_path, capsys):
+    """``python -m azoom_torch.cli.train`` without ``--device`` trains a
+    tiny FPU on the card (its memory is used), checkpoints, and a second
+    run resumes to 5 steps, as tests/test_torch_cli_train.py runs it on the
+    CPU."""
+    from pathlib import Path
+
+    from azoom_torch.cli import train as cli
+
+    ckpt = tmp_path / "ckpt"
+    args = ["--model", "fpu", "--base", "2", "--batch", "1", "--seconds", "0.512",
+            "--ckpt", str(ckpt)]
+    torch.cuda.reset_peak_memory_stats()
+    cli.main(args + ["--steps", "3"])
+    assert torch.cuda.max_memory_allocated() > 0
+    cli.main(args + ["--steps", "5"])
+    out = capsys.readouterr().out
+    assert "finished at step 3" in out and "resumed from step 3" in out
+    assert "finished at step 5" in out
+    assert sorted(p.name for p in Path(ckpt).glob("step_*.pt")) == [
+        "step_000000003.pt", "step_000000005.pt"]

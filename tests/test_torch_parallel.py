@@ -123,6 +123,22 @@ def test_run_on_devices_runs_each_distinct_device_in_a_thread_of_its_own():
     assert [d for d, _ in ran] == ["cpu", "cpu"]
 
 
+def test_a_cpu_shard_beside_another_device_rounds_as_the_caller():
+    """A CPU device's thread on the threaded path takes the caller's
+    intra-op thread count (and with it MKL's fixed choice of threads), so
+    its FFTs, which split work by that count, give the caller's bits."""
+    n = torch.get_num_threads()
+    x = torch.randn(3, 65_536, generator=torch.Generator().manual_seed(0))
+    try:
+        torch.set_num_threads(3)
+        want = torch.fft.rfft(x)
+        got = run_on_devices([("cpu", lambda: (torch.get_num_threads(), torch.fft.rfft(x))),
+                              ("meta", lambda: 0)])
+    finally:
+        torch.set_num_threads(n)
+    assert got[0][0] == 3 and torch.equal(got[0][1], want) and got[1] == 0
+
+
 def test_launch_counts_add_up_across_threads():
     """The shards of a mesh launch from one thread per device: 16 threads
     adding 2,000 launches each, with the switch interval shortened, lose

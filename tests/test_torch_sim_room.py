@@ -93,6 +93,23 @@ def test_rir_matrix_matches_the_reference(order):
         got[2, 1].numpy())
 
 
+def test_rirs_on_the_cpu_do_not_depend_on_its_threads():
+    """The scatter-add of every image's taps sums each sample in the
+    original order on the CPU (``index_add_``; its ``index_put_`` adds from
+    several threads in any order): at order 15 the RIRs are the same bits
+    in one thread and in eight, run after run."""
+    a = _absorption(15)
+    n = torch.get_num_threads()
+    try:
+        runs = []
+        for threads in (1, 8, 8, 8):
+            torch.set_num_threads(threads)
+            runs.append(TR.rir_matrix(torch.from_numpy(SOURCES), MICS, ROOM, a, 15, FS))
+    finally:
+        torch.set_num_threads(n)
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
 @pytest.mark.parametrize("order", [0, 3, 5])
 def test_the_cxx_engine_matches_the_ports_ism(order):
     a = _absorption(order)

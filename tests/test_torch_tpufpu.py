@@ -145,9 +145,13 @@ def test_fold_unfold_match_jax(rng):
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError, match="tfold"):
-        TPUFPU(tfold=2)
-    with pytest.raises(NotImplementedError, match="fattn"):
-        TPUFPU(fattn=4)
+    """tfold and fattn are ported (tests/test_torch_quantize_export.py holds
+    them against the reference): they build the stem, head and attention
+    block of their widths. A net without calibrated scales still refuses
+    the int8 path."""
+    net = TPUFPU(base=64, fold=4, tfold=2, fattn=4)
+    assert net.e1.cbr0.conv.cin == 4 * 2 * 4 and net.head.weight.shape == (64, 4 * 2)
+    assert net.attn.pos_emb.shape == (129, 512)
+    assert TPUFPU().attn is None
     with pytest.raises(ValueError, match="quant_stats"):
         tpufpu_from_flax({"params": {}, "batch_stats": {}}, {}, "cpu")

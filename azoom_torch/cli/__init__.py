@@ -1,9 +1,19 @@
-"""Command-line entry points (counterpart of azoom.cli):
+"""Command-line entry points (counterpart of azoom.cli), each run as
+``python -m azoom_torch.cli.<name>``:
 
-  python -m azoom_torch.cli.batch --n 50   (the vectorized batch sweep)
-  python -m azoom_torch.cli.train --model fpu --steps 2000   (training)
+  run sim|inf|eval|full --name X   one run: simulate, enhance, score
+  batch --n 50                     a campaign: vectorized sweeps, or --per-run
+  train --model deepfpu            training, checkpoints with resume
+  analyze                          describe() and plots of batch_metrics.csv
+  debug_srp DIR                    the SRP scan of DIR/mixture.wav
+  dereverb --outdir DIR            WPE of DIR/mixture.wav
+  diagnose f.wav                   WAV sanity check (exit 1 on any issue)
+  plot_eval REF.wav DEG.wav        STOI, PESQ and spectrograms
+  zoom_study --out DIR             beam patterns and the sigma -> beamwidth curve
 
-The other entry points of the reference (run, analyze, debug_srp,
-dereverb, diagnose, plot_eval, zoom_study) are not ported (ROADMAP.md Queue
-A item 10), nor is batch's ``--ckpt`` checkpoint directory (item 9d).
+Every entry point that computes runs on the card unless ``--device cpu``;
+diagnose and analyze stay on the host. analyze, debug_srp, plot_eval and
+zoom_study plot with matplotlib and analyze reads with pandas, imported
+only where they plot; reading a reference orbax checkpoint (``--ckpt``)
+needs tensorstore.
 """

@@ -1,16 +1,18 @@
 """Batch sweeps from the command line: ``python -m azoom_torch.cli.batch --n 50``
-(counterpart of azoom.cli.batch, its vectorized mode).
+(counterpart of azoom.cli.batch).
 
-All scenes of a campaign run as batched sweeps (parallel.sweep): streamed
-in chunks of ``--chunk-scenes`` and, with several GPUs, sharded over all of
-them; one CSV row per scene at the end, in the reference's columns, with
-PESQ scored on the host per chunk. Scene i of the campaign is the same
-whatever the chunk size (its draws come from (seed, i) alone). Runs on the
-card unless ``--device cpu``.
-
-Not ported: ``--per-run`` (the serial per-scene file pipeline; it needs
-``cli/run.py``, ROADMAP.md Queue A item 10) and a ``--ckpt`` checkpoint
-directory (Queue A item 9d); both raise NotImplementedError.
+Vectorized mode (the default): all scenes of a campaign run as batched
+sweeps (parallel.sweep), streamed in chunks of ``--chunk-scenes`` and, with
+several GPUs, sharded over all of them; one CSV row per scene at the end,
+in the reference's columns, with PESQ scored on the host per chunk. Scene i
+of the campaign is the same whatever the chunk size (its draws come from
+(seed, i) alone, and an int8 net's dynamic scales are its own); on the card
+the float roundings of its synthesis can differ in a block of another size,
+which an int8 net can turn into other codes. ``--per-run``: the serial per-scene file pipeline, each
+scene simulated, enhanced and scored through ``cli.run``'s steps.
+``--ckpt`` takes an int8 .npz artifact, a port checkpoint directory or a
+reference orbax directory (``cli.checkpoint``). Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-_NETS = ["fpu", "deepfpu", "tpufpu", "tpufpu_slim", "tpufpu_nano"]
+from azoom_torch.cli.checkpoint import NETS as _NETS
 
 
 def build_parser():
@@ -32,13 +34,15 @@ def build_parser():
     p.add_argument("--prefix", default="batch_test")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--per-run", action="store_true",
-                   help="serial per-scene file pipeline (not ported)")
+                   help="serial per-scene file pipeline (cli.run's sim, inf and eval per scene)")
     p.add_argument("--data-root", default="data")
     p.add_argument("--beamformer", default="oracle",
                    choices=["oracle", "mvdr", "hard_null", "rmvb", "wpd", "rtf", "gev"])
     p.add_argument("--model", default="fpu", choices=_NETS,
                    help="mask net for learned beamformers")
-    p.add_argument("--ckpt", default=None, help="an int8 .npz artifact of --model's net")
+    p.add_argument("--ckpt", default=None,
+                   help="--model's weights: an int8 .npz artifact, a port checkpoint directory "
+                        "(step_<n>.pt) or a reference orbax directory")
     p.add_argument("--int8", action="store_true",
                    help="serve the mask net int8 (the int8 conv kernel on the card)")
     p.add_argument("--no-reverb", action="store_true")
@@ -85,22 +89,22 @@ def _load_sweep_model(args, cfg, device):
     geometry adaptation's ``train_mic_dist`` (bundled artifacts on arrays
     smaller than their training spacing). The bundled artifacts by default
     (the reverb-trained fpu for reverberant campaigns); ``--ckpt`` takes an
-    int8 .npz artifact of ``--model``'s net."""
-    from azoom_torch.models.pretrained import _PORTED, geo_adapt_dist, load_bundled
+    int8 .npz artifact, a port checkpoint directory or an orbax directory of
+    ``--model``'s net (``cli.checkpoint``; a directory serves ``--int8`` on
+    dynamic activation scales)."""
+    from azoom_torch.models.pretrained import geo_adapt_dist, load_bundled
 
     quant = bool(args.int8)
     if args.ckpt:
-        ckpt = Path(args.ckpt)
-        if ckpt.suffix != ".npz":
-            raise NotImplementedError(
-                f"--ckpt {ckpt}: checkpoint directories are not read yet (ROADMAP.md "
-                "Queue A item 9d). Pass an int8 .npz artifact")
-        from azoom_torch.models.convert import from_flax
-        from azoom_torch.models.quantize import load_quantized
+        from azoom_torch.cli.checkpoint import feature_kind, load_checkpoint
 
-        _, cls, kwargs, feature_kind = _PORTED[args.model]
-        print(f"[BATCH] using quantized artifact {ckpt}")
-        return from_flax(cls, load_quantized(ckpt), kwargs, quant, device), feature_kind, None
+        kind = feature_kind(args.model)
+        model, step = load_checkpoint(args.model, args.ckpt, kind, quant, device, cfg.n_freqs)
+        if step is None:
+            print(f"[BATCH] using quantized artifact {args.ckpt}")
+        else:
+            print(f"[BATCH] using checkpoint step {step} from {args.ckpt}")
+        return model, kind, None
     # For plain --model fpu, reverberant campaigns get the reverb-trained twin.
     name = args.model
     if name == "fpu" and not args.no_reverb:
@@ -228,12 +232,56 @@ def run_vectorized(args):
     return summ
 
 
+def run_per_run(args):
+    """One scene at a time through cli.run's sim, inf and eval steps, each
+    its own run directory; a failed scene is reported and skipped."""
+    from azoom_torch.cli.run import build_parser as run_parser
+    from azoom_torch.cli.run import do_eval, do_inf, do_sim
+    from azoom_torch.config import PathsConfig
+
+    try:
+        from tqdm import tqdm
+    except ImportError:  # pragma: no cover
+        tqdm = lambda x: x  # noqa: E731
+
+    paths = PathsConfig(root=Path(args.data_root))
+    ok = failed = 0
+    for i in tqdm(range(args.start, args.start + args.n)):
+        name = f"{args.prefix}_{i:03d}"
+        run_args = run_parser().parse_args(
+            ["full", "--name", name, "--interferers", str(args.interferers),
+             "--seed", str(args.seed + i), "--duration", str(args.duration),
+             "--beamformer", args.beamformer, "--data-root", args.data_root]
+            + (["--no-reverb"] if args.no_reverb else [])
+            + ["--interferer-kind", args.interferer_kind]
+            + ["--snr", str(args.snr)]
+            + ["--mic-dist", str(args.mic_dist)]
+            + ["--mics", str(args.mics)]
+            + (["--max-order", str(args.max_order)] if args.max_order is not None else [])
+            + (["--ckpt", args.ckpt] if args.ckpt else [])
+            + (["--int8"] if args.int8 else [])
+            + (["--no-geo-adapt"] if args.no_geo_adapt else [])
+            + ["--model", args.model]  # run derives the features from it
+            + (["--device", args.device] if args.device else [])
+        )
+        try:
+            do_sim(run_args, paths)
+            do_inf(run_args, paths)
+            do_eval(run_args, paths)
+            ok += 1
+        except Exception as e:  # noqa: BLE001 - one failed scene does not end the campaign
+            print(f"[BATCH] run {name} FAILED: {e}; continuing")
+            failed += 1
+    print(f"[BATCH] done: {ok} ok, {failed} failed")
+    return ok, failed
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.per_run:
-        raise NotImplementedError(
-            "--per-run (the serial per-scene file pipeline) is not ported: it needs "
-            "cli/run.py's sim/inf/eval steps (ROADMAP.md Queue A item 10)")
+        if args.steer_error:
+            raise SystemExit("--steer-error is a vectorized-mode option")
+        return run_per_run(args)
     return run_vectorized(args)
 
 

@@ -5,14 +5,16 @@ package's config, so one configuration describes the same pipeline in both
 packages. The only difference is :meth:`PipelineConfig.geometry`, which
 returns a float32 ``torch.Tensor`` (on the CPU; callers move it with
 ``.to(device)``) instead of a JAX array. ``RoomConfig`` is the reference's
-room-simulation configuration, field for field. :func:`parse_geometry` reads
-the CLI's ``--geometry``. :func:`resolve_device` is the entry points' rule for
-their ``device`` argument.
+room-simulation configuration, field for field, and ``PathsConfig`` its
+run-directory layout. :func:`parse_geometry` reads the CLI's
+``--geometry``. :func:`resolve_device` is the entry points' rule for their
+``device`` argument.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import torch
 
@@ -174,6 +176,31 @@ class RoomConfig:
 
 
 ROOM_DEFAULT = RoomConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class PathsConfig:
+    """Run-directory layout of the CLIs (counterpart of azoom.config.PathsConfig):
+    data/simulated/{name} -> data/results/{name}_results."""
+
+    root: Path = Path("data")
+
+    @property
+    def sim_dir(self) -> Path:
+        return self.root / "simulated"
+
+    @property
+    def results_dir(self) -> Path:
+        return self.root / "results"
+
+    def run_sim_dir(self, run_name: str) -> Path:
+        return self.sim_dir / run_name
+
+    def run_results_dir(self, run_name: str) -> Path:
+        return self.results_dir / f"{run_name}_results"
+
+
+PATHS = PathsConfig()
 
 
 def resolve_device(device=None) -> torch.device:

@@ -74,6 +74,12 @@ __device__ __forceinline__ float dequant_bn(int acc, float s1, float b1, float m
   return __fadd_rn(__fmul_rn(__fsub_rn(y, mean), mul), beta);
 }
 
+// A dynamic scale's s1 at two channels: scale * w_scale, the reference's
+// x_scale * w_scale, one float32 multiply.
+__device__ __forceinline__ float2 dynamic_s1(float scale, float2 w_scale) {
+  return make_float2(__fmul_rn(scale, w_scale.x), __fmul_rn(scale, w_scale.y));
+}
+
 // Then the residual (residual + y, in that order) and the ReLU.
 __device__ __forceinline__ float res_relu(float y, float r, bool has_res, bool relu) {
   if (has_res) y = __fadd_rn(r, y);

@@ -9,6 +9,13 @@
 //   acc = sum_{dy,dx,c} x_q[f+dy-1, t+dx-1, c] * w_q[n, (3*dy+dx)*Cin + c]   (exact int32)
 //   y   = ((acc * s1[n] + b1[n]) - mean[n]) * mul[n] + beta[n]  (+ residual) (ReLU)
 //
+// act_scale is a static scale passed by value, or (the dynamic mode of the
+// reference's QConv) one float32 per batch element in device memory, which an
+// earlier launch on the stream computed from the input; a tile of element b
+// reads scale[b], quantises with it as with a static scale of that value, and
+// forms s1[n] = scale[b] * w_scale[n] from epi's row 0, which then holds the
+// weight scales.
+//
 // The quantisation and the epilogue's float32 operations, in the reference's
 // order, are csrc/qconv_common.cuh, shared with the mma.sync kernel this one
 // replaced (csrc/qconv_mma_kernel.cu), so the two agree bit for bit. Never
@@ -141,7 +148,8 @@ struct Params {
   const float* epi;
   const float* res;
   float* out;
-  float act_scale;
+  const float* scale;                 // (B,) activation scales in device memory, or null
+  float act_scale;                    // the static activation scale (scale null)
   int relu;
   int F, T, Cin, Cin1;
   int Cout;                           // channels of out, res and epi: n_slices * N
@@ -274,7 +282,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       const int cs4 = Cs >> 2, cin14 = p.Cin1 >> 2, cinp4 = CinP >> 2;
       const int ipp = stem ? 1 : cs4;           // items per halo pixel
       const int n_items = (FR + 2) * HW * ipp;
-      const float rs = 1.f / p.act_scale;
+      float s = p.act_scale, rs = 1.f / s;
       // the part of a tile's halo unit: 0, 1, .., n_parts - 1, n_parts - 2, .., 0
       auto part_of = [&](int unit) {
         const int bounce = unit % (2 * n_parts - 2 + (n_parts == 1));
@@ -284,6 +292,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       for (int tile = tile_begin; tile < tile_end; ++tile)
       for (int unit = 0; unit < units; ++unit, ++it) {
         const int b = tile / tiles_per_b, rem = tile - b * tiles_per_b;
+        if (p.scale) s = __ldg(p.scale + b), rs = 1.f / s;
         const int ft = rem % p.n_ftiles;
         const int f0 = ft * FR - 1, t0 = (rem / p.n_ftiles) * TW - 1;
         const int c4_0 = part_of(unit) * cs4;  // first float4 of this part's channels
@@ -339,7 +348,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
             const int i = bt.first + u * n_halo;
             const int pix = stem ? i : __umulhi(i, p.magic_c4);
             if (i < n_items)
-              halo32[pix * cinp4 + (i - pix * ipp)] = quant4_magic(bt.v[u], p.act_scale, rs);
+              halo32[pix * cinp4 + (i - pix * ipp)] = quant4_magic(bt.v[u], s, rs);
           }
         };
         HaloBatch<U> b0, b1;
@@ -391,6 +400,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
     for (int tile = tile_begin; tile < tile_end; ++tile) {
       const int b = tile / tiles_per_b, rem = tile - b * tiles_per_b;
       const int f0 = (rem % p.n_ftiles) * FR, t0 = (rem / p.n_ftiles) * TW;
+      const float sb = p.scale ? __ldg(p.scale + b) : 0.f;  // a dynamic scale's s1 factor
 #ifdef AZT_QCONV_CLOCKS
       long long t_wait = 0, t_prod = 0, t_epi = 0;
 #endif
@@ -515,6 +525,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #pragma unroll
               for (int k = 0; k < 5; ++k)
                 e[k] = *reinterpret_cast<const float2*>(epi_s + k * Cout + nb + n);
+              if (p.scale) e[0] = dynamic_s1(sb, e[0]);
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const float y0 =
@@ -599,13 +610,13 @@ int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t st
 
 // The parameters both entry points share; Cs == Cin and one slice unless split.
 Params make_params(const void* x, const void* x2, const void* epi, const void* res, void* out,
-                   float act_scale, int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
-                   int m_tile, int tw_log2, int Cs, int n_slices, int stages) {
+                   const void* scale, float act_scale, int relu, int B, int F, int T, int Cin,
+                   int Cin1, int Cout, int m_tile, int tw_log2, int Cs, int n_slices, int stages) {
   const int tile_w = 1 << tw_log2;
   Params p;
   p.x = (const float*)x, p.x2 = (const float*)x2, p.epi = (const float*)epi;
   p.res = (const float*)res, p.out = (float*)out;
-  p.act_scale = act_scale, p.relu = relu;
+  p.scale = (const float*)scale, p.act_scale = act_scale, p.relu = relu;
   p.F = F, p.T = T, p.Cin = Cin, p.Cin1 = Cin1;
   p.Cout = Cout, p.Cs = Cs, p.n_parts = Cin / Cs, p.n_slices = n_slices;
   p.tw_log2 = tw_log2;
@@ -635,18 +646,19 @@ int log2_of(int tile_w) {  // -1 unless a power of two
 // stem: Cin1 of 2 or 4, Cin = 16). w (Cout, Kpad) int8, K index
 // (3*dy+dx)*Cin + c, Kpad = 9 * Cin rounded up to 32 (zeros beyond 9 * Cin);
 // epi (5, Cout) f32 rows s1, b1, mean, mul, beta; res (B, F, T, Cout) f32 or
-// null; out (B, F, T, Cout) f32. Needs Cin % 32 == 0 with Cout in {32, 64,
-// 128, 256}, or Cin = 16 with Cout in {32, 64}; Cin1 % 4 == 0 but for a
-// stem. tile_w (frames of a tile, a power of two up to 64), stages (of the
-// weight ring; the number of 128-byte K chunks means the weights stay in
-// shared memory) and smem (bytes of shared memory) come from the wrapper's
+// null; out (B, F, T, Cout) f32; scale (B,) device float32, the activation
+// scales in place of act_scale (epi's row 0 then the weight scales), or null.
+// Needs Cin % 32 == 0 with Cout in {32, 64, 128, 256}, or Cin = 16 with Cout
+// in {32, 64}; Cin1 % 4 == 0 but for a stem. tile_w (frames of a tile, a
+// power of two up to 64), stages (of the weight ring; the number of 128-byte
+// K chunks means the weights stay in shared memory) and smem (bytes of shared memory) come from the wrapper's
 // plan; smem is checked against this file's own sum. A tile is 512 pixels
 // at Cout = 32, 256 at 64, else 128. Returns 0, a cudaError_t, or 1000 + the
 // CUresult of building the tensor map.
 extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const void* epi,
-                            const void* res, void* out, float act_scale, int relu, int B, int F,
-                            int T, int Cin, int Cin1, int Cout, int tile_w, int stages, int smem,
-                            void* stream) {
+                            const void* res, void* out, const void* scale, float act_scale,
+                            int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
+                            int tile_w, int stages, int smem, void* stream) {
   const int m_tile = Cout == 32 ? 512 : Cout == 64 ? 256 : 128;
   const int tw_log2 = log2_of(tile_w);
   const int n_chunks = (9 * Cin + kSwizzleRow - 1) / kSwizzleRow;
@@ -657,8 +669,8 @@ extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const 
   if (!cin_ok || !cin1_ok || (Cout != 32 && Cout != 64 && Cout != 128 && Cout != 256) ||
       tw_log2 < 0 || tile_w > 64 || stages < 1 || stages > n_chunks || stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(x, x2, epi, res, out, act_scale, relu, B, F, T, Cin, Cin1, Cout,
-                               m_tile, tw_log2, Cin, 1, stages);
+  const Params p = make_params(x, x2, epi, res, out, scale, act_scale, relu, B, F, T, Cin, Cin1,
+                               Cout, m_tile, tw_log2, Cin, 1, stages);
   cudaStream_t st = (cudaStream_t)stream;
 #ifdef AZT_QCONV_CLOCKS
   cudaMemsetAsync(p.clocks, 0, 6 * sizeof(long long), st);
@@ -678,17 +690,18 @@ extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const 
 // pixels; stages of the weight ring, which always streams; the other
 // arguments and the return value as azt_qconv3x3.
 extern "C" int azt_qconv3x3_split(const void* x, const void* x2, const void* w, const void* epi,
-                                  const void* res, void* out, float act_scale, int relu, int B,
-                                  int F, int T, int Cin, int Cin1, int Cout, int tile_w,
-                                  int part_channels, int stages, int smem, void* stream) {
+                                  const void* res, void* out, const void* scale, float act_scale,
+                                  int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
+                                  int tile_w, int part_channels, int stages, int smem,
+                                  void* stream) {
   const int Cs = part_channels;
   const int tw_log2 = log2_of(tile_w);
   if (Cin % 32 || Cin1 % 4 || (Cout != 256 && Cout != 512) || tw_log2 < 0 || tile_w > 64 ||
       Cs < 32 || Cs % 32 || Cin % Cs || (Cs != Cin && Cs % kSwizzleRow) || stages < 1 ||
       stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(x, x2, epi, res, out, act_scale, relu, B, F, T, Cin, Cin1, Cout,
-                               128, tw_log2, Cs, Cout / 256, stages);
+  const Params p = make_params(x, x2, epi, res, out, scale, act_scale, relu, B, F, T, Cin, Cin1,
+                               Cout, 128, tw_log2, Cs, Cout / 256, stages);
   cudaStream_t st = (cudaStream_t)stream;
 #ifdef AZT_QCONV_CLOCKS
   cudaMemsetAsync(p.clocks, 0, 6 * sizeof(long long), st);

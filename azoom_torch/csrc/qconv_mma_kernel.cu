@@ -57,6 +57,7 @@
 namespace {
 
 using azt::dequant_bn;
+using azt::dynamic_s1;
 using azt::quant4;
 using azt::res_relu;
 
@@ -92,14 +93,15 @@ template <int MI, int NJ>
 __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
     const float* __restrict__ x, const float* __restrict__ x2, const int8_t* __restrict__ w,
     const float* __restrict__ epi, const float* __restrict__ res, float* __restrict__ out,
-    float act_scale, int relu, int F, int T, int Cin, int Cin1, int Cout, int Kpad, int TW,
-    int FR, int n_ttiles) {
+    const float* __restrict__ scale, float act_scale, int relu, int F, int T, int Cin, int Cin1,
+    int Cout, int Kpad, int TW, int FR, int n_ttiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HW = TW + 2;
   const int CinP = Cin + 16;  // pixel stride of the halo; the 16 pad bytes stay zero
   unsigned char* halo = smem;
   unsigned char* wbuf = smem + (FR + 2) * HW * CinP;  // 2 buffers of Cout rows of kWRow bytes
   const long b = blockIdx.y;
+  const float s = scale ? __ldg(scale + b) : act_scale;  // in device memory, or by value
   const int f0 = (blockIdx.x / n_ttiles) * FR;
   const int t0 = (blockIdx.x % n_ttiles) * TW;
 
@@ -115,7 +117,7 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
     const int n_pix = (FR + 2) * HW;
     const bool pow2 = (cin4 & (cin4 - 1)) == 0;
     const int sh = __ffs(cin4) - 1;
-    const float rs = 1.f / act_scale;
+    const float rs = 1.f / s;
     for (int i = threadIdx.x; i < n_pix * cin4; i += kThreads) {
       const int pix = pow2 ? i >> sh : i / cin4;
       const int c4 = i - pix * cin4;
@@ -136,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
           if (4 * c4 + 1 < Cin1) v.y = src[1];
           if (4 * c4 + 2 < Cin1) v.z = src[2];
         }
-        q = quant4(v, act_scale, rs);
+        q = quant4(v, s, rs);
       }
       halo32[pix * cinp4 + c4] = q;
     }
@@ -237,6 +239,7 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
         float2 e[5];  // s1, b1, mean, mul, beta at channels n, n + 1
 #pragma unroll
         for (int r = 0; r < 5; ++r) e[r] = *reinterpret_cast<const float2*>(epi + r * Cout + n);
+        if (scale) e[0] = dynamic_s1(s, e[0]);
         float y0 = dequant_bn(acc[mi][j][2 * h], e[0].x, e[1].x, e[2].x, e[3].x, e[4].x);
         float y1 = dequant_bn(acc[mi][j][2 * h + 1], e[0].y, e[1].y, e[2].y, e[3].y, e[4].y);
         float2 r = make_float2(0.f, 0.f);
@@ -254,7 +257,9 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 // is their channel concat, or without x2 x's channels then zeros up to Cin
 // (a stem: Cin1 of 2 or 4, Cin = 16). w (Cout, Kpad) int8, K index
 // (3*dy+dx)*Cin + c, zero beyond 9*Cin; epi (5, Cout) f32 rows s1, b1, mean,
-// mul, beta; res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32. Needs
+// mul, beta; res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32; scale
+// (B,) device float32, the activation scales in place of act_scale (epi's row
+// 0 then the weight scales), or null. Needs
 // Cin % 16 == 0, Cin1 % 4 == 0 with x2 (Cin1 of 2, 4 or Cin without),
 // Cout in {32, 64, 128, 256, 512}, Kpad % 32 == 0. Returns cudaGetLastError()
 // (or the error of raising the shared-memory limit), cudaErrorInvalidValue
@@ -263,7 +268,8 @@ namespace {
 
 template <int MI, int NJ>
 int launch(const void* x, const void* x2, const void* w, const void* epi, const void* res,
-           void* out, float act_scale, int relu, int B, int F, int T, int Cin, int Cin1,
+           void* out, const void* scale, float act_scale, int relu, int B, int F, int T, int Cin,
+           int Cin1,
            int Cout, int Kpad, cudaStream_t stream) {
   const int m_tile = 16 * MI * (8 / (Cout / (8 * NJ)));  // pixels per block
   int TW = 1;  // frames per tile: the largest power of two <= min(T, m_tile)
@@ -280,15 +286,15 @@ int launch(const void* x, const void* x2, const void* w, const void* epi, const 
   const dim3 grid(n_ftiles * n_ttiles, B);
   qconv3x3_mma_kernel<MI, NJ><<<grid, kThreads, smem, stream>>>(
       (const float*)x, (const float*)x2, (const int8_t*)w, (const float*)epi,
-      (const float*)res, (float*)out, act_scale, relu, F, T, Cin, Cin1, Cout, Kpad, TW, FR,
-      n_ttiles);
+      (const float*)res, (float*)out, (const float*)scale, act_scale, relu, F, T, Cin, Cin1,
+      Cout, Kpad, TW, FR, n_ttiles);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int azt_qconv3x3_mma(const void* x, const void* x2, const void* w, const void* epi,
-                            const void* res, void* out, float act_scale,
+                            const void* res, void* out, const void* scale, float act_scale,
                             int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
                             int Kpad, void* stream) {
   const bool stem = x2 == nullptr && Cin1 < Cin;
@@ -298,8 +304,8 @@ extern "C" int azt_qconv3x3_mma(const void* x, const void* x2, const void* w, co
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (Cout == 32)
-    return launch<4, 4>(x, x2, w, epi, res, out, act_scale, relu, B, F, T, Cin, Cin1, Cout,
+    return launch<4, 4>(x, x2, w, epi, res, out, scale, act_scale, relu, B, F, T, Cin, Cin1, Cout,
                         Kpad, st);
-  return launch<2, 8>(x, x2, w, epi, res, out, act_scale, relu, B, F, T, Cin, Cin1, Cout,
+  return launch<2, 8>(x, x2, w, epi, res, out, scale, act_scale, relu, B, F, T, Cin, Cin1, Cout,
                       Kpad, st);
 }

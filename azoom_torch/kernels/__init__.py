@@ -12,8 +12,8 @@ from __future__ import annotations
 import threading
 
 launches: dict[str, int] = {
-    "masked_mvdr": 0, "qconv3x3": 0, "convt1x2": 0, "hard_null": 0, "int8_mm": 0,
-    "online_mvdr": 0, "online_mvdr_mmic": 0,
+    "masked_mvdr": 0, "qconv3x3": 0, "qconv3x3_dynamic": 0, "convt1x2": 0, "hard_null": 0,
+    "int8_mm": 0, "online_mvdr": 0, "online_mvdr_mmic": 0,
 }
 
 

@@ -21,6 +21,19 @@ one folded affine: the next layer's int8 codes are roundings of this
 output, and folded-affine rounding differences flip codes that compound
 through the net.
 
+The activation scale is static (a float, passed by value) or dynamic: the
+reference QConv's default mode, ``max|x| / 127 + 1e-30`` of the tensor the
+conv reads (both inputs of a concat), taken on the device on every call for
+each batch element on its own (:func:`dynamic_act_scale`), as the reference
+takes it where it serves such a net: under ``jax.vmap``, one chunk of a
+stream (stream/chunker.py) or one scene of a sweep (parallel/sweep.py) at a
+time. The (B,) scales are a float32 tensor that each block reads from
+memory at its element; the epilogue's row 0 then holds the weight scales,
+and the kernel forms s1 = scale[b] * w_scale. Both modes quantise with the
+same code, so a dynamic launch gives the codes of a static one at the same
+value. Dynamic launches count as ``qconv3x3_dynamic`` in
+``kernels.launches``.
+
 The stems of the unfolded nets take Cin = 2 (logmag_ipd features) or 4
 (physics features). Their weights are packed as if Cin were 16, the
 channels beyond Cin zero (:func:`kernel_cin`), and the kernels' halo loads
@@ -60,7 +73,7 @@ from azoom_torch.kernels import build
 
 __all__ = [
     "qconv3x3", "qconv3x3_plain", "pack_weights", "epilogue_params", "quantize_weights", "plan",
-    "route_counts", "kernel_cin", "k_padded", "COUTS", "STEM_CINS",
+    "route_counts", "kernel_cin", "k_padded", "COUTS", "STEM_CINS", "dynamic_act_scale",
 ]
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
@@ -132,27 +145,54 @@ def epilogue_params(act_scale, w_scale, bias, bn=None) -> torch.Tensor:
     return torch.stack([s1, b1, mean, mul, beta]).contiguous()
 
 
+_C127: dict = {}  # device -> the float32 127 a dynamic scale is divided by
+
+
+def dynamic_act_scale(x: torch.Tensor, x2: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference QConv's per-call scale of each batch element of its
+    input [x, x2] (B, ...): ``max|x[b]| / 127 + 1e-30`` in float32, a (B,)
+    tensor on x's device, made without a host synchronisation. The division
+    is an IEEE division by a device tensor (CUDA turns a division by a host
+    scalar into a product by its reciprocal), as the reference's eager
+    ``jnp`` computes it."""
+    dims = tuple(range(1, x.ndim))
+    m = torch.linalg.vector_norm(x, float("inf"), dim=dims)
+    if x2 is not None:
+        m = torch.maximum(m, torch.linalg.vector_norm(x2, float("inf"), dim=dims))
+    c = _C127.get(x.device)
+    if c is None:
+        c = _C127[x.device] = torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    return m / c + 1e-30
+
+
 def qconv3x3_plain(
     x: torch.Tensor,
     w_q: torch.Tensor,
     epi: torch.Tensor,
-    act_scale: float,
+    act_scale: float | torch.Tensor,
     residual: torch.Tensor | None = None,
     relu: bool = True,
     x2: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch. The integer conv runs in
     float64, which is exact here: |acc| <= 9*Cin*127^2 (3.7e7 at Cin = 256)
-    is beyond float32's exact range of 2^24 but far inside float64's."""
+    is beyond float32's exact range of 2^24 but far inside float64's.
+    ``act_scale`` is a float, or (B,) float32 dynamic scales with the weight
+    scales in ``epi``'s row 0, as :func:`qconv3x3` takes them."""
     if x2 is not None:
         x = torch.cat([x, x2], dim=-1)
     cin, cout = x.shape[-1], w_q.shape[0]
     ck = kernel_cin(cin)
-    s = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
+    s1 = epi[0]
+    if isinstance(act_scale, torch.Tensor):
+        s = act_scale.reshape(-1, 1, 1, 1)
+        s1 = s * s1  # (B, 1, 1, Cout): scale[b] * w_scale
+    else:
+        s = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
     x_q = torch.clamp(torch.round(x / s), -127, 127)
     w = w_q[:, :9 * ck].to(torch.float64).reshape(cout, 3, 3, ck)[..., :cin].permute(0, 3, 1, 2)
     acc = Fn.conv2d(x_q.to(torch.float64).permute(0, 3, 1, 2), w, padding=1)
-    y = acc.permute(0, 2, 3, 1).to(torch.float32) * epi[0] + epi[1]
+    y = acc.permute(0, 2, 3, 1).to(torch.float32) * s1 + epi[1]
     y = (y - epi[2]) * epi[3] + epi[4]
     if residual is not None:
         y = residual + y
@@ -276,7 +316,7 @@ def _entry(kernel: str):
         fn = build.load_library("qconv_mma_kernel").azt_qconv3x3_mma
         ints = 8
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_float] + [ctypes.c_int] * ints + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * ints + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -291,7 +331,7 @@ def qconv3x3(
     x: torch.Tensor,
     w_q: torch.Tensor,
     epi: torch.Tensor,
-    act_scale: float,
+    act_scale: float | torch.Tensor,
     residual: torch.Tensor | None = None,
     relu: bool = True,
     x2: torch.Tensor | None = None,
@@ -300,8 +340,12 @@ def qconv3x3(
 ) -> torch.Tensor:
     """Fused int8 Conv3x3(SAME) + epilogue on (B, F, T, Cin) float32 ->
     (B, F, T, Cout) float32. ``act_scale`` is the static activation scale
-    (a positive float32 value). With ``x2`` the input is the channel concat
-    [x, x2], which the kernel reads in place. ``_kernel="mma"`` runs the
+    (a positive float32 value), or a (B,) float32 tensor on x's device that
+    the kernel reads from memory, one scale per batch element (dynamic
+    scales, :func:`dynamic_act_scale`; their values are not checked, which
+    would synchronise), and ``epi``'s row 0 then holds the weight scales.
+    With ``x2`` the input is the channel concat [x, x2], which the kernel
+    reads in place. ``_kernel="mma"`` runs the
     ``mma.sync`` kernel where :func:`plan` would pick another route: for the
     bit-for-bit comparison of the kernels, not for callers."""
     if x.device.type == "cpu":
@@ -322,7 +366,16 @@ def qconv3x3(
     how = plan(cin, cout, T)  # raises for a shape no kernel takes
     _require(w_q.dtype == torch.int8 and tuple(w_q.shape) == (cout, k_padded(cin)),
              f"w_q must be int8 ({cout}, {k_padded(cin)}), got {w_q.dtype} {tuple(w_q.shape)}")
-    _require(act_scale > 0 and act_scale != float("inf"), f"bad act_scale {act_scale}")
+    dynamic = isinstance(act_scale, torch.Tensor)
+    if dynamic:
+        _require(act_scale.dtype == torch.float32 and tuple(act_scale.shape) == (B,)
+                 and act_scale.device == x.device and act_scale.is_contiguous(),
+                 f"a dynamic act_scale must be ({B},) float32 on {x.device}, got "
+                 f"{act_scale.dtype} {tuple(act_scale.shape)} on {act_scale.device}")
+        scale_ptr, act_scale = act_scale.data_ptr(), 1.0
+    else:
+        _require(act_scale > 0 and act_scale != float("inf"), f"bad act_scale {act_scale}")
+        scale_ptr = None
     _require(epi.dtype == torch.float32 and tuple(epi.shape) == (5, cout),
              f"epi must be float32 (5, {cout}), got {epi.dtype} {tuple(epi.shape)}")
     tensors = {"x": x, "w_q": w_q, "epi": epi}
@@ -342,7 +395,7 @@ def qconv3x3(
 
     out = torch.empty((B, F, T, cout), dtype=torch.float32, device=x.device)
     ptrs = (x.data_ptr(), None if x2 is None else x2.data_ptr(), w_q.data_ptr(), epi.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr())
+            None if residual is None else residual.data_ptr(), out.data_ptr(), scale_ptr)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         # A stem's channels beyond Cin1 (no x2) are zeros to the kernels.
@@ -357,6 +410,6 @@ def qconv3x3(
             rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),
                                cin1, cout, w_q.shape[1], stream)
     build.check(rc, f"qconv3x3 {how['kernel']} kernel")
-    kernels.count(kernels.launches, "qconv3x3")
+    kernels.count(kernels.launches, "qconv3x3_dynamic" if dynamic else "qconv3x3")
     kernels.count(route_counts, how["kernel"])
     return out

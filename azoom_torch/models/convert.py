@@ -4,7 +4,8 @@ modules.
 
 The tree is nested dicts of numpy arrays with the collections ``params``,
 ``batch_stats`` and, for the int8 serving path, ``quant_stats`` (the
-calibrated static activation scales), as
+calibrated static activation scales; without it the int8 convs take the
+reference's dynamic scales, one per batch element), as
 :func:`azoom_torch.models.quantize.load_quantized` returns it or as a flax
 model's variables give it after ``numpy`` conversion. In the int8 mode each
 3x3 conv is quantised here, once, with QConv's formula, and its dequant and
@@ -37,15 +38,18 @@ def _t(a) -> torch.Tensor:
 
 def load_qconv(conv: QConv, conv_params: dict, act_scale, bn_params=None, bn_stats=None) -> None:
     """Fill ``conv`` from a flax Conv's params (``kernel`` (3, 3, Cin, Cout),
-    ``bias``), its calibrated ``act_scale`` and an optional BatchNorm
-    (params ``scale``/``bias``, stats ``mean``/``var``)."""
+    ``bias``), its calibrated ``act_scale`` (None: the dynamic scales of
+    each call, the epilogue's row 0 then the weight scales) and an optional
+    BatchNorm (params ``scale``/``bias``, stats ``mean``/``var``)."""
     w_q, w_scale = quantize_weights(_t(conv_params["kernel"]))
     bn = None
     if bn_params is not None:
         bn = (_t(bn_params["scale"]), _t(bn_params["bias"]),
               _t(bn_stats["mean"]), _t(bn_stats["var"]))
-    act_scale = float(np.float32(act_scale))
-    epi = epilogue_params(act_scale, w_scale, _t(conv_params["bias"]), bn)
+    if act_scale is not None:
+        act_scale = float(np.float32(act_scale))
+    epi = epilogue_params(1.0 if act_scale is None else act_scale, w_scale,
+                          _t(conv_params["bias"]), bn)
     if w_q.shape[2:] != (conv.cin, conv.cout):
         raise ValueError(f"kernel {tuple(w_q.shape)} does not fit QConv({conv.cin}, {conv.cout})")
     conv.w_q.copy_(pack_weights(w_q))
@@ -77,10 +81,14 @@ def load_conv_transpose(up: ConvTranspose1x2, params: dict) -> None:
 
 
 def _load_conv(conv, p: dict, s: dict, q: dict | None, i: int) -> None:
-    """Conv_i and BatchNorm_i of a flax cell into ``conv``; ``q`` None: float."""
+    """Conv_i and BatchNorm_i of a flax cell into ``conv`` (a QConv or an
+    FConv); ``q`` the cell's quant_stats, None for a float conv or dynamic
+    scales."""
     bn_p, bn_s = p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"]
-    if q is None:
+    if isinstance(conv, FConv):
         load_fconv(conv, p[f"Conv_{i}"], bn_p, bn_s)
+    elif q is None:
+        load_qconv(conv, p[f"Conv_{i}"], None, bn_p, bn_s)
     else:
         load_qconv(conv, p[f"Conv_{i}"], q[f"Conv_{i}"]["act_scale"], bn_p, bn_s)
         # where it came from, for quantize.calibrate_act_scales
@@ -102,21 +110,21 @@ def _load_cell(m, p: dict, s: dict, q: dict | None) -> None:
 def from_flax(cls, variables: dict, model_kwargs: dict, quant: bool = True, device="cpu"):
     """Build the port's ``cls`` (FreqPreservingUNet, DeepFPU or TPUFPU) with
     ``model_kwargs`` and carry the flax ``variables`` across, walking
-    ``cls.FLAX_NAMES``. ``quant`` serves the int8 convs (and needs
-    ``variables['quant_stats']``) or the float ones. Returns the model on
-    ``device`` in eval mode."""
-    if quant and "quant_stats" not in variables:
-        raise ValueError(
-            "the int8 serving path needs calibrated static activation scales "
-            "(variables['quant_stats'])"
-        )
+    ``cls.FLAX_NAMES``. ``quant`` serves the int8 convs or the float ones.
+    The int8 convs take the calibrated static scales of
+    ``variables['quant_stats']`` where it is present; without it (a training
+    checkpoint) each conv quantises its input with the reference QConv's
+    dynamic scale, max|x| / 127 + 1e-30 of each batch element's input (one
+    chunk or scene, as the reference applies such a net under ``jax.vmap``).
+    Returns
+    the model on ``device`` in eval mode."""
     kw = {k: v for k, v in model_kwargs.items() if k not in ("quant", "dtype")}
     p, s = variables["params"], variables["batch_stats"]
     if cls is TPUFPU and "FreqAttention_0" in p and "n_freqs" not in kw:
         # the position embedding's rows are the folded rows it was made for
         kw["n_freqs"] = np.shape(p["FreqAttention_0"]["pos_emb"])[0] * kw.get("fold", 4)
     model = cls(**kw, quant=quant)
-    q = variables["quant_stats"] if quant else None
+    q = variables.get("quant_stats") if quant else None
     with torch.no_grad():
         for attr, name in cls.FLAX_NAMES.items():
             m = getattr(model, attr)

@@ -10,6 +10,11 @@ causal CRN ``crn_causal`` (CRNMaskNet base 16, hidden 128, two
 unidirectional LSTMs, logmag_ipd features), the streaming net of the
 low-latency path, is float only: ``quant`` is ignored for it, as in the
 reference.
+
+The reference's named loaders are here too: ``bundled_artifact_path`` and
+one ``load_pretrained_<name>`` per artifact. Each returns the served model
+(the port's nets hold their weights; the reference returns (model,
+variables)), float unless ``quant=True`` as in the reference, on ``device``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,12 @@ from azoom_torch.models.convert import crn_from_flax, from_flax
 from azoom_torch.models.quantize import fold_batchnorm, load_quantized
 from azoom_torch.models.unet import TPUFPU, DeepFPU, FreqPreservingUNet
 
-__all__ = ["load_bundled", "bundled_train_mic_dist", "geo_adapt_dist", "artifact_name", "ASSETS"]
+__all__ = [
+    "bundled_artifact_path", "bundled_train_mic_dist", "load_bundled", "load_pretrained_fpu",
+    "load_pretrained_deepfpu", "load_pretrained_tpufpu", "load_pretrained_tpufpu_slim",
+    "load_pretrained_tpufpu_nano", "load_pretrained_fpu_reverb", "load_pretrained_fpu_multigeo",
+    "load_pretrained_crn_causal", "geo_adapt_dist", "artifact_name", "ASSETS",
+]
 
 ASSETS = Path(__file__).resolve().parents[2] / "azoom" / "assets"
 
@@ -109,3 +119,51 @@ def load_bundled(name: str, quant: bool = True, device=None, fold_bn: bool = Fal
     if fold_bn:
         variables = fold_batchnorm(variables)
     return from_flax(cls, variables, kwargs, bool(quant), device), feature_kind
+
+
+def bundled_artifact_path(model: str = "fpu") -> Path | None:
+    """The bundled artifact of ``model`` under ASSETS, or None if it is not
+    there."""
+    path = ASSETS / artifact_name(model)[0]
+    return path if path.exists() else None
+
+
+def load_pretrained_fpu(quant: bool = False, device=None):
+    """The bundled FreqPreservingUNet (logmag_ipd features), int8 with
+    ``quant=True``; raises FileNotFoundError without its artifact."""
+    return load_bundled("fpu", quant, device)[0]
+
+
+def load_pretrained_fpu_reverb(quant: bool = False, device=None):
+    """The reverb-robust FreqPreservingUNet (trained on room scenes)."""
+    return load_bundled("fpu_reverb", quant, device)[0]
+
+
+def load_pretrained_fpu_multigeo(quant: bool = False, device=None):
+    """The mic-spacing-robust FreqPreservingUNet (raw, unadapted features)."""
+    return load_bundled("fpu_multigeo", quant, device)[0]
+
+
+def load_pretrained_crn_causal(device=None):
+    """The causal CRN of the low-latency path (float only)."""
+    return load_bundled("crn_causal", False, device)[0]
+
+
+def load_pretrained_deepfpu(quant: bool = False, device=None):
+    """The bundled DeepFPU (physics features)."""
+    return load_bundled("deepfpu", quant, device)[0]
+
+
+def load_pretrained_tpufpu(quant: bool = False, device=None):
+    """The bundled TPUFPU (base 64, fold 4; physics features)."""
+    return load_bundled("tpufpu", quant, device)[0]
+
+
+def load_pretrained_tpufpu_slim(quant: bool = False, device=None):
+    """The slim-bottleneck TPUFPU (bneck 4)."""
+    return load_bundled("tpufpu_slim", quant, device)[0]
+
+
+def load_pretrained_tpufpu_nano(quant: bool = False, device=None):
+    """The nano TPUFPU (bneck 4, dec_div 2, enc_div 2)."""
+    return load_bundled("tpufpu_nano", quant, device)[0]

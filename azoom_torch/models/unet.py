@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from azoom_torch.kernels.convt_kernel import convt1x2
-from azoom_torch.kernels.qconv_kernel import k_padded, qconv3x3
+from azoom_torch.kernels.qconv_kernel import dynamic_act_scale, k_padded, qconv3x3
 from azoom_torch.models.layers import FreqAttention
 
 __all__ = [
@@ -104,7 +104,15 @@ def pool_time(x: torch.Tensor) -> torch.Tensor:
 class QConv(nn.Module):
     """Int8 SAME 3x3 conv with its dequant, bias and BatchNorm in a float32
     epilogue. Buffers: ``w_q`` (Cout, Kpad) int8 tap-major codes and ``epi``
-    (5, Cout), the epilogue rows of azoom_torch.kernels.qconv_kernel."""
+    (5, Cout), the epilogue rows of azoom_torch.kernels.qconv_kernel.
+
+    ``act_scale`` is the static activation scale, or None for the
+    reference's dynamic mode (variables without ``quant_stats``): each call
+    then takes ``max|x| / 127 + 1e-30`` of each batch element's input on the
+    device, and ``epi``'s row 0 holds the weight scales that the kernel
+    multiplies by it. Each element is one chunk or one scene, as the
+    reference applies such a net to one at a time under ``jax.vmap``; so an
+    element's output does not depend on the others in its batch."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -113,11 +121,11 @@ class QConv(nn.Module):
         self.register_buffer("epi", torch.zeros((5, cout)))
         # A Python float: the kernel takes it by value, and reading it from
         # a device tensor would synchronise every call.
-        self.act_scale = 1.0
+        self.act_scale: float | None = 1.0
 
     def forward(self, x, residual=None, relu: bool = True, x2=None):
-        return qconv3x3(x, self.w_q, self.epi, self.act_scale, residual=residual, relu=relu,
-                        x2=x2)
+        scale = dynamic_act_scale(x, x2) if self.act_scale is None else self.act_scale
+        return qconv3x3(x, self.w_q, self.epi, scale, residual=residual, relu=relu, x2=x2)
 
 
 class FConv(nn.Module):

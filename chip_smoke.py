@@ -244,17 +244,41 @@ Phases, each printing its own line(s):
                launches and routes as in phase 5, its SIR gain beside the
                bundled net's, and its 21 convs bit for bit against their plain
                version on 4 chunks.
+ 25. entry points and checkpoints - B2 with dynamic activation scales
+               (the reference QConv's max|x| / 127 + 1e-30 of each batch
+               element, taken on the card and held bit for bit against the
+               CPU's, read from memory by the kernel) at the nano shapes of
+               every route (wgmma, narrow, split at 256 -> 256 on 6 frames,
+               and the mma.sync kernel) on signed inputs whose elements lie
+               decades apart, bit for bit against its plain version and,
+               for the elements of the least and the largest scale, against
+               the static launch at their scale, timed beside
+               the static conv, the plain version and torch._int_mm; the
+               bundled nano net served without its calibrated scales through
+               learned_enhance at (128, 2, 32000) on phase 7's scenes against
+               the static net, in turns; a port checkpoint from a 2-step fit
+               of the nano twin served by `cli.batch --ckpt DIR` float and
+               --int8 (the dynamic launches of that run are the kernels
+               line's; the served int8 net's masks of 4 scenes, two of them
+               quiet, bit for bit those of two batches of 2) and by `cli.run inf --ckpt DIR --int8`; `cli.run full`
+               with mvdr and hard_null (the int8 nano net), oracle and online
+               on one 4 s scene, each output bit for bit the library call on
+               the card and within 2e-2 / 0.1 dB of `--device cpu`; `batch
+               --per-run` for two scenes; the compute parts of debug_srp and
+               zoom_study against the CPU. It imports none of matplotlib,
+               pandas and tensorstore.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
-is a loop of calls from Python for both; B2 seven times: qconv3x3 is the
+is a loop of calls from Python for both; B2 eight times: qconv3x3 is the
 tpufpu_nano net of phase 3 with phase 5's launches, qconv3x3_<net> the conv
 set of fpu, deepfpu, tpufpu and tpufpu_slim with the launches of that int8
 net's phase-16 run, qconv3x3_split the split route's four convs of the
 reuse tick's net (phase 3's 48-frame family) with the split launches of
 phase 12's reuse ticks, qconv3x3_narrow the narrow route's convs of those
 four conv sets (the stems and Cout = 32) with the narrow launches of their
-phase-16 int8 runs; B3 twice: hard_null shared with
+phase-16 int8 runs, qconv3x3_dynamic the nano net's convs on dynamic scales
+with the launches of phase 25's `batch --ckpt DIR --int8`; B3 twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run; online_mvdr at one 60 s clip with phase 17's
 launches; online_mvdr_mmic, the M-general instance, at a 60 s 4-mic clip
@@ -1727,6 +1751,318 @@ def phase_train(dev, mix_s, tgt_s, itf_s) -> dict:
     return res
 
 
+def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) -> dict:
+    """25. entry points and checkpoints (module docstring). ``mix_s``,
+    ``tgt_s``, ``itf_s`` are phase 7's far-field scenes on the card. Adds the
+    kernels line's "qconv3x3_dynamic" entry to ``results``; returns the
+    phase's numbers for chip_smoke.json."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from azoom_torch import kernels
+    from azoom_torch.cli import batch as batch_cli
+    from azoom_torch.cli import debug_srp, zoom_study
+    from azoom_torch.cli import run as run_cli
+    from azoom_torch.cli.checkpoint import load_checkpoint, twin
+    from azoom_torch.config import DEFAULT, PipelineConfig
+    from azoom_torch.eval.projection import osinr_osir
+    from azoom_torch.io.wav import read_wav
+    from azoom_torch.kernels.bench import int_mm_ms
+    from azoom_torch.kernels.qconv_kernel import (
+        dynamic_act_scale, k_padded, plan, qconv3x3, qconv3x3_plain,
+    )
+    from azoom_torch.models.convert import from_flax
+    from azoom_torch.models.pretrained import (
+        _PORTED, ASSETS, artifact_name, load_bundled, load_pretrained_crn_causal,
+    )
+    from azoom_torch.models.quantize import load_quantized
+    from azoom_torch.models.trainable import from_bundled
+    from azoom_torch.models.unet import TPUFPU
+    from azoom_torch.pipelines.learned import learned_enhance, learned_enhance_streaming
+    from azoom_torch.pipelines.online_learned import online_learned_enhance
+    from azoom_torch.pipelines.oracle import oracle_enhance
+    from azoom_torch.train.data import synth_batch
+    from azoom_torch.train.loop import fit, latest_step
+
+    t_phase = time.perf_counter()
+    watched = ("matplotlib", "pandas", "tensorstore")
+    loaded_before = {m for m in watched if m in sys.modules}
+    res: dict = {}
+    g = torch.Generator(device=dev).manual_seed(25)
+
+    # dynamic B2: every route at the nano shapes, bit for bit against plain ---------
+    def operands(cin, cout, t):
+        """Signed inputs whose batch elements lie up to four decades apart;
+        element 0's largest magnitude is negative. ``epi``'s row 0 holds the
+        weight scales, as a dynamic QConv's does."""
+        x = torch.randn((BATCH, F_ROWS, t, cin), generator=g, device=dev)
+        x *= 10.0 ** (4 * torch.rand((BATCH, 1, 1, 1), generator=g, device=dev) - 3)
+        x[0].view(-1)[5] = -2 * x[0].abs().max()
+        w_q = torch.zeros((cout, k_padded(cin)), dtype=torch.int8, device=dev)
+        w_q[:, :9 * cin] = torch.randint(-127, 128, (cout, 9 * cin), generator=g, device=dev,
+                                         dtype=torch.int8)
+        epi = torch.cat([1e-3 * (1 + torch.rand((1, cout), generator=g, device=dev)),
+                         0.1 * torch.randn((2, cout), generator=g, device=dev),
+                         1 + 0.1 * torch.randn((1, cout), generator=g, device=dev),
+                         0.1 * torch.randn((1, cout), generator=g, device=dev)])
+        r = torch.randn((BATCH, F_ROWS, t, cout), generator=g, device=dev)
+        return x, w_q, epi, r
+
+    def dyn(conv, xin, w_q, epi, kw):
+        """A dynamic conv as QConv runs it: the (B,) scales, then the conv."""
+        return conv(xin, w_q, epi, dynamic_act_scale(xin, kw.get("x2")), **kw)
+
+    shapes = {c[:3] for c in NANO_CONVS} | {(256, 256, 6)}
+    per_shape, worst, checked = {}, 0.0, {"wgmma": 0, "narrow": 0, "split": 0, "mma": 0}
+    for cin, cout, t in sorted(shapes):
+        x, w_q, epi, r = operands(cin, cout, t)
+        route = plan(cin, cout, t)["kernel"]
+        variants = ({(False, False), (True, False)}
+                    | {c[3:] for c in NANO_CONVS if c[:3] == (cin, cout, t)})
+        for with_res, cat in sorted(variants):
+            kw = dict(residual=r if with_res else None)
+            xin = x
+            if cat:
+                xin, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+            s = dynamic_act_scale(xin, kw.get("x2"))
+            x2 = kw.get("x2")
+            s_cpu = dynamic_act_scale(xin.cpu(), None if x2 is None else x2.cpu())
+            check(torch.equal(s.cpu(), s_cpu),
+                  f"dynamic scales {(cin, cout, t, cat)}: the card's differ from the CPU's")
+            got = qconv3x3(xin, w_q, epi, s, **kw)
+            ref = qconv3x3_plain(xin, w_q, epi, s, **kw)
+            mma = qconv3x3(xin, w_q, epi, s, **kw, _kernel="mma")
+            differ = {k: int((got != o).sum()) for k, o in (("plain", ref), ("mma", mma))}
+            # the two elements of the extreme scales alone, on the static launch
+            for b in (int(s.argmin()), int(s.argmax())):
+                one = {k: None if a is None else a[b:b + 1] for k, a in kw.items()}
+                epi_b = epi.clone()
+                epi_b[0] = s[b] * epi[0]
+                static = qconv3x3(xin[b:b + 1], w_q, epi_b, float(s[b]), **one)
+                differ[f"static[{b}]"] = int((got[b:b + 1] != static).sum())
+            err = float((got - ref).abs().max())
+            worst = max(worst, err)
+            check(not any(differ.values()),
+                  f"qconv3x3_dynamic {(cin, cout, t, with_res, cat)} on {route}: elements "
+                  f"that differ {differ}")
+            checked[route] += 1
+            checked["mma"] += 1
+            m = BATCH * F_ROWS * t
+            nbytes = (m * cin * 4 + cout * 9 * cin + epi.numel() * 4
+                      + m * cout * 4 * (2 if with_res else 1))
+            b_ms, b_by = bound(nbytes, 2.0 * m * 9 * cin * cout, INT8_OPS_PER_S)
+            key = (cin, cout, t, with_res, cat)
+            if key in NANO_CONVS:
+                s_host = float(s[0])  # the static launch's by-value scale, read once
+                per_shape[key] = dict(
+                    route=route, ms=time_ms(lambda: dyn(qconv3x3, xin, w_q, epi, kw)),
+                    static_ms=time_ms(lambda: qconv3x3(xin, w_q, epi, s_host, **kw)),
+                    plain_ms=time_ms(lambda: dyn(qconv3x3_plain, xin, w_q, epi, kw),
+                                     iters=2, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        lib = int_mm_ms(x, w_q, dynamic_act_scale(x).view(-1, 1, 1, 1))
+        for key in per_shape:
+            if key[:3] == (cin, cout, t):
+                per_shape[key]["library_ms"] = lib
+        del x, r, got, ref, static, mma
+    net = [per_shape[c] for c in NANO_CONVS]
+    by_bytes = sum(p["bound_ms"] for p in net if p["bound_by"] == "bytes")
+    results["qconv3x3_dynamic"] = dict(
+        name="qconv3x3_dynamic", route="cuda", source="azoom_torch/csrc/qconv_kernel.cu",
+        replaces="azoom/pallas/qconv_kernel.py:53 (QConv's dynamic scale, "
+                 "azoom/models/unet.py:166-167)",
+        launches=0, max_abs_err=worst, ms=sum(p["ms"] for p in net),
+        plain_ms=sum(p["plain_ms"] for p in net), bound_ms=sum(p["bound_ms"] for p in net),
+        bound_by="bytes" if by_bytes >= sum(p["bound_ms"] for p in net) / 2 else "operations",
+        library_ms=sum(p["library_ms"] for p in net))
+    static_ms = sum(p["static_ms"] for p in net)
+    row = results["qconv3x3_dynamic"]
+    log("qconv_dynamic", convs=len(net), checked=checked, ms=f"{row['ms']:.4f}",
+        static_ms=f"{static_ms:.4f}", bound_ms=f"{row['bound_ms']:.4f}",
+        plain_ms=f"{row['plain_ms']:.3f}", int_mm_ms=f"{row['library_ms']:.4f}",
+        elements_differ=0)
+    res["qconv_dynamic"] = dict(per_shape={str(k): v for k, v in per_shape.items()},
+                                checked=checked, static_ms=static_ms)
+
+    # the bundled nano net served on dynamic scales at the main path's batch ----------
+    v = load_quantized(ASSETS / artifact_name("tpufpu_nano")[0])
+    nets = {"static": load_bundled("tpufpu_nano", quant=True, device=dev)[0],
+            "dynamic": from_flax(TPUFPU, {k: v[k] for k in ("params", "batch_stats")},
+                                 _PORTED["tpufpu_nano"][2], True, dev)}
+    cfg = PipelineConfig(mic_dist=0.04)
+    kw = dict(feature_kind="physics")  # steered at the scenes' target, 90 deg
+    kernels.reset_launches()
+    outs = {tag: learned_enhance(mix_s, net, cfg, **kw) for tag, net in nets.items()}
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    want = {"qconv3x3": 21, "qconv3x3_dynamic": 21, "convt1x2": 6, "masked_mvdr": 2}
+    check(counts == want, f"learned_enhance static + dynamic: launches {counts}, expected {want}")
+    sir = {tag: float((osinr_osir(o, tgt_s, itf_s)[1]
+                       - osinr_osir(mix_s[:, 0], tgt_s, itf_s)[1]).mean())
+           for tag, o in outs.items()}
+    check(all(np.isfinite(list(sir.values()))), f"learned_enhance SIR gains {sir}")
+    times = {"static": [], "dynamic": []}
+    for tag in ("static", "dynamic", "dynamic", "static"):  # in turns
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learned_enhance(mix_s, nets[tag], cfg, **kw)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[tag].append((time.perf_counter() - t0) * 1e3)
+    med = {tag: statistics.median(ts) for tag, ts in times.items()}
+    log("learned_dynamic", batch=BATCH, launches=counts, ms_median_static=f"{med['static']:.3f}",
+        ms_median_dynamic=f"{med['dynamic']:.3f}", sir_gain_db_static=f"{sir['static']:.2f}",
+        sir_gain_db_dynamic=f"{sir['dynamic']:.2f}")
+    res["learned_dynamic"] = dict(ms=times, ms_median=med, sir_gain_db=sir)
+    del nets, outs
+
+    tmp = Path(tempfile.mkdtemp(prefix="azt_phase25_"))
+    try:
+        # a port checkpoint: two steps of the nano twin from its artifact --------
+        t0 = time.perf_counter()
+        ck = tmp / "ckpt"
+        warm, _ = from_bundled("tpufpu_nano", device=dev)
+        fit(twin("tpufpu_nano", "physics"), DEFAULT.replace(mic_dist=0.04), n_steps=2,
+            batch_size=2, feature_kind="physics", init_variables=warm.variables(),
+            checkpoint_dir=ck, checkpoint_every=2, log_every=1, device=dev)
+        check(latest_step(ck) == 2, f"fit's latest checkpoint: step {latest_step(ck)}")
+        fit_s = time.perf_counter() - t0
+        del warm
+
+        # batch --ckpt DIR, float and --int8 (the dynamic scales) ----------------------
+        data = tmp / "data"
+        sweeps = {}
+        for tag, extra in (("float", []), ("int8", ["--int8"])):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            summ = batch_cli.main(["--n", "4", "--duration", "2", "--beamformer", "mvdr",
+                                   "--model", "tpufpu_nano", "--ckpt", str(ck), "--no-pesq",
+                                   "--data-root", str(data)] + extra)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            want = {"convt1x2": 3, "masked_mvdr": 1}
+            if tag == "int8":
+                want["qconv3x3_dynamic"] = 21
+                results["qconv3x3_dynamic"]["launches"] = counts.get("qconv3x3_dynamic", 0)
+            check(counts == want, f"batch --ckpt {tag}: launches {counts}, expected {want}")
+            check(summ["sir_imp"]["n_failed"] == 0 and np.isfinite(summ["sir_imp"]["mean"]),
+                  f"batch --ckpt {tag}: {summ['sir_imp']}")
+            sweeps[tag] = dict(launches=counts, sir_imp_db=summ["sir_imp"]["mean"],
+                               s=time.perf_counter() - t0)
+        # the served int8 net takes each scene's scales on its own: its masks of 4
+        # scenes in one batch are those of two batches of 2, bit for bit
+        served = load_checkpoint("tpufpu_nano", ck, "physics", True, dev)[0]
+        feats = synth_batch(25, 4, cfg, "physics", device=dev)["features"]
+        feats[2:] *= 1e-3  # two quiet scenes: their own scales are far below the loud ones'
+        with torch.inference_mode():
+            whole = served(feats)
+            halves = torch.cat([served(feats[:2]), served(feats[2:])])
+        blocks_differ = int((whole != halves).sum())
+        check(blocks_differ == 0,
+              f"batch --ckpt --int8: {blocks_differ} mask elements change with the block size")
+        sweeps["int8"]["mask_elements_differ_4_vs_2x2"] = blocks_differ
+        del served, feats, whole, halves
+        log("ckpt_batch", fit_steps=2, fit_s=f"{fit_s:.2f}",
+            **{f"{k}_launches": v["launches"] for k, v in sweeps.items()},
+            **{f"{k}_sir_imp_db": f"{v['sir_imp_db']:.2f}" for k, v in sweeps.items()})
+        res["ckpt_batch"] = dict(fit_s=fit_s, sweeps=sweeps)
+
+        # run full on one 4 s scene: each beamformer against the library call and the CPU
+        name = "p25"
+        root = ["--name", name, "--duration", "4", "--data-root", str(data)]
+        cases = {"mvdr": ["--model", "tpufpu_nano", "--int8"],
+                 "hard_null": ["--model", "tpufpu_nano", "--int8"],
+                 "oracle": [], "online": [],
+                 "mvdr_ckpt": ["--model", "tpufpu_nano", "--int8", "--ckpt", str(ck)]}
+        sim_dir, res_dir = data / "simulated" / name, data / "results" / f"{name}_results"
+        run_cli.main(["sim"] + root)
+        mix_np = np.ascontiguousarray(read_wav(sim_dir / "mixture.wav")[0].T)
+        tgt_np = np.ascontiguousarray(read_wav(sim_dir / "target.wav")[0][:, 0])
+        itf_np = np.ascontiguousarray(read_wav(sim_dir / "interference.wav")[0][:, 0])
+        mix = torch.from_numpy(mix_np).to(dev)
+        nano, _ = load_bundled("tpufpu_nano", quant=True, device=dev)
+        library = {
+            "mvdr": lambda: learned_enhance_streaming(mix, nano, DEFAULT, "mvdr", "physics"),
+            "hard_null": lambda: learned_enhance_streaming(mix, nano, DEFAULT, "hard_null",
+                                                           "physics"),
+            "oracle": lambda: oracle_enhance(mix, torch.from_numpy(tgt_np).to(dev),
+                                             torch.from_numpy(itf_np).to(dev), DEFAULT,
+                                             post_filter="irm"),
+            "online": lambda: online_learned_enhance(mix, load_pretrained_crn_causal(dev),
+                                                     DEFAULT),
+        }
+        runs = {}
+        for case, extra in cases.items():
+            bf = case.split("_ckpt")[0]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            run_cli.main(["full" if case == "mvdr" else "inf"] + root + ["--beamformer", bf]
+                         + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            card = read_wav(res_dir / f"{name}_enhanced.wav")[0]
+            run_cli.main(["inf"] + root + ["--beamformer", bf, "--device", "cpu"] + extra)
+            cpu = read_wav(res_dir / f"{name}_enhanced.wav")[0]
+            check(card.shape == (mix_np.shape[1],) and bool(np.isfinite(card).all()),
+                  f"run {case}: bad output {card.shape}")
+            bit = None
+            if case in library:
+                with torch.inference_mode():
+                    lib = library[case]().cpu().numpy()
+                bit = int((lib != card).sum())
+                check(bit == 0, f"run {case}: {bit} samples differ from the library call")
+            rel = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+            d_sir = float(osinr_osir(torch.from_numpy(card), torch.from_numpy(tgt_np),
+                                     torch.from_numpy(itf_np))[1]
+                          - osinr_osir(torch.from_numpy(cpu), torch.from_numpy(tgt_np),
+                                       torch.from_numpy(itf_np))[1])
+            check(rel <= 2e-2 and abs(d_sir) <= 0.1,
+                  f"run {case}: card vs CPU waveform {rel:.3e}, SIR {d_sir:+.4f} dB")
+            if case == "mvdr_ckpt":
+                check(counts.get("qconv3x3_dynamic") == 21, f"run inf --ckpt: launches {counts}")
+            runs[case] = dict(launches=counts, wall_s=wall, vs_library_differ=bit,
+                              cpu_wave_rel_l2=rel, cpu_dsir_db=d_sir)
+            log("run_cli", case=case, launches=counts, wall_s=f"{wall:.2f}",
+                vs_library_differ=bit, cpu_wave_rel_l2=f"{rel:.3e}", cpu_dsir_db=f"{d_sir:+.4f}")
+        res["run"] = runs
+
+        # batch --per-run: two scenes through run's steps --------------------------------
+        t0 = time.perf_counter()
+        ok, failed = batch_cli.main(["--per-run", "--n", "2", "--duration", "2",
+                                     "--beamformer", "oracle", "--data-root", str(data)])
+        check(ok == 2 and failed == 0, f"--per-run: {ok} ok, {failed} failed")
+        res["per_run"] = dict(ok=ok, s=time.perf_counter() - t0)
+        log("per_run", scenes=2, ok=ok, s=f"{res['per_run']['s']:.2f}")
+
+        # the plot CLIs' compute parts against the CPU -------------------------------------
+        a_g, p_g, peak_g = debug_srp.srp_scan(sim_dir, device=dev)
+        a_c, p_c, peak_c = debug_srp.srp_scan(sim_dir, device="cpu")
+        srp_rel = float(np.abs(p_g - p_c).max() / p_c.max())
+        check(peak_g == peak_c and srp_rel <= 1e-5, f"debug_srp: peak {peak_g} vs {peak_c}, "
+              f"power {srp_rel:.2e}")
+        st_g, st_c = zoom_study.zoom_study(device=dev), zoom_study.zoom_study(device="cpu")
+        pat_rel = max(float(np.abs(st_g["patterns"][s] - st_c["patterns"][s]).max()
+                            / st_c["patterns"][s].max()) for s in st_c["patterns"])
+        check(np.array_equal(st_g["widths"], st_c["widths"]) and pat_rel <= 1e-4,
+              f"zoom_study: widths {st_g['widths']} vs {st_c['widths']}, patterns {pat_rel:.2e}")
+        res["plots"] = dict(srp_peak_deg=peak_g, srp_power_rel=srp_rel,
+                            zoom_widths=st_g["widths"].tolist(), zoom_pattern_rel=pat_rel)
+        log("plot_compute", srp_peak_deg=peak_g, srp_power_rel=f"{srp_rel:.2e}",
+            zoom_widths=st_g["widths"].tolist(), zoom_pattern_rel=f"{pat_rel:.2e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    new = {m for m in watched if m in sys.modules} - loaded_before
+    check(not new, f"phase 25 imported {sorted(new)}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log("entry_points", seconds=f"{res['seconds']:.1f}")
+    return res
+
+
 def log(phase: str, **kw) -> None:
     """One line of a phase's results, ending with the card (its name and
     power limit beside every time) and the seconds since the start."""
@@ -3116,10 +3452,13 @@ def main() -> int:
     # 24. training --------------------------------------------------------------------
     train = phase_train(dev, mix_s, tgt_s, itf_s)
 
+    # 25. entry points and checkpoints -------------------------------------------------
+    entry_points = phase_entry_points(dev, results, time_ms, bound, mix_s, tgt_s, itf_s)
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
-        "convt1x2", "hard_null",
+        "qconv3x3_dynamic", "convt1x2", "hard_null",
         "hard_null_per_chunk", "int8_mm", "online_mvdr", "online_mvdr_mmic")]}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
@@ -3136,7 +3475,7 @@ def main() -> int:
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
          "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic,
          "beamformers": beamformers, **native_eval, "sim": sim, "sweep": sweep, "train": train,
-         "card": smi},
+         "entry_points": entry_points, "card": smi},
         indent=1))
     print(json.dumps(line))
     print(smi)

@@ -1,5 +1,6 @@
 """The port's batch CLI (``python -m azoom_torch.cli.batch``, vectorized
-mode) and ``config.parse_geometry`` on the CPU, against azoom.cli.batch and
+mode; ``--per-run`` and ``--ckpt`` directories also in
+tests/test_torch_cli_run.py and tests/test_torch_ckpt.py) and ``config.parse_geometry`` on the CPU, against azoom.cli.batch and
 azoom.config.
 
 The CSV takes the reference CLI's columns and run names (held against a
@@ -105,12 +106,22 @@ def test_rows_do_not_depend_on_the_chunk_size(tmp_path):
     assert _rows(roots[2]) == _rows(roots[4])
 
 
-def test_options_that_are_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        batch.main(["--per-run", "--n", "1", "--data-root", str(tmp_path), *FAST])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        batch.main(["--n", "1", "--beamformer", "mvdr", "--ckpt", str(tmp_path / "orbax"),
-                    "--data-root", str(tmp_path), *FAST])
+def test_options_that_are_not_ported_raise(tmp_path, capsys):
+    """``--per-run`` and a checkpoint-directory ``--ckpt`` run (they raised
+    until the run CLI and the checkpoint loader were ported); the options
+    the reference refuses are refused."""
+    assert batch.main(["--per-run", "--n", "1", "--data-root", str(tmp_path), *FAST]) == (1, 0)
+    assert (tmp_path / "results" / "batch_test_000_results" / "report.txt").is_file()
+    from azoom_torch.cli.checkpoint import twin
+    from azoom_torch.train.loop import create_state, save_checkpoint
+
+    state = create_state(twin("fpu", "logmag_ipd"), 0, (1, 513, 64, 2), device="cpu")
+    state.step = 7
+    save_checkpoint(tmp_path / "ckpt", state)
+    summ = batch.main(["--n", "1", "--beamformer", "mvdr", "--ckpt", str(tmp_path / "ckpt"),
+                       "--data-root", str(tmp_path), *FAST])
+    assert summ["sir_imp"]["n_failed"] == 0
+    assert "using checkpoint step 7" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="learned beamformers"):
         batch.main(["--n", "1", "--steer-error", "5", "--data-root", str(tmp_path), *FAST])
     with pytest.raises(SystemExit, match="not available in vectorized mode"):

@@ -22,7 +22,8 @@ from azoom_torch.kernels.int8_mm_kernel import int8_mm, int8_mm_plain
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
 from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
 from azoom_torch.kernels.qconv_kernel import (
-    k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain, route_counts,
+    dynamic_act_scale, k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain,
+    route_counts,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1140,3 +1141,98 @@ def test_the_train_cli_trains_and_resumes_on_the_card_by_default(cuda, tmp_path,
     assert "finished at step 5" in out
     assert sorted(p.name for p in Path(ckpt).glob("step_*.pt")) == [
         "step_000000003.pt", "step_000000005.pt"]
+
+
+@pytest.mark.parametrize("cin,cout,t,res,cat,kernel", [
+    (4, 32, 64, False, False, None), (16, 64, 64, False, False, None),
+    (64, 64, 32, True, False, None), (128, 64, 64, False, True, None),
+    (256, 256, 6, True, False, None), (128, 64, 16, False, True, "mma")])
+def test_dynamic_scales_match_plain_and_the_static_launch(cuda, cin, cout, t, res, cat, kernel):
+    """B2 reading one activation scale per batch element from device memory
+    (the reference QConv's dynamic mode) on the narrow (a physics stem
+    among them), wgmma, split and mma.sync routes, on signed inputs whose
+    elements lie decades apart: the scales bit for bit the CPU's, the output
+    bit for bit its plain version and, element by element, the static launch
+    at that element's scale."""
+    rng = np.random.default_rng(cin + cout + t)
+    x, w, epi, r = _conv_case(rng, cuda, 3, 129, t, cin, cout, res)
+    signs = np.sign(rng.standard_normal(tuple(x.shape))) * np.array([1, 1e-3, 30]).reshape(3, 1, 1, 1)
+    x = x * _t(signs.astype(np.float32), cuda)
+    x[2].view(-1)[7] = -2 * float(x[2].abs().max())  # element 2's largest magnitude is negative
+    kw = dict(residual=r, _kernel=kernel)
+    if cat:
+        x, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+    s = dynamic_act_scale(x, kw.get("x2"))
+    x2 = kw.get("x2")
+    assert torch.equal(s.cpu(), dynamic_act_scale(x.cpu(), None if x2 is None else x2.cpu()))
+    epi[0] = _t(1e-3 * (1 + rng.random(cout)).astype(np.float32), cuda)  # the weight scales
+    kernels.reset_launches()
+    got = qconv3x3(x, w, epi, s, **kw)
+    assert kernels.launches["qconv3x3_dynamic"] == 1 and kernels.launches["qconv3x3"] == 0
+    plain_kw = {k: v for k, v in kw.items() if k != "_kernel"}
+    assert torch.equal(got, qconv3x3_plain(x, w, epi, s, **plain_kw))
+    for b in range(3):
+        one = {k: v if v is None or k == "_kernel" else v[b:b + 1] for k, v in kw.items()}
+        epi_b = epi.clone()
+        epi_b[0] = s[b] * epi[0]
+        assert torch.equal(got[b:b + 1], qconv3x3(x[b:b + 1], w, epi_b, float(s[b]), **one)), b
+
+
+def test_a_training_checkpoint_serves_int8_on_the_card(cuda, tmp_path):
+    """A port checkpoint of the nano twin served by the batch CLI's loader
+    with --int8: every conv on B2 with a dynamic scale (21 launches), each
+    bit for bit against its plain version, the mask within the int8 nets'
+    bound of the CPU's."""
+    from azoom_torch.cli.checkpoint import load_checkpoint, twin
+    from azoom_torch.models.unet import QConv
+    from azoom_torch.train.data import synth_batch
+    from azoom_torch.train.loop import create_state, save_checkpoint
+
+    state = create_state(twin("tpufpu_nano", "physics"), 0, (1, 513, 64, 4), device=cuda)
+    state.step = 3
+    save_checkpoint(tmp_path, state)
+    served = {d: load_checkpoint("tpufpu_nano", tmp_path, "physics", True, d)[0]
+              for d in ("cpu", cuda)}
+    feats = synth_batch(5, 2, PipelineConfig(mic_dist=0.04), "physics", device=cuda)["features"]
+    calls = []
+    handles = [m.register_forward_pre_hook(lambda c, a, k: calls.append((c, a[0], k)),
+                                           with_kwargs=True)
+               for m in served[cuda].modules() if isinstance(m, QConv)]
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = served[cuda](feats).cpu()
+    assert kernels.launches["qconv3x3_dynamic"] == 21 and kernels.launches["qconv3x3"] == 0
+    with torch.inference_mode():
+        ref = served["cpu"](feats.cpu())
+    for h in handles:
+        h.remove()
+    for conv, x, k in calls:
+        x2 = k.get("x2")
+        s = dynamic_act_scale(x, x2)
+        k = dict(residual=k.get("residual"), relu=k.get("relu", True), x2=x2)
+        assert torch.equal(qconv3x3(x, conv.w_q, conv.epi, s, **k),
+                           qconv3x3_plain(x, conv.w_q, conv.epi, s, **k))
+    assert float((got - ref).abs().max()) < 1e-2 and float((got - ref).abs().mean()) < 5e-4
+
+
+def test_the_run_cli_writes_the_library_call_on_the_card(cuda, tmp_path):
+    """``cli.run full`` without ``--device`` on the card: the int8 nano
+    net's MVDR output is the library call's on the card bit for bit, and
+    ``batch --per-run`` runs two scenes."""
+    from azoom_torch.cli import batch, run
+    from azoom_torch.io.wav import read_wav
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.pipelines.learned import learned_enhance_streaming
+
+    root = ["--name", "c", "--duration", "2", "--data-root", str(tmp_path)]
+    kernels.reset_launches()
+    run.main(["full", *root, "--beamformer", "mvdr", "--model", "tpufpu_nano", "--int8"])
+    assert kernels.launches["qconv3x3"] == 21 and kernels.launches["masked_mvdr"] == 1
+    mix = read_wav(tmp_path / "simulated" / "c" / "mixture.wav")[0]
+    got = read_wav(tmp_path / "results" / "c_results" / "c_enhanced.wav")[0]
+    net, kind = load_bundled("tpufpu_nano", quant=True, device=cuda)
+    with torch.inference_mode():
+        want = learned_enhance_streaming(_t(mix.T, cuda), net, PipelineConfig(), "mvdr", kind)
+    assert np.array_equal(got, want.cpu().numpy())
+    assert batch.main(["--per-run", "--n", "2", "--duration", "1", "--data-root",
+                       str(tmp_path / "batch")]) == (2, 0)

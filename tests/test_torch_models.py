@@ -175,11 +175,13 @@ def test_the_causal_crn_loads():
 
 
 def test_from_flax_modes():
-    """The int8 mode needs the calibrated activation scales; the float mode
+    """The int8 mode takes the calibrated static activation scales, or
+    without them the reference's dynamic per-call scale; the float mode
     ignores them, and both carry the same float weights across."""
     v = load_quantized(ASSETS / "fpu_b32_int8.npz")
-    with pytest.raises(ValueError, match="quant_stats"):
-        from_flax(FreqPreservingUNet, {k: v[k] for k in ("params", "batch_stats")}, {})
+    dyn = from_flax(FreqPreservingUNet, {k: v[k] for k in ("params", "batch_stats")}, {})
+    convs = [m for m in dyn.modules() if isinstance(m, QConv)]
+    assert len(convs) == 14 and all(m.act_scale is None for m in convs)
     flt = from_flax(FreqPreservingUNet, {k: v[k] for k in ("params", "batch_stats")}, {},
                     quant=False)
     kernel = v["params"]["DoubleConv_0"]["ConvBNRelu_0"]["Conv_0"]["kernel"]

@@ -147,11 +147,15 @@ def test_fold_unfold_match_jax(rng):
 def test_unported_knobs_raise():
     """tfold and fattn are ported (tests/test_torch_quantize_export.py holds
     them against the reference): they build the stem, head and attention
-    block of their widths. A net without calibrated scales still refuses
-    the int8 path."""
+    block of their widths. A net without calibrated scales serves the int8
+    path on the reference's dynamic scales (tests/test_torch_dynamic_int8.py
+    holds them against the reference)."""
     net = TPUFPU(base=64, fold=4, tfold=2, fattn=4)
     assert net.e1.cbr0.conv.cin == 4 * 2 * 4 and net.head.weight.shape == (64, 4 * 2)
     assert net.attn.pos_emb.shape == (129, 512)
     assert TPUFPU().attn is None
-    with pytest.raises(ValueError, match="quant_stats"):
-        tpufpu_from_flax({"params": {}, "batch_stats": {}}, {}, "cpu")
+    v = load_quantized(ASSETS / NANO)
+    net = tpufpu_from_flax({k: v[k] for k in ("params", "batch_stats")},
+                           dict(base=64, fold=4, bneck=4, dec_div=2, enc_div=2), "cpu")
+    convs = [m for m in net.modules() if isinstance(m, QConv)]
+    assert len(convs) == 21 and all(m.act_scale is None for m in convs)

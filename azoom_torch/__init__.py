@@ -21,7 +21,7 @@ reports), io (wav), dsp.resample and dsp.params, utils (host, profiling,
 flops), stream (chunker, native: the C++ stream engine under
 ``AudioZoom.push``, ``AudioZoomServer``: S live streams with mask reuse, an
 int16 wire and per-stream steer, zoom and tracking), kernels (masked MVDR, int8 3x3 conv, upsampling, hard-null,
-int8 matmul, the online MVDR at 2 and at 3 to 8 mics), pipelines
+int8 matmul, the online MVDR at 2 and at 3 to 57 mics), pipelines
 (``learned_enhance`` with the MVDR, hard-null, RMVB, RTF or WPD
 beamformer, the FOV gate and the HRNR post-filter,
 ``learned_enhance_streaming``, ``autosteer_enhance``,

@@ -2,7 +2,8 @@
 
     python3 -m azoom_torch.kernels.bench [int8_mm] [qconv] [convt] [hard_null] [mvdr]
                                          [online_mvdr] [float_conv] [fp32_peak] [--quick]
-                                         [--against DIR] [--nets NET,...]
+                                         [--against DIR] [--nets NET,...] [--mics M,...]
+                                         [--roles]
     python3 -m azoom_torch.kernels.bench clocks
 
 ``int8_mm``: each of the nine microbenchmark shapes held exactly against the
@@ -53,19 +54,28 @@ loading) at the server's tick, (128, 2, 513, 65), against an earlier tree's
 kernel: the elements that differ and both times in turns. chip_smoke.py
 phase 2 holds the shared and per-stream forms against the plain version.
 
-``online_mvdr``: the recursive online MVDR (the low-latency beamformer) on one
-stream of 513 bins at T = 1 (one hop), 8 and 16 (either side of the kernel's
-switch from one thread per row to its chain-and-solver tiles), 64 and 1875 (a
-60 s clip) and on 128 streams at 1875, with the floored target-mask gain: held
-against the plain loop (relative error of the output and the state; the plain
-loop only at T <= 64 with ``--quick``), then timed as CUDA-graph replays
-beside the byte bound (Y, both masks and S once, the state read and written)
-and the floor of the frame-to-frame chain (T dependent FMAs of 4 cycles at the
-card's maximum SM clock); ``us_per_frame`` is the time over T. The plain check
-starts from a state warmed on 32 frames: from a fresh one the first frames are
-ill-posed (R = y y^H plus a 1e-6 prime). With ``--against DIR`` it also builds
-DIR's ``online_mvdr_kernel.cu`` (the same C interface), counts the elements of
-S and of the state that differ from it, and times both in turns.
+``online_mvdr [--mics M,...]``: the recursive online MVDR (the low-latency
+beamformer) of M mics (default 2; ``--mics 3,4,8`` runs each in turn) on one
+stream of 513 bins at T = 1 (one hop), 8 and 16 (either side of the 2-mic
+kernel's switch from one thread per row to its chain-and-solver tiles), 64 and
+1875 (a 60 s clip) and on 128 streams at 1875 (up to 8 mics), with the floored target-mask
+gain: held against the plain loop (relative error of the output and the state;
+the plain loop only at T <= 64 with ``--quick`` or above 2 mics), then timed
+as CUDA-graph replays beside the byte bound (Y, both masks and S once, the
+state read and written), the float32 bound of the flops (the recursion, the
+Cholesky, the substitutions) and the floor of the frame-to-frame chain (T
+dependent FMAs of 4 cycles at the card's maximum SM clock); ``us_per_frame`` is
+the time over T. The plain check starts from a state warmed on 32 frames: from
+a fresh one the first frames are ill-posed (R = y y^H plus a 1e-6 prime). With
+``--against DIR`` it also builds DIR's ``online_mvdr_kernel.cu`` (M = 2) or
+``online_mvdr_mmic_kernel.cu`` (M >= 3; the same C interface), counts the
+elements that differ from it (M = 2: S and the state together; above: the
+state and S apart, with S's largest difference over its peak, since the
+M-general redesign takes reciprocals where the first kernel divided), and
+times both in turns. With ``--roles`` (M >= 3) it also times the kernel
+built without its solves, without its chain and without both
+(``-DAZT_OMVDR_NO_SOLVE``, ``-DAZT_OMVDR_NO_CHAIN``) at (M, 513, 1875):
+which role bounds it.
 
 ``float_conv``: the float nets' 3x3 convs two ways, as ``models.unet.FConv``
 runs them (im2col and one float32 matrix product) and as cuDNN's
@@ -102,6 +112,7 @@ over its threads). Writes ``chiprun_out/kernel_bench.json``
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -550,11 +561,13 @@ def bench_float_conv(dev) -> dict:
     return rows
 
 
-def bench_online_mvdr(dev, quick: bool, against: Path | None) -> dict:
+def bench_online_mvdr(dev, quick: bool, against: Path | None, mics: int = 2,
+                      roles: bool = False) -> dict:
     from azoom_torch.dsp.delays import steering_vector
     from azoom_torch.dsp.stft import rfft_freqs
     from azoom_torch.kernels.online_mvdr_kernel import initial_state, online_mvdr, online_mvdr_plain
 
+    M = mics
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
@@ -562,29 +575,36 @@ def bench_online_mvdr(dev, quick: bool, against: Path | None) -> dict:
     gen.manual_seed(17)
     F = 513
     freqs = rfft_freqs(1024, 16_000, device=dev)
-    d = steering_vector(freqs, 60.0, 0.04)
+    d = steering_vector(freqs, 60.0, 0.04, n_mics=M)
     old_fn = None
-    if against is not None:  # an earlier online_mvdr_kernel.cu of the same C interface
-        old_fn = earlier_library(against, "online_mvdr_kernel").azt_online_mvdr
-        old_fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_float] * 4
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        old_fn.restype = ctypes.c_int
+    if against is not None:  # an earlier kernel of the same C interface
+        sig = ([ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_float] * 4
+               + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        if M == 2:
+            old_fn = earlier_library(against, "online_mvdr_kernel").azt_online_mvdr
+            old_fn.argtypes = sig
+            old_fn.restype = ctypes.c_int
+        else:
+            old_m = earlier_library(against, "online_mvdr_mmic_kernel").azt_online_mvdr_m
+            old_m.argtypes = [ctypes.c_int] + sig
+            old_m.restype = ctypes.c_int
+            old_fn = functools.partial(old_m, M)
     rows = {}
     for B, T in ((1, 1), (1, 8), (1, 16), (1, 64), (1, 1875), (128, 1875)):
-        if quick and T > 64:
+        if (quick and T > 64) or (B > 1 and M > 8):  # 128 streams of 16 mics: 15.8 GB of Y
             continue
         lead = () if B == 1 else (B,)
-        Y = torch.complex(torch.randn(lead + (2, F, T), generator=gen, device=dev),
-                          torch.randn(lead + (2, F, T), generator=gen, device=dev))
+        Y = torch.complex(torch.randn(lead + (M, F, T), generator=gen, device=dev),
+                          torch.randn(lead + (M, F, T), generator=gen, device=dev))
         nm = torch.rand(lead + (F, T), generator=gen, device=dev)
         kw = dict(target_mask=1.0 - nm, sigma=1e-7, mask_floor=0.05)
         row = {}
-        if B == 1:
+        # the plain loop runs ~M^3 / 3 small ops a frame: above 2 mics only up to 64 frames
+        if B == 1 and (M == 2 or T <= 64):
             # from a state warmed on 32 frames: from a fresh one the first
-            # frames are ill-posed (R = y y^H + a 1e-6 prime)
-            warm = initial_state(lead, F, device=dev)
-            online_mvdr_plain(torch.complex(*torch.randn((2, 2, F, 32), generator=gen, device=dev)),
+            # frames are ill-posed (R = y y^H plus a 1e-6 prime)
+            warm = initial_state(lead, F, M, device=dev)
+            online_mvdr_plain(torch.complex(*torch.randn((2, M, F, 32), generator=gen, device=dev)),
                               torch.rand((F, 32), generator=gen, device=dev), d, freqs, *warm)
             st_k, st_p = [t.clone() for t in warm], [t.clone() for t in warm]
             got = online_mvdr(Y, nm, d, freqs, *st_k, **kw)
@@ -592,13 +612,13 @@ def bench_online_mvdr(dev, quick: bool, against: Path | None) -> dict:
             row["rel_err"] = float((got - ref).abs().max() / ref.abs().max())
             row["state_rel_err"] = max(float((a - b).abs().max() / b.abs().max())
                                        for a, b in zip(st_k, st_p))
-        st = initial_state(lead, F, device=dev)
+        st = initial_state(lead, F, M, device=dev)
 
         def current():
             return online_mvdr(Y, nm, d, freqs, *st, **kw)
 
         if old_fn is not None:
-            st_old = initial_state(lead, F, device=dev)
+            st_old = initial_state(lead, F, M, device=dev)
             tm = kw["target_mask"]
 
             def earlier():
@@ -609,21 +629,68 @@ def bench_online_mvdr(dev, quick: bool, against: Path | None) -> dict:
                                    torch.cuda.current_stream().cuda_stream), "earlier online_mvdr")
                 return S
 
-            row["not_bit_equal_to_earlier"] = int((current() != earlier()).sum()) + sum(
-                int((a != b).sum()) for a, b in zip(st, st_old))
+            s_new, s_old = current(), earlier()
+            state_differ = sum(int((a != b).sum()) for a, b in zip(st, st_old))
+            if M == 2:
+                row["not_bit_equal_to_earlier"] = int((s_new != s_old).sum()) + state_differ
+            else:  # the redesign divides by reciprocals: S differs, the state must not
+                row["state_not_bit_equal_to_earlier"] = state_differ
+                row["output_not_bit_equal_to_earlier"] = int((s_new != s_old).sum())
+                row["output_rel_diff_to_earlier"] = float((s_new - s_old).abs().max()
+                                                          / s_old.abs().max())
         if not quick:
             if old_fn is not None:
                 row["earlier_ms"], row["ms"] = _in_turns(earlier, current)
             else:
                 row["ms"] = device_ms(current)
-            nbytes = B * F * (T * (16 + 4 + 4 + 8) + 2 * (32 + 4)) + F * (16 + 4)
+            K = M * (M + 1) // 2
+            nbytes = B * F * (T * (8 * M + 4 + 4 + 8) + 2 * (8 * M * M + 4)) + F * (8 * M + 4)
             row["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            # the recursion's 6 flops per entry, the Cholesky's ~M^3 / 6 complex
+            # multiply-adds (8 flops), two substitutions (~4 M^2), weights and output (~20 M)
+            flops = B * F * T * (6.0 * (K + 1) + 8 * M ** 3 / 6 + 4 * M * M + 20 * M)
+            row["flops_bound_ms"] = flops / FP32_FLOPS_PER_S * 1e3
             row["chain_floor_ms"] = T * 4 / (mhz * 1e6) * 1e3
             row["us_per_frame"] = row["ms"] / T * 1e3
         rows[f"{B}x{T}"] = row
-        print(f"[online_mvdr] streams={B} F={F} T={T} " + " ".join(
+        print(f"[online_mvdr] mics={M} streams={B} F={F} T={T} " + " ".join(
             f"{k}={v:.4g}" for k, v in row.items()) + f" max_sm_mhz={mhz:g}", flush=True)
+    if roles and M > 2 and not quick:
+        rows["roles"] = online_mvdr_roles(dev, M, gen, d, freqs)
     return rows
+
+
+def online_mvdr_roles(dev, M: int, gen, d, freqs, F: int = 513, T: int = 1875) -> dict:
+    """The M-general kernel's roles alone at (M, F, T): the kernel built with
+    ``-DAZT_OMVDR_NO_SOLVE`` (the copies and the chain), ``-DAZT_OMVDR_NO_CHAIN``
+    (the copies and the solves, on whatever the slots hold) and both (the
+    copies and barriers), timed as CUDA-graph replays beside the whole
+    kernel: which role bounds it."""
+    sig = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]
+           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    Y = torch.complex(torch.randn((M, F, T), generator=gen, device=dev),
+                      torch.randn((M, F, T), generator=gen, device=dev))
+    nm = torch.rand((F, T), generator=gen, device=dev)
+    g = 1.0 - nm
+    R = torch.eye(M, dtype=torch.complex64, device=dev).expand(F, M, M).contiguous() * 1e-6
+    w = torch.full((F,), 1e-6, device=dev)
+    S = torch.empty((F, T), dtype=torch.complex64, device=dev)
+    row = {}
+    for name, defines in (("whole", ()), ("chain_only", ("AZT_OMVDR_NO_SOLVE",)),
+                          ("solves_only", ("AZT_OMVDR_NO_CHAIN",)),
+                          ("copies_only", ("AZT_OMVDR_NO_CHAIN", "AZT_OMVDR_NO_SOLVE"))):
+        fn = build.load_library("online_mvdr_mmic_kernel", defines).azt_online_mvdr_m
+        fn.argtypes, fn.restype = sig, ctypes.c_int
+
+        def call(fn=fn, name=name):
+            build.check(fn(M, Y.data_ptr(), nm.data_ptr(), g.data_ptr(), d.data_ptr(), 1e-7,
+                           freqs.data_ptr(), 100.0, 0.98, 1e-6, 0.05, R.data_ptr(), w.data_ptr(),
+                           S.data_ptr(), 1, F, T, torch.cuda.current_stream().cuda_stream), name)
+
+        row[f"{name}_ms"] = device_ms(call, iters=5 if M > 8 else 20)
+    print(f"[online_mvdr_roles] mics={M} F={F} T={T} " + " ".join(
+        f"{k}={v:.4g}" for k, v in row.items()), flush=True)
+    return row
 
 
 def bench_fp32_peak(dev) -> dict:
@@ -650,6 +717,11 @@ def main(argv) -> int:
     if "--nets" in argv:
         i = argv.index("--nets")
         nets = tuple(argv[i + 1].split(","))
+        argv = argv[:i] + argv[i + 2:]
+    mics = (2,)
+    if "--mics" in argv:
+        i = argv.index("--mics")
+        mics = tuple(int(m) for m in argv[i + 1].split(","))
         argv = argv[:i] + argv[i + 2:]
     against = None
     if "--against" in argv:
@@ -699,7 +771,9 @@ def main(argv) -> int:
     if "mvdr" in which:
         out["mvdr"] = bench_mvdr(dev, quick, against)
     if "online_mvdr" in which:
-        out["online_mvdr"] = bench_online_mvdr(dev, quick, against)
+        for m in mics:
+            key = "online_mvdr" if m == 2 else f"online_mvdr_m{m}"
+            out[key] = bench_online_mvdr(dev, quick, against, m, "--roles" in argv)
     if "float_conv" in which:
         out["float_conv"] = bench_float_conv(dev)
     if "fp32_peak" in which:

@@ -1,18 +1,18 @@
 """Recursive (online) masked MVDR: the CUDA kernels
 ``csrc/online_mvdr_kernel.cu`` (M = 2) and ``csrc/online_mvdr_mmic_kernel.cu``
-(M = 3 .. 8), their wrapper and their plain PyTorch version.
+(M >= 3), their wrapper and their plain PyTorch version.
 
 The reference has no Pallas kernel here: it runs the recursion as an XLA
 ``lax.scan`` over STFT frames (azoom.stream.online.online_masked_mvdr and
 the one-hop step of azoom.stream.lowlat). On a CUDA tensor the wrapper
 launches the kernel of its mic count, one launch for all T frames of every
-stream, or raises if the inputs are not what the kernel takes (M > 8: the
-M-general instance keeps its state and Cholesky factor in registers, which
-run out above 8 mics). On a CPU tensor it runs
-:func:`online_mvdr_plain`, the reference's scan as a Python loop over frames.
-Either way the state ``(R_sum, w_sum)`` is read before the first frame and
-written back, in place, after the last, so a stream carries it from one
-call (one hop) to the next.
+stream, or raises if the inputs are not what the kernel takes (a ValueError
+above the mic count whose state snapshots fit one block's shared memory:
+M = 57 on an H100). On a CPU tensor it runs :func:`online_mvdr_plain`, the
+reference's scan as a Python loop over frames. Either way the state
+``(R_sum, w_sum)`` is read before the first frame and written back, in
+place, after the last, so a stream carries it from one call (one hop) to
+the next.
 """
 
 from __future__ import annotations
@@ -33,13 +33,6 @@ _SIGNATURE = (
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
-MAX_MICS = 8  # the M-general instance's register budget
-
-_M_GT_8 = (f"the online MVDR kernel takes at most {MAX_MICS} mics: its M-general instance "
-           "keeps each row's state and Cholesky factor in registers, which run out above "
-           "that (ROADMAP.md Queue B); the CPU plain version takes any M")
-
-
 @functools.cache
 def _entry():
     fn = build.load_library("online_mvdr_kernel").azt_online_mvdr
@@ -50,10 +43,28 @@ def _entry():
 
 @functools.cache
 def _entry_m():
-    fn = build.load_library("online_mvdr_mmic_kernel").azt_online_mvdr_m
+    lib = build.load_library("online_mvdr_mmic_kernel")
+    fn = lib.azt_online_mvdr_m
     fn.argtypes = [ctypes.c_int] + _SIGNATURE
     fn.restype = ctypes.c_int
-    return fn
+    smem = lib.azt_online_mvdr_m_smem
+    smem.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_long)]
+    smem.restype = ctypes.c_long
+    return fn, smem
+
+
+_TOO_LARGE = -1  # the M-general entry's code: M's plan exceeds one block's shared memory
+
+
+def _smem_error(M: int) -> ValueError:
+    """The M-general kernel's one limit, in words: M mics' state snapshots
+    do not fit one block's shared memory on the current card."""
+    limit = ctypes.c_long()
+    need = _entry_m()[1](M, ctypes.byref(limit))
+    return ValueError(
+        f"online_mvdr: {M} mics need {need} bytes of shared memory per block (two tiles "
+        f"of 8 frames of M (M + 1) / 2 + 1 complex state snapshots, and the input tiles), "
+        f"above this card's {limit.value}; the CPU plain version takes any M")
 
 
 def initial_state(lead, n_freqs: int, n_mics: int = 2, device=None, eps: float = 1e-6):
@@ -138,8 +149,10 @@ def online_mvdr(
     frames <= t only. Returns S complex64 (..., F, T): w^H y, zero below the
     cutoff, times max(target_mask, mask_floor) when a target mask is given
     (the raw mask when the floor is 0). On CUDA, M = 2 launches the 2-mic
-    kernel and M = 3 .. 8 the M-general one (counted apart, as
-    "online_mvdr" and "online_mvdr_mmic"); M > 8 raises NotImplementedError."""
+    kernel and M >= 3 the M-general one (counted apart, as
+    "online_mvdr" and "online_mvdr_mmic"), up to the mic count whose state
+    snapshots fit one block's shared memory (M = 57 on an H100; above it a
+    ValueError)."""
     if Y.device.type == "cpu":
         return online_mvdr_plain(Y, noise_mask, d, freqs_hz, R_sum, w_sum, target_mask, sigma,
                                  hp_cutoff_hz, forget, mask_floor, eps)
@@ -147,8 +160,6 @@ def online_mvdr(
     _require(Y.dtype == torch.complex64 and Y.ndim >= 3 and Y.shape[-3] >= 2,
              f"Y must be complex64 (..., M, F, T) with M >= 2, got {Y.dtype} {tuple(Y.shape)}")
     M = Y.shape[-3]
-    if M > MAX_MICS:
-        raise NotImplementedError(_M_GT_8)
     lead, (F, T) = Y.shape[:-3], Y.shape[-2:]
     tensors = {"Y": Y, "noise_mask": noise_mask, "d": d, "freqs_hz": freqs_hz, "R_sum": R_sum,
                "w_sum": w_sum}
@@ -185,7 +196,9 @@ def online_mvdr(
             float(mask_floor), R_sum.data_ptr(), w_sum.data_ptr(), S.data_ptr(), B, F, T,
             torch.cuda.current_stream(Y.device).cuda_stream)
     with torch.cuda.device(Y.device):
-        rc = _entry()(*args) if M == 2 else _entry_m()(M, *args)
+        rc = _entry()(*args) if M == 2 else _entry_m()[0](M, *args)
+        if M > 2 and rc == _TOO_LARGE:
+            raise _smem_error(M)
     name = "online_mvdr" if M == 2 else "online_mvdr_mmic"
     build.check(rc, f"{name} kernel")
     kernels.count(kernels.launches, name)

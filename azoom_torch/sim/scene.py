@@ -31,10 +31,29 @@ from azoom_torch.sim.signals import _normal, _uniform, interferer_signal, speech
 __all__ = ["add_awgn", "apply_sir_gain", "simulate_room_scene", "SceneSpec", "generate_scene"]
 
 
+def _row_power(x: torch.Tensor) -> torch.Tensor:
+    """The mean square of each row of ``x`` (..., n), shaped (...), summed
+    pairwise in a fixed order: the squares zero-padded to a power of two,
+    then halved by elementwise adds. CUDA's reduction splits a row across
+    threads by the number of rows, so a batched mean would round a scene's
+    power by the size of its batch (a sweep's scene would then change with
+    its chunk); the adds give every row the same bits whatever the batch,
+    on the card and the CPU alike, in log2(n) launches."""
+    n = x.shape[-1]
+    sq = x * x
+    width = 1 << (n - 1).bit_length()
+    if width > n:
+        sq = torch.nn.functional.pad(sq, (0, width - n))
+    while sq.shape[-1] > 1:
+        half = sq.shape[-1] // 2
+        sq = sq[..., :half] + sq[..., half:]
+    return sq[..., 0] / n
+
+
 def _awgn(signal: torch.Tensor, noise: torch.Tensor, snr_db: float) -> torch.Tensor:
     """``signal`` plus the standard normal ``noise`` scaled to ``snr_db``
     below each row's power."""
-    sig_power = torch.mean(signal**2, dim=-1, keepdim=True)
+    sig_power = _row_power(signal)[..., None]
     noise_power = sig_power / (10.0 ** (snr_db / 10.0))
     return signal + noise * torch.sqrt(noise_power)
 
@@ -51,8 +70,8 @@ def apply_sir_gain(target_ch0, interf, sir_db: float, eps: float = 1e-12,
     ``10 log10(P_tgt / (g^2 P_int)) = sir_db``, both powers on channel 0."""
     target_ch0 = as_input(target_ch0, device)
     interf = torch.as_tensor(interf, device=target_ch0.device)
-    p_t = torch.mean(target_ch0**2, dim=-1)
-    p_i = torch.mean(interf[..., 0, :] ** 2, dim=-1) + eps
+    p_t = _row_power(target_ch0)
+    p_i = _row_power(interf[..., 0, :]) + eps
     gain = torch.sqrt(p_t / (p_i * 10.0 ** (sir_db / 10.0)))
     return interf * gain[..., None, None]
 

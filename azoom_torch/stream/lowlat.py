@@ -18,7 +18,7 @@ finalized samples to float tolerance (tests/test_torch_lowlat.py).
 
 Per hop on the device: the frame's rfft, the steer-align rotation and the
 features, the CRN at T = 1, ONE ``online_mvdr`` launch (T = 1; the 2-mic
-kernel, or the M-general instance for 3 to 8 mics), the frame's irfft and a
+kernel, or the M-general instance for 3 to 57 mics), the frame's irfft and a
 one-hop overlap-add. The samples of a push go to the device in
 one copy, and its finalized hops come back in one fetch.
 """

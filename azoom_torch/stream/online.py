@@ -11,7 +11,8 @@ loop over frames. The state is an (F, M, M) covariance sum and an (F,)
 weight sum per stream; :func:`online_masked_mvdr_state` takes it in and
 gives it back, so a stream carries it from one hop to the next
 (stream.lowlat). Any M: the solve is beam.linalgmm's (the closed form at
-M = 2); on CUDA the 2-mic kernel or the M-general instance (3 to 8 mics).
+M = 2); on CUDA the 2-mic kernel or the M-general instance (3 to 57 mics on
+an H100: what one block's shared memory holds).
 """
 
 from __future__ import annotations

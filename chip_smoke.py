@@ -145,12 +145,19 @@ Phases, each printing its own line(s):
                AudioZoom(n_mics=4, model="fpu").enhance of 2 s against the
                CPU; AudioZoomServer(128) on a 4-mic rectangle, a prime and 3
                ticks, the first 2 streams against a CPU server; the M-general
-               online_mvdr instance at (4, 513, 1875) against its plain loop
-               from a warmed state, one launch bit for bit against 1,875
-               one-frame launches, its time as CUDA-graph replays; a 60 s
+               online_mvdr instance at (M, 513, 1875) for M = 4, 8 and 16
+               against its plain loop from a warmed state (M = 32 over 64
+               frames), at M = 12 and 16 from a fresh state (64 frames:
+               frames >= M at the warmed bounds, non-finite outputs only in
+               frames < M, as the plain loop's), at M = 8, 12, 16 on a quiet
+               stream whose |d^H x|^2 overflows float32 (the warmed bounds,
+               all finite), one launch bit for bit against one-frame launches at
+               M = 4, 9, 16 (1,875 frames) and 32 (128), each M's time as
+               CUDA-graph replays beside its bound; a 60 s
                online_learned_enhance at M = 4 (ONE online_mvdr_mmic launch,
                a 6 s prefix against the CPU) and OnlineEnhancer over 10 s hop
-               by hop (one launch a hop, equal to the card's offline output).
+               by hop (one launch a hop, equal to the card's offline output);
+               both at M = 12 (a 12-mic line, 6 s) at the same bounds.
  19. beamformers - the reference's other beamformers and dereverberation,
                torch code on the card as the reference's are XLA (no kernel
                of their own). learned_enhance with the int8 tpufpu_nano at
@@ -259,8 +266,8 @@ Phases, each printing its own line(s):
                the static net, in turns; a port checkpoint from a 2-step fit
                of the nano twin served by `cli.batch --ckpt DIR` float and
                --int8 (the dynamic launches of that run are the kernels
-               line's; the served int8 net's masks of 4 scenes, two of them
-               quiet, bit for bit those of two batches of 2) and by `cli.run inf --ckpt DIR --int8`; `cli.run full`
+               line's; its CSV rows equal those of `--chunk-scenes 2`) and
+               by `cli.run inf --ckpt DIR --int8`; `cli.run full`
                with mvdr and hard_null (the int8 nano net), oracle and online
                on one 4 s scene, each output bit for bit the library call on
                the card and within 2e-2 / 0.1 dB of `--device cpu`; `batch
@@ -282,7 +289,7 @@ with the launches of phase 25's `batch --ckpt DIR --int8`; B3 twice: hard_null s
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run; online_mvdr at one 60 s clip with phase 17's
 launches; online_mvdr_mmic, the M-general instance, at a 60 s 4-mic clip
-with phase 18's launches), the card's name and power limit, and a last line
+with phase 18's launches; the other mic counts in chip_smoke.json), the card's name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -564,62 +571,177 @@ def phase_mmic(dev, rng, results: dict, time_ms, device_ms, bound) -> dict:
         cpu_first2_wave_rel_l2=f"{s_rel:.3e}")
     del srv, s_mix
 
-    # the M-general online_mvdr instance at (4, 513, 1875) against its plain loop
-    M, T = 4, 1875
+    # The M-general online_mvdr instance against its plain loop, from a warmed
+    # state (a fresh one is ill-posed on its first frames: R = y y^H + a 1e-6
+    # prime, conditioned ~1e6 at M > 2, where float32 orders differ): M = 4, 8
+    # and 16 over 1,875 frames, M = 32 over 64 (its plain loop runs ~13,000
+    # small launches a frame). Each M timed at (M, 513, 1875) as CUDA-graph
+    # replays beside its bound.
+    T = 1875
+    freqs = rfft_freqs(1024, 16_000, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(18)
-    Y = torch.complex(torch.randn((M, F, T), generator=gen, device=dev),
-                      torch.randn((M, F, T), generator=gen, device=dev))
-    nmask = torch.rand((F, T), generator=gen, device=dev)
-    freqs = rfft_freqs(1024, 16_000, device=dev)
-    d = steering_vector(freqs, 60.0, 0.04, n_mics=M)
-    kw = dict(target_mask=1.0 - nmask, sigma=1e-7, hp_cutoff_hz=100.0, forget=0.98,
-              mask_floor=0.05)
-    # from a warmed state: a fresh one is ill-posed on its first frames (R =
-    # y y^H + a 1e-6 prime, conditioned ~1e6 at M > 2), where float32 orders differ
-    st_k = initial_state((), F, M, dev)
-    online_mvdr_plain(Y[..., :64], nmask[:, :64], d, freqs, *st_k, **kw_of(kw, 64))
-    st_p = tuple(a.clone() for a in st_k)
-    got = online_mvdr(Y, nmask, d, freqs, *st_k, **kw)
-    ref = online_mvdr_plain(Y, nmask, d, freqs, *st_p, **kw)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    o_rel = err / float(ref.abs().max())
-    st_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(st_k, st_p))
-    check(bool(torch.isfinite(torch.view_as_real(got)).all()), "online_mvdr_mmic: non-finite")
-    check(o_rel <= 1e-4 and st_rel <= 1e-5,
-          f"online_mvdr_mmic: relative error {o_rel:.3e} (state {st_rel:.3e}) against plain")
-    st_1, st_T = initial_state((), F, M, dev), initial_state((), F, M, dev)
-    whole = online_mvdr(Y, nmask, d, freqs, *st_T, **kw)
-    steps = [online_mvdr(Y[..., t:t + 1].contiguous(), nmask[:, t:t + 1].contiguous(), d, freqs,
-                         *st_1, **dict(kw, target_mask=kw["target_mask"][:, t:t + 1].contiguous()))
-             for t in range(T)]
-    differ = int((torch.cat(steps, dim=-1) != whole).sum())
-    differ += sum(int((a != b).sum()) for a, b in zip(st_1, st_T))
-    check(differ == 0, f"online_mvdr_mmic: {differ} elements differ, one launch vs T launches")
-    ms = device_ms(lambda: online_mvdr(Y, nmask, d, freqs, *st_k, **kw))
-    plain_ms = time_ms(lambda: online_mvdr_plain(Y, nmask, d, freqs, *st_p, **kw), iters=1,
-                       warmup=0)
-    # Y's M channels, the noise and target masks in and S out per (f, t); the
-    # state (M^2 complex and w_sum) read and written; d and freqs. Operations
-    # per (f, t): the recursion's M (M + 1) / 2 entries (~6 each), the
-    # Cholesky's ~M^3 / 6 complex multiply-adds (8 each), two substitutions
-    # (~4 M^2) and the weights and output (~20 M).
-    nbytes = F * T * (8 * M + 4 + 4 + 8) + 2 * F * (8 * M * M + 4) + F * (8 * M + 4)
-    ops = F * T * (3.0 * M * (M + 1) + 8 * M ** 3 / 6 + 4 * M * M + 20 * M)
-    b_ms, b_by = bound(nbytes, ops, FP32_FLOPS_PER_S)
+
+    def online_case(M, t):
+        Y = torch.complex(torch.randn((M, F, t), generator=gen, device=dev),
+                          torch.randn((M, F, t), generator=gen, device=dev))
+        nmask = torch.rand((F, t), generator=gen, device=dev)
+        return Y, nmask, steering_vector(freqs, 60.0, 0.04, n_mics=M)
+
+    kw0 = dict(sigma=1e-7, hp_cutoff_hz=100.0, forget=0.98, mask_floor=0.05)
+    per_m = {}
+    for M, t_plain in ((4, T), (8, T), (16, T), (32, 64)):
+        Y, nmask, d = online_case(M, T)
+        kw = dict(kw0, target_mask=1.0 - nmask)
+        st_k = initial_state((), F, M, dev)
+        online_mvdr_plain(Y[..., :64], nmask[:, :64], d, freqs, *st_k, **kw_of(kw, 64))
+        st_p = tuple(a.clone() for a in st_k)
+        Yp, nmp = Y[..., :t_plain].contiguous(), nmask[:, :t_plain].contiguous()
+        got = online_mvdr(Yp, nmp, d, freqs, *st_k, **kw_of(kw, t_plain))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = online_mvdr_plain(Yp, nmp, d, freqs, *st_p, **kw_of(kw, t_plain))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got - ref).abs().max())
+        o_rel = err / float(ref.abs().max())
+        st_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(st_k, st_p))
+        check(bool(torch.isfinite(torch.view_as_real(got)).all()),
+              f"online_mvdr_mmic M={M}: non-finite")
+        check(o_rel <= 1e-4 and st_rel <= 1e-5,
+              f"online_mvdr_mmic M={M}: relative error {o_rel:.3e} (state {st_rel:.3e}) "
+              f"against plain")
+        ms = device_ms(lambda: online_mvdr(Y, nmask, d, freqs, *st_k, **kw))
+        # Y's M channels, the noise and target masks in and S out per (f, t); the
+        # state (M^2 complex and w_sum) read and written; d and freqs. Operations
+        # per (f, t): the recursion's M (M + 1) / 2 + 1 entries (6 each), the
+        # Cholesky's ~M^3 / 6 complex multiply-adds (8 each), two substitutions
+        # (~4 M^2) and the weights and output (~20 M).
+        nbytes = F * T * (8 * M + 4 + 4 + 8) + 2 * F * (8 * M * M + 4) + F * (8 * M + 4)
+        ops = F * T * (6.0 * (M * (M + 1) // 2 + 1) + 8 * M ** 3 / 6 + 4 * M * M + 20 * M)
+        b_ms, b_by = bound(nbytes, ops, FP32_FLOPS_PER_S)
+        per_m[M] = dict(shape=(M, F, T), plain_frames=t_plain, max_abs_err=err, rel_err=o_rel,
+                        state_rel_err=st_rel, ms=ms, us_per_frame=ms / T * 1e3,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        log("online_mvdr_mmic", M=M, shape=(M, F, T), plain_frames=t_plain,
+            max_abs_err=f"{err:.3e}", rel_err=f"{o_rel:.3e}", state_rel_err=f"{st_rel:.3e}",
+            ms=f"{ms:.4f}", us_per_frame=f"{ms / T * 1e3:.4f}", plain_ms=f"{plain_ms:.1f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+        del Y, nmask, Yp, nmp, got, ref, st_k, st_p
+
+    # From a fresh state, as every new stream starts (online_learned_enhance,
+    # OnlineEnhancer), at M = 12 and 16 over 64 frames, against the plain loop
+    # and its complex128 twin (finite everywhere). Frame t < M solves t + 1
+    # rank-one terms over a 1e-6 prime, past float32: there the plain loop
+    # itself overflows x = R^-1 d in places, and in other places on the CPU
+    # than on the card (logged), so no float32 solve can match its set of
+    # non-finite outputs. Frames >= M are held to the warmed bounds, all
+    # finite; non-finite outputs may lie only in frames < M.
+    def not_finite(x):
+        return ~torch.isfinite(torch.view_as_real(x)).all(-1)
+
+    def c128(x):
+        return x.to(torch.complex128) if x.is_complex() else x.double()
+
+    def dist(a, b):  # the largest |a - b| where both are finite
+        a, b = c128(a), c128(b)
+        ok = ~(not_finite(a) | not_finite(b))
+        return float(torch.where(ok, (a - b).abs(), torch.zeros_like(b.real)).max())
+
+    for M in (12, 16):
+        t_f = 64
+        Y, nmask, d = online_case(M, t_f)
+        kw = dict(kw0, target_mask=1.0 - nmask)
+        st_k, st_p = initial_state((), F, M, dev), initial_state((), F, M, dev)
+        got = online_mvdr(Y, nmask, d, freqs, *st_k, **kw)
+        ref = online_mvdr_plain(Y, nmask, d, freqs, *st_p, **kw)
+        ref64 = online_mvdr_plain(c128(Y), c128(nmask), c128(d), c128(freqs),
+                                  *(c128(a) for a in initial_state((), F, M, dev)),
+                                  **dict(kw0, target_mask=c128(1.0 - nmask)))
+        ref_cpu = online_mvdr_plain(Y.cpu(), nmask.cpu(), d.cpu(), freqs.cpu(),
+                                    *initial_state((), F, M), **dict(kw0, target_mask=(
+                                        1.0 - nmask).cpu()))
+        bad_k, bad_p = not_finite(got), not_finite(ref)
+        peak = float(ref64.abs().max())
+        late = slice(M, t_f)
+        late_rel = dist(got[:, late], ref[:, late]) / float(ref[:, late].abs().max())
+        st_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(st_k, st_p))
+        row = dict(frames=t_f, not_finite_kernel=int(bad_k.sum()),
+                   not_finite_plain=int(bad_p.sum()),
+                   not_finite_plain64=int(not_finite(ref64).sum()),
+                   not_finite_kernel_where_plain_finite=int((bad_k & ~bad_p).sum()),
+                   not_finite_plain_cpu_xor_card=int((not_finite(ref_cpu) ^ bad_p.cpu()).sum()),
+                   late_rel_err=late_rel, state_rel_err=st_rel,
+                   early_from_plain64_kernel=dist(got[:, :M], ref64[:, :M]) / peak,
+                   early_from_plain64_plain=dist(ref[:, :M], ref64[:, :M]) / peak)
+        check(not bool(bad_k[:, late].any() or bad_p[:, late].any() or not_finite(ref64).any())
+              and late_rel <= 1e-4 and st_rel <= 1e-5,
+              f"online_mvdr_mmic M={M} from a fresh state: {row}")
+        per_m.setdefault(M, {})["fresh_state"] = row
+        log("online_mvdr_mmic_fresh", M=M, **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+                                              for k, v in row.items()})
+        del Y, nmask, got, ref, ref64, ref_cpu
+
+    # A quiet stream at a small loading (sigma 0, R_sum a random Hermitian
+    # matrix at 1e-24, conditioned ~10, y at 1e-13): d^H x ~ 1e24 M, whose
+    # |.|^2 overflows float32, while w = x / d^H x is well-conditioned. Both
+    # solvers (M <= 8, M > 8) must give the plain loop's finite outputs at
+    # the warmed bounds: the weights take x / z by a scaled division.
+    for M in (8, 12, 16):
+        t_q = 8
+        A = torch.complex(torch.randn((F, M, M), generator=gen, device=dev),
+                          torch.randn((F, M, M), generator=gen, device=dev))
+        H = A @ A.mH
+        R0 = 1e-24 * ((H + H.mH) / (2 * M) + torch.eye(M, device=dev))
+        Y, nmask, d = online_case(M, t_q)
+        Y = 1e-13 * Y
+        kw = dict(kw0, sigma=0.0, target_mask=1.0 - nmask)
+        st_k = (R0.clone(), torch.ones(F, device=dev))
+        st_p = tuple(a.clone() for a in st_k)
+        got = online_mvdr(Y, nmask, d, freqs, *st_k, **kw)
+        ref = online_mvdr_plain(Y, nmask, d, freqs, *st_p, **kw)
+        q_rel = dist(got, ref) / float(ref.abs().max())
+        qst_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(st_k, st_p))
+        check(not bool(not_finite(got).any() or not_finite(ref).any())
+              and q_rel <= 1e-4 and qst_rel <= 1e-5,
+              f"online_mvdr_mmic M={M}, |d^H x| ~ 1e24: output {q_rel:.3e}, state {qst_rel:.3e}")
+        per_m.setdefault(M, {})["quiet_small_loading"] = dict(rel_err=q_rel, state_rel_err=qst_rel)
+        log("online_mvdr_mmic_quiet", M=M, frames=t_q, rel_err=f"{q_rel:.3e}",
+            state_rel_err=f"{qst_rel:.3e}")
+        del A, H, R0, Y, nmask, got, ref
+
+    def bits(x):  # compared as bit patterns: NaN is NaN's equal
+        return (torch.view_as_real(x) if x.is_complex() else x).view(torch.int32)
+
+    # One launch over T frames bit for bit against T one-frame launches, the
+    # state carried through device memory, from a fresh state (whose first
+    # frames above ~12 mics overflow float32 in places, as above).
+    for M, t_eq in ((4, T), (9, T), (16, T), (32, 128)):
+        Y, nmask, d = online_case(M, t_eq)
+        kw = dict(kw0, target_mask=1.0 - nmask)
+        st_1, st_T = initial_state((), F, M, dev), initial_state((), F, M, dev)
+        whole = online_mvdr(Y, nmask, d, freqs, *st_T, **kw)
+        steps = [online_mvdr(Y[..., t:t + 1].contiguous(), nmask[:, t:t + 1].contiguous(), d,
+                             freqs, *st_1, **dict(kw, target_mask=kw["target_mask"][:, t:t + 1]
+                                                  .contiguous()))
+                 for t in range(t_eq)]
+        differ = int((bits(torch.cat(steps, dim=-1)) != bits(whole)).sum())
+        differ += sum(int((bits(a) != bits(b)).sum()) for a, b in zip(st_1, st_T))
+        not_finite = int((~torch.isfinite(torch.view_as_real(whole))).any(-1).sum())
+        check(differ == 0,
+              f"online_mvdr_mmic M={M}: {differ} elements differ, one launch vs {t_eq} launches")
+        per_m.setdefault(M, {}).update(one_vs_T_launches_differ=differ,
+                                       fresh_state_outputs_not_finite=not_finite)
+        log("online_mvdr_mmic_launches", M=M, frames=t_eq, one_vs_T_launches_elements_differ=differ,
+            fresh_state_outputs_not_finite=not_finite)
+        del Y, nmask, whole, steps
+    m4 = per_m[4]
     results["online_mvdr_mmic"] = dict(
         name="online_mvdr_mmic", route="cuda", source="azoom_torch/csrc/online_mvdr_mmic_kernel.cu",
         replaces="azoom/stream/online.py:61 (XLA lax.scan at M > 2, no Pallas kernel)",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    mm["online_mvdr_mmic"] = dict(shape=(M, F, T), rel_err=o_rel, state_rel_err=st_rel, ms=ms,
-                                  plain_ms=plain_ms, bound_ms=b_ms,
-                                  one_vs_T_launches_differ=differ)
-    log("online_mvdr_mmic", shape=(M, F, T), max_abs_err=f"{err:.3e}", rel_err=f"{o_rel:.3e}",
-        state_rel_err=f"{st_rel:.3e}", one_vs_T_launches_elements_differ=differ, ms=f"{ms:.4f}",
-        us_per_frame=f"{ms / T * 1e3:.3f}", plain_ms=f"{plain_ms:.1f}", bound_ms=f"{b_ms:.4f}",
-        bound_by=b_by)
-    del Y, nmask, got, ref, steps, whole
+        max_abs_err=m4["max_abs_err"], ms=m4["ms"], plain_ms=m4["plain_ms"],
+        bound_ms=m4["bound_ms"], bound_by=m4["bound_by"], library_ms=None)
+    mm["online_mvdr_mmic"] = {f"M{k}": v for k, v in per_m.items()}
 
     # the causal pipeline at M = 4: 60 s offline, then 10 s hop by hop
     ll_cfg = PipelineConfig(mic_dist=0.04, n_mics=4, angle_target_deg=75.0)
@@ -677,6 +799,44 @@ def phase_mmic(dev, rng, results: dict, time_ms, device_ms, bound) -> dict:
         stream_seconds=10, hops=hops, push_ms_median=f"{statistics.median(push_ms[2:]):.3f}",
         online_mvdr_mmic_per_hop=oe_counts["online_mvdr_mmic"] / hops,
         vs_offline_max_abs=f"{oe_err:.3e}")
+
+    # the causal pipeline at M = 12 (a 12-mic line at 4 cm, above the first
+    # kernel's register limit): 6 s offline against the CPU, then hop by hop
+    # against the card's offline output, at the M = 4 bounds
+    cfg12 = PipelineConfig(mic_dist=0.04, n_mics=12, angle_target_deg=75.0)
+    rec12 = torch.from_numpy(far_field_scene(rng, 1, 6 * 16_000, n_mics=12,
+                                             angles=(75.0, 30.0, 140.0))[0][0])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    off12 = online_learned_enhance(rec12.to(dev), crn, cfg12)
+    torch.cuda.synchronize()
+    ms12 = (time.perf_counter() - t0) * 1e3
+    c12 = launched()
+    check(c12 == {"online_mvdr_mmic": 1}, f"M = 12 online_learned_enhance launches {c12}")
+    rel12 = rel(off12.cpu(), online_learned_enhance(rec12, crn_cpu, cfg12))
+    check(off12.shape == (6 * 16_000,) and rel12 <= 1e-3,
+          f"M = 12 online_learned_enhance vs CPU {rel12:.3e}")
+    x12 = rec12.numpy()
+    oe12 = OnlineEnhancer(cfg12, crn, steer_deg=75.0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs12 = [oe12.push(x12[:, i:i + hop]) for i in range(0, x12.shape[1], hop)]
+    hops12 = x12.shape[1] // hop
+    oe12_counts = launched()
+    check(oe12_counts == {"online_mvdr_mmic": hops12},
+          f"M = 12 OnlineEnhancer launches {oe12_counts}")
+    s12 = np.concatenate(outs12)
+    err12 = float(np.abs(s12 - off12.cpu().numpy()[:s12.shape[0]]).max())
+    check(s12.shape[0] == (hops12 - 1) * hop and err12 <= 1e-5,
+          f"M = 12 OnlineEnhancer vs the card's offline output: {err12:.3e}")
+    mm["lowlat_m12"] = dict(offline_6s_ms=ms12, cpu_wave_rel_l2=rel12, hops=hops12,
+                            launches_per_hop=oe12_counts["online_mvdr_mmic"] / hops12,
+                            vs_offline_max_abs=err12)
+    log("mmic_lowlat", M=12, offline_seconds=6, launches=c12, ms=f"{ms12:.3f}",
+        cpu_wave_rel_l2=f"{rel12:.3e}", stream_seconds=6, hops=hops12,
+        online_mvdr_mmic_per_hop=oe12_counts["online_mvdr_mmic"] / hops12,
+        vs_offline_max_abs=f"{err12:.3e}")
     return mm
 
 
@@ -1756,6 +1916,7 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
     ``tgt_s``, ``itf_s`` are phase 7's far-field scenes on the card. Adds the
     kernels line's "qconv3x3_dynamic" entry to ``results``; returns the
     phase's numbers for chip_smoke.json."""
+    import csv
     import shutil
     import tempfile
 
@@ -1766,7 +1927,7 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
     from azoom_torch.cli import batch as batch_cli
     from azoom_torch.cli import debug_srp, zoom_study
     from azoom_torch.cli import run as run_cli
-    from azoom_torch.cli.checkpoint import load_checkpoint, twin
+    from azoom_torch.cli.checkpoint import twin
     from azoom_torch.config import DEFAULT, PipelineConfig
     from azoom_torch.eval.projection import osinr_osir
     from azoom_torch.io.wav import read_wav
@@ -1784,7 +1945,6 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
     from azoom_torch.pipelines.learned import learned_enhance, learned_enhance_streaming
     from azoom_torch.pipelines.online_learned import online_learned_enhance
     from azoom_torch.pipelines.oracle import oracle_enhance
-    from azoom_torch.train.data import synth_batch
     from azoom_torch.train.loop import fit, latest_step
 
     t_phase = time.perf_counter()
@@ -1936,12 +2096,12 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
         # batch --ckpt DIR, float and --int8 (the dynamic scales) ----------------------
         data = tmp / "data"
         sweeps = {}
+        batch_args = ["--n", "4", "--duration", "2", "--beamformer", "mvdr", "--model",
+                      "tpufpu_nano", "--ckpt", str(ck), "--no-pesq", "--data-root", str(data)]
         for tag, extra in (("float", []), ("int8", ["--int8"])):
             kernels.reset_launches()
             t0 = time.perf_counter()
-            summ = batch_cli.main(["--n", "4", "--duration", "2", "--beamformer", "mvdr",
-                                   "--model", "tpufpu_nano", "--ckpt", str(ck), "--no-pesq",
-                                   "--data-root", str(data)] + extra)
+            summ = batch_cli.main(batch_args + ["--prefix", f"ckpt_{tag}"] + extra)
             torch.cuda.synchronize()
             counts = {k: v for k, v in kernels.launches.items() if v}
             want = {"convt1x2": 3, "masked_mvdr": 1}
@@ -1953,19 +2113,23 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
                   f"batch --ckpt {tag}: {summ['sir_imp']}")
             sweeps[tag] = dict(launches=counts, sir_imp_db=summ["sir_imp"]["mean"],
                                s=time.perf_counter() - t0)
-        # the served int8 net takes each scene's scales on its own: its masks of 4
-        # scenes in one batch are those of two batches of 2, bit for bit
-        served = load_checkpoint("tpufpu_nano", ck, "physics", True, dev)[0]
-        feats = synth_batch(25, 4, cfg, "physics", device=dev)["features"]
-        feats[2:] *= 1e-3  # two quiet scenes: their own scales are far below the loud ones'
-        with torch.inference_mode():
-            whole = served(feats)
-            halves = torch.cat([served(feats[:2]), served(feats[2:])])
-        blocks_differ = int((whole != halves).sum())
-        check(blocks_differ == 0,
-              f"batch --ckpt --int8: {blocks_differ} mask elements change with the block size")
-        sweeps["int8"]["mask_elements_differ_4_vs_2x2"] = blocks_differ
-        del served, feats, whole, halves
+        # the int8 CSV rows again in chunks of 2 scenes: a scene's row is the same
+        # in a block of 4 and in two blocks of 2 (sim.scene sums each row's power in
+        # a fixed order; the served net takes each scene's scales on its own)
+        batch_cli.main(batch_args + ["--int8", "--chunk-scenes", "2", "--prefix", "ckpt_int8_c2"])
+        with open(data / "results" / "batch_metrics.csv", newline="") as f:
+            csv_rows = list(csv.DictReader(f))
+
+        def rows_of(prefix):
+            return [{k: v for k, v in r.items() if k != "Run_ID"} for r in csv_rows
+                    if r["Run_ID"].rsplit("_", 1)[0] == prefix]
+
+        four, two = rows_of("ckpt_int8"), rows_of("ckpt_int8_c2")
+        rows_differ = sum(a != b for a, b in zip(four, two))
+        check(len(four) == len(two) == 4 and rows_differ == 0,
+              f"batch --ckpt --int8: {rows_differ} of 4 CSV rows change from --chunk-scenes 4 "
+              f"to 2: {four} against {two}")
+        sweeps["int8"]["csv_rows_differ_chunks_4_vs_2"] = rows_differ
         log("ckpt_batch", fit_steps=2, fit_s=f"{fit_s:.2f}",
             **{f"{k}_launches": v["launches"] for k, v in sweeps.items()},
             **{f"{k}_sir_imp_db": f"{v['sir_imp_db']:.2f}" for k, v in sweeps.items()})

@@ -88,7 +88,7 @@ def _random_vec(seed, batch, M):
         np.complex64)
 
 
-@pytest.mark.parametrize("M", [3, 4, 6, 8])
+@pytest.mark.parametrize("M", [3, 4, 6, 8, 12, 16])
 def test_solve_hermitian_small_matches_jax(M):
     R, d = _random_hpd(M, 64, M, 0.1), _random_vec(100 + M, 64, M)
     want = np.asarray(jax.jit(jax_linalgmm.solve_hermitian_small)(R, d))

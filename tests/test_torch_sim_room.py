@@ -172,6 +172,22 @@ def test_fft_convolve_and_apply_sir_gain():
         assert abs(got_sir - sir) < 0.1
 
 
+@pytest.mark.parametrize("n", [4_096, 32_000])
+def test_row_power_has_the_same_bits_at_any_batch(n):
+    """sim.scene's power of a row (the SIR gain's and the AWGN's) sums
+    pairwise in a fixed order: a row alone, in a batch of 2 and in a batch
+    of 5 gives the same bits, within float32 rounding of the float64 mean
+    square, at a power-of-two length and at another."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((5, 2, n)).astype(np.float32))
+    whole = TS._row_power(x)
+    assert whole.shape == (5, 2)
+    assert torch.equal(TS._row_power(x[:2]), whole[:2])
+    assert torch.equal(TS._row_power(x[3, 1]), whole[3, 1])
+    ref = (x.double() ** 2).mean(-1)
+    assert float(((whole.double() - ref) / ref).abs().max()) <= 1e-6
+
+
 @pytest.mark.parametrize("n_interferers,reverb", [(3, True), (1, False), (0, True)])
 def test_room_scene_matches_the_reference_on_its_draws(n_interferers, reverb):
     rng = np.random.default_rng(n_interferers)

@@ -34,8 +34,19 @@
 // fully: fully unrolled the kernel ran a few percent slower. The grid is
 // one-dimensional with the column tiles of a row tile adjacent, so both
 // column tiles of a wide layer read x while it is in L2.
+//
+// In an int8 net on dynamic scales the next conv quantises this output by
+// its per-element maximum (csrc/act_max.cuh). The Amax instance (a
+// compile-time variant; the plain instance compiles as it did) raises
+// out_max[b] to max|out[b]| as it stores out: rows are ((b * F + f) * T + t),
+// so b = p / (F * T). A tile of one element takes a warp's maximum and one
+// atomicMax a warp; a tile that crosses elements (96 rows against F * T of
+// thousands at the nets' shapes) one atomicMax for each run of a thread's
+// rows in one element.
 
 #include <cuda_runtime.h>
+
+#include "act_max.cuh"
 
 namespace {
 
@@ -68,9 +79,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+template <bool Amax>
 __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
     const float* __restrict__ x, const float* __restrict__ W, const float* __restrict__ bias,
-    float* __restrict__ out, long P, int K, int N2, int Cout) {
+    float* __restrict__ out, float* out_max, long P, long FT, int K, int N2, int Cout) {
   extern __shared__ __align__(16) float smem[];  // kStages x {xs[kChunk][kXStride], ws[kChunk][kTileN]}
   const int tiles_n = (N2 + kTileN - 1) / kTileN;
   const long p0 = (long)(blockIdx.x / tiles_n) * kTileM;
@@ -144,6 +156,9 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
   }
 
   // Epilogue: + bias, 16-byte stores; columns come in whole float4 (N2 % 4 == 0).
+  uint32_t row_bits[12];  // Amax: the largest |out| of each of this thread's rows, as bits
+#pragma unroll
+  for (int i = 0; i < 12; ++i) row_bits[i] = 0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int c = n0 + h * 64 + tx * 4;
@@ -156,9 +171,33 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
       const long p = p0 + (i >> 2) * 32 + ty * 4 + (i & 3);
       if (p >= P) continue;
       const float* a = acc[i] + h * 4;
-      *reinterpret_cast<float4*>(out + p * N2 + c) =
-          make_float4(__fadd_rn(a[0], bv[0]), __fadd_rn(a[1], bv[1]), __fadd_rn(a[2], bv[2]),
-                      __fadd_rn(a[3], bv[3]));
+      const float4 y = make_float4(__fadd_rn(a[0], bv[0]), __fadd_rn(a[1], bv[1]),
+                                   __fadd_rn(a[2], bv[2]), __fadd_rn(a[3], bv[3]));
+      *reinterpret_cast<float4*>(out + p * N2 + c) = y;
+      if constexpr (Amax) row_bits[i] = max(row_bits[i], azt::abs_bits4(y));
+    }
+  }
+  if constexpr (Amax) {
+    const long b_first = p0 / FT, b_last = (min(p0 + kTileM, P) - 1) / FT;
+    if (b_first == b_last) {
+      uint32_t m = 0;
+#pragma unroll
+      for (int i = 0; i < 12; ++i) m = max(m, row_bits[i]);
+      azt::warp_max_out(m, out_max, b_first);
+    } else {  // this thread's rows ascend: one atomic per run of rows of one element
+      long b_run = -1;
+      uint32_t m = 0;
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+        const long p = p0 + (i >> 2) * 32 + ty * 4 + (i & 3);
+        if (p >= P) break;
+        if (p / FT != b_run) {
+          if (m) atomicMax(reinterpret_cast<unsigned*>(out_max) + b_run, m);
+          b_run = p / FT, m = 0;
+        }
+        m = max(m, row_bits[i]);
+      }
+      if (m) atomicMax(reinterpret_cast<unsigned*>(out_max) + b_run, m);
     }
   }
 }
@@ -166,16 +205,24 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
 }  // namespace
 
 // x (P, K) f32 with K % 4 == 0; W (K, N2) f32 with N2 = 2 * Cout, N2 % 4 == 0;
-// bias (Cout,) f32; out (P, N2) f32; all 16-byte aligned. ``blocks`` and
-// ``smem`` are kernels/convt_kernel.py:plan's, checked here against the
-// kernel's own (cudaErrorInvalidValue if they differ). Returns cudaGetLastError().
-extern "C" int azt_convt1x2(const void* x, const void* W, const void* bias, void* out, long P,
-                            int K, int N2, int Cout, long blocks, int smem, void* stream) {
+// bias (Cout,) f32; out (P, N2) f32; all 16-byte aligned. out_max (P / FT,)
+// device float32 or null: raised to max|out[b]| over the FT rows of x of each
+// element b (start it at zeros). ``blocks`` and ``smem`` are
+// kernels/convt_kernel.py:plan's, checked here against the kernel's own
+// (cudaErrorInvalidValue if they differ). Returns cudaGetLastError().
+extern "C" int azt_convt1x2(const void* x, const void* W, const void* bias, void* out,
+                            void* out_max, long P, long FT, int K, int N2, int Cout, long blocks,
+                            int smem, void* stream) {
   const long want = (P + kTileM - 1) / kTileM * ((N2 + kTileN - 1) / kTileN);
   if (P <= 0 || K <= 0 || K % 4 || N2 % 4 || N2 != 2 * Cout || blocks != want ||
-      smem != kSmemBytes || want > 0x7fffffffL)
+      smem != kSmemBytes || want > 0x7fffffffL || (out_max && (FT <= 0 || P % FT)))
     return (int)cudaErrorInvalidValue;
-  convt_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)W, (const float*)bias, (float*)out, P, K, N2, Cout);
+  const float *xf = (const float*)x, *Wf = (const float*)W, *bf = (const float*)bias;
+  if (out_max)
+    convt_kernel<true><<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+        xf, Wf, bf, (float*)out, (float*)out_max, P, FT, K, N2, Cout);
+  else
+    convt_kernel<false><<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+        xf, Wf, bf, (float*)out, nullptr, P, FT, K, N2, Cout);
   return (int)cudaGetLastError();
 }

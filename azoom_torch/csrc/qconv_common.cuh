@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_max.cuh"
+
 namespace azt {
 
 // clip(rint(v / s), -127, 127) with the IEEE quotient, without paying for a

@@ -10,11 +10,16 @@
 //   y   = ((acc * s1[n] + b1[n]) - mean[n]) * mul[n] + beta[n]  (+ residual) (ReLU)
 //
 // act_scale is a static scale passed by value, or (the dynamic mode of the
-// reference's QConv) one float32 per batch element in device memory, which an
-// earlier launch on the stream computed from the input; a tile of element b
-// reads scale[b], quantises with it as with a static scale of that value, and
-// forms s1[n] = scale[b] * w_scale[n] from epi's row 0, which then holds the
-// weight scales.
+// reference's QConv, a compile-time variant of every instance) comes from
+// the input's per-element maxima max|x[b]| in device memory (and max|x2[b]|
+// at a concat), which the launches that produced x and x2 wrote in their
+// epilogues (csrc/act_max.cuh): a tile of element b forms
+// scale = max / 127 + 1e-30 itself, quantises with it as with a static
+// scale of that value, and forms s1[n] = scale * w_scale[n] from epi's row
+// 0, which then holds the weight scales. A dynamic launch may write its own
+// output's maxima into out_max: each consumer warp takes the maximum of the
+// |y| it stores in a tile (one element's: a tile never spans two) and adds
+// it with one atomicMax. The static instances compile as they did.
 //
 // The quantisation and the epilogue's float32 operations, in the reference's
 // order, are csrc/qconv_common.cuh, shared with the mma.sync kernel this one
@@ -148,8 +153,10 @@ struct Params {
   const float* epi;
   const float* res;
   float* out;
-  const float* scale;                 // (B,) activation scales in device memory, or null
-  float act_scale;                    // the static activation scale (scale null)
+  const float* x_max;                 // (B,) max|x[b]|: the dynamic mode (Dyn), else null
+  const float* x2_max;                // (B,) max|x2[b]| at a concat, or null
+  float* out_max;                     // (B,) max|out[b]| to raise by atomicMax (Dyn), or null
+  float act_scale;                    // the static activation scale (not Dyn)
   int relu;
   int F, T, Cin, Cin1;
   int Cout;                           // channels of out, res and epi: n_slices * N
@@ -180,7 +187,7 @@ struct HaloBatch {
   int first;  // item (float4 of the halo) of v[0]; v[u] is item first + u * n_halo
 };
 
-template <int N, int MI, int PW, bool Split, bool Tap16>
+template <int N, int MI, int PW, bool Split, bool Tap16, bool Dyn>
 __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_w, const Params p) {
   constexpr int kThreads = kConsumers + 32 * PW;
@@ -283,6 +290,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       const int ipp = stem ? 1 : cs4;           // items per halo pixel
       const int n_items = (FR + 2) * HW * ipp;
       float s = p.act_scale, rs = 1.f / s;
+      int b_s = -1;  // Dyn: the element whose scale s is
       // the part of a tile's halo unit: 0, 1, .., n_parts - 1, n_parts - 2, .., 0
       auto part_of = [&](int unit) {
         const int bounce = unit % (2 * n_parts - 2 + (n_parts == 1));
@@ -292,7 +300,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       for (int tile = tile_begin; tile < tile_end; ++tile)
       for (int unit = 0; unit < units; ++unit, ++it) {
         const int b = tile / tiles_per_b, rem = tile - b * tiles_per_b;
-        if (p.scale) s = __ldg(p.scale + b), rs = 1.f / s;
+        if (Dyn && b != b_s) s = scale_of_max(p.x_max, p.x2_max, b), rs = 1.f / s, b_s = b;
         const int ft = rem % p.n_ftiles;
         const int f0 = ft * FR - 1, t0 = (rem / p.n_ftiles) * TW - 1;
         const int c4_0 = part_of(unit) * cs4;  // first float4 of this part's channels
@@ -397,10 +405,13 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 
     int ws = 0, wparity = 0;  // the weight ring, when it streams
     int it = 0;               // halo units taken
+    float sb = 0.f;           // Dyn: the s1 factor, the scale of element b_s
+    int b_s = -1;
     for (int tile = tile_begin; tile < tile_end; ++tile) {
       const int b = tile / tiles_per_b, rem = tile - b * tiles_per_b;
       const int f0 = (rem % p.n_ftiles) * FR, t0 = (rem / p.n_ftiles) * TW;
-      const float sb = p.scale ? __ldg(p.scale + b) : 0.f;  // a dynamic scale's s1 factor
+      if (Dyn && b != b_s) sb = scale_of_max(p.x_max, p.x2_max, b), b_s = b;
+      uint32_t out_bits = 0;  // Dyn: the largest |y| this thread stores in the tile, as bits
 #ifdef AZT_QCONV_CLOCKS
       long long t_wait = 0, t_prod = 0, t_epi = 0;
 #endif
@@ -525,7 +536,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #pragma unroll
               for (int k = 0; k < 5; ++k)
                 e[k] = *reinterpret_cast<const float2*>(epi_s + k * Cout + nb + n);
-              if (p.scale) e[0] = dynamic_s1(sb, e[0]);
+              if constexpr (Dyn) e[0] = dynamic_s1(sb, e[0]);
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const float y0 =
@@ -554,6 +565,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
                 y.z = res_relu(y.z, r[q].z, p.res != nullptr, p.relu);
                 y.w = res_relu(y.w, r[q].w, p.res != nullptr, p.relu);
                 *reinterpret_cast<float4*>(p.out + obase[q] + slab * 32) = y;
+                if constexpr (Dyn) out_bits = max(out_bits, abs_bits4(y));
               }
             }
             __syncwarp();  // the patch is free for the next slab
@@ -562,6 +574,9 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #ifdef AZT_QCONV_CLOCKS
         t_epi += clock64() - tc2;
 #endif
+      }
+      if constexpr (Dyn) {
+        if (p.out_max) warp_max_out(out_bits, p.out_max, b);
       }
 #ifdef AZT_QCONV_CLOCKS
       if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -583,8 +598,8 @@ long long* clocks_buffer() {
 }
 #endif
 
-template <int N, int MI, int PW, bool Split, bool Tap16 = false>
-int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t stream) {
+template <int N, int MI, int PW, bool Split, bool Tap16, bool Dyn>
+int launch_mode(const Params& p, const void* w, int smem, int tile_w, cudaStream_t stream) {
   const int fr = (128 * MI) / tile_w;
   const int need = kTileAlign + p.stages * N * kSwizzleRow +
                    2 * (fr + 2) * (tile_w + 2) * (p.Cs + 16) + kStageBytes + 5 * p.Cout * 4 +
@@ -593,7 +608,7 @@ int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t st
   static int raised = 0;
   if (smem > raised) {  // dynamic shared memory above 48 KB must be opted into
     const cudaError_t e = cudaFuncSetAttribute(
-        qconv_wgmma_kernel<N, MI, PW, Split, Tap16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        qconv_wgmma_kernel<N, MI, PW, Split, Tap16, Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
     raised = smem;
@@ -603,20 +618,29 @@ int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t st
   const int rc = cached_tensor_map_s8(&map_w, w, p.Cout, kpad, N);
   if (rc != 0) return rc;
   const int grid = p.n_tiles < sm_count() ? p.n_tiles : sm_count();
-  qconv_wgmma_kernel<N, MI, PW, Split, Tap16>
+  qconv_wgmma_kernel<N, MI, PW, Split, Tap16, Dyn>
       <<<grid, kConsumers + 32 * PW, smem, stream>>>(map_w, p);
   return (int)cudaGetLastError();
 }
 
+// The instance of a shape in the launch's mode: dynamic when it reads maxima.
+template <int N, int MI, int PW, bool Split, bool Tap16 = false>
+int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t stream) {
+  return p.x_max ? launch_mode<N, MI, PW, Split, Tap16, true>(p, w, smem, tile_w, stream)
+                 : launch_mode<N, MI, PW, Split, Tap16, false>(p, w, smem, tile_w, stream);
+}
+
 // The parameters both entry points share; Cs == Cin and one slice unless split.
 Params make_params(const void* x, const void* x2, const void* epi, const void* res, void* out,
-                   const void* scale, float act_scale, int relu, int B, int F, int T, int Cin,
-                   int Cin1, int Cout, int m_tile, int tw_log2, int Cs, int n_slices, int stages) {
+                   const void* x_max, const void* x2_max, void* out_max, float act_scale,
+                   int relu, int B, int F, int T, int Cin, int Cin1, int Cout, int m_tile,
+                   int tw_log2, int Cs, int n_slices, int stages) {
   const int tile_w = 1 << tw_log2;
   Params p;
   p.x = (const float*)x, p.x2 = (const float*)x2, p.epi = (const float*)epi;
   p.res = (const float*)res, p.out = (float*)out;
-  p.scale = (const float*)scale, p.act_scale = act_scale, p.relu = relu;
+  p.x_max = (const float*)x_max, p.x2_max = (const float*)x2_max, p.out_max = (float*)out_max;
+  p.act_scale = act_scale, p.relu = relu;
   p.F = F, p.T = T, p.Cin = Cin, p.Cin1 = Cin1;
   p.Cout = Cout, p.Cs = Cs, p.n_parts = Cin / Cs, p.n_slices = n_slices;
   p.tw_log2 = tw_log2;
@@ -639,6 +663,11 @@ int log2_of(int tile_w) {  // -1 unless a power of two
   return (1 << l) == tile_w ? l : -1;
 }
 
+// Maxima only in the dynamic mode, and there x2's exactly with x2.
+bool maxima_ok(const void* x2, const void* x_max, const void* x2_max, const void* out_max) {
+  return x_max ? (x2_max != nullptr) == (x2 != nullptr) : x2_max == nullptr && out_max == nullptr;
+}
+
 }  // namespace
 
 // x (B, F, T, Cin1) f32 and x2 (B, F, T, Cin - Cin1) f32 or null: the input
@@ -646,8 +675,12 @@ int log2_of(int tile_w) {  // -1 unless a power of two
 // stem: Cin1 of 2 or 4, Cin = 16). w (Cout, Kpad) int8, K index
 // (3*dy+dx)*Cin + c, Kpad = 9 * Cin rounded up to 32 (zeros beyond 9 * Cin);
 // epi (5, Cout) f32 rows s1, b1, mean, mul, beta; res (B, F, T, Cout) f32 or
-// null; out (B, F, T, Cout) f32; scale (B,) device float32, the activation
-// scales in place of act_scale (epi's row 0 then the weight scales), or null.
+// null; out (B, F, T, Cout) f32. x_max (B,) device float32, max|x[b]|, or
+// null: the dynamic mode, whose scale is max(x_max[b], x2_max[b]) / 127 +
+// 1e-30 in place of act_scale (epi's row 0 then the weight scales); x2_max
+// max|x2[b]| with x2 (the dynamic mode), else null; out_max (B,) device
+// float32 or null, which a dynamic launch raises to max|out[b]| (start it at
+// zeros).
 // Needs Cin % 32 == 0 with Cout in {32, 64, 128, 256}, or Cin = 16 with Cout
 // in {32, 64}; Cin1 % 4 == 0 but for a stem. tile_w (frames of a tile, a
 // power of two up to 64), stages (of the weight ring; the number of 128-byte
@@ -656,9 +689,10 @@ int log2_of(int tile_w) {  // -1 unless a power of two
 // at Cout = 32, 256 at 64, else 128. Returns 0, a cudaError_t, or 1000 + the
 // CUresult of building the tensor map.
 extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const void* epi,
-                            const void* res, void* out, const void* scale, float act_scale,
-                            int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
-                            int tile_w, int stages, int smem, void* stream) {
+                            const void* res, void* out, const void* x_max, const void* x2_max,
+                            void* out_max, float act_scale, int relu, int B, int F, int T,
+                            int Cin, int Cin1, int Cout, int tile_w, int stages, int smem,
+                            void* stream) {
   const int m_tile = Cout == 32 ? 512 : Cout == 64 ? 256 : 128;
   const int tw_log2 = log2_of(tile_w);
   const int n_chunks = (9 * Cin + kSwizzleRow - 1) / kSwizzleRow;
@@ -667,10 +701,11 @@ extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const 
   const bool cin1_ok = stem ? Cin == 16 && (Cin1 == 2 || Cin1 == 4)
                             : Cin1 > 0 && Cin1 <= Cin && Cin1 % 4 == 0;
   if (!cin_ok || !cin1_ok || (Cout != 32 && Cout != 64 && Cout != 128 && Cout != 256) ||
-      tw_log2 < 0 || tile_w > 64 || stages < 1 || stages > n_chunks || stages > kMaxStages)
+      tw_log2 < 0 || tile_w > 64 || stages < 1 || stages > n_chunks || stages > kMaxStages ||
+      !maxima_ok(x2, x_max, x2_max, out_max))
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(x, x2, epi, res, out, scale, act_scale, relu, B, F, T, Cin, Cin1,
-                               Cout, m_tile, tw_log2, Cin, 1, stages);
+  const Params p = make_params(x, x2, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B,
+                               F, T, Cin, Cin1, Cout, m_tile, tw_log2, Cin, 1, stages);
   cudaStream_t st = (cudaStream_t)stream;
 #ifdef AZT_QCONV_CLOCKS
   cudaMemsetAsync(p.clocks, 0, 6 * sizeof(long long), st);
@@ -690,18 +725,18 @@ extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const 
 // pixels; stages of the weight ring, which always streams; the other
 // arguments and the return value as azt_qconv3x3.
 extern "C" int azt_qconv3x3_split(const void* x, const void* x2, const void* w, const void* epi,
-                                  const void* res, void* out, const void* scale, float act_scale,
-                                  int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
-                                  int tile_w, int part_channels, int stages, int smem,
-                                  void* stream) {
+                                  const void* res, void* out, const void* x_max,
+                                  const void* x2_max, void* out_max, float act_scale, int relu,
+                                  int B, int F, int T, int Cin, int Cin1, int Cout, int tile_w,
+                                  int part_channels, int stages, int smem, void* stream) {
   const int Cs = part_channels;
   const int tw_log2 = log2_of(tile_w);
   if (Cin % 32 || Cin1 % 4 || (Cout != 256 && Cout != 512) || tw_log2 < 0 || tile_w > 64 ||
       Cs < 32 || Cs % 32 || Cin % Cs || (Cs != Cin && Cs % kSwizzleRow) || stages < 1 ||
-      stages > kMaxStages)
+      stages > kMaxStages || !maxima_ok(x2, x_max, x2_max, out_max))
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(x, x2, epi, res, out, scale, act_scale, relu, B, F, T, Cin, Cin1,
-                               Cout, 128, tw_log2, Cs, Cout / 256, stages);
+  const Params p = make_params(x, x2, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B,
+                               F, T, Cin, Cin1, Cout, 128, tw_log2, Cs, Cout / 256, stages);
   cudaStream_t st = (cudaStream_t)stream;
 #ifdef AZT_QCONV_CLOCKS
   cudaMemsetAsync(p.clocks, 0, 6 * sizeof(long long), st);

@@ -10,7 +10,10 @@
 //   y   = ((acc * s1[n] + b1[n]) - mean[n]) * mul[n] + beta[n]  (+ residual) (ReLU)
 //
 // The quantisation and the epilogue's float32 operations are
-// csrc/qconv_common.cuh; never build with --use_fast_math.
+// csrc/qconv_common.cuh; never build with --use_fast_math. Its dynamic mode
+// (a compile-time variant, Dyn) is csrc/qconv_kernel.cu's: the block forms
+// its element's scale from the input's maxima, and may raise out_max to the
+// maxima of what it stores (a warp's maximum, one atomicMax).
 //
 // This is the port's first conv kernel (mma.sync m16n8k32, ldmatrix, two
 // cp.async weight buffers). csrc/qconv_kernel.cu (wgmma, TMA-fed weights,
@@ -56,10 +59,13 @@
 
 namespace {
 
+using azt::abs_bits;
 using azt::dequant_bn;
 using azt::dynamic_s1;
 using azt::quant4;
 using azt::res_relu;
+using azt::scale_of_max;
+using azt::warp_max_out;
 
 constexpr int kThreads = 256;    // 8 warps
 constexpr int kKC = 128;         // K bytes of weights staged per chunk
@@ -88,20 +94,21 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_r
                : "r"(addr));
 }
 
-// A warp's tile: MI m16 tiles of pixels by NJ n8 tiles of channels.
-template <int MI, int NJ>
+// A warp's tile: MI m16 tiles of pixels by NJ n8 tiles of channels; Dyn the dynamic mode.
+template <int MI, int NJ, bool Dyn>
 __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
     const float* __restrict__ x, const float* __restrict__ x2, const int8_t* __restrict__ w,
     const float* __restrict__ epi, const float* __restrict__ res, float* __restrict__ out,
-    const float* __restrict__ scale, float act_scale, int relu, int F, int T, int Cin, int Cin1,
-    int Cout, int Kpad, int TW, int FR, int n_ttiles) {
+    const float* __restrict__ x_max, const float* __restrict__ x2_max, float* out_max,
+    float act_scale, int relu, int F, int T, int Cin, int Cin1, int Cout, int Kpad, int TW,
+    int FR, int n_ttiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HW = TW + 2;
   const int CinP = Cin + 16;  // pixel stride of the halo; the 16 pad bytes stay zero
   unsigned char* halo = smem;
   unsigned char* wbuf = smem + (FR + 2) * HW * CinP;  // 2 buffers of Cout rows of kWRow bytes
   const long b = blockIdx.y;
-  const float s = scale ? __ldg(scale + b) : act_scale;  // in device memory, or by value
+  const float s = Dyn ? scale_of_max(x_max, x2_max, b) : act_scale;
   const int f0 = (blockIdx.x / n_ttiles) * FR;
   const int t0 = (blockIdx.x % n_ttiles) * TW;
 
@@ -224,6 +231,7 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 
   // 3. Fused epilogue: dequant, BatchNorm, residual, ReLU.
   const int g = lane >> 2, tg = lane & 3;
+  uint32_t out_bits = 0;  // Dyn: the largest |y| this thread stores, as bits
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -239,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
         float2 e[5];  // s1, b1, mean, mul, beta at channels n, n + 1
 #pragma unroll
         for (int r = 0; r < 5; ++r) e[r] = *reinterpret_cast<const float2*>(epi + r * Cout + n);
-        if (scale) e[0] = dynamic_s1(s, e[0]);
+        if constexpr (Dyn) e[0] = dynamic_s1(s, e[0]);
         float y0 = dequant_bn(acc[mi][j][2 * h], e[0].x, e[1].x, e[2].x, e[3].x, e[4].x);
         float y1 = dequant_bn(acc[mi][j][2 * h + 1], e[0].y, e[1].y, e[2].y, e[3].y, e[4].y);
         float2 r = make_float2(0.f, 0.f);
@@ -247,8 +255,12 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
         y0 = res_relu(y0, r.x, res != nullptr, relu);
         y1 = res_relu(y1, r.y, res != nullptr, relu);
         *reinterpret_cast<float2*>(out + pix * Cout + n) = make_float2(y0, y1);
+        if constexpr (Dyn) out_bits = max(out_bits, max(abs_bits(y0), abs_bits(y1)));
       }
     }
+  if constexpr (Dyn) {
+    if (out_max) warp_max_out(out_bits, out_max, b);
+  }
 }
 
 }  // namespace
@@ -257,20 +269,20 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 // is their channel concat, or without x2 x's channels then zeros up to Cin
 // (a stem: Cin1 of 2 or 4, Cin = 16). w (Cout, Kpad) int8, K index
 // (3*dy+dx)*Cin + c, zero beyond 9*Cin; epi (5, Cout) f32 rows s1, b1, mean,
-// mul, beta; res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32; scale
-// (B,) device float32, the activation scales in place of act_scale (epi's row
-// 0 then the weight scales), or null. Needs
+// mul, beta; res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32;
+// x_max, x2_max and out_max (B,) device float32 or null, the dynamic mode
+// as csrc/qconv_kernel.cu's azt_qconv3x3 takes them. Needs
 // Cin % 16 == 0, Cin1 % 4 == 0 with x2 (Cin1 of 2, 4 or Cin without),
 // Cout in {32, 64, 128, 256, 512}, Kpad % 32 == 0. Returns cudaGetLastError()
 // (or the error of raising the shared-memory limit), cudaErrorInvalidValue
 // for another shape.
 namespace {
 
-template <int MI, int NJ>
+template <int MI, int NJ, bool Dyn>
 int launch(const void* x, const void* x2, const void* w, const void* epi, const void* res,
-           void* out, const void* scale, float act_scale, int relu, int B, int F, int T, int Cin,
-           int Cin1,
-           int Cout, int Kpad, cudaStream_t stream) {
+           void* out, const void* x_max, const void* x2_max, void* out_max, float act_scale,
+           int relu, int B, int F, int T, int Cin, int Cin1, int Cout, int Kpad,
+           cudaStream_t stream) {
   const int m_tile = 16 * MI * (8 / (Cout / (8 * NJ)));  // pixels per block
   int TW = 1;  // frames per tile: the largest power of two <= min(T, m_tile)
   while (TW * 2 <= T && TW * 2 <= m_tile) TW *= 2;
@@ -280,32 +292,45 @@ int launch(const void* x, const void* x2, const void* w, const void* epi, const 
   const int smem = (FR + 2) * (TW + 2) * (Cin + 16) + 2 * Cout * kWRow;
   if (smem > 48 * 1024) {  // dynamic shared memory above 48 KB must be opted into
     const cudaError_t e = cudaFuncSetAttribute(
-        qconv3x3_mma_kernel<MI, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        qconv3x3_mma_kernel<MI, NJ, Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(n_ftiles * n_ttiles, B);
-  qconv3x3_mma_kernel<MI, NJ><<<grid, kThreads, smem, stream>>>(
+  qconv3x3_mma_kernel<MI, NJ, Dyn><<<grid, kThreads, smem, stream>>>(
       (const float*)x, (const float*)x2, (const int8_t*)w, (const float*)epi,
-      (const float*)res, (float*)out, (const float*)scale, act_scale, relu, F, T, Cin, Cin1,
-      Cout, Kpad, TW, FR, n_ttiles);
+      (const float*)res, (float*)out, (const float*)x_max, (const float*)x2_max,
+      (float*)out_max, act_scale, relu, F, T, Cin, Cin1, Cout, Kpad, TW, FR, n_ttiles);
   return (int)cudaGetLastError();
+}
+
+// The tile of Cout in the launch's mode: dynamic when it reads maxima.
+template <int MI, int NJ>
+int launch_tile(const void* x, const void* x2, const void* w, const void* epi, const void* res,
+                void* out, const void* x_max, const void* x2_max, void* out_max,
+                float act_scale, int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
+                int Kpad, cudaStream_t stream) {
+  return (x_max ? launch<MI, NJ, true> : launch<MI, NJ, false>)(
+      x, x2, w, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B, F, T, Cin, Cin1, Cout,
+      Kpad, stream);
 }
 
 }  // namespace
 
 extern "C" int azt_qconv3x3_mma(const void* x, const void* x2, const void* w, const void* epi,
-                            const void* res, void* out, const void* scale, float act_scale,
-                            int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
-                            int Kpad, void* stream) {
+                            const void* res, void* out, const void* x_max, const void* x2_max,
+                            void* out_max, float act_scale, int relu, int B, int F, int T,
+                            int Cin, int Cin1, int Cout, int Kpad, void* stream) {
   const bool stem = x2 == nullptr && Cin1 < Cin;
+  const bool maxima_ok =
+      x_max ? (x2_max != nullptr) == (x2 != nullptr) : x2_max == nullptr && out_max == nullptr;
   if (Cin % 16 || Cin1 < 1 || Cin1 > Cin || (stem && Cin1 != 2 && Cin1 != 4) ||
-      (x2 != nullptr && Cin1 % 4) || Kpad % 32 || Kpad < 9 * Cin ||
+      (x2 != nullptr && Cin1 % 4) || Kpad % 32 || Kpad < 9 * Cin || !maxima_ok ||
       (Cout != 32 && Cout != 64 && Cout != 128 && Cout != 256 && Cout != 512))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (Cout == 32)
-    return launch<4, 4>(x, x2, w, epi, res, out, scale, act_scale, relu, B, F, T, Cin, Cin1, Cout,
-                        Kpad, st);
-  return launch<2, 8>(x, x2, w, epi, res, out, scale, act_scale, relu, B, F, T, Cin, Cin1, Cout,
-                      Kpad, st);
+    return launch_tile<4, 4>(x, x2, w, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B,
+                             F, T, Cin, Cin1, Cout, Kpad, st);
+  return launch_tile<2, 8>(x, x2, w, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B,
+                           F, T, Cin, Cin1, Cout, Kpad, st);
 }

@@ -26,7 +26,15 @@ kernel (the same kernel where the plan picks it), then both timed in turns
 (``copy_ms``: what the card's memory gives a kernel that does nothing else),
 ``torch._int_mm`` on the conv's im2col'd int8 codes (``int_mm_ms``: the bare
 GEMM, made outside the timing) and the bound (``bound_ms``: bytes over 3.35
-TB/s or operations over 1,979 TOP/s, the larger).
+TB/s or operations over 1,979 TOP/s, the larger). With ``--against DIR``
+it also builds DIR's ``qconv_kernel.cu`` and ``qconv_mma_kernel.cu`` (the C
+interface they had before the dynamic mode read maxima: one (B,) scale
+pointer, ``azt_qconv3x3(x, x2, w, epi, res, out, scale, act_scale, relu,
+...)``), counts the outputs that differ from it on the static launch and on
+the dynamic one (there at ``dynamic_act_scale``'s scales, here from the
+input's maxima), times the static launch of both in turns (earlier,
+current, current, earlier: ``earlier_ms``, ``turns_ms``) and sums both by
+net and route over the variants each net runs (``qconv_routes``).
 
 ``clocks [--nets NET,...]`` (alone): builds the ``wgmma`` conv with
 ``-DAZT_QCONV_CLOCKS`` and prints, per shape of the nets that runs on it
@@ -88,9 +96,10 @@ chains on registers with no memory traffic: what ``convt``'s rate is held
 against beside the published 67 TFLOP/s.
 
 ``--against DIR``: DIR holds kernel sources of an earlier tree: for
-``convt`` and ``hard_null`` the ``convt_kernel.cu`` and
-``nullsteer_kernel.cu`` with the C interfaces they had when ``convt1x2`` took
-no plan (``azt_convt1x2(x, W, bias, out, P, K, N2, Cout, stream)``) and B3
+``qconv`` as above; for ``convt`` and ``hard_null`` the ``convt_kernel.cu`` and
+``nullsteer_kernel.cu`` with the C interfaces they had before ``convt1x2``
+wrote maxima (``azt_convt1x2(x, W, bias, out, P, K, N2, Cout, blocks, smem,
+stream)``) and B3
 one shared d (``azt_hard_null(Y, tmask, post, d, freqs, cond_thr,
 bypass_hz, S, B, F, T, stream)``); for
 ``mvdr`` the ``mvdr_kernel.cu`` with one shared d and an optional per-bin
@@ -168,7 +177,7 @@ def ptxas_summary(info: dict) -> dict:
     for src, v in info.items():
         for sym, spill, regs in pat.findall(v["log"]):
             short = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "", sym)
-            out[f"{src}:{short[:40]}"] = (int(regs), int(spill))
+            out[f"{src}:{short[:48]}"] = (int(regs), int(spill))
     return out
 
 
@@ -219,22 +228,70 @@ def net_conv_shapes(net: str) -> tuple[int, dict]:
     return (F_ROWS if isinstance(model, TPUFPU) else 513), shapes
 
 
-def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",)) -> dict:
+def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",), against: Path | None = None) -> dict:
     from azoom_torch.kernels import qconv_kernel as qk
 
     rng = np.random.default_rng(1)
     batch = 8 if quick else BATCH
-    rows = {}
+    earlier = None if against is None else _earlier_qconv(qk, against)
+    rows, routes = {}, {}
     for net in nets:
         f_rows, shapes = net_conv_shapes(net)
         for (cin, cout, t), (launches, variants) in shapes.items():
-            rows.update(_bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t,
-                                          launches, variants))
+            got = _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t,
+                                    launches, variants, earlier)
+            rows.update(got)
+            for row in got.values():
+                if "earlier_ms" in row and row["runs_in_net"]:
+                    old, new = routes.get((net, row["kernel"]), (0.0, 0.0))
+                    routes[(net, row["kernel"])] = (old + row["earlier_ms"], new + row["turns_ms"])
+    if routes:
+        rows["qconv_routes"] = {f"{n}:{r}": dict(earlier_ms=a, ms=b)
+                                for (n, r), (a, b) in routes.items()}
+        print(f"[qconv] routes against {against}: " + " ".join(
+            f"{k}={v['earlier_ms']:.4g}/{v['ms']:.4g}" for k, v in rows["qconv_routes"].items()),
+            flush=True)
     return rows
 
 
+def _earlier_qconv(qk, src_dir: Path):
+    """A call of DIR's B2 kernels with their C interface before the dynamic
+    mode read maxima: ``fn(x, w_q, epi, act_scale, residual, x2, scale)``,
+    ``scale`` a (B,) tensor of dynamic scales or None."""
+    lib = earlier_library(src_dir, "qconv_kernel")
+    entries = {"wgmma": (lib.azt_qconv3x3, 10), "split": (lib.azt_qconv3x3_split, 11),
+               "mma": (earlier_library(src_dir, "qconv_mma_kernel").azt_qconv3x3_mma, 8)}
+    for fn, ints in entries.values():
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+    def call(x, w_q, epi, act_scale, residual=None, x2=None, scale=None):
+        B, F, T, cin1 = x.shape
+        cin, cout = cin1 + (0 if x2 is None else x2.shape[3]), w_q.shape[0]
+        how = qk.plan(cin, cout, T)
+        out = torch.empty((B, F, T, cout), dtype=torch.float32, device=x.device)
+        ptrs = (x.data_ptr(), None if x2 is None else x2.data_ptr(), w_q.data_ptr(),
+                epi.data_ptr(), None if residual is None else residual.data_ptr(),
+                out.data_ptr(), None if scale is None else scale.data_ptr())
+        head = (*ptrs, 1.0 if scale is not None else act_scale, 1, B, F, T)
+        stream = torch.cuda.current_stream().cuda_stream
+        if how["kernel"] in ("wgmma", "narrow"):
+            rc = entries["wgmma"][0](*head, qk.kernel_cin(cin), cin1, cout, how["tile_w"],
+                                     how["stages"], how["smem"], stream)
+        elif how["kernel"] == "split":
+            rc = entries["split"][0](*head, cin, cin1, cout, how["tile_w"],
+                                     how["part_channels"], how["stages"], how["smem"], stream)
+        else:
+            rc = entries["mma"][0](*head, qk.kernel_cin(cin), cin1, cout, w_q.shape[1], stream)
+        build.check(rc, "earlier qconv3x3")
+        return out
+
+    return call
+
+
 def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, launches,
-                      variants) -> dict:
+                      variants, earlier=None) -> dict:
     x = torch.from_numpy(np.abs(rng.standard_normal((batch, f_rows, t, cin)))
                          .astype(np.float32)).to(dev)
     act_scale = float(np.float32(3.3 / 127))
@@ -259,8 +316,16 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
         torch.cuda.synchronize()
         rel = float((new - ref).abs().max()) / float(ref.abs().max())
         row = dict(net=net, rows=f_rows, kernel=route, launches=launches,
+                   runs_in_net=(variant == "res", variant == "cat") in variants,
                    bit_equal=bool(torch.equal(new, old)),
                    not_bit_equal_to_plain=int((new != ref).sum()), rel_err_vs_plain=rel)
+        if earlier is not None:
+            row["not_bit_equal_to_earlier"] = int((new != earlier(xin, w_q, epi, act_scale,
+                                                                  **kw)).sum())
+            dyn = qk.qconv3x3(xin, w_q, epi, None, **kw, in_max=qk.input_max(xin, kw.get("x2")))
+            was = earlier(xin, w_q, epi, None, **kw, scale=qk.dynamic_act_scale(xin, kw.get("x2")))
+            row["not_bit_equal_to_earlier_dynamic"] = int((dyn != was).sum())
+            del dyn, was
         if not quick:
             # a device-to-device copy that moves as many bytes as this conv must
             n_bytes = 4 * x.numel() + 4 * res.numel() * (2 if variant == "res" else 1)
@@ -272,6 +337,9 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
             f_old = lambda: qk.qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")  # noqa: E731
             t_old, t_new = time_ms(f_old), time_ms(f_new)
             row.update(ms=min(t_new, time_ms(f_new)), mma_ms=min(t_old, time_ms(f_old)))
+            if earlier is not None:
+                row["earlier_ms"], row["turns_ms"] = _in_turns(
+                    lambda: earlier(xin, w_q, epi, act_scale, **kw), f_new)
             if variant == "plain":
                 row["int_mm_ms"] = int_mm_ms(x, w_q, act_scale)
             m = batch * f_rows * t
@@ -292,6 +360,8 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
         if row["not_bit_equal_to_plain"]:
             raise AssertionError(f"qconv {key}: {row['not_bit_equal_to_plain']} outputs differ "
                                  "from the plain version")
+        if row.get("not_bit_equal_to_earlier") or row.get("not_bit_equal_to_earlier_dynamic"):
+            raise AssertionError(f"qconv {key}: differs from the earlier kernel: {row}")
     return rows
 
 
@@ -373,19 +443,22 @@ def _in_turns(f_old, f_new) -> tuple[float, float]:
 
 
 def bench_convt(dev, quick: bool, against: Path | None) -> dict:
-    from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
+    from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain, plan
 
     old_fn = None
     if against is not None:
         old_fn = earlier_library(against, "convt_kernel").azt_convt1x2
-        old_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        old_fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_long] + [ctypes.c_int] * 3
+                           + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p])
         old_fn.restype = ctypes.c_int
 
     def earlier(x, w, b):
         out = torch.empty(x.shape[:2] + (2 * x.shape[2], b.shape[0]), dtype=torch.float32, device=dev)
+        how = plan(x.numel() // x.shape[-1], x.shape[-1], w.shape[1])
         build.check(old_fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
                            x.numel() // x.shape[-1], x.shape[-1], w.shape[1], b.shape[0],
-                           torch.cuda.current_stream().cuda_stream), "earlier convt1x2")
+                           how["blocks"], how["smem"], torch.cuda.current_stream().cuda_stream),
+                    "earlier convt1x2")
         return out
 
     rng = np.random.default_rng(3)
@@ -763,7 +836,7 @@ def main(argv) -> int:
     if "int8_mm" in which:
         out["int8_mm"] = bench_int8_mm(dev, quick)
     if "qconv" in which:
-        out["qconv"] = bench_qconv(dev, quick, nets)
+        out["qconv"] = bench_qconv(dev, quick, nets, against)
     if "convt" in which:
         out["convt"] = bench_convt(dev, quick, against)
     if "hard_null" in which:

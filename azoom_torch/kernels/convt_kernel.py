@@ -11,6 +11,11 @@ it the card, the plain version and the reference give the same bits. A
 library GEMM would not: its summation order is its own, and the next layer
 quantises this output to int8, where a one-ulp difference flips codes.
 
+In an int8 net on dynamic scales the next conv quantises this output by its
+per-element maximum: given ``out_max``, a (B,) float32 tensor (zeros to
+start with), the kernel raises it to max|out[b]| as it stores out, so no
+pass of its own takes it (csrc/act_max.cuh).
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs :func:`convt1x2_plain`. :func:`plan` gives the kernel's tiles, grid
 and shared memory from the shape alone; the C side checks them.
@@ -34,9 +39,11 @@ __all__ = ["convt1x2", "convt1x2_plain", "plan"]
 TILE_M, TILE_N, K_CHUNK, STAGES = 96, 128, 16, 3
 
 
-def convt1x2_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def convt1x2_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   out_max: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: x (B, F, T, K) float32,
-    weight (K, 2*Cout) = [W1 | W0], bias (Cout,) -> (B, F, 2T, Cout).
+    weight (K, 2*Cout) = [W1 | W0], bias (Cout,) -> (B, F, 2T, Cout);
+    ``out_max`` (B,) (or None) raised in place to max|out[b]|.
 
     The FMA chain is emulated in float64: x*w is exact in float64, and the
     float64 sum rounded to float32 equals the fused multiply-add except in
@@ -48,8 +55,11 @@ def convt1x2_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) ->
     acc = torch.zeros((x64.shape[0], 2 * cout), dtype=torch.float64, device=x.device)
     for k in range(K):
         acc = (acc + x64[:, k:k + 1] * w64[k]).to(torch.float32).to(torch.float64)
-    out = acc.to(torch.float32).reshape(B, F, 2 * T, cout)
-    return out + bias
+    out = acc.to(torch.float32).reshape(B, F, 2 * T, cout) + bias
+    if out_max is not None:
+        m = torch.linalg.vector_norm(out, float("inf"), dim=(1, 2, 3))
+        torch.maximum(out_max, m, out=out_max)
+    return out
 
 
 def plan(rows: int, k: int, n2: int) -> dict:
@@ -72,7 +82,7 @@ def plan(rows: int, k: int, n2: int) -> dict:
 @functools.cache
 def _entry():
     fn = build.load_library("convt_kernel").azt_convt1x2
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_long] + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_long] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -83,10 +93,13 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"convt1x2: {msg}")
 
 
-def convt1x2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """(1, 2)-stride ConvTranspose on (B, F, T, K) float32 -> (B, F, 2T, Cout)."""
+def convt1x2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             out_max: torch.Tensor | None = None) -> torch.Tensor:
+    """(1, 2)-stride ConvTranspose on (B, F, T, K) float32 -> (B, F, 2T, Cout);
+    ``out_max``, a (B,) float32 tensor on x's device or None, is raised in
+    place to max|out[b]|."""
     if x.device.type == "cpu":
-        return convt1x2_plain(x, weight, bias)
+        return convt1x2_plain(x, weight, bias, out_max)
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     _require(x.dtype == torch.float32 and x.ndim == 4,
              f"x must be float32 (B, F, T, K), got {x.dtype} {tuple(x.shape)}")
@@ -96,16 +109,23 @@ def convt1x2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch
              f"weight must be float32 ({K}, {2 * cout}), got {weight.dtype} {tuple(weight.shape)}")
     _require(bias.dtype == torch.float32 and bias.ndim == 1, "bias must be float32 (Cout,)")
     how = plan(B * F * T, K, 2 * cout)
-    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
+    tensors = [("x", x), ("weight", weight), ("bias", bias)]
+    if out_max is not None:
+        _require(out_max.dtype == torch.float32 and tuple(out_max.shape) == (B,),
+                 f"out_max must be float32 ({B},), got {out_max.dtype} {tuple(out_max.shape)}")
+        tensors.append(("out_max", out_max))
+    for name, t in tensors:
         _require(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
-        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+        _require(t.data_ptr() % (4 if name == "out_max" else 16) == 0,
+                 f"{name} must be {4 if name == 'out_max' else 16}-byte aligned")
 
     out = torch.empty((B, F, 2 * T, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _entry()(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B * F * T, K, 2 * cout, cout, how["blocks"], how["smem"],
+            None if out_max is None else out_max.data_ptr(), B * F * T, F * T, K, 2 * cout, cout,
+            how["blocks"], how["smem"],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(rc, "convt1x2 kernel")

@@ -21,18 +21,24 @@ one folded affine: the next layer's int8 codes are roundings of this
 output, and folded-affine rounding differences flip codes that compound
 through the net.
 
-The activation scale is static (a float, passed by value) or dynamic: the
-reference QConv's default mode, ``max|x| / 127 + 1e-30`` of the tensor the
-conv reads (both inputs of a concat), taken on the device on every call for
-each batch element on its own (:func:`dynamic_act_scale`), as the reference
+The activation scale is static (a float, passed by value) or dynamic
+(``act_scale=None``): the reference QConv's default mode, ``max|x| / 127 +
+1e-30`` of the tensor the conv reads (both inputs of a concat), for each
+batch element on its own (:func:`dynamic_act_scale`), as the reference
 takes it where it serves such a net: under ``jax.vmap``, one chunk of a
 stream (stream/chunker.py) or one scene of a sweep (parallel/sweep.py) at a
-time. The (B,) scales are a float32 tensor that each block reads from
-memory at its element; the epilogue's row 0 then holds the weight scales,
-and the kernel forms s1 = scale[b] * w_scale. Both modes quantise with the
-same code, so a dynamic launch gives the codes of a static one at the same
-value. Dynamic launches count as ``qconv3x3_dynamic`` in
-``kernels.launches``.
+time. A dynamic launch takes the input's per-element maxima ``in_max``
+((B,) float32 on the device: max|x[b]|, or a pair, max|x[b]| and
+max|x2[b]|, at a concat), which the launches that produced the input wrote
+as they stored it (``out_max``), and each tile forms its element's scale
+from them; the epilogue's row 0 then holds the weight scales, and the kernel
+forms s1 = scale * w_scale. So the scale costs no pass of its own: only an
+input that no such launch produced (a net's stem) takes one reduction
+(:func:`input_max`). A dynamic launch raises ``out_max`` (zeros to start
+with) to the maxima of its own output (csrc/act_max.cuh). Both modes
+quantise with the same code, so a dynamic launch gives the codes of a
+static one at the same value. Dynamic launches count as
+``qconv3x3_dynamic`` in ``kernels.launches``.
 
 The stems of the unfolded nets take Cin = 2 (logmag_ipd features) or 4
 (physics features). Their weights are packed as if Cin were 16, the
@@ -74,6 +80,7 @@ from azoom_torch.kernels import build
 __all__ = [
     "qconv3x3", "qconv3x3_plain", "pack_weights", "epilogue_params", "quantize_weights", "plan",
     "route_counts", "kernel_cin", "k_padded", "COUTS", "STEM_CINS", "dynamic_act_scale",
+    "input_max",
 ]
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
@@ -148,44 +155,63 @@ def epilogue_params(act_scale, w_scale, bias, bn=None) -> torch.Tensor:
 _C127: dict = {}  # device -> the float32 127 a dynamic scale is divided by
 
 
+def input_max(x: torch.Tensor, x2: torch.Tensor | None = None):
+    """The ``in_max`` of a dynamic conv's input, one reduction of each
+    tensor: max|x[b]| of each batch element (B, ...), a (B,) float32 tensor
+    on x's device, or at a concat the pair (max|x[b]|, max|x2[b]|). What the
+    kernels write as ``out_max``, bit for bit: a maximum is exact."""
+    if x2 is not None:
+        return input_max(x), input_max(x2)
+    return torch.linalg.vector_norm(x, float("inf"), dim=tuple(range(1, x.ndim)))
+
+
+def _scale_of_max(m: torch.Tensor) -> torch.Tensor:
+    """``m / 127 + 1e-30`` in float32. The division is an IEEE division by a
+    device tensor (CUDA turns a division by a host scalar into a product by
+    its reciprocal), as the reference's eager ``jnp`` and the kernels
+    compute it."""
+    c = _C127.get(m.device)
+    if c is None:
+        c = _C127[m.device] = torch.tensor(127.0, dtype=torch.float32, device=m.device)
+    return m / c + 1e-30
+
+
 def dynamic_act_scale(x: torch.Tensor, x2: torch.Tensor | None = None) -> torch.Tensor:
     """The reference QConv's per-call scale of each batch element of its
     input [x, x2] (B, ...): ``max|x[b]| / 127 + 1e-30`` in float32, a (B,)
-    tensor on x's device, made without a host synchronisation. The division
-    is an IEEE division by a device tensor (CUDA turns a division by a host
-    scalar into a product by its reciprocal), as the reference's eager
-    ``jnp`` computes it."""
-    dims = tuple(range(1, x.ndim))
-    m = torch.linalg.vector_norm(x, float("inf"), dim=dims)
-    if x2 is not None:
-        m = torch.maximum(m, torch.linalg.vector_norm(x2, float("inf"), dim=dims))
-    c = _C127.get(x.device)
-    if c is None:
-        c = _C127[x.device] = torch.tensor(127.0, dtype=torch.float32, device=x.device)
-    return m / c + 1e-30
+    tensor on x's device, made without a host synchronisation: the plain
+    version of the scale a dynamic launch forms from its input's maxima."""
+    m = input_max(x)
+    return _scale_of_max(m if x2 is None else torch.maximum(m, input_max(x2)))
 
 
 def qconv3x3_plain(
     x: torch.Tensor,
     w_q: torch.Tensor,
     epi: torch.Tensor,
-    act_scale: float | torch.Tensor,
+    act_scale: float | None,
     residual: torch.Tensor | None = None,
     relu: bool = True,
     x2: torch.Tensor | None = None,
+    *,
+    in_max=None,
+    out_max: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch. The integer conv runs in
     float64, which is exact here: |acc| <= 9*Cin*127^2 (3.7e7 at Cin = 256)
     is beyond float32's exact range of 2^24 but far inside float64's.
-    ``act_scale`` is a float, or (B,) float32 dynamic scales with the weight
-    scales in ``epi``'s row 0, as :func:`qconv3x3` takes them."""
+    ``act_scale`` is a float, or None for the dynamic mode: the scales then
+    come from ``in_max`` and the weight scales from ``epi``'s row 0, and
+    ``out_max`` (or None) is raised to the output's per-element maxima in
+    place, as :func:`qconv3x3` takes them."""
     if x2 is not None:
         x = torch.cat([x, x2], dim=-1)
     cin, cout = x.shape[-1], w_q.shape[0]
     ck = kernel_cin(cin)
     s1 = epi[0]
-    if isinstance(act_scale, torch.Tensor):
-        s = act_scale.reshape(-1, 1, 1, 1)
+    if act_scale is None:
+        m = in_max if x2 is None else torch.maximum(in_max[0], in_max[1])
+        s = _scale_of_max(m).reshape(-1, 1, 1, 1)
         s1 = s * s1  # (B, 1, 1, Cout): scale[b] * w_scale
     else:
         s = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
@@ -198,6 +224,8 @@ def qconv3x3_plain(
         y = residual + y
     if relu:
         y = torch.relu(y)
+    if out_max is not None:
+        torch.maximum(out_max, input_max(y), out=out_max)
     return y.contiguous()
 
 
@@ -316,7 +344,7 @@ def _entry(kernel: str):
         fn = build.load_library("qconv_mma_kernel").azt_qconv3x3_mma
         ints = 8
     fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * ints + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_int] * ints + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -331,25 +359,42 @@ def qconv3x3(
     x: torch.Tensor,
     w_q: torch.Tensor,
     epi: torch.Tensor,
-    act_scale: float | torch.Tensor,
+    act_scale: float | None,
     residual: torch.Tensor | None = None,
     relu: bool = True,
     x2: torch.Tensor | None = None,
     *,
+    in_max=None,
+    out_max: torch.Tensor | None = None,
     _kernel: str | None = None,
 ) -> torch.Tensor:
     """Fused int8 Conv3x3(SAME) + epilogue on (B, F, T, Cin) float32 ->
     (B, F, T, Cout) float32. ``act_scale`` is the static activation scale
-    (a positive float32 value), or a (B,) float32 tensor on x's device that
-    the kernel reads from memory, one scale per batch element (dynamic
-    scales, :func:`dynamic_act_scale`; their values are not checked, which
-    would synchronise), and ``epi``'s row 0 then holds the weight scales.
-    With ``x2`` the input is the channel concat [x, x2], which the kernel
-    reads in place. ``_kernel="mma"`` runs the
-    ``mma.sync`` kernel where :func:`plan` would pick another route: for the
-    bit-for-bit comparison of the kernels, not for callers."""
+    (a positive float32 value), or None for dynamic scales: ``in_max`` then
+    holds the input's per-element maxima, a (B,) float32 tensor on x's
+    device, max|x[b]|, or at a concat a pair of them, (max|x[b]|,
+    max|x2[b]|) (:func:`input_max`'s forms), from which the kernel forms
+    :func:`dynamic_act_scale`'s
+    value itself (their values are not checked, which would synchronise),
+    and ``epi``'s row 0 holds the weight scales. ``out_max``, a (B,) float32
+    tensor on x's device or None, is raised in place to max|y[b]| of the
+    output (dynamic mode only; start it at zeros). With ``x2`` the input is
+    the channel concat [x, x2], which the kernel reads in place.
+    ``_kernel="mma"`` runs the ``mma.sync`` kernel where :func:`plan` would
+    pick another route: for the bit-for-bit comparison of the kernels, not
+    for callers."""
+    dynamic = act_scale is None
+    _require(dynamic == (in_max is not None), "in_max goes with act_scale=None, and only there")
+    _require(dynamic or out_max is None, "out_max needs the dynamic mode (act_scale=None)")
+    maxima = ()
+    if dynamic:
+        pair = x2 is not None
+        _require(isinstance(in_max, torch.Tensor) != pair and (not pair or len(in_max) == 2),
+                 "in_max must be one (B,) tensor, or a pair (max|x|, max|x2|) at a concat")
+        maxima = tuple(in_max) if pair else (in_max,)
     if x.device.type == "cpu":
-        return qconv3x3_plain(x, w_q, epi, act_scale, residual, relu, x2)
+        return qconv3x3_plain(x, w_q, epi, act_scale, residual, relu, x2, in_max=in_max,
+                              out_max=out_max)
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     _require(x.dtype == torch.float32 and x.ndim == 4,
              f"x must be float32 (B, F, T, Cin), got {x.dtype} {tuple(x.shape)}")
@@ -366,16 +411,15 @@ def qconv3x3(
     how = plan(cin, cout, T)  # raises for a shape no kernel takes
     _require(w_q.dtype == torch.int8 and tuple(w_q.shape) == (cout, k_padded(cin)),
              f"w_q must be int8 ({cout}, {k_padded(cin)}), got {w_q.dtype} {tuple(w_q.shape)}")
-    dynamic = isinstance(act_scale, torch.Tensor)
     if dynamic:
-        _require(act_scale.dtype == torch.float32 and tuple(act_scale.shape) == (B,)
-                 and act_scale.device == x.device and act_scale.is_contiguous(),
-                 f"a dynamic act_scale must be ({B},) float32 on {x.device}, got "
-                 f"{act_scale.dtype} {tuple(act_scale.shape)} on {act_scale.device}")
-        scale_ptr, act_scale = act_scale.data_ptr(), 1.0
+        act_scale = 1.0
     else:
         _require(act_scale > 0 and act_scale != float("inf"), f"bad act_scale {act_scale}")
-        scale_ptr = None
+    for name, m in [("in_max", m) for m in maxima] + [("out_max", out_max)] * (out_max is not None):
+        _require(m.dtype == torch.float32 and tuple(m.shape) == (B,) and m.device == x.device
+                 and m.is_contiguous(),
+                 f"{name} must be ({B},) float32 on {x.device}, got "
+                 f"{m.dtype} {tuple(m.shape)} on {m.device}")
     _require(epi.dtype == torch.float32 and tuple(epi.shape) == (5, cout),
              f"epi must be float32 (5, {cout}), got {epi.dtype} {tuple(epi.shape)}")
     tensors = {"x": x, "w_q": w_q, "epi": epi}
@@ -395,7 +439,9 @@ def qconv3x3(
 
     out = torch.empty((B, F, T, cout), dtype=torch.float32, device=x.device)
     ptrs = (x.data_ptr(), None if x2 is None else x2.data_ptr(), w_q.data_ptr(), epi.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr(), scale_ptr)
+            None if residual is None else residual.data_ptr(), out.data_ptr(),
+            *[None if i >= len(maxima) else maxima[i].data_ptr() for i in range(2)],
+            None if out_max is None else out_max.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         # A stem's channels beyond Cin1 (no x2) are zeros to the kernels.

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from azoom_torch.config import resolve_device
 from azoom_torch.kernels.qconv_kernel import epilogue_params, pack_weights, quantize_weights
 from azoom_torch.models.crn import CRNMaskNet
 from azoom_torch.models.layers import FreqAttention
@@ -107,7 +108,7 @@ def _load_cell(m, p: dict, s: dict, q: dict | None) -> None:
             _load_cell(cbr, p[name], s[name], None if q is None else q[name])
 
 
-def from_flax(cls, variables: dict, model_kwargs: dict, quant: bool = True, device="cpu"):
+def from_flax(cls, variables: dict, model_kwargs: dict, quant: bool = True, device=None):
     """Build the port's ``cls`` (FreqPreservingUNet, DeepFPU or TPUFPU) with
     ``model_kwargs`` and carry the flax ``variables`` across, walking
     ``cls.FLAX_NAMES``. ``quant`` serves the int8 convs or the float ones.
@@ -116,8 +117,9 @@ def from_flax(cls, variables: dict, model_kwargs: dict, quant: bool = True, devi
     checkpoint) each conv quantises its input with the reference QConv's
     dynamic scale, max|x| / 127 + 1e-30 of each batch element's input (one
     chunk or scene, as the reference applies such a net under ``jax.vmap``).
-    Returns
-    the model on ``device`` in eval mode."""
+    Returns the model on ``device`` in eval mode: CUDA when ``device`` is
+    None (a RuntimeError without a card), ``"cpu"`` for the plain path."""
+    device = resolve_device(device)
     kw = {k: v for k, v in model_kwargs.items() if k not in ("quant", "dtype")}
     p, s = variables["params"], variables["batch_stats"]
     if cls is TPUFPU and "FreqAttention_0" in p and "n_freqs" not in kw:
@@ -142,13 +144,13 @@ def from_flax(cls, variables: dict, model_kwargs: dict, quant: bool = True, devi
     return model.to(device).eval()
 
 
-def tpufpu_from_flax(variables: dict, model_kwargs: dict, device="cpu"):
+def tpufpu_from_flax(variables: dict, model_kwargs: dict, device=None):
     """:func:`from_flax` for the int8 TPUFPU (``in_channels`` defaults to the
-    4 physics features)."""
+    4 physics features), on CUDA unless ``device`` names another."""
     return from_flax(TPUFPU, variables, model_kwargs, True, device)
 
 
-def crn_from_flax(variables: dict, model_kwargs: dict, device="cpu") -> CRNMaskNet:
+def crn_from_flax(variables: dict, model_kwargs: dict, device=None) -> CRNMaskNet:
     """Build the port's CRNMaskNet with ``model_kwargs`` (base, hidden,
     n_lstm, unidirectional) and carry the flax ``variables`` of
     azoom.models.crn.CRNMaskNet across. The frequency count comes from
@@ -156,7 +158,9 @@ def crn_from_flax(variables: dict, model_kwargs: dict, device="cpu") -> CRNMaskN
     multiple of 8; 513 unless ``n_freqs`` is given). The flax cells are
     named in the order they were built: OptimizedLSTMCell_i for layer i, or
     2i (forward) and 2i + 1 (backward) when bidirectional. Returns the model
-    on ``device`` in eval mode."""
+    on ``device`` in eval mode: CUDA when ``device`` is None (a RuntimeError
+    without a card), ``"cpu"`` for the plain path."""
+    device = resolve_device(device)
     kw = {k: v for k, v in model_kwargs.items() if k != "dtype"}
     p, s = variables["params"], variables["batch_stats"]
     model = CRNMaskNet(**kw)

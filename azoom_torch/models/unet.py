@@ -13,6 +13,15 @@ reference's ``nn.Conv``, then its bias and BatchNorm in flax's order. The
 forwards are serving-only; the weights come from a flax variables tree
 through :func:`azoom_torch.models.convert.from_flax`.
 
+Without calibrated scales the int8 convs quantise with the reference's
+dynamic scale, ``max|x| / 127 + 1e-30`` of each batch element's input.
+The nets then take it without a pass of its own: one forward zeroes one
+(n, B) buffer of per-element maxima, every conv and upsampling writes its
+output's row in its kernel's epilogue, and each conv reads the rows of its
+inputs and forms the scale itself (:func:`_maxima_rows`, :func:`_pool`).
+Only the stem's input, which no kernel of the net produced, takes one
+reduction (TPUFPU's attention block feeds an upsampling, not a conv).
+
 The time upsampling (a (1, 2)-stride ConvTranspose) stays float32 and runs
 on its own kernel, which sums in the reference's order so the next layer's
 int8 codes come out the same on every device. The 1x1 head is a float32
@@ -29,7 +38,7 @@ import torch
 from torch import nn
 
 from azoom_torch.kernels.convt_kernel import convt1x2
-from azoom_torch.kernels.qconv_kernel import dynamic_act_scale, k_padded, qconv3x3
+from azoom_torch.kernels.qconv_kernel import input_max, k_padded, qconv3x3
 from azoom_torch.models.layers import FreqAttention
 
 __all__ = [
@@ -101,6 +110,45 @@ def pool_time(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, :2 * (T // 2)].reshape(B, F, T // 2, 2, C).amax(dim=3)
 
 
+def _pool(x: torch.Tensor, x_max: torch.Tensor | None):
+    """:func:`pool_time` of a conv cell's output ``x`` and the maxima row to
+    read for it: ``x_max``, x's own row, when the frames are even, else None
+    (the reading conv then reduces the pooled tensor itself). Every cell
+    ends in a ReLU, so x >= 0 and |pooled| = pooled; over an even frame
+    count every frame lies in one pair, so max(pooled[b]) = max(x[b])
+    exactly. An odd count drops the last frame, whose value may be the
+    maximum. (The nets take T % 8 == 0, or 16 for DeepFPU, so their pools
+    all see even counts.)"""
+    return pool_time(x), (x_max if x.shape[2] % 2 == 0 else None)
+
+
+def _no_row() -> None:
+    return None
+
+
+def _maxima_rows(net: nn.Module, x: torch.Tensor):
+    """A callable that gives the next (B,) row of one zeroed (n, B) float32
+    buffer, one for each conv or upsampling output that a later conv reads,
+    when every 3x3 conv of ``net`` is int8 on dynamic scales; else one that
+    gives None (each conv then quantises as it does alone). The count n (0:
+    not all dynamic) is worked out once and kept on ``net`` until a QConv's
+    ``act_scale`` is set again."""
+    kept = net.__dict__.get("_maxima_rows_n")
+    if kept is None or kept[0] != QConv.scales_set:
+        convs = [m for m in net.modules() if isinstance(m, (QConv, FConv))]
+        dynamic = all(isinstance(m, QConv) and m.act_scale is None for m in convs)
+        n = len(convs) + sum(isinstance(m, ConvTranspose1x2) for m in net.modules())
+        kept = net.__dict__["_maxima_rows_n"] = (QConv.scales_set, n if dynamic else 0)
+    if not kept[1]:
+        return _no_row
+    return iter(torch.zeros((kept[1], x.shape[0]), dtype=torch.float32, device=x.device)).__next__
+
+
+def _pair(a: torch.Tensor | None, b: torch.Tensor | None):
+    """The maxima rows of a concat's two inputs, or None without both."""
+    return None if a is None or b is None else (a, b)
+
+
 class QConv(nn.Module):
     """Int8 SAME 3x3 conv with its dequant, bias and BatchNorm in a float32
     epilogue. Buffers: ``w_q`` (Cout, Kpad) int8 tap-major codes and ``epi``
@@ -108,24 +156,41 @@ class QConv(nn.Module):
 
     ``act_scale`` is the static activation scale, or None for the
     reference's dynamic mode (variables without ``quant_stats``): each call
-    then takes ``max|x| / 127 + 1e-30`` of each batch element's input on the
-    device, and ``epi``'s row 0 holds the weight scales that the kernel
-    multiplies by it. Each element is one chunk or one scene, as the
-    reference applies such a net to one at a time under ``jax.vmap``; so an
-    element's output does not depend on the others in its batch."""
+    then quantises with ``max|x| / 127 + 1e-30`` of each batch element's
+    input, which the kernel forms from the input's maxima ``in_max`` (one
+    (B,) row, or a pair at a concat, written by the kernels that produced
+    the input; without it one reduction of the input here), and ``epi``'s
+    row 0 holds the weight scales that the kernel multiplies by it. A
+    dynamic conv raises ``out_max`` to its output's maxima. Each element is
+    one chunk or one scene, as the reference applies such a net to one at a
+    time under ``jax.vmap``; so an element's output does not depend on the
+    others in its batch."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.cin, self.cout = cin, cout
         self.register_buffer("w_q", torch.zeros((cout, k_padded(cin)), dtype=torch.int8))
         self.register_buffer("epi", torch.zeros((5, cout)))
-        # A Python float: the kernel takes it by value, and reading it from
-        # a device tensor would synchronise every call.
         self.act_scale: float | None = 1.0
 
-    def forward(self, x, residual=None, relu: bool = True, x2=None):
-        scale = dynamic_act_scale(x, x2) if self.act_scale is None else self.act_scale
-        return qconv3x3(x, self.w_q, self.epi, scale, residual=residual, relu=relu, x2=x2)
+    scales_set = 0  # how often any QConv's act_scale was set: _maxima_rows's key
+
+    @property
+    def act_scale(self) -> float | None:
+        return self._act_scale
+
+    @act_scale.setter
+    def act_scale(self, value: float | None) -> None:
+        # A Python float: the kernel takes it by value, and reading it from
+        # a device tensor would synchronise every call.
+        self._act_scale = value
+        QConv.scales_set += 1
+
+    def forward(self, x, residual=None, relu: bool = True, x2=None, in_max=None, out_max=None):
+        if self.act_scale is None and in_max is None:
+            in_max = input_max(x, x2)  # an input that no kernel wrote maxima for
+        return qconv3x3(x, self.w_q, self.epi, self.act_scale, residual=residual, relu=relu,
+                        x2=x2, in_max=in_max, out_max=out_max)
 
 
 class FConv(nn.Module):
@@ -149,7 +214,8 @@ class FConv(nn.Module):
         self.register_buffer("weight", torch.zeros((9 * cin, cout)))
         self.register_buffer("epi", torch.zeros((5, cout)))
 
-    def forward(self, x, residual=None, relu: bool = True, x2=None):
+    def forward(self, x, residual=None, relu: bool = True, x2=None, in_max=None, out_max=None):
+        """``in_max`` and ``out_max``, the int8 convs' maxima, are ignored."""
         if x2 is not None:
             x = torch.cat([x, x2], dim=-1)
         B, F, T, C = x.shape
@@ -176,15 +242,17 @@ def _conv3x3(cin: int, cout: int, quant: bool) -> nn.Module:
 
 
 class ConvBNRelu(nn.Module):
-    """Conv 3x3 -> BatchNorm -> ReLU, one fused QConv (or FConv)."""
+    """Conv 3x3 -> BatchNorm -> ReLU, one fused QConv (or FConv). The cells
+    take their input's maxima rows ``in_max``, the row ``out_max`` of their
+    output, and ``rows`` (:func:`_maxima_rows`) for the rows inside them."""
 
     def __init__(self, cin: int, cout: int, quant: bool = True):
         super().__init__()
         self.conv = _conv3x3(cin, cout, quant)
 
-    def forward(self, x, x2=None):
+    def forward(self, x, x2=None, in_max=None, out_max=None):
         """``x2``: a second input, concatenated after ``x`` along channels."""
-        return self.conv(x, relu=True, x2=x2)
+        return self.conv(x, relu=True, x2=x2, in_max=in_max, out_max=out_max)
 
 
 class DoubleConv(nn.Module):
@@ -195,8 +263,9 @@ class DoubleConv(nn.Module):
         self.cbr0 = ConvBNRelu(cin, cout, quant)
         self.cbr1 = ConvBNRelu(cout, cout, quant)
 
-    def forward(self, x, x2=None):
-        return self.cbr1(self.cbr0(x, x2))
+    def forward(self, x, x2=None, in_max=None, out_max=None, rows=_no_row):
+        mid = rows()
+        return self.cbr1(self.cbr0(x, x2, in_max, mid), in_max=mid, out_max=out_max)
 
 
 class ResBlock(nn.Module):
@@ -208,8 +277,19 @@ class ResBlock(nn.Module):
         self.conv0 = _conv3x3(ch, ch, quant)
         self.conv1 = _conv3x3(ch, ch, quant)
 
-    def forward(self, x):
-        return self.conv1(self.conv0(x, relu=True), residual=x, relu=True)
+    def forward(self, x, in_max=None, out_max=None, rows=_no_row):
+        mid = rows()
+        h = self.conv0(x, relu=True, in_max=in_max, out_max=mid)
+        return self.conv1(h, residual=x, relu=True, in_max=mid, out_max=out_max)
+
+
+def _conv_res(conv: ConvBNRelu, res: ResBlock, x, in_max, rows, x2=None, out: bool = True):
+    """A ConvBNRelu then a ResBlock, as every level of DeepFPU and TPUFPU but
+    the first and last runs them: (output, its maxima row; None without
+    ``out``, which a level whose output feeds no conv leaves off, or without
+    rows)."""
+    mid, row = rows(), rows() if out else None
+    return res(conv(x, x2, in_max, mid), in_max=mid, out_max=row, rows=rows), row
 
 
 class ConvTranspose1x2(nn.Module):
@@ -225,8 +305,8 @@ class ConvTranspose1x2(nn.Module):
         self.register_buffer("weight", torch.zeros((cin, 2 * cout)))
         self.register_buffer("bias", torch.zeros(cout))
 
-    def forward(self, x):
-        return convt1x2(x, self.weight, self.bias)
+    def forward(self, x, out_max=None):
+        return convt1x2(x, self.weight, self.bias, out_max)
 
 
 class Head(nn.Module):
@@ -269,13 +349,22 @@ class FreqPreservingUNet(nn.Module):
         self.head = Head(base, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        e1 = self.e1(x.to(torch.float32).contiguous())
-        e2 = self.e2(pool_time(e1))
-        e3 = self.e3(pool_time(e2))
-        b = self.b(pool_time(e3))
-        h = self.d3(self.up3(b), e3)
-        h = self.d2(self.up2(h), e2)
-        h = self.d1(self.up1(h), e1)
+        x = x.to(torch.float32).contiguous()
+        rows = _maxima_rows(self, x)
+        m1 = rows()
+        skips = [(self.e1(x, out_max=m1, rows=rows), m1)]  # the stem's input: one reduction
+        # every pooled tensor below is a cell's ReLU'd output: _pool keeps its row
+        for enc in (self.e2, self.e3):
+            p, pm = _pool(*skips[-1])
+            m = rows()
+            skips.append((enc(p, in_max=pm, out_max=m, rows=rows), m))
+        p, pm = _pool(*skips[-1])
+        h = self.b(p, in_max=pm, rows=rows)
+        # decoder: conv(concat([upsampled, skip])), the concat read in place
+        for up, dec in ((self.up3, self.d3), (self.up2, self.d2), (self.up1, self.d1)):
+            skip, m = skips.pop()
+            mu = rows()
+            h = dec(up(h, mu), skip, _pair(mu, m), rows=rows)
         return torch.sigmoid(self.head(h))[..., 0]
 
 
@@ -320,15 +409,26 @@ class DeepFPU(nn.Module):
         self.head = Head(w1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        e1 = self.e1(x.to(torch.float32).contiguous())
-        e2 = self.e2_res(self.e2_conv(pool_time(e1)))
-        e3 = self.e3_res(self.e3_conv(pool_time(e2)))
-        e4 = self.e4_res(self.e4_conv(pool_time(e3)))
-        b = self.b_res1(self.b_res0(self.b_conv(pool_time(e4))))
-        h = self.d4_res(self.d4_conv(self.up4(b), e4))
-        h = self.d3_res(self.d3_conv(self.up3(h), e3))
-        h = self.d2_res(self.d2_conv(self.up2(h), e2))
-        h = self.d1(self.up1(h), e1)
+        x = x.to(torch.float32).contiguous()
+        rows = _maxima_rows(self, x)
+        m1 = rows()
+        skips = [(self.e1(x, out_max=m1, rows=rows), m1)]  # the stem's input: one reduction
+        # every pooled tensor below is a cell's ReLU'd output: _pool keeps its row
+        for conv, res in ((self.e2_conv, self.e2_res), (self.e3_conv, self.e3_res),
+                          (self.e4_conv, self.e4_res)):
+            skips.append(_conv_res(conv, res, *_pool(*skips[-1]), rows))
+        h, m = _conv_res(self.b_conv, self.b_res0, *_pool(*skips[-1]), rows)
+        h = self.b_res1(h, in_max=m, rows=rows)
+        # decoder: conv(concat([upsampled, skip])), the concat read in place
+        for up, conv, res in ((self.up4, self.d4_conv, self.d4_res),
+                              (self.up3, self.d3_conv, self.d3_res),
+                              (self.up2, self.d2_conv, self.d2_res)):
+            skip, m = skips.pop()
+            mu = rows()
+            h = _conv_res(conv, res, up(h, mu), _pair(mu, m), rows, x2=skip, out=False)[0]
+        skip, m = skips.pop()
+        mu = rows()
+        h = self.d1(self.up1(h, mu), skip, _pair(mu, m), rows=rows)
         return torch.sigmoid(self.head(h))[..., 0]
 
 
@@ -388,16 +488,26 @@ class TPUFPU(nn.Module):
         h = fold_freq(x.to(torch.float32), self.fold)
         if self.tfold > 1:
             h = fold_time(h, self.tfold)
-        e1 = self.e1(h.contiguous())
-        e2 = self.e2_res(self.e2_conv(pool_time(e1)))
-        e3 = self.e3_res(self.e3_conv(pool_time(e2)))
-        b = self.b_res1(self.b_res0(self.b_conv(pool_time(e3))))
+        h = h.contiguous()
+        rows = _maxima_rows(self, h)
+        m1 = rows()
+        skips = [(self.e1(h, out_max=m1, rows=rows), m1)]  # the stem's input: one reduction
+        # every pooled tensor below is a cell's ReLU'd output: _pool keeps its row
+        for conv, res in ((self.e2_conv, self.e2_res), (self.e3_conv, self.e3_res)):
+            skips.append(_conv_res(conv, res, *_pool(*skips[-1]), rows))
+        h, m = _conv_res(self.b_conv, self.b_res0, *_pool(*skips[-1]), rows)
+        h = self.b_res1(h, in_max=m, rows=rows)
         if self.attn is not None:
-            b = self.attn(b).contiguous()
+            h = self.attn(h).contiguous()
         # decoder: conv(concat([upsampled, skip])), the concat read in place
-        h = self.d3_res(self.d3_conv(self.up3(b), e3))
-        h = self.d2_res(self.d2_conv(self.up2(h), e2))
-        h = self.d1(self.up1(h), e1)
+        for up, conv, res in ((self.up3, self.d3_conv, self.d3_res),
+                              (self.up2, self.d2_conv, self.d2_res)):
+            skip, m = skips.pop()
+            mu = rows()
+            h = _conv_res(conv, res, up(h, mu), _pair(mu, m), rows, x2=skip, out=False)[0]
+        skip, m = skips.pop()
+        mu = rows()
+        h = self.d1(self.up1(h, mu), skip, _pair(mu, m), rows=rows)
         out = self.head(h)
         if self.tfold > 1:
             # (..., Fp, Tp, tfold * fold) -> (..., Fp, T, fold): lanes

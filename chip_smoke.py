@@ -253,17 +253,29 @@ Phases, each printing its own line(s):
                version on 4 chunks.
  25. entry points and checkpoints - B2 with dynamic activation scales
                (the reference QConv's max|x| / 127 + 1e-30 of each batch
-               element, taken on the card and held bit for bit against the
-               CPU's, read from memory by the kernel) at the nano shapes of
-               every route (wgmma, narrow, split at 256 -> 256 on 6 frames,
-               and the mma.sync kernel) on signed inputs whose elements lie
-               decades apart, bit for bit against its plain version and,
-               for the elements of the least and the largest scale, against
-               the static launch at their scale, timed beside
-               the static conv, the plain version and torch._int_mm; the
-               bundled nano net served without its calibrated scales through
-               learned_enhance at (128, 2, 32000) on phase 7's scenes against
-               the static net, in turns; a port checkpoint from a 2-step fit
+               element, which the kernel forms from its input's per-element
+               maxima; the scale on the card held bit for bit against the
+               CPU's) at the nano shapes of every route (wgmma, narrow, split
+               at 256 -> 256 on 6 frames, and the mma.sync kernel) on signed
+               inputs whose elements lie decades apart (at a concat, one
+               all zeros and one whose larger maximum is in the skip), bit
+               for bit against its plain version and, for the elements of
+               the least and the largest scale, against the static launch at
+               their scale; the maxima each launch writes of its output
+               (every route, mma.sync, plain) bit for bit
+               torch.linalg.vector_norm(inf)'s; timed as the net wires them
+               (the rows its producers wrote; the stem reduces its input;
+               one fill of the net's maxima) beside the wiring where each
+               conv reduces its own input, the static conv, the plain
+               version and torch._int_mm; convt1x2's maxima at the nano
+               shapes bit for bit, timed with and without them in turns; the
+               bundled nano net served without its calibrated scales: its
+               mask and learned_enhance at (128, 2, 32000) on phase 7's
+               scenes bit for bit the wiring where each conv reduces its own
+               input, the torch ops of one forward of each wiring and of
+               the static net (a dispatch mode; the scales' ops are the
+               difference, at most 4), learned_enhance timed against the static net
+               and the other wiring, in turns; a port checkpoint from a 2-step fit
                of the nano twin served by `cli.batch --ckpt DIR` float and
                --int8 (the dynamic launches of that run are the kernels
                line's; its CSV rows equal those of `--chunk-scenes 2`) and
@@ -285,7 +297,8 @@ reuse tick's net (phase 3's 48-frame family) with the split launches of
 phase 12's reuse ticks, qconv3x3_narrow the narrow route's convs of those
 four conv sets (the stems and Cout = 32) with the narrow launches of their
 phase-16 int8 runs, qconv3x3_dynamic the nano net's convs on dynamic scales
-with the launches of phase 25's `batch --ckpt DIR --int8`; B3 twice: hard_null shared with
+as the net wires them, one fill of its maxima included, with the launches
+of phase 25's `batch --ckpt DIR --int8`; B3 twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run; online_mvdr at one 60 s clip with phase 17's
 launches; online_mvdr_mmic, the M-general instance, at a 60 s 4-mic clip
@@ -1911,49 +1924,38 @@ def phase_train(dev, mix_s, tgt_s, itf_s) -> dict:
     return res
 
 
-def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) -> dict:
-    """25. entry points and checkpoints (module docstring). ``mix_s``,
-    ``tgt_s``, ``itf_s`` are phase 7's far-field scenes on the card. Adds the
-    kernels line's "qconv3x3_dynamic" entry to ``results``; returns the
-    phase's numbers for chip_smoke.json."""
-    import csv
-    import shutil
-    import tempfile
+def phase_dynamic(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s, g) -> dict:
+    """25, first part: B2 and ``convt1x2`` on dynamic scales (module
+    docstring). ``mix_s``, ``tgt_s``, ``itf_s`` are phase 7's far-field scenes
+    on the card, ``g`` the phase's generator. Adds the kernels line's
+    "qconv3x3_dynamic" entry to ``results``; returns the numbers for
+    chip_smoke.json."""
+    import collections
 
     import numpy as np
     import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     from azoom_torch import kernels
-    from azoom_torch.cli import batch as batch_cli
-    from azoom_torch.cli import debug_srp, zoom_study
-    from azoom_torch.cli import run as run_cli
-    from azoom_torch.cli.checkpoint import twin
-    from azoom_torch.config import DEFAULT, PipelineConfig
+    from azoom_torch.config import PipelineConfig
+    from azoom_torch.dsp.stft import stft
     from azoom_torch.eval.projection import osinr_osir
-    from azoom_torch.io.wav import read_wav
-    from azoom_torch.kernels.bench import int_mm_ms
+    from azoom_torch.kernels.bench import _in_turns, int_mm_ms
+    from azoom_torch.kernels.convt_kernel import convt1x2
     from azoom_torch.kernels.qconv_kernel import (
-        dynamic_act_scale, k_padded, plan, qconv3x3, qconv3x3_plain,
+        dynamic_act_scale, input_max, k_padded, plan, qconv3x3, qconv3x3_plain,
     )
+    from azoom_torch.models import unet
     from azoom_torch.models.convert import from_flax
-    from azoom_torch.models.pretrained import (
-        _PORTED, ASSETS, artifact_name, load_bundled, load_pretrained_crn_causal,
-    )
+    from azoom_torch.models.pretrained import _PORTED, ASSETS, artifact_name, load_bundled
     from azoom_torch.models.quantize import load_quantized
-    from azoom_torch.models.trainable import from_bundled
-    from azoom_torch.models.unet import TPUFPU
-    from azoom_torch.pipelines.learned import learned_enhance, learned_enhance_streaming
-    from azoom_torch.pipelines.online_learned import online_learned_enhance
-    from azoom_torch.pipelines.oracle import oracle_enhance
-    from azoom_torch.train.loop import fit, latest_step
+    from azoom_torch.pipelines.learned import _FEATURES, learned_enhance, predict_mask
 
-    t_phase = time.perf_counter()
-    watched = ("matplotlib", "pandas", "tensorstore")
-    loaded_before = {m for m in watched if m in sys.modules}
     res: dict = {}
-    g = torch.Generator(device=dev).manual_seed(25)
-
     # dynamic B2: every route at the nano shapes, bit for bit against plain ---------
+    def bits_equal(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
     def operands(cin, cout, t):
         """Signed inputs whose batch elements lie up to four decades apart;
         element 0's largest magnitude is negative. ``epi``'s row 0 holds the
@@ -1971,10 +1973,6 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
         r = torch.randn((BATCH, F_ROWS, t, cout), generator=g, device=dev)
         return x, w_q, epi, r
 
-    def dyn(conv, xin, w_q, epi, kw):
-        """A dynamic conv as QConv runs it: the (B,) scales, then the conv."""
-        return conv(xin, w_q, epi, dynamic_act_scale(xin, kw.get("x2")), **kw)
-
     shapes = {c[:3] for c in NANO_CONVS} | {(256, 256, 6)}
     per_shape, worst, checked = {}, 0.0, {"wgmma": 0, "narrow": 0, "split": 0, "mma": 0}
     for cin, cout, t in sorted(shapes):
@@ -1985,17 +1983,26 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
         for with_res, cat in sorted(variants):
             kw = dict(residual=r if with_res else None)
             xin = x
-            if cat:
+            if cat:  # element 1's larger maximum in the skip half, element 2 all zeros
                 xin, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
-            s = dynamic_act_scale(xin, kw.get("x2"))
+                xin[1] *= 1e-2
+                xin[2], kw["x2"][2] = 0.0, 0.0
             x2 = kw.get("x2")
+            in_max = input_max(xin, x2)
+            s = dynamic_act_scale(xin, x2)
             s_cpu = dynamic_act_scale(xin.cpu(), None if x2 is None else x2.cpu())
             check(torch.equal(s.cpu(), s_cpu),
                   f"dynamic scales {(cin, cout, t, cat)}: the card's differ from the CPU's")
-            got = qconv3x3(xin, w_q, epi, s, **kw)
-            ref = qconv3x3_plain(xin, w_q, epi, s, **kw)
-            mma = qconv3x3(xin, w_q, epi, s, **kw, _kernel="mma")
+            maxima = {k: torch.zeros(BATCH, device=dev) for k in ("kernel", "plain", "mma")}
+            got = qconv3x3(xin, w_q, epi, None, **kw, in_max=in_max, out_max=maxima["kernel"])
+            ref = qconv3x3_plain(xin, w_q, epi, None, **kw, in_max=in_max,
+                                 out_max=maxima["plain"])
+            mma = qconv3x3(xin, w_q, epi, None, **kw, in_max=in_max, out_max=maxima["mma"],
+                           _kernel="mma")
             differ = {k: int((got != o).sum()) for k, o in (("plain", ref), ("mma", mma))}
+            norm = input_max(got)
+            differ.update({f"maxima_{k}": int((m.view(torch.int32) != norm.view(torch.int32)).sum())
+                           for k, m in maxima.items()})
             # the two elements of the extreme scales alone, on the static launch
             for b in (int(s.argmin()), int(s.argmax())):
                 one = {k: None if a is None else a[b:b + 1] for k, a in kw.items()}
@@ -2017,10 +2024,19 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
             key = (cin, cout, t, with_res, cat)
             if key in NANO_CONVS:
                 s_host = float(s[0])  # the static launch's by-value scale, read once
+                out_max = maxima["kernel"]
+                # the net's wiring: the rows its producers wrote; the stem reduces its input
+                fused = ((lambda: qconv3x3(xin, w_q, epi, None, **kw, in_max=input_max(xin),
+                                           out_max=out_max)) if key == NANO_CONVS[0] else
+                         (lambda: qconv3x3(xin, w_q, epi, None, **kw, in_max=in_max,
+                                           out_max=out_max)))
                 per_shape[key] = dict(
-                    route=route, ms=time_ms(lambda: dyn(qconv3x3, xin, w_q, epi, kw)),
+                    route=route, ms=time_ms(fused),
+                    unfused_ms=time_ms(lambda: qconv3x3(xin, w_q, epi, None, **kw,
+                                                        in_max=input_max(xin, x2))),
                     static_ms=time_ms(lambda: qconv3x3(xin, w_q, epi, s_host, **kw)),
-                    plain_ms=time_ms(lambda: dyn(qconv3x3_plain, xin, w_q, epi, kw),
+                    plain_ms=time_ms(lambda: qconv3x3_plain(xin, w_q, epi, None, **kw,
+                                                            in_max=input_max(xin, x2)),
                                      iters=2, warmup=1),
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
         lib = int_mm_ms(x, w_q, dynamic_act_scale(x).view(-1, 1, 1, 1))
@@ -2028,30 +2044,72 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
             if key[:3] == (cin, cout, t):
                 per_shape[key]["library_ms"] = lib
         del x, r, got, ref, static, mma
+    n_rows = len(NANO_CONVS) + len(NANO_CONVT)  # the net's (n, B) buffer of maxima, zeroed
+    fill_ms = time_ms(lambda: torch.zeros((n_rows, BATCH), device=dev))
     net = [per_shape[c] for c in NANO_CONVS]
     by_bytes = sum(p["bound_ms"] for p in net if p["bound_by"] == "bytes")
     results["qconv3x3_dynamic"] = dict(
         name="qconv3x3_dynamic", route="cuda", source="azoom_torch/csrc/qconv_kernel.cu",
         replaces="azoom/pallas/qconv_kernel.py:53 (QConv's dynamic scale, "
                  "azoom/models/unet.py:166-167)",
-        launches=0, max_abs_err=worst, ms=sum(p["ms"] for p in net),
+        launches=0, max_abs_err=worst, ms=sum(p["ms"] for p in net) + fill_ms,
         plain_ms=sum(p["plain_ms"] for p in net), bound_ms=sum(p["bound_ms"] for p in net),
         bound_by="bytes" if by_bytes >= sum(p["bound_ms"] for p in net) / 2 else "operations",
         library_ms=sum(p["library_ms"] for p in net))
     static_ms = sum(p["static_ms"] for p in net)
+    unfused_ms = sum(p["unfused_ms"] for p in net)
     row = results["qconv3x3_dynamic"]
     log("qconv_dynamic", convs=len(net), checked=checked, ms=f"{row['ms']:.4f}",
-        static_ms=f"{static_ms:.4f}", bound_ms=f"{row['bound_ms']:.4f}",
-        plain_ms=f"{row['plain_ms']:.3f}", int_mm_ms=f"{row['library_ms']:.4f}",
-        elements_differ=0)
+        unfused_ms=f"{unfused_ms:.4f}", static_ms=f"{static_ms:.4f}", fill_ms=f"{fill_ms:.4f}",
+        bound_ms=f"{row['bound_ms']:.4f}", plain_ms=f"{row['plain_ms']:.3f}",
+        int_mm_ms=f"{row['library_ms']:.4f}", elements_differ=0, maxima_differ=0)
     res["qconv_dynamic"] = dict(per_shape={str(k): v for k, v in per_shape.items()},
-                                checked=checked, static_ms=static_ms)
+                                checked=checked, static_ms=static_ms, unfused_ms=unfused_ms,
+                                fill_ms=fill_ms)
+
+    # the upsamplings' maxima at the nano shapes, and their cost, in turns ------------
+    convt_max = {}
+    for k, cout, t in NANO_CONVT:
+        x = torch.randn((BATCH, F_ROWS, t, k), generator=g, device=dev)
+        x[1] = 0.0  # an all-zero element: its maximum is the bias's
+        w = 0.05 * torch.randn((k, 2 * cout), generator=g, device=dev)
+        b = 0.1 * torch.randn(cout, generator=g, device=dev)
+        out_max = torch.zeros(BATCH, device=dev)
+        y = convt1x2(x, w, b, out_max)
+        same = torch.equal(y, convt1x2(x, w, b))
+        check(same and bits_equal(out_max, input_max(y)),
+              f"convt1x2 {(k, cout, t)} with out_max: output equal {same}, maxima "
+              f"{int((out_max != input_max(y)).sum())} differ")
+        plain_ms, amax_ms = _in_turns(lambda: convt1x2(x, w, b),
+                                      lambda: convt1x2(x, w, b, out_max))
+        convt_max[str((k, cout, t))] = dict(ms=plain_ms, out_max_ms=amax_ms)
+        del x, y
+    log("convt_maxima", shapes=len(convt_max), maxima_differ=0,
+        ms=f"{sum(v['ms'] for v in convt_max.values()):.4f}",
+        out_max_ms=f"{sum(v['out_max_ms'] for v in convt_max.values()):.4f}")
+    res["convt_maxima"] = convt_max
 
     # the bundled nano net served on dynamic scales at the main path's batch ----------
     v = load_quantized(ASSETS / artifact_name("tpufpu_nano")[0])
     nets = {"static": load_bundled("tpufpu_nano", quant=True, device=dev)[0],
-            "dynamic": from_flax(TPUFPU, {k: v[k] for k in ("params", "batch_stats")},
+            "dynamic": from_flax(unet.TPUFPU, {k: v[k] for k in ("params", "batch_stats")},
                                  _PORTED["tpufpu_nano"][2], True, dev)}
+    fused_forward = unet.QConv.forward
+
+    def unfused_forward(self, x, residual=None, relu=True, x2=None, in_max=None, out_max=None):
+        """The wiring before the maxima: each dynamic conv reduces its own input."""
+        if self.act_scale is not None:
+            return fused_forward(self, x, residual, relu, x2)
+        return qconv3x3(x, self.w_q, self.epi, None, residual, relu, x2,
+                        in_max=input_max(x, x2))
+
+    def unfused(fn):
+        unet.QConv.forward = unfused_forward
+        try:
+            return fn()
+        finally:
+            unet.QConv.forward = fused_forward
+
     cfg = PipelineConfig(mic_dist=0.04)
     kw = dict(feature_kind="physics")  # steered at the scenes' target, 90 deg
     kernels.reset_launches()
@@ -2060,25 +2118,104 @@ def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) 
     counts = {k: v for k, v in kernels.launches.items() if v}
     want = {"qconv3x3": 21, "qconv3x3_dynamic": 21, "convt1x2": 6, "masked_mvdr": 2}
     check(counts == want, f"learned_enhance static + dynamic: launches {counts}, expected {want}")
+    outs["unfused"] = unfused(lambda: learned_enhance(mix_s, nets["dynamic"], cfg, **kw))
+    Y = stft(mix_s)
+    masks = {"dynamic": predict_mask(nets["dynamic"], Y, "physics"),
+             "unfused": unfused(lambda: predict_mask(nets["dynamic"], Y, "physics"))}
+    bits = dict(mask=int((masks["dynamic"] != masks["unfused"]).sum()),
+                learned_enhance=int((outs["dynamic"] != outs["unfused"]).sum()))
+    check(not any(bits.values()), f"dynamic nano net: elements that differ from the unfused "
+                                  f"wiring {bits}")
+    # the torch ops of one forward (views and allocations aside; the kernels' wrappers
+    # launch by ctypes): the scales' are the dynamic forward's beyond the static's
+    feats = unet.pad_frames(_FEATURES["physics"](Y, 1.0, pair_mode="mean"), 16)[0].contiguous()
+
+    class OpCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and not func.__name__.startswith("empty"):
+                self.ops[func.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    def torch_ops(fn) -> collections.Counter:
+        with torch.inference_mode(), OpCount() as counted:
+            fn()
+        return counted.ops
+
+    ops = {"static": torch_ops(lambda: nets["static"](feats)),
+           "dynamic": torch_ops(lambda: nets["dynamic"](feats)),
+           "unfused": unfused(lambda: torch_ops(lambda: nets["dynamic"](feats)))}
+    scale_ops = {k: dict(ops[k] - ops["static"]) for k in ("dynamic", "unfused")}
+    scale_launches = {k: sum(v.values()) for k, v in scale_ops.items()}
+    check(scale_launches["dynamic"] <= 4 and not ops["static"] - ops["dynamic"],
+          f"the dynamic forward's scale ops {scale_ops}")
     sir = {tag: float((osinr_osir(o, tgt_s, itf_s)[1]
                        - osinr_osir(mix_s[:, 0], tgt_s, itf_s)[1]).mean())
            for tag, o in outs.items()}
     check(all(np.isfinite(list(sir.values()))), f"learned_enhance SIR gains {sir}")
-    times = {"static": [], "dynamic": []}
-    for tag in ("static", "dynamic", "dynamic", "static"):  # in turns
+    calls = {"static": lambda: learned_enhance(mix_s, nets["static"], cfg, **kw),
+             "dynamic": lambda: learned_enhance(mix_s, nets["dynamic"], cfg, **kw),
+             "unfused": lambda: unfused(calls["dynamic"])}
+    times = {tag: [] for tag in calls}
+    for tag in ("static", "dynamic", "unfused", "unfused", "dynamic", "static"):  # in turns
         for i in range(7):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            learned_enhance(mix_s, nets[tag], cfg, **kw)
+            calls[tag]()
             torch.cuda.synchronize()
             if i >= 2:
                 times[tag].append((time.perf_counter() - t0) * 1e3)
     med = {tag: statistics.median(ts) for tag, ts in times.items()}
     log("learned_dynamic", batch=BATCH, launches=counts, ms_median_static=f"{med['static']:.3f}",
-        ms_median_dynamic=f"{med['dynamic']:.3f}", sir_gain_db_static=f"{sir['static']:.2f}",
+        ms_median_dynamic=f"{med['dynamic']:.3f}", ms_median_unfused=f"{med['unfused']:.3f}",
+        scale_ops=scale_ops, scale_launches=scale_launches,
+        differ_from_unfused=bits, sir_gain_db_static=f"{sir['static']:.2f}",
         sir_gain_db_dynamic=f"{sir['dynamic']:.2f}")
-    res["learned_dynamic"] = dict(ms=times, ms_median=med, sir_gain_db=sir)
-    del nets, outs
+    res["learned_dynamic"] = dict(ms=times, ms_median=med, sir_gain_db=sir,
+                                  scale_ops=scale_ops, scale_launches=scale_launches,
+                                  differ_from_unfused=bits)
+    del nets, outs, masks, feats
+    return res
+
+
+def phase_entry_points(dev, results: dict, time_ms, bound, mix_s, tgt_s, itf_s) -> dict:
+    """25. entry points and checkpoints (module docstring). ``mix_s``,
+    ``tgt_s``, ``itf_s`` are phase 7's far-field scenes on the card. Adds the
+    kernels line's "qconv3x3_dynamic" entry to ``results``; returns the
+    phase's numbers for chip_smoke.json."""
+    import csv
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from azoom_torch import kernels
+    from azoom_torch.cli import batch as batch_cli
+    from azoom_torch.cli import debug_srp, zoom_study
+    from azoom_torch.cli import run as run_cli
+    from azoom_torch.cli.checkpoint import twin
+    from azoom_torch.config import DEFAULT
+    from azoom_torch.eval.projection import osinr_osir
+    from azoom_torch.io.wav import read_wav
+    from azoom_torch.models.pretrained import load_bundled, load_pretrained_crn_causal
+    from azoom_torch.models.trainable import from_bundled
+    from azoom_torch.pipelines.learned import learned_enhance_streaming
+    from azoom_torch.pipelines.online_learned import online_learned_enhance
+    from azoom_torch.pipelines.oracle import oracle_enhance
+    from azoom_torch.train.loop import fit, latest_step
+
+    t_phase = time.perf_counter()
+    watched = ("matplotlib", "pandas", "tensorstore")
+    loaded_before = {m for m in watched if m in sys.modules}
+    res: dict = {}
+    g = torch.Generator(device=dev).manual_seed(25)
+
+    res.update(phase_dynamic(dev, results, time_ms, bound, mix_s, tgt_s, itf_s, g))
+
 
     tmp = Path(tempfile.mkdtemp(prefix="azt_phase25_"))
     try:

@@ -57,7 +57,7 @@ def _small(unidirectional: bool, seed: int = 1):
         lambda a: (0.5 + np.abs(rng.standard_normal(a.shape))).astype(np.float32),
         v["batch_stats"])
     tm = crn_from_flax(v, dict(base=4, hidden=8, n_lstm=2, unidirectional=unidirectional,
-                               n_freqs=33))
+                               n_freqs=33), "cpu")
     return jm, v, tm
 
 

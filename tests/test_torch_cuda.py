@@ -22,7 +22,7 @@ from azoom_torch.kernels.int8_mm_kernel import int8_mm, int8_mm_plain
 from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
 from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
 from azoom_torch.kernels.qconv_kernel import (
-    dynamic_act_scale, k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain,
+    dynamic_act_scale, input_max, k_padded, pack_weights, plan, qconv3x3, qconv3x3_plain,
     route_counts,
 )
 
@@ -1257,29 +1257,40 @@ def test_the_train_cli_trains_and_resumes_on_the_card_by_default(cuda, tmp_path,
     (64, 64, 32, True, False, None), (128, 64, 64, False, True, None),
     (256, 256, 6, True, False, None), (128, 64, 16, False, True, "mma")])
 def test_dynamic_scales_match_plain_and_the_static_launch(cuda, cin, cout, t, res, cat, kernel):
-    """B2 reading one activation scale per batch element from device memory
-    (the reference QConv's dynamic mode) on the narrow (a physics stem
-    among them), wgmma, split and mma.sync routes, on signed inputs whose
-    elements lie decades apart: the scales bit for bit the CPU's, the output
-    bit for bit its plain version and, element by element, the static launch
-    at that element's scale."""
+    """B2 forming one activation scale per batch element from its input's
+    maxima in device memory (the reference QConv's dynamic mode; a pair at a
+    concat) on the narrow (a physics stem among them), wgmma, split and
+    mma.sync routes, on signed inputs whose elements lie decades apart (one
+    all zeros at a concat): the scales bit for bit the CPU's, the output bit
+    for bit its plain version and, element by element, the static launch at
+    that element's scale; the maxima it writes of its output bit for bit
+    vector_norm(inf)'s, and the plain version's."""
     rng = np.random.default_rng(cin + cout + t)
     x, w, epi, r = _conv_case(rng, cuda, 3, 129, t, cin, cout, res)
     signs = np.sign(rng.standard_normal(tuple(x.shape))) * np.array([1, 1e-3, 30]).reshape(3, 1, 1, 1)
     x = x * _t(signs.astype(np.float32), cuda)
     x[2].view(-1)[7] = -2 * float(x[2].abs().max())  # element 2's largest magnitude is negative
     kw = dict(residual=r, _kernel=kernel)
+    in_max = input_max(x)
     if cat:
         x, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+        x[1], kw["x2"][1] = 0.0, 0.0  # element 1 is all zeros: scale 1e-30
+        x[0] *= 1e-2  # element 0's larger maximum is in x2
+        in_max = (input_max(x), input_max(kw["x2"]))
     s = dynamic_act_scale(x, kw.get("x2"))
     x2 = kw.get("x2")
     assert torch.equal(s.cpu(), dynamic_act_scale(x.cpu(), None if x2 is None else x2.cpu()))
     epi[0] = _t(1e-3 * (1 + rng.random(cout)).astype(np.float32), cuda)  # the weight scales
     kernels.reset_launches()
-    got = qconv3x3(x, w, epi, s, **kw)
+    out_max = torch.zeros(3, device=cuda)
+    got = qconv3x3(x, w, epi, None, **kw, in_max=in_max, out_max=out_max)
     assert kernels.launches["qconv3x3_dynamic"] == 1 and kernels.launches["qconv3x3"] == 0
+    assert torch.equal(out_max.view(torch.int32), input_max(got).view(torch.int32))
     plain_kw = {k: v for k, v in kw.items() if k != "_kernel"}
-    assert torch.equal(got, qconv3x3_plain(x, w, epi, s, **plain_kw))
+    plain_max = torch.zeros(3, device=cuda)
+    assert torch.equal(got, qconv3x3_plain(x, w, epi, None, **plain_kw, in_max=in_max,
+                                           out_max=plain_max))
+    assert torch.equal(plain_max, out_max)
     for b in range(3):
         one = {k: v if v is None or k == "_kernel" else v[b:b + 1] for k, v in kw.items()}
         epi_b = epi.clone()
@@ -1317,11 +1328,76 @@ def test_a_training_checkpoint_serves_int8_on_the_card(cuda, tmp_path):
         h.remove()
     for conv, x, k in calls:
         x2 = k.get("x2")
-        s = dynamic_act_scale(x, x2)
-        k = dict(residual=k.get("residual"), relu=k.get("relu", True), x2=x2)
-        assert torch.equal(qconv3x3(x, conv.w_q, conv.epi, s, **k),
-                           qconv3x3_plain(x, conv.w_q, conv.epi, s, **k))
+        k = dict(residual=k.get("residual"), relu=k.get("relu", True), x2=x2,
+                 in_max=input_max(x, x2))
+        assert torch.equal(qconv3x3(x, conv.w_q, conv.epi, None, **k),
+                           qconv3x3_plain(x, conv.w_q, conv.epi, None, **k))
     assert float((got - ref).abs().max()) < 1e-2 and float((got - ref).abs().mean()) < 5e-4
+
+
+# The net's three upsamplings (a 96-row tile crosses an element every ~10 to
+# 40 tiles) and a plane of 6 rows an element (every tile crosses many).
+@pytest.mark.parametrize("k,cout,f_rows,t,batch", [
+    (256, 128, 129, 8, 5), (128, 64, 129, 16, 3), (64, 64, 129, 32, 3), (36, 20, 3, 2, 70)])
+def test_convt_kernel_writes_the_maxima_of_its_output(cuda, k, cout, f_rows, t, batch):
+    rng = np.random.default_rng(k + t + batch)
+    x = _t(rng.standard_normal((batch, f_rows, t, k)).astype(np.float32), cuda)
+    x[1] = 0.0  # an all-zero element: its maximum is the bias's
+    x[2] *= 1e-3
+    w = _t((0.05 * rng.standard_normal((k, 2 * cout))).astype(np.float32), cuda)
+    b = _t((0.1 * rng.standard_normal(cout)).astype(np.float32), cuda)
+    out_max = torch.zeros(batch, device=cuda)
+    kernels.reset_launches()
+    got = convt1x2(x, w, b, out_max)
+    assert kernels.launches["convt1x2"] == 1
+    assert torch.equal(got, convt1x2(x, w, b))
+    assert torch.equal(out_max.view(torch.int32), input_max(got).view(torch.int32))
+    assert float(out_max[1]) == float(b.abs().max())
+
+
+def test_the_dynamic_nano_net_equals_its_unfused_wiring_on_the_card(cuda, monkeypatch):
+    """The bundled nano net without its calibrated scales at batch 6: 21
+    dynamic launches, 3 upsamplings and the stem's one reduction; every
+    producer's maxima bit for bit vector_norm(inf) of its output, and the
+    mask bit for bit the wiring where each conv reduces its own input."""
+    from azoom_torch.models import unet
+    from azoom_torch.models.convert import from_flax
+    from azoom_torch.models.pretrained import _PORTED, ASSETS, artifact_name
+    from azoom_torch.models.quantize import load_quantized
+    from azoom_torch.train.data import synth_batch
+
+    v = load_quantized(ASSETS / artifact_name("tpufpu_nano")[0])
+    net = from_flax(unet.TPUFPU, {k: v[k] for k in ("params", "batch_stats")},
+                    _PORTED["tpufpu_nano"][2], True, cuda)
+    feats = synth_batch(6, 6, PipelineConfig(mic_dist=0.04), "physics", device=cuda)["features"]
+    feats[1] = 0.0
+    calls, reductions = [], []
+    handles = [m.register_forward_hook(
+        lambda mod, a, kw, y: calls.append((kw.get("out_max", a[1] if len(a) > 1 else None), y)),
+        with_kwargs=True) for m in net.modules() if isinstance(m, (unet.QConv, unet.ConvTranspose1x2))]
+    counted = unet.input_max
+    monkeypatch.setattr(unet, "input_max", lambda *a: reductions.append(a) or counted(*a))
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = net(feats)
+    for h in handles:
+        h.remove()
+    assert {k: n for k, n in kernels.launches.items() if n} == {"qconv3x3_dynamic": 21,
+                                                                  "convt1x2": 3}
+    assert len(reductions) == 1 and len(calls) == 24
+    written = [(m, y) for m, y in calls if m is not None]
+    assert len(written) == 20
+    for m, y in written:
+        assert torch.equal(m.view(torch.int32), input_max(y).view(torch.int32))
+
+    def unfused(self, x, residual=None, relu=True, x2=None, in_max=None, out_max=None):
+        return qconv3x3(x, self.w_q, self.epi, None, residual, relu, x2,
+                        in_max=counted(x, x2))
+
+    monkeypatch.setattr(unet.QConv, "forward", unfused)
+    with torch.inference_mode():
+        want = net(feats)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_the_run_cli_writes_the_library_call_on_the_card(cuda, tmp_path):

@@ -8,8 +8,8 @@ each reference here is the eager ``apply`` of one element at a time.
 
 Tolerances: the scale bit for bit (``max|x[b]| / 127 + 1e-30`` in float32,
 as the reference's eager ``jnp`` computes it, all-zero input included);
-``qconv3x3_plain`` with (B,) tensor scales bit for bit the float-scale call
-of each element; a small TPUFPU's mask and the FreqPreservingUNet's stem and
+``qconv3x3_plain`` on dynamic scales (formed from the input's (B,) maxima)
+bit for bit the float-scale call of each element; a small TPUFPU's mask and the FreqPreservingUNet's stem and
 decoder cells within 1.5e-7 (of the output's scale, for the cells) of the
 reference's eager ``apply`` once the port's epilogue rows carry XLA's
 BatchNorm multipliers (the one rounding the port does differently,
@@ -31,7 +31,7 @@ import torch
 from azoom.models.unet import TPUFPU as FlaxTPUFPU
 from azoom.models.unet import DoubleConv as FlaxDoubleConv
 from azoom_torch.kernels.qconv_kernel import (
-    dynamic_act_scale, epilogue_params, qconv3x3_plain, quantize_weights,
+    dynamic_act_scale, epilogue_params, input_max, qconv3x3_plain, quantize_weights,
 )
 from azoom_torch.models import convert
 from azoom_torch.models.unet import TPUFPU, DoubleConv, QConv
@@ -96,7 +96,8 @@ def test_the_plain_conv_takes_a_tensor_scale_bit_for_bit():
     scale = dynamic_act_scale(x)
     bias = torch.from_numpy(rng.standard_normal(32).astype(np.float32))
     res = torch.from_numpy(rng.standard_normal((2, 6, 5, 32)).astype(np.float32))
-    a = qconv3x3_plain(x, packed, epilogue_params(1.0, w_scale, bias), scale, residual=res)
+    a = qconv3x3_plain(x, packed, epilogue_params(1.0, w_scale, bias), None, residual=res,
+                       in_max=input_max(x))
     for b in range(2):
         s = float(scale[b])
         want = qconv3x3_plain(x[b:b + 1], packed, epilogue_params(s, w_scale, bias), s,

@@ -101,8 +101,9 @@ def test_build_hash_follows_the_headers(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name,headers", [
     ("int8_mm_kernel", {"wgmma_s8.cuh"}),
-    ("qconv_kernel", {"wgmma_s8.cuh", "qconv_common.cuh"}),
-    ("qconv_mma_kernel", {"qconv_common.cuh"}),
+    ("qconv_kernel", {"wgmma_s8.cuh", "qconv_common.cuh", "act_max.cuh"}),
+    ("qconv_mma_kernel", {"qconv_common.cuh", "act_max.cuh"}),
+    ("convt_kernel", {"act_max.cuh"}),
     ("mvdr_kernel", set()),
 ])
 def test_kernel_sources_name_their_headers(name, headers):

@@ -179,17 +179,20 @@ def test_from_flax_modes():
     without them the reference's dynamic per-call scale; the float mode
     ignores them, and both carry the same float weights across."""
     v = load_quantized(ASSETS / "fpu_b32_int8.npz")
-    dyn = from_flax(FreqPreservingUNet, {k: v[k] for k in ("params", "batch_stats")}, {})
+    dyn = from_flax(FreqPreservingUNet, {k: v[k] for k in ("params", "batch_stats")}, {},
+                    device="cpu")
     convs = [m for m in dyn.modules() if isinstance(m, QConv)]
     assert len(convs) == 14 and all(m.act_scale is None for m in convs)
     flt = from_flax(FreqPreservingUNet, {k: v[k] for k in ("params", "batch_stats")}, {},
-                    quant=False)
+                    quant=False, device="cpu")
     kernel = v["params"]["DoubleConv_0"]["ConvBNRelu_0"]["Conv_0"]["kernel"]
     np.testing.assert_array_equal(flt.e1.cbr0.conv.weight.numpy(), kernel.reshape(18, 32))
-    q = from_flax(FreqPreservingUNet, v, dict(base=32, in_channels=2), quant=True)
+    q = from_flax(FreqPreservingUNet, v, dict(base=32, in_channels=2), quant=True,
+                  device="cpu")
     assert q.e1.cbr0.conv.w_q.shape == (32, 160)  # the stem's 2 channels packed as 16
     d = load_quantized(ASSETS / "deepfpu_b32_phy_int8.npz")
-    assert isinstance(from_flax(DeepFPU, d, dict(base=32), quant=False).b_res1.conv1, FConv)
+    assert isinstance(from_flax(DeepFPU, d, dict(base=32), quant=False, device="cpu")
+                      .b_res1.conv1, FConv)
 
 
 @pytest.mark.parametrize("name", ["fpu", "deepfpu"])

@@ -119,8 +119,8 @@ def test_save_quantized_round_trip(tiny, tmp_path):
     _leaves_equal(Q.load_quantized(tmp_path / "port.npz"), back)
     x = torch.from_numpy(tiny[1])
     with torch.inference_mode():
-        a = from_flax(TPUFPU, Q.load_quantized(tmp_path / "port.npz"), TINY, True)(x)
-        b = from_flax(TPUFPU, Q.load_quantized(tmp_path / "ref.npz"), TINY, True)(x)
+        a = from_flax(TPUFPU, Q.load_quantized(tmp_path / "port.npz"), TINY, True, "cpu")(x)
+        b = from_flax(TPUFPU, Q.load_quantized(tmp_path / "ref.npz"), TINY, True, "cpu")(x)
     assert torch.equal(a, b)
 
 
@@ -167,7 +167,7 @@ def _mask_close(got, ref, what, max_bound, mean_bound) -> None:
 def test_tfold_fattn_serving_matches_eager_apply(tiny, quant):
     _, x, _, calibrated = tiny
     ref = np.asarray(JaxTPUFPU(**TINY, quant=quant).apply(calibrated, jnp.asarray(x)))
-    net = from_flax(TPUFPU, calibrated, TINY, quant)
+    net = from_flax(TPUFPU, calibrated, TINY, quant, "cpu")
     with torch.inference_mode():
         got = net(torch.from_numpy(x)).numpy()
     if quant:

@@ -37,7 +37,8 @@
 //
 // Design: implicit GEMM (M = output pixels, N = Cout, K = 9 * Cin tap-major)
 // in persistent, warp-specialised blocks, one per SM: two consumer
-// warpgroups and 8 producer warps (4 at Cout = 256, see PW below).
+// warpgroups and 8 producer warps (4 at Cout = 256, see PW below), all of
+// which make halos.
 //   - A block takes a contiguous run of tiles, walking down the frequency
 //     rows of one stream. Producers read the next tile's float32 rows (both
 //     inputs of a channel concat in place), quantise them and write the int8
@@ -51,10 +52,14 @@
 //     (Cout, 9 * Cin) are K-major already, which is what wgmma's B wants.
 //     Where all of them fit beside the halos they are loaded once per block
 //     and stay (14 of the net's 21 convs); else K chunks of 128 bytes stream
-//     through a ring of 3 or more stages, once per tile of 128 pixels, fed
-//     by a producer warp of its own (the ring wants a chunk every few
-//     hundred cycles). The host-side plan (kernels/qconv_kernel.py:plan)
-//     decides which, and the ring's depth; the tensor map is cached per layer.
+//     through a ring of 2 or more stages, once per tile of 128 pixels. The
+//     consumers feed the ring themselves: each consumer warp counts itself
+//     done with a stage in a shared-memory counter, and the eighth asks TMA
+//     for the chunk `stages` chunks later into it at once. A warp of the
+//     ring's own would wait for an empty stage most of a tile while the halo
+//     producers are the critical role (one of 4 producer warps at Cout =
+//     256). The host-side plan (kernels/qconv_kernel.py:plan) decides
+//     which, and the ring's depth; the tensor map is cached per layer.
 //   - Two consumer warpgroups own 64 * MI pixels each and all Cout channels:
 //     wgmma m64nCoutk32 s8, B through a shared-memory descriptor, A from
 //     registers by ldmatrix out of the halo (pixels padded by 16 bytes, so
@@ -66,8 +71,8 @@
 //   - Epilogue: the five epilogue rows sit in shared memory; each warp
 //     stages 16 pixels x 32 channels at a time through its own patch of
 //     shared memory and writes (and reads the residual, which the block asked
-//     L2 for when the tile began) 16 bytes a lane, 128 contiguous bytes per
-//     pixel. It overlaps the producers' next halo.
+//     L2 for when the tile began, and L1 for a slab ahead) 16 bytes a lane,
+//     128 contiguous bytes per pixel. It overlaps the producers' next halo.
 // The split route (template Split, Cout of 256 or 512 on N = 256): the
 // shapes above leave the mma.sync kernel's 32-pixel tiles, which streamed the
 // whole weight matrix from L2 for every 32 pixels (2.36 MB a tile at
@@ -82,12 +87,14 @@
 //     of 128), and K is walked part by part, tap-major inside a part (the
 //     TMA coordinate of a chunk is tap * Cin + part * Cs + ...). The int32
 //     sums are exact, so their order does not change a bit. Each part is a
-//     halo unit of its own in the double buffer, so the producers make the
-//     next part while the consumers multiply this one; odd slices walk the
-//     parts backwards, so a slice begins on the unit the last one ended with.
-//   What bounds it (the clocks build): the halo producers, which read a
-//   tile's input once per slice when it comes in parts; the consumers wait
-//   for halos for up to ~45 % of a tile at 512 -> 512.
+//     halo unit of its own in a buffer of its own, made once a tile and kept
+//     for every slice, which walk the parts in the same order: the producers
+//     make the next part while the consumers multiply this one, and the next
+//     tile's first part while the last slice runs. The plan takes the fewest
+//     parts whose n_parts buffers leave room for two weight stages (4 units a
+//     tile at 512 -> 512 on 4 frames); shapes where none does (Cin = 512 on
+//     64-frame tiles) go to the mma.sync kernel, and Cin >= 1024 on wide
+//     tiles fits no kernel.
 //   - At 6 frames a 4-wide tile's halos are 13 % larger than an 8-wide
 //     tile's: the plan takes the tile width that pads the frames least
 //     (8 for 6 frames, its last two columns masked as at any ragged edge).
@@ -122,6 +129,23 @@
 // bundled net runs them at 48, 64 or 80 frames) stay on the mma.sync kernel;
 // the wrapper picks by shape (kernels/qconv_kernel.py:plan).
 //
+// What bounds the streaming instances now (the clocks build, NVIDIA H100
+// 80GB HBM3 at 700 W, kernels/bench.py clocks --nets 256x256x8,512x512x4):
+// the consumers. At 256 -> 256 on 8 frames a tile takes them ~42 k cycles
+// of products (the wgmma work alone is 18.4 k; ~35 k in an earlier form of
+// this file whose only differences here were constant-folded bookkeeping),
+// ~8 k of epilogue and ~5 k waiting for a halo, while the producers load
+// and quantise a halo in ~41 k; at 512 -> 512 on 4 frames 144 k of
+// products (73.7 k of wgmma work) against ~101 k for the four parts. A
+// consumer waits for a weight stage ~5 % of a tile. Tried on the same card and not kept: the weights multicast to
+// clusters of 2 or 4 blocks (15-55 % slower: a stage is empty only when
+// every block of the cluster is done with it, which couples the blocks'
+// halo producers); the float32 halo by TMA through a staging ring in shared
+// memory (its stages came out of the weight ring; 30-60 % slower, the
+// quantisers waiting on each box); the next group's ldmatrix issued before
+// wgmma_wait<1> on a second fragment set (2-5 % faster with the producer
+// warp of its own, 8-16 % slower once every producer warp made halos).
+//
 // Built with -DAZT_QCONV_CLOCKS (kernels/bench.py clocks), block 0 also sums
 // the cycles its first consumer thread and first producer thread spend
 // waiting and working, per tile: the profilers that read stall reasons do
@@ -144,8 +168,14 @@ constexpr int kConsumers = 256;
 constexpr int kStageRow = 40;          // floats per staged output row: 32 channels + 8 of padding
 constexpr int kStageBytes = 8 * 16 * kStageRow * 4;  // 16 rows for each consumer warp
 constexpr int kMaxStages = 18;         // K chunks of Cin = 256
-constexpr int kBarBytes = (2 * kMaxStages + 4) * 8;
+constexpr int kMaxParts = 8;           // halo parts of a split tile, each in a buffer of its own
+// The barriers: a full barrier and a count for each weight stage, a full and
+// an empty barrier for kMaxParts halo buffers, whatever an instance uses (a
+// block sized to each instance's buffers measured the same on an NVIDIA H100
+// 80GB HBM3 at 700 W, kernels/bench.py qconv --against).
+constexpr int kBarBytes = (2 * kMaxStages + 2 * kMaxParts) * 8;
 constexpr int kSmemLimit = 232448;     // bytes a block may have on sm_90
+constexpr int kClockSlots = 7;         // sums of the clocks build (Params::clocks)
 
 struct Params {
   const float* x;
@@ -168,8 +198,10 @@ struct Params {
   int stages;                         // weight ring; == n_chunks: the weights stay (not Split)
   uint32_t magic_hw, magic_c4;        // ceil(2^32 / (TW + 2)), ceil(2^32 / (Cs / 4))
 #ifdef AZT_QCONV_CLOCKS
-  // cycles of block 0: consumer waiting for a halo, in the products, in the epilogue;
-  // producer waiting for a buffer, loading and quantising; tiles
+  // cycles of block 0 (kClockSlots sums): consumer waiting for a halo, in the
+  // products (its waits for weights included), in the epilogue; producer waiting
+  // for a buffer, loading and quantising; tiles; the consumer waiting for a
+  // full weight stage
   long long* clocks;
 #endif
 };
@@ -201,40 +233,75 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
   const int Cs = Split ? p.Cs : Tap16 ? 16 : p.Cin;  // channels of a halo part
   const int Cout = Split ? p.Cout : N;
   const int n_parts = Split ? p.n_parts : 1, n_slices = Split ? p.n_slices : 1;
-  // Halo units a tile takes: one halo of all channels serves every slice;
-  // in parts, odd slices walk the parts backwards, so a slice's first part
-  // is the unit the slice before it ended with.
-  const int units = n_parts == 1 ? 1 : n_slices * (n_parts - 1) + 1;
+  // A tile's halo units: its n_parts parts, each made once and kept for
+  // every slice. Two buffers, taken in turn by the tiles, hold a halo of all
+  // channels; parts take a buffer each (n_parts, a power of two).
+  const int nbuf = n_parts == 1 ? 2 : n_parts;
   const int CinP = Cs + 16;                 // pixel stride of the halo
   const int halo_bytes = (FR + 2) * HW * CinP;
   // A stem: Cin1 = 2 or 4 channels of x, zero-extended to Cin = 16.
   const bool stem = Tap16 && p.x2 == nullptr && p.Cin1 < p.Cin;
   const bool resident = !Split && p.stages == p.n_chunks;  // the split route's weights stream
-  // The producer warps make the halos; one of them only feeds the weight ring, if there is one.
-  const int n_halo = resident ? 32 * PW : 32 * (PW - 1);
+  const int n_halo = 32 * PW;  // the producer warps make the halos
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((kTileAlign - (smem_u32(smem_raw) & (kTileAlign - 1))) &
                                     (kTileAlign - 1));
   unsigned char* wbuf = smem;                              // stages x (N rows x 128 K bytes)
-  unsigned char* halo0 = wbuf + p.stages * kWStage;        // two int8 halos
-  unsigned char* stage0 = halo0 + 2 * halo_bytes;          // the consumers' output patches
+  unsigned char* halo0 = wbuf + p.stages * kWStage;        // nbuf int8 halos
+  unsigned char* stage0 = halo0 + nbuf * halo_bytes;       // the consumers' output patches
   float* epi_s = reinterpret_cast<float*>(stage0 + kStageBytes);  // (5, Cout)
   uint64_t* w_full = reinterpret_cast<uint64_t*>(epi_s + 5 * Cout);
-  uint64_t* w_empty = w_full + kMaxStages;
-  uint64_t* h_full = w_empty + kMaxStages;
-  uint64_t* h_empty = h_full + 2;
+  int* w_done = reinterpret_cast<int*>(w_full + kMaxStages);  // consumer warps done with a stage
+  uint64_t* h_full = w_full + 2 * kMaxStages;
+  uint64_t* h_empty = h_full + kMaxParts;
 
+  // The weights, by TMA. Weights that stay are requested once, by the
+  // first producer thread. A ring is fed by its consumers: the last consumer
+  // warp done with a stage (w_done counts them) asks for the chunk that
+  // comes `stages` chunks later, at once, so no thread waits to feed it and
+  // every producer warp makes halos.
+  const int tile_begin = (int)((long)blockIdx.x * p.n_tiles / gridDim.x);
+  const int tile_end = (int)((long)(blockIdx.x + 1) * p.n_tiles / gridDim.x);
+  const int chunks_per_tile = n_slices * n_parts * p.n_chunks;
+  const int n_wchunks = (tile_end - tile_begin) * chunks_per_tile;  // the ring's, of this block
+  // Chunk (ns, part, c) of a tile into a stage.
+  auto load_chunk = [&](int stage, int ns, int part, int c) {
+    // K byte of the chunk: contiguous with one part, else tap-major in the part
+    const int cpt = Cs / kSwizzleRow;
+    const int k = n_parts == 1 ? c * kSwizzleRow
+                               : (c / cpt) * p.Cin + part * Cs + (c % cpt) * kSwizzleRow;
+    mbar_arrive_expect_tx(w_full + stage, kWStage);
+    tma_load_2d(wbuf + stage * kWStage, &map_w, w_full + stage, k, ns * N);
+  };
+  // A chunk's place in its tile, (ns, part, c), and on to the next chunk.
+  struct ChunkAt {
+    int ns, part, c;
+  };
+  auto next_chunk = [&](ChunkAt& at) {
+    if (++at.c == p.n_chunks) {
+      at.c = 0;
+      if (++at.part == n_parts) {
+        at.part = 0;
+        if (++at.ns == n_slices) at.ns = 0;
+      }
+    }
+  };
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
-      mbar_init(w_full + s, 1);    // the weight warp's arrive; the TMA unit adds the bytes
-      mbar_init(w_empty + s, 8);   // one lane of each consumer warp
+      mbar_init(w_full + s, 1);    // one arrive with the bytes; the TMA unit adds them
+      w_done[s] = 0;
     }
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < nbuf; ++b) {
       mbar_init(h_full + b, n_halo);
       mbar_init(h_empty + b, 8);
     }
     mbar_init_fence();
+    if (!resident) {
+      ChunkAt at = {0, 0, 0};
+      for (int q = 0; q < p.stages && q < n_wchunks; ++q, next_chunk(at))
+        load_chunk(q, at.ns, at.part, at.c);
+    }
   }
   for (int i = threadIdx.x; i < 5 * Cout; i += kThreads) epi_s[i] = p.epi[i];
   if (stem)  // channels Cin1 .. 15 of every halo pixel stay zero codes
@@ -246,38 +313,13 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
   // tile, row tile): the next tile is mostly the one below, whose first two
   // halo rows are this tile's last two.
   const int tiles_per_b = p.n_ftiles * p.n_ttiles;
-  const int tile_begin = (int)((long)blockIdx.x * p.n_tiles / gridDim.x);
-  const int tile_end = (int)((long)(blockIdx.x + 1) * p.n_tiles / gridDim.x);
 
   if (threadIdx.x >= kConsumers) {
     // ======================= producers =======================================
     reg_dealloc<(PW == 8 ? 96 : 104)>();
     const int ptid = threadIdx.x - kConsumers;
-    // ---- the weights, by TMA ------------------------------------------------------
-    // Weights that stay are requested once, by the first halo thread. A ring
-    // needs a chunk every few hundred cycles, more often than a thread that
-    // also makes halos comes by: it gets producer warp 0 to itself.
-    if (!resident && ptid < 32) {
-      if (ptid == 0) {
-        int s = 0, parity = 1;  // a fresh stage is empty
-        const int cpt = Cs / kSwizzleRow;  // chunks per tap of a part (n_parts > 1)
-        for (int tile = tile_begin; tile < tile_end; ++tile)
-          for (int ns = 0; ns < n_slices; ++ns)
-            for (int part = 0; part < n_parts; ++part)
-              for (int c = 0; c < p.n_chunks; ++c) {
-                mbar_wait(w_empty + s, parity);
-                mbar_arrive_expect_tx(w_full + s, kWStage);
-                // K byte of the chunk: contiguous with one part, else tap-major in the part
-                const int pt = ns & 1 ? n_parts - 1 - part : part;
-                const int k = n_parts == 1
-                                  ? c * kSwizzleRow
-                                  : (c / cpt) * p.Cin + pt * Cs + (c % cpt) * kSwizzleRow;
-                tma_load_2d(wbuf + s * kWStage, &map_w, w_full + s, k, ns * N);
-                if (++s == p.stages) { s = 0; parity ^= 1; }
-              }
-      }
-    } else {
-      const int htid = resident ? ptid : ptid - 32;
+    {
+      const int htid = ptid;
       if (resident && htid == 0) {
         for (int c = 0; c < p.n_chunks; ++c) {
           mbar_arrive_expect_tx(w_full + c, kWStage);
@@ -291,31 +333,26 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       const int n_items = (FR + 2) * HW * ipp;
       float s = p.act_scale, rs = 1.f / s;
       int b_s = -1;  // Dyn: the element whose scale s is
-      // the part of a tile's halo unit: 0, 1, .., n_parts - 1, n_parts - 2, .., 0
-      auto part_of = [&](int unit) {
-        const int bounce = unit % (2 * n_parts - 2 + (n_parts == 1));
-        return bounce < n_parts ? bounce : 2 * n_parts - 2 - bounce;
-      };
       int it = 0;  // halo units made
       for (int tile = tile_begin; tile < tile_end; ++tile)
-      for (int unit = 0; unit < units; ++unit, ++it) {
+      for (int part = 0; part < n_parts; ++part, ++it) {
         const int b = tile / tiles_per_b, rem = tile - b * tiles_per_b;
         if (Dyn && b != b_s) s = scale_of_max(p.x_max, p.x2_max, b), rs = 1.f / s, b_s = b;
         const int ft = rem % p.n_ftiles;
         const int f0 = ft * FR - 1, t0 = (rem / p.n_ftiles) * TW - 1;
-        const int c4_0 = part_of(unit) * cs4;  // first float4 of this part's channels
-        const int buf = it & 1;
+        const int c4_0 = part * cs4;  // first float4 of this part's channels
+        const int buf = it & (nbuf - 1);
         uint32_t* halo32 = reinterpret_cast<uint32_t*>(halo0 + buf * halo_bytes);
 #ifdef AZT_QCONV_CLOCKS
         const long long tp0 = clock64();
 #endif
-        mbar_wait(h_empty + buf, ((it >> 1) & 1) ^ 1);
+        mbar_wait(h_empty + buf, (((unsigned)it / nbuf) & 1) ^ 1);
         // Every halo thread is done with the previous unit (whose halo the
         // slower ones may still be copying from) before any writes into it.
-        if (it > 0) mbar_wait(h_full + (buf ^ 1), ((it - 1) >> 1) & 1);
+        if (it > 0) mbar_wait(h_full + ((it - 1) & (nbuf - 1)), ((unsigned)(it - 1) / nbuf) & 1);
         // Below the block's previous tile, whose halo holds all channels:
         // halo rows 0 and 1 are that halo's rows FR and FR + 1.
-        const bool below = units == 1 && it > 0 && ft > 0;
+        const bool below = n_parts == 1 && it > 0 && ft > 0;
         if (below) {
           const uint4* src = reinterpret_cast<const uint4*>(halo0 + (buf ^ 1) * halo_bytes +
                                                             FR * HW * CinP);
@@ -404,6 +441,11 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       for (int i = 0; i < N / 2; ++i) acc[mi][i] = 0;
 
     int ws = 0, wparity = 0;  // the weight ring, when it streams
+    int wq = 0;               // chunks of the ring taken
+    // The chunk that a release asks for next: `stages` chunks ahead (every
+    // warp walks it, whichever turns out to be the eighth).
+    ChunkAt ahead = {0, 0, 0};
+    for (int q = 0; q < p.stages; ++q) next_chunk(ahead);
     int it = 0;               // halo units taken
     float sb = 0.f;           // Dyn: the s1 factor, the scale of element b_s
     int b_s = -1;
@@ -413,7 +455,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       if (Dyn && b != b_s) sb = scale_of_max(p.x_max, p.x2_max, b), b_s = b;
       uint32_t out_bits = 0;  // Dyn: the largest |y| this thread stores in the tile, as bits
 #ifdef AZT_QCONV_CLOCKS
-      long long t_wait = 0, t_prod = 0, t_epi = 0;
+      long long t_wait = 0, t_prod = 0, t_epi = 0, t_full = 0;
 #endif
 
       // Ask L2 for the tile's residual now; the epilogue's reads then find it there.
@@ -432,15 +474,14 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       for (int ns = 0; ns < n_slices; ++ns) {
         int ks = 0;  // K step of the slice: 32 channels of one tap of one part
         for (int part = 0; part < n_parts; ++part) {
-          // A halo unit of its own for each part, but for the one a slice
-          // shares with the next; one for all slices when it holds all channels.
-          const bool fresh = n_parts == 1 ? ns == 0 : ns == 0 || part > 0;
-          const int buf = it & 1;
+          // Each part's unit is made once a tile and serves every slice.
+          const int unit_no = it + part;
+          const int buf = unit_no & (nbuf - 1);
           const uint32_t halo = smem_u32(halo0 + buf * halo_bytes);
 #ifdef AZT_QCONV_CLOCKS
           const long long tc0 = clock64();
 #endif
-          if (fresh) mbar_wait(h_full + buf, (it >> 1) & 1);
+          if (ns == 0) mbar_wait(h_full + buf, ((unsigned)unit_no / nbuf) & 1);
 #ifdef AZT_QCONV_CLOCKS
           const long long tc1 = clock64();
           t_wait += tc1 - tc0;
@@ -448,9 +489,31 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 
           // ---- products -----------------------------------------------------------
           int c0 = 0, dx = 0, tap_off = 0;  // channel offset, and the tap's offset in the halo
+          // This warp is done with chunk q in `stage`: the eighth to say so
+          // asks for chunk q + stages into it.
+          auto release = [&](int stage, int q) {
+            __syncwarp();
+            if (lane == 0) {
+              __threadfence_block();
+              if (atomicAdd(w_done + stage, 1) % 8 == 7 && q + p.stages < n_wchunks)
+                load_chunk(stage, ahead.ns, ahead.part, ahead.c);
+            }
+            next_chunk(ahead);
+          };
           for (int c = 0; c < p.n_chunks; ++c) {
             const int s = resident ? c : ws;
+#ifdef AZT_QCONV_CLOCKS
+            const long long tf0 = clock64();
+#endif
             mbar_wait(w_full + s, resident ? 0 : wparity);
+#ifdef AZT_QCONV_CLOCKS
+            t_full += clock64() - tf0;
+#endif
+            const int q = wq;
+            if (!resident) {
+              ++wq;
+              if (++ws == p.stages) { ws = 0; wparity ^= 1; }
+            }
             const uint64_t db = wgmma_desc(smem_u32(wbuf + s * kWStage));
             const int steps = min(4, n_ksteps - 4 * c);
             for (int j0 = 0; j0 < steps; j0 += G) {
@@ -493,18 +556,14 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
               wgmma_commit();
               wgmma_wait<0>();
             }
-            if (!resident) {  // this warp is done with the stage
-              __syncwarp();
-              if (lane == 0) mbar_arrive(w_empty + s);
-              if (++ws == p.stages) { ws = 0; wparity ^= 1; }
-            }
+            if (!resident) release(s, q);  // this warp is done with the stage
           }
 #pragma unroll
           for (int mi = 0; mi < MI; ++mi) acc_fence(acc[mi]);
-          if (ns == n_slices - 1 || (n_parts > 1 && part < n_parts - 1)) {  // its last use
+          if (ns == n_slices - 1) {  // its last use
             __syncwarp();
             if (lane == 0) mbar_arrive(h_empty + buf);  // the producers may refill this halo
-            ++it;
+            if (part == n_parts - 1) it += n_parts;     // the tile's units are taken
           }
 #ifdef AZT_QCONV_CLOCKS
           t_prod += clock64() - tc1;
@@ -527,8 +586,18 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
             obase[q] = f < p.F && t < p.T
                            ? (((long)b * p.F + f) * p.T + t) * Cout + nb + 4 * (lane & 7) : -1;
           }
+          // The residual comes from L2 (asked for when the tile began) into
+          // L1 a slab ahead, while the slab before it is dequantised.
+          auto residual_to_l1 = [&](int slab) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (obase[q] >= 0)
+                asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p.res + obase[q] + slab * 32));
+          };
+          if (p.res) residual_to_l1(0);
 #pragma unroll
           for (int slab = 0; slab < N / 32; ++slab) {
+            if (p.res && slab + 1 < N / 32) residual_to_l1(slab + 1);
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
               const int j = slab * 4 + jj, n = 8 * j + 2 * tg;
@@ -584,6 +653,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
         p.clocks[1] += t_prod;
         p.clocks[2] += t_epi;
         p.clocks[5] += 1;
+        p.clocks[6] += t_full;
       }
 #endif
     }
@@ -593,7 +663,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #ifdef AZT_QCONV_CLOCKS
 long long* clocks_buffer() {
   static long long* buf = nullptr;
-  if (!buf) cudaMalloc(&buf, 6 * sizeof(long long));
+  if (!buf) cudaMalloc(&buf, kClockSlots * sizeof(long long));
   return buf;
 }
 #endif
@@ -601,8 +671,9 @@ long long* clocks_buffer() {
 template <int N, int MI, int PW, bool Split, bool Tap16, bool Dyn>
 int launch_mode(const Params& p, const void* w, int smem, int tile_w, cudaStream_t stream) {
   const int fr = (128 * MI) / tile_w;
+  const int nbuf = p.n_parts == 1 ? 2 : p.n_parts;  // halo buffers
   const int need = kTileAlign + p.stages * N * kSwizzleRow +
-                   2 * (fr + 2) * (tile_w + 2) * (p.Cs + 16) + kStageBytes + 5 * p.Cout * 4 +
+                   nbuf * (fr + 2) * (tile_w + 2) * (p.Cs + 16) + kStageBytes + 5 * p.Cout * 4 +
                    kBarBytes;
   if (need != smem || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   static int raised = 0;
@@ -708,7 +779,7 @@ extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const 
                                F, T, Cin, Cin1, Cout, m_tile, tw_log2, Cin, 1, stages);
   cudaStream_t st = (cudaStream_t)stream;
 #ifdef AZT_QCONV_CLOCKS
-  cudaMemsetAsync(p.clocks, 0, 6 * sizeof(long long), st);
+  cudaMemsetAsync(p.clocks, 0, kClockSlots * sizeof(long long), st);
 #endif
   if (Cin == 16)  // 16-channel taps
     return Cout == 32 ? launch<32, 4, 8, false, true>(p, w, smem, tile_w, st)
@@ -721,9 +792,10 @@ extern "C" int azt_qconv3x3(const void* x, const void* x2, const void* w, const 
 
 // The split route: the same operands with Cout of 256 or 512, walked in
 // Cout / 256 slices of 256 output channels and Cin / part_channels halo parts
-// (part_channels == Cin, or a multiple of 128 that divides it). Tiles of 128
-// pixels; stages of the weight ring, which always streams; the other
-// arguments and the return value as azt_qconv3x3.
+// (part_channels == Cin, or a multiple of 128 that divides it into 2, 4 or 8
+// parts, each made once a tile in a buffer of its own). Tiles of 128 pixels;
+// stages of the weight ring, which always streams; the other arguments and
+// the return value as azt_qconv3x3.
 extern "C" int azt_qconv3x3_split(const void* x, const void* x2, const void* w, const void* epi,
                                   const void* res, void* out, const void* x_max,
                                   const void* x2_max, void* out_max, float act_scale, int relu,
@@ -732,23 +804,25 @@ extern "C" int azt_qconv3x3_split(const void* x, const void* x2, const void* w, 
   const int Cs = part_channels;
   const int tw_log2 = log2_of(tile_w);
   if (Cin % 32 || Cin1 % 4 || (Cout != 256 && Cout != 512) || tw_log2 < 0 || tile_w > 64 ||
-      Cs < 32 || Cs % 32 || Cin % Cs || (Cs != Cin && Cs % kSwizzleRow) || stages < 1 ||
-      stages > kMaxStages || !maxima_ok(x2, x_max, x2_max, out_max))
+      Cs < 32 || Cs % 32 || Cin % Cs || (Cs != Cin && Cs % kSwizzleRow) ||
+      Cin / Cs > kMaxParts || (Cin / Cs & (Cin / Cs - 1)) || stages < 1 || stages > kMaxStages ||
+      !maxima_ok(x2, x_max, x2_max, out_max))
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(x, x2, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B,
                                F, T, Cin, Cin1, Cout, 128, tw_log2, Cs, Cout / 256, stages);
   cudaStream_t st = (cudaStream_t)stream;
 #ifdef AZT_QCONV_CLOCKS
-  cudaMemsetAsync(p.clocks, 0, 6 * sizeof(long long), st);
+  cudaMemsetAsync(p.clocks, 0, kClockSlots * sizeof(long long), st);
 #endif
   return launch<256, 1, 4, true>(p, w, smem, tile_w, st);
 }
 
 #ifdef AZT_QCONV_CLOCKS
-// The six sums of the last launch (see Params::clocks), after it has ended.
+// The kClockSlots sums of the last launch (see Params::clocks), after it has ended.
 extern "C" int azt_qconv3x3_clocks(long long* out) {
   const cudaError_t e = cudaDeviceSynchronize();
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaMemcpy(out, clocks_buffer(), 6 * sizeof(long long), cudaMemcpyDeviceToHost);
+  return (int)cudaMemcpy(out, clocks_buffer(), kClockSlots * sizeof(long long),
+                         cudaMemcpyDeviceToHost);
 }
 #endif

@@ -26,24 +26,33 @@ kernel (the same kernel where the plan picks it), then both timed in turns
 (``copy_ms``: what the card's memory gives a kernel that does nothing else),
 ``torch._int_mm`` on the conv's im2col'd int8 codes (``int_mm_ms``: the bare
 GEMM, made outside the timing) and the bound (``bound_ms``: bytes over 3.35
-TB/s or operations over 1,979 TOP/s, the larger). With ``--against DIR``
-it also builds DIR's ``qconv_kernel.cu`` and ``qconv_mma_kernel.cu`` (the C
-interface they had before the dynamic mode read maxima: one (B,) scale
-pointer, ``azt_qconv3x3(x, x2, w, epi, res, out, scale, act_scale, relu,
-...)``), counts the outputs that differ from it on the static launch and on
-the dynamic one (there at ``dynamic_act_scale``'s scales, here from the
-input's maxima), times the static launch of both in turns (earlier,
-current, current, earlier: ``earlier_ms``, ``turns_ms``) and sums both by
-net and route over the variants each net runs (``qconv_routes``).
+TB/s or operations over 1,979 TOP/s, the larger); each row also carries the
+bytes a tile of the route moves from L2 into its SM, from the plan
+(``weight_bytes_per_tile``: the streamed weights, 0 where they stay;
+``halo_bytes_per_tile``: the float32 input of its halo units, at most). With
+``--against DIR`` it
+also builds DIR's ``qconv_kernel.cu`` and ``qconv_mma_kernel.cu`` (the C
+interface of the dynamic mode's maxima, launched by DIR's own
+``../kernels/qconv_kernel.py`` plan), counts the
+outputs that differ from it on the static launch and on the dynamic one
+(both from the input's maxima) and the maxima the dynamic launches write,
+times the static launch of both in turns (earlier, current, current,
+earlier: ``earlier_ms``, ``turns_ms``) and sums both by net and route over
+the convs each net runs, each variant times its launches in the net
+(``qconv_routes``; ``NET:streaming`` sums the wgmma and split convs whose
+weights stream through the ring).
 
 ``clocks [--nets NET,...]`` (alone): builds the ``wgmma`` conv with
 ``-DAZT_QCONV_CLOCKS`` and prints, per shape of the nets that runs on it
-(any of its routes: wgmma, narrow, split), the cycles per tile that block
-0's first consumer thread spends waiting for a halo, in the products and in
-the epilogue (its stores), and that its first producer thread spends
-waiting for a halo buffer and loading and quantising (per tile: the split
-route makes a halo unit per part and slice, less the part two slices
-share): which role bounds the kernel, where no profiler reads stalls.
+(any of its routes: wgmma, narrow, split; ``--nets CINxCOUTxT,...`` picks
+shapes, such as the instances whose weights stream), the cycles per tile
+that block 0's first consumer thread spends waiting for a halo, in the
+products (of which waiting for a full weight stage, ``wait_weights``) and
+in the epilogue (its stores), and that its first halo producer thread
+spends waiting for a halo buffer and loading and quantising (per tile: the
+split route makes each halo part once a tile), with the plan's L2 -> SM
+bytes a tile: which role bounds the kernel, where no profiler reads
+stalls.
 
 ``convt``: the three upsamplings of the bundled net at batch 128 held
 against the plain version (the count of elements that are not bit-equal to
@@ -210,7 +219,7 @@ def bench_int8_mm(dev, quick: bool) -> dict:
 
 
 def net_conv_shapes(net: str) -> tuple[int, dict]:
-    """(plane rows, {(Cin, Cout, frames): (launches, variants the net runs)})
+    """(plane rows, {(Cin, Cout, frames): (launches, {variant: its launches})})
     of a bundled net's 3x3 convs at 64 input frames (``name@N``: at N); a
     variant is (with residual, concat input). ``CINxCOUTxT`` is that one
     shape on a plane of 129 rows, as no net runs it."""
@@ -218,13 +227,13 @@ def net_conv_shapes(net: str) -> tuple[int, dict]:
     from azoom_torch.models.unet import TPUFPU, conv_shapes
 
     if re.fullmatch(r"\d+x\d+x\d+", net):
-        return F_ROWS, {tuple(int(v) for v in net.split("x")): (1, {(False, False)})}
+        return F_ROWS, {tuple(int(v) for v in net.split("x")): (1, {(False, False): 1})}
     name, _, frames = net.partition("@")
     model, _ = load_bundled(name, device="cpu")
     shapes: dict = {}
     for cin, cout, t, res, cat in conv_shapes(model, int(frames or 64)):
-        n, variants = shapes.get((cin, cout, t), (0, set()))
-        shapes[(cin, cout, t)] = (n + 1, variants | {(res, cat)})
+        n, variants = shapes.get((cin, cout, t), (0, {}))
+        shapes[(cin, cout, t)] = (n + 1, {**variants, (res, cat): variants.get((res, cat), 0) + 1})
     return (F_ROWS if isinstance(model, TPUFPU) else 513), shapes
 
 
@@ -241,10 +250,17 @@ def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",), against: Path | None = 
             got = _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t,
                                     launches, variants, earlier)
             rows.update(got)
+            streams = not qk.plan(cin, cout, t)["resident"] and qk.plan(cin, cout, t)["kernel"] in (
+                "wgmma", "split")
             for row in got.values():
                 if "earlier_ms" in row and row["runs_in_net"]:
-                    old, new = routes.get((net, row["kernel"]), (0.0, 0.0))
-                    routes[(net, row["kernel"])] = (old + row["earlier_ms"], new + row["turns_ms"])
+                    # by route, and the instances whose weights stream together, each
+                    # variant times its launches in the net
+                    for group in (row["kernel"],) + (("streaming",) if streams else ()):
+                        old, new = routes.get((net, group), (0.0, 0.0))
+                        n = row["launches_of_variant"]
+                        routes[(net, group)] = (old + n * row["earlier_ms"],
+                                                new + n * row["turns_ms"])
     if routes:
         rows["qconv_routes"] = {f"{n}:{r}": dict(earlier_ms=a, ms=b)
                                 for (n, r), (a, b) in routes.items()}
@@ -255,26 +271,38 @@ def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",), against: Path | None = 
 
 
 def _earlier_qconv(qk, src_dir: Path):
-    """A call of DIR's B2 kernels with their C interface before the dynamic
-    mode read maxima: ``fn(x, w_q, epi, act_scale, residual, x2, scale)``,
-    ``scale`` a (B,) tensor of dynamic scales or None."""
+    """A call of DIR's B2 kernels with their C interface of the dynamic
+    mode's maxima (``azt_qconv3x3(x, x2, w, epi, res, out, x_max, x2_max,
+    out_max, act_scale, relu, B, F, T, Cin, Cin1, Cout, tile_w, stages, smem,
+    stream)``, the split entry with the part's channels before ``stages``)
+    and DIR's own plan (``DIR/../kernels/qconv_kernel.py``, loaded from its
+    file): ``fn(x, w_q, epi, act_scale, residual, x2, in_max=, out_max=)``,
+    as :func:`qconv_kernel.qconv3x3` takes them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_earlier_qconv_plan", Path(src_dir).parent / "kernels" / "qconv_kernel.py")
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
     lib = earlier_library(src_dir, "qconv_kernel")
     entries = {"wgmma": (lib.azt_qconv3x3, 10), "split": (lib.azt_qconv3x3_split, 11),
                "mma": (earlier_library(src_dir, "qconv_mma_kernel").azt_qconv3x3_mma, 8)}
     for fn, ints in entries.values():
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * ints
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
-    def call(x, w_q, epi, act_scale, residual=None, x2=None, scale=None):
+    def call(x, w_q, epi, act_scale, residual=None, x2=None, in_max=None, out_max=None):
         B, F, T, cin1 = x.shape
         cin, cout = cin1 + (0 if x2 is None else x2.shape[3]), w_q.shape[0]
-        how = qk.plan(cin, cout, T)
+        how = old.plan(cin, cout, T)
+        maxima = () if in_max is None else tuple(in_max) if x2 is not None else (in_max,)
         out = torch.empty((B, F, T, cout), dtype=torch.float32, device=x.device)
         ptrs = (x.data_ptr(), None if x2 is None else x2.data_ptr(), w_q.data_ptr(),
                 epi.data_ptr(), None if residual is None else residual.data_ptr(),
-                out.data_ptr(), None if scale is None else scale.data_ptr())
-        head = (*ptrs, 1.0 if scale is not None else act_scale, 1, B, F, T)
+                out.data_ptr(), *[m.data_ptr() for m in maxima], *[None] * (2 - len(maxima)),
+                None if out_max is None else out_max.data_ptr())
+        head = (*ptrs, 1.0 if act_scale is None else act_scale, 1, B, F, T)
         stream = torch.cuda.current_stream().cuda_stream
         if how["kernel"] in ("wgmma", "narrow"):
             rc = entries["wgmma"][0](*head, qk.kernel_cin(cin), cin1, cout, how["tile_w"],
@@ -303,7 +331,8 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
     ]).astype(np.float32)).to(dev)
     res = torch.from_numpy(rng.standard_normal((batch, f_rows, t, cout))
                            .astype(np.float32)).to(dev)
-    route = qk.plan(cin, cout, t)["kernel"]
+    how = qk.plan(cin, cout, t)
+    route = how["kernel"]
     rows = {}
     for variant in ("plain", "res") + (("cat",) if any(c for _, c in variants) else ()):
         kw = dict(residual=res if variant == "res" else None)
@@ -316,15 +345,22 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
         torch.cuda.synchronize()
         rel = float((new - ref).abs().max()) / float(ref.abs().max())
         row = dict(net=net, rows=f_rows, kernel=route, launches=launches,
+                   launches_of_variant=variants.get((variant == "res", variant == "cat"), 0),
                    runs_in_net=(variant == "res", variant == "cat") in variants,
                    bit_equal=bool(torch.equal(new, old)),
                    not_bit_equal_to_plain=int((new != ref).sum()), rel_err_vs_plain=rel)
+        if route != "mma":  # L2 -> SM bytes a tile moves, from the plan
+            row.update(weight_bytes_per_tile=how["weight_bytes"],
+                       halo_bytes_per_tile=how["halo_bytes"])
         if earlier is not None:
             row["not_bit_equal_to_earlier"] = int((new != earlier(xin, w_q, epi, act_scale,
                                                                   **kw)).sum())
-            dyn = qk.qconv3x3(xin, w_q, epi, None, **kw, in_max=qk.input_max(xin, kw.get("x2")))
-            was = earlier(xin, w_q, epi, None, **kw, scale=qk.dynamic_act_scale(xin, kw.get("x2")))
+            in_max = qk.input_max(xin, kw.get("x2"))
+            m_new, m_old = (torch.zeros(batch, device=dev) for _ in range(2))
+            dyn = qk.qconv3x3(xin, w_q, epi, None, **kw, in_max=in_max, out_max=m_new)
+            was = earlier(xin, w_q, epi, None, **kw, in_max=in_max, out_max=m_old)
             row["not_bit_equal_to_earlier_dynamic"] = int((dyn != was).sum())
+            row["maxima_not_bit_equal_to_earlier"] = int((m_new != m_old).sum())
             del dyn, was
         if not quick:
             # a device-to-device copy that moves as many bytes as this conv must
@@ -360,7 +396,8 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
         if row["not_bit_equal_to_plain"]:
             raise AssertionError(f"qconv {key}: {row['not_bit_equal_to_plain']} outputs differ "
                                  "from the plain version")
-        if row.get("not_bit_equal_to_earlier") or row.get("not_bit_equal_to_earlier_dynamic"):
+        if (row.get("not_bit_equal_to_earlier") or row.get("not_bit_equal_to_earlier_dynamic")
+                or row.get("maxima_not_bit_equal_to_earlier")):
             raise AssertionError(f"qconv {key}: differs from the earlier kernel: {row}")
     return rows
 
@@ -391,7 +428,8 @@ def bench_clocks(dev, nets=("tpufpu_nano",)) -> dict:
     qk.BUILD_DEFINES = ("AZT_QCONV_CLOCKS",)  # before the first launch loads the library
     read = build.load_library("qconv_kernel", qk.BUILD_DEFINES).azt_qconv3x3_clocks
     read.argtypes, read.restype = [ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int
-    names = ("wait_halo", "products", "epilogue", "wait_buffer", "load_quantise")
+    names = ("wait_halo", "products", "epilogue", "wait_buffer", "load_quantise", None,
+             "wait_weights")
     rng = np.random.default_rng(2)
     rows = {}
     todo = [(f_rows, shape) for net in nets
@@ -410,13 +448,15 @@ def bench_clocks(dev, nets=("tpufpu_nano",)) -> dict:
         for variant in ("plain", "res"):
             for _ in range(3):
                 qk.qconv3x3(x, w_q, epi, 0.026, residual=res if variant == "res" else None)
-            sums = (ctypes.c_longlong * 6)()
+            sums = (ctypes.c_longlong * len(names))()
             build.check(read(sums), "qconv3x3 clocks")
-            row = {n: round(sums[i] / sums[5]) for i, n in enumerate(names)}
-            parts = how.get("n_parts", 1)  # a slice shares its first part with the one before
-            row.update(tiles_of_block_0=int(sums[5]), m_tile=how["m_tile"], route=how["kernel"],
-                       halo_units_per_tile=1 if parts == 1 else how["n_slices"] * (parts - 1) + 1,
-                       weights="resident" if how["resident"] else f"ring of {how['stages']}")
+            tiles = sums[5]
+            row = {n: round(sums[i] / tiles) for i, n in enumerate(names) if n}
+            row.update(tiles_of_block_0=int(tiles), m_tile=how["m_tile"], route=how["kernel"],
+                       halo_units_per_tile=how.get("n_parts", 1),
+                       weights="resident" if how["resident"] else f"ring of {how['stages']}",
+                       weight_bytes_per_tile=how["weight_bytes"],
+                       halo_bytes_per_tile=how["halo_bytes"])
             rows[str((cin, cout, t, variant))] = row
             print(f"[clocks] {(cin, cout, t, variant)} per tile: " + " ".join(
                 f"{k}={v}" for k, v in row.items()), flush=True)

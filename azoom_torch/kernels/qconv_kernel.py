@@ -55,9 +55,10 @@ it runs :func:`qconv3x3_plain`. Which kernel is a matter of shape alone
     of 2, 4 or 16, Cout of 32 or 64) and Cin % 32 == 0 with Cout = 32 (the
     base-32 nets' first and last levels), where it fits;
   - "split", the same kernel in slices of 256 output channels, the halo in
-    parts of Cs channels and a tile as wide as pads the frames least: Cin %
-    32 == 0 with Cout of 256 or 512 where "wgmma" does not fit (Cout = 512,
-    Cin = 512, 256 -> 256 at 6 frames);
+    parts of Cs channels (each made once a tile and kept for every slice)
+    and a tile as wide as pads the frames least: Cin % 32 == 0 with Cout of
+    256 or 512 where "wgmma" does not fit (Cout = 512, Cin = 512, 256 -> 256
+    at 6 frames);
   - the ``mma.sync`` kernel takes the rest, which no bundled net runs at 48,
     64 or 80 frames (Cout of 64 or 128 whose halos leave no room for three
     weight stages, Cout = 32 at Cin >= 256, Cin % 32 == 16 beyond 16, stems
@@ -91,10 +92,11 @@ BUILD_DEFINES: tuple[str, ...] = ()
 # Launches by route since import (kernels.launches counts all as "qconv3x3").
 route_counts = {"wgmma": 0, "narrow": 0, "split": 0, "mma": 0}
 
-# csrc/qconv_kernel.cu's shared memory, beside the weight stages and the two
+# csrc/qconv_kernel.cu's shared memory, beside the weight stages and the
 # halos: slack to align the swizzled tiles, the consumer warps' output
-# patches (8 warps x 16 rows x 40 floats), the 5 epilogue rows, the barriers.
-_TILE_ALIGN, _STAGING, _BARRIERS, _MAX_STAGES = 1024, 8 * 16 * 40 * 4, (2 * 18 + 4) * 8, 18
+# patches (8 warps x 16 rows x 40 floats), the 5 epilogue rows, the barriers
+# (of 18 weight stages and 8 halo buffers).
+_TILE_ALIGN, _STAGING, _BARRIERS, _MAX_STAGES = 1024, 8 * 16 * 40 * 4, (2 * 18 + 2 * 8) * 8, 18
 COUTS = (32, 64, 128, 256, 512)  # the output widths a kernel takes
 STEM_CINS = (2, 4)  # input widths below 16 the kernels take, as 16 zero-extended channels
 
@@ -265,25 +267,32 @@ def _plan_split(cin: int, cout: int, frames: int) -> dict | None:
     """The split instance's plan (Cin % 32 == 0, Cout of 256 or 512): tiles
     of 128 pixels, Cout / 256 slices of 256 channels, and the halo in
     ``n_parts`` parts of ``part_channels`` = Cin / n channels (a multiple of
-    128 when n > 1), the fewest parts with which two halos and three weight
-    stages of 256 x 128 bytes fit; None if no part size does. Its weights
-    always stream through the ring."""
+    128 when n > 1), each made once a tile and kept for every slice: the
+    fewest parts that fit, one in two halo buffers beside three weight
+    stages of 256 x 128 bytes, or n > 1 in a buffer each beside two; None if
+    no part size fits. Its weights always stream through the ring."""
     if cin % 32 or cout not in (256, 512):
         return None
     tile_w = _split_tile_w(frames)
     tile_rows = 128 // tile_w
+    n_slices = cout // 256
     for n_parts in (1, 2, 4, 8):
         cs = cin // n_parts
         if cin % n_parts or (n_parts > 1 and cs % 128):
             continue
+        buffers = max(2, n_parts)
         halo = (tile_rows + 2) * (tile_w + 2) * (cs + 16)
-        fixed = _TILE_ALIGN + 2 * halo + _STAGING + 5 * cout * 4 + _BARRIERS
+        fixed = _TILE_ALIGN + buffers * halo + _STAGING + 5 * cout * 4 + _BARRIERS
         stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // (256 * 128))
-        if stages >= 3:
-            return dict(kernel="split", m_tile=128, tile_w=tile_w, tile_rows=tile_rows,
-                        k_chunks=-(-9 * cs // 128), stages=stages, resident=False,
-                        part_channels=cs, n_parts=n_parts, n_slices=cout // 256,
-                        smem=fixed + stages * 256 * 128)
+        if stages < (3 if buffers == 2 else 2):
+            continue
+        k_chunks = -(-9 * cs // 128)
+        return dict(kernel="split", m_tile=128, tile_w=tile_w, tile_rows=tile_rows,
+                    k_chunks=k_chunks, stages=stages, resident=False,
+                    part_channels=cs, n_parts=n_parts, n_slices=n_slices,
+                    halo_buffers=buffers, smem=fixed + stages * 256 * 128,
+                    weight_bytes=n_slices * n_parts * k_chunks * 256 * 128,
+                    halo_bytes=(tile_rows + 2) * (tile_w + 2) * cin * 4)
     return None
 
 
@@ -299,16 +308,20 @@ def plan(cin: int, cout: int, frames: int) -> dict:
     (kernel_cin(Cin) + 16) bytes, ``stages`` weight chunks of Cout x 128
     bytes and a fixed part. All ``k_chunks`` = ceil(k_padded(Cin) / 128)
     chunks are kept (``resident``) if they fit in 232,448 bytes, else as many
-    stream through a ring as fit, at least 3. "narrow" is this plan at
+    stream through a ring as fit, at least 3 (the consumers feed it). The
+    plan also says what a tile moves from L2 into its SM: ``weight_bytes``
+    (the streamed chunks; 0 where they stay) and ``halo_bytes`` (the float32
+    input of its halo, at most). "narrow" is this plan at
     16-channel taps (the stems of Cin 2, 4 and 16, Cout of 32 or 64) or
     Cout = 32; "wgmma" at Cin % 32 == 0 and Cout of 64, 128 or 256.
     ``kernel`` "split" (:func:`_plan_split`), where that does not fit or
     Cout = 512, for Cout of 256 or 512: the same kernel walking ``n_slices``
     slices of 256 channels and ``n_parts`` halo parts of ``part_channels``
-    channels. ``kernel`` "mma": the ``mma.sync`` kernel's tile (256 * 64 /
-    Cout pixels) and bytes, for what no plan above fits or takes. Raises
-    ValueError for a shape no kernel takes: Cin must be 2, 4 or a positive
-    multiple of 16, Cout one of :data:`COUTS`."""
+    channels in ``halo_buffers`` buffers. ``kernel`` "mma": the ``mma.sync``
+    kernel's tile (256 * 64 / Cout pixels) and bytes, for what no plan above
+    fits or takes. Raises ValueError for a shape no kernel takes: Cin must be
+    2, 4 or a positive multiple of 16, Cout one of :data:`COUTS`, and no
+    kernel fits Cin >= 1024 with Cout of 256 or 512 on wide tiles."""
     if cin not in STEM_CINS and (cin < 16 or cin % 16):
         raise ValueError(f"qconv3x3: Cin must be 2, 4 or a multiple of 16, got {cin}")
     if cout not in COUTS:
@@ -326,9 +339,12 @@ def plan(cin: int, cout: int, frames: int) -> dict:
         k_chunks = -(-k_padded(cin) // 128)
         stages = min(k_chunks, _MAX_STAGES, (SMEM_LIMIT - fixed) // (cout * 128))
         if stages >= min(3, k_chunks):
+            resident = stages == k_chunks
             return dict(kernel="narrow" if narrow else "wgmma", m_tile=m_tile, tile_w=tile_w,
                         tile_rows=tile_rows, k_chunks=k_chunks, stages=stages,
-                        resident=stages == k_chunks, smem=fixed + stages * cout * 128)
+                        resident=resident, smem=fixed + stages * cout * 128,
+                        weight_bytes=0 if resident else k_chunks * cout * 128,
+                        halo_bytes=(tile_rows + 2) * (tile_w + 2) * cin * 4)
     return _plan_split(cin, cout, frames) or _plan_mma(cin, cout, frames)
 
 

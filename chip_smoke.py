@@ -20,7 +20,14 @@ Phases, each printing its own line(s):
                narrow route at the 16-channel stem, held bit for bit against
                the plain version and the mma.sync kernel: the wrapper picks
                by shape); torch._int_mm on explicitly im2col'd int8 operands
-               is timed beside it as the bare GEMM. Then every conv of the
+               is timed beside it as the bare GEMM; the six convs whose
+               weights stream (128 -> 256, 256 -> 256 x 4, the 256 -> 128
+               concat) summed beside their _int_mm and bound. Every instance
+               whose weights stream (wgmma at N = 256 and 128, the split
+               route in one halo part or in 2 or 4, on one slice or two)
+               bit for bit the plain version and the mma.sync kernel,
+               static and dynamic, its maxima too, on one stream, a tile or
+               a few, ragged rows, a residual or a concat. Then every conv of the
                net (with and without a residual, and the concat convs) at the
                frame families of the server's full tick (80 / 40 / 20 / 10)
                and reuse tick (48 / 24 / 12 / 6), with each shape's route,
@@ -2398,7 +2405,9 @@ def main() -> int:
     from azoom_torch.kernels.int8_mm_kernel import MICROBENCH_SHAPES, int8_mm, int8_mm_plain
     from azoom_torch.kernels.mvdr_kernel import masked_mvdr_fused
     from azoom_torch.kernels.nullsteer_kernel import hard_null_cond, hard_null_fused, hard_null_plain
-    from azoom_torch.kernels.qconv_kernel import k_padded, plan, qconv3x3, qconv3x3_plain, route_counts
+    from azoom_torch.kernels.qconv_kernel import (
+        input_max, k_padded, plan, qconv3x3, qconv3x3_plain, route_counts,
+    )
     from azoom_torch.masks.oracle import ibm_target_mask
     from azoom_torch.models.pretrained import load_bundled
     from azoom_torch.pipelines.learned import (
@@ -2629,6 +2638,65 @@ def main() -> int:
     log("qconv_net", convs=len(net), ms=f"{results['qconv3x3']['ms']:.4f}",
         bound_ms=f"{results['qconv3x3']['bound_ms']:.4f}",
         int_mm_ms=f"{results['qconv3x3']['library_ms']:.4f}", max_abs_err=f"{worst:.3e}")
+    # the six convs whose weights stream through the ring (128 -> 256, 256 -> 256 x 4,
+    # the 256 -> 128 concat), against the bare GEMM and their bound
+    streaming = [s for s in NANO_CONVS if not plan(*s[:3])["resident"]]
+    check(len(streaming) == 6, f"qconv: {len(streaming)} streaming convs in the nano net, want 6")
+    log("qconv_streaming", convs=len(streaming),
+        ms=f"{sum(per_shape[s]['ms'] for s in streaming):.4f}",
+        int_mm_ms=f"{sum(per_shape[s]['library_ms'] for s in streaming):.4f}",
+        bound_ms=f"{sum(per_shape[s]['bound_ms'] for s in streaming):.4f}",
+        shapes=[f"{s[0]}-{s[1]}@{s[2]}" + "+res" * s[3] + "+cat" * s[4] for s in streaming])
+
+    # every instance whose weights stream, static and dynamic, bit for bit the plain version
+    # and the mma.sync kernel, the maxima too: one stream, one tile or a few, ragged rows,
+    # a residual or a concat (batch, rows, frames, Cin, Cout, residual, concat)
+    stream_cases = [
+        (1, 129, 8, 256, 256, True, False), (3, 17, 8, 128, 256, False, False),
+        (1, 5, 8, 256, 256, False, True), (2, 131, 16, 256, 128, True, True),
+        (1, 9, 12, 256, 128, False, True), (1, 513, 4, 512, 512, True, False),
+        (3, 40, 4, 512, 512, False, True), (1, 3, 4, 256, 512, True, False),
+        (2, 131, 4, 256, 512, False, False), (1, 129, 6, 256, 256, True, False),
+        (3, 7, 8, 512, 256, False, True), (1, 1, 6, 128, 256, True, False),
+        (1, 131, 4, 512, 256, True, False), (3, 5, 4, 512, 256, False, True)]
+    # their own generator, so that the later phases' data does not depend on how many
+    # cases run here
+    case_rng = np.random.default_rng(20)
+    for batch, rows, t, cin, cout, with_res, cat in stream_cases:
+        how = plan(cin, cout, t)
+        check(not how["resident"], f"qconv {(cin, cout, t)}: weights resident, want streaming")
+        x = torch.from_numpy(np.abs(case_rng.standard_normal((batch, rows, t, cin)))
+                             .astype(np.float32)).to(dev)
+        w_q = torch.zeros((cout, k_padded(cin)), dtype=torch.int8)
+        w_q[:, :9 * cin] = torch.from_numpy(
+            case_rng.integers(-127, 128, (cout, 9 * cin)).astype(np.int8))
+        w_q = w_q.to(dev)
+        epi = torch.from_numpy(np.stack([
+            np.full(cout, 2e-4), 0.1 * case_rng.standard_normal(cout),
+            0.1 * case_rng.standard_normal(cout), 1 + 0.1 * case_rng.standard_normal(cout),
+            0.1 * case_rng.standard_normal(cout),
+        ]).astype(np.float32)).to(dev)
+        kw = dict(residual=torch.from_numpy(case_rng.standard_normal((batch, rows, t, cout))
+                                            .astype(np.float32)).to(dev) if with_res else None)
+        if cat:
+            x, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+        got = qconv3x3(x, w_q, epi, act_scale, **kw)
+        differ = int((got != qconv3x3_plain(x, w_q, epi, act_scale, **kw)).sum()) + int(
+            (got != qconv3x3(x, w_q, epi, act_scale, **kw, _kernel="mma")).sum())
+        in_max = input_max(x, kw.get("x2"))
+        maxima = [torch.zeros(batch, device=dev) for _ in range(3)]
+        dyn = qconv3x3(x, w_q, epi, None, **kw, in_max=in_max, out_max=maxima[0])
+        differ += int((dyn != qconv3x3_plain(x, w_q, epi, None, **kw, in_max=in_max,
+                                             out_max=maxima[1])).sum())
+        differ += int((dyn != qconv3x3(x, w_q, epi, None, **kw, in_max=in_max, out_max=maxima[2],
+                                       _kernel="mma")).sum())
+        differ += int((maxima[0] != input_max(dyn)).sum() + (maxima[0] != maxima[1]).sum()
+                      + (maxima[0] != maxima[2]).sum())
+        check(differ == 0, f"qconv streaming {(batch, rows, t, cin, cout, with_res, cat)} on "
+                           f"{how['kernel']}: {differ} elements or maxima differ")
+        del x, kw, got, dyn
+    log("qconv_streaming_cases", cases=len(stream_cases), elements_differ=0,
+        routes=sorted({plan(c[3], c[4], c[2])["kernel"] for c in stream_cases}))
 
     # the server's frame families: a full tick (80 frames: a 64-frame tile and
     # a 16-frame tail) and a reuse tick (48 frames; 6 at the bottleneck, where
@@ -3375,7 +3443,8 @@ def main() -> int:
                                    "elements differ from the plain version")
                 route = plan(cin, cout, t)["kernel"]
                 vs_mma = 0
-                if route in ("split", "narrow"):  # against the mma.sync kernel they replaced
+                # against the mma.sync kernel they replaced: split, narrow, streamed weights
+                if route in ("split", "narrow") or not plan(cin, cout, t)["resident"]:
                     vs_mma = mma_differ(xin, w_q, epi, kw)
                     check(vs_mma == 0, f"qconv {net} {(cin, cout, t, with_res, cat)}: {vs_mma} "
                                        "elements differ from the mma.sync kernel")

@@ -127,12 +127,13 @@ def test_qconv_base32_shapes_bit_equal_to_plain(cuda, batch, f_rows, t, cin, cou
 
 # The split route's shapes (Cout = 512, Cin = 512, 256 -> 256 at few frames)
 # on ragged 131-row planes at batch 2, and at 6 and 7 frames against the tile
-# of 8: Cin, Cout, T, residual, concat.
+# of 8; 512 -> 256 at 4 and 20 frames in four parts on one slice: Cin, Cout,
+# T, residual, concat.
 @pytest.mark.parametrize("cin,cout,t,res,cat", [
     (256, 512, 4, False, False), (512, 512, 4, True, False), (512, 256, 8, False, True),
     (256, 512, 8, True, False), (512, 512, 8, False, False), (512, 256, 16, True, True),
     (256, 256, 6, True, False), (256, 256, 7, False, False), (512, 512, 3, True, False),
-    (256, 512, 6, False, False)])
+    (256, 512, 6, False, False), (512, 256, 4, True, False), (512, 256, 20, False, True)])
 def test_qconv_split_route_bit_equal_to_plain_and_mma(cuda, cin, cout, t, res, cat):
     rng = np.random.default_rng(7 * cin + cout + t)
     assert plan(cin, cout, t)["kernel"] == "split"
@@ -143,6 +144,49 @@ def test_qconv_split_route_bit_equal_to_plain_and_mma(cuda, cin, cout, t, res, c
     got = qconv3x3(x, w, epi, 0.026, **kw)
     assert torch.equal(got, qconv3x3_plain(x, w, epi, 0.026, **kw))
     assert torch.equal(got, qconv3x3(x, w, epi, 0.026, **kw, _kernel="mma"))
+
+
+# The instances whose weights stream through the ring that their consumers
+# feed: wgmma at N = 256 (128 -> 256, 256 -> 256) and N = 128 (256 -> 128, the
+# decoder's concat), and the split route, each part made once a tile: four
+# parts on two slices (512 -> 512 at 4 frames) or on one (512 -> 256 at 4),
+# two on one slice (512 -> 256 at 8), one on two slices (256 -> 512) or on
+# one (256 -> 256 at 6 frames): one stream, one tile or a few, F not a
+# multiple of the tile's rows, and a residual or a concat. batch, F, T, Cin,
+# Cout, residual, concat.
+@pytest.mark.parametrize("batch,f_rows,t,cin,cout,res,cat", [
+    (1, 129, 8, 256, 256, True, False), (3, 17, 8, 128, 256, False, False),
+    (1, 5, 8, 256, 256, False, True), (2, 131, 16, 256, 128, True, True),
+    (1, 9, 12, 256, 128, False, True), (1, 513, 4, 512, 512, True, False),
+    (3, 40, 4, 512, 512, False, True), (1, 3, 4, 256, 512, True, False),
+    (2, 131, 4, 256, 512, False, False), (1, 129, 6, 256, 256, True, False),
+    (3, 7, 8, 512, 256, False, True), (1, 1, 6, 128, 256, True, False),
+    (1, 131, 4, 512, 256, True, False), (3, 5, 4, 512, 256, False, True)])
+def test_streaming_instances_bit_equal_static_and_dynamic(cuda, batch, f_rows, t, cin, cout,
+                                                          res, cat):
+    """Each instance whose weights stream, on the static and the dynamic
+    scale: the output bit for bit the plain version and the mma.sync
+    kernel, the maxima a dynamic launch writes bit for bit vector_norm(inf)'s
+    and the plain version's."""
+    rng = np.random.default_rng(13 * cin + cout + t + f_rows)
+    how = plan(cin, cout, t)
+    assert how["kernel"] in ("wgmma", "split") and not how["resident"]
+    x, w, epi, r = _conv_case(rng, cuda, batch, f_rows, t, cin, cout, res)
+    kw = dict(residual=r)
+    if cat:
+        x, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+    got = qconv3x3(x, w, epi, 0.026, **kw)
+    assert torch.equal(got, qconv3x3_plain(x, w, epi, 0.026, **kw))
+    assert torch.equal(got, qconv3x3(x, w, epi, 0.026, **kw, _kernel="mma"))
+    in_max = input_max(x, kw.get("x2"))
+    maxima = [torch.zeros(batch, device=cuda) for _ in range(3)]
+    dyn = qconv3x3(x, w, epi, None, **kw, in_max=in_max, out_max=maxima[0])
+    assert torch.equal(dyn, qconv3x3_plain(x, w, epi, None, **kw, in_max=in_max,
+                                           out_max=maxima[1]))
+    assert torch.equal(dyn, qconv3x3(x, w, epi, None, **kw, in_max=in_max, out_max=maxima[2],
+                                     _kernel="mma"))
+    assert torch.equal(maxima[0].view(torch.int32), input_max(dyn).view(torch.int32))
+    assert torch.equal(maxima[0], maxima[1]) and torch.equal(maxima[0], maxima[2])
 
 
 # The narrow route's shapes (stems of Cin1 2, 4 and 16; Cout = 32, the 32 || 32

@@ -8,6 +8,8 @@ operations, so the cells agree far inside the bound of
 tests/test_qconv_pallas.py (relative error < 2e-5).
 """
 
+import functools
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -223,9 +225,12 @@ def _smem_as_the_c_side_sums_it(cin, cout, how):
     if how["kernel"] == "mma":  # csrc/qconv_mma_kernel.cu: halo + 2 buffers of Cout x (128 + 16)
         return halo + 2 * cout * 144
     # csrc/qconv_kernel.cu: alignment slack, weight stages (N = Cout, or 256 on the split
-    # route), two halos, the warps' output patches, 5 epilogue rows, barriers
+    # route), two halos (a split tile's n_parts, one a part, where it has parts), the warps'
+    # output patches, 5 epilogue rows, barriers (18 weight stages and 8 halos, full and empty)
     n = 256 if how["kernel"] == "split" else cout
-    return 1024 + how["stages"] * n * 128 + 2 * halo + 8 * 16 * 40 * 4 + 5 * cout * 4 + 40 * 8
+    buffers = max(2, how.get("n_parts", 1))
+    return (1024 + how["stages"] * n * 128 + buffers * halo + 8 * 16 * 40 * 4 + 5 * cout * 4
+            + 52 * 8)
 
 
 def _check_plan(cin, cout, frames, f_rows=F_ROWS):
@@ -260,12 +265,17 @@ def _check_plan(cin, cout, frames, f_rows=F_ROWS):
         cs, parts = how["part_channels"], how["n_parts"]
         assert cs * parts == cin and (parts == 1 or cs % 128 == 0)
         assert how["n_slices"] == cout // 256
-        assert how["k_chunks"] == -(-9 * cs // 128) and 3 <= how["stages"] <= 18
-        # the widest part that fits: a part twice as wide would leave room for fewer than 3 stages
+        assert how["k_chunks"] == -(-9 * cs // 128)
+        # each part made once a tile in a buffer of its own (two buffers for one part) beside
+        # three weight stages, or two where there are more buffers than two
+        assert how["halo_buffers"] == max(2, parts)
+        assert (3 if parts <= 2 else 2) <= how["stages"] <= 18
+        assert how["halo_bytes"] == (rows + 2) * (tw + 2) * cin * 4
+        # the widest part that fits: parts twice as wide would leave room for too few stages
         if parts > 1:
-            wider = dict(how, part_channels=2 * cs)
+            wider = dict(how, part_channels=2 * cs, n_parts=parts // 2)
             assert _smem_as_the_c_side_sums_it(cin, cout, wider) - how["stages"] * 256 * 128 \
-                + 3 * 256 * 128 > SMEM_LIMIT
+                + (3 if parts <= 4 else 2) * 256 * 128 > SMEM_LIMIT
         # the tile is the power of two just below or just above the frames (up to 64) that
         # pads them least: 8 for 6 or 7 frames, 4 for 4
         lo = 1 << (min(frames, 64).bit_length() - 1)
@@ -301,8 +311,10 @@ def test_plan_of_the_classic_widths(cin, cout, frames):
     how = _check_plan(cin, cout, frames)
     if cin % 32:  # the 16-channel stem
         assert how["kernel"] == "narrow"
-    elif cout == 512:  # split, but at one frame, where no split tile fits three stages
-        assert how["kernel"] == ("mma" if frames == 1 else "split")
+    elif cout == 512:  # split, but where no split tile fits its stages: at one frame, and
+        # 512 -> 512 on 64-frame tiles, whose four parts' halos leave no room for two
+        on_mma = frames == 1 or (cin == 512 and frames == 64)
+        assert how["kernel"] == ("mma" if on_mma else "split")
 
 
 @pytest.mark.parametrize("cin,cout,frames", [
@@ -441,3 +453,28 @@ def test_plain_conv_at_the_base32_widths_matches_an_integer_reference(rng, cin, 
     e = epi.numpy()
     ref = ((acc.astype(np.float32) * e[0] + e[1]) - e[2]) * e[3] + e[4]
     np.testing.assert_array_equal(got, ref)
+
+
+@functools.cache
+def _bundled_conv_shapes(name, frames):
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.models.unet import TPUFPU, conv_shapes
+
+    torch.set_num_threads(1)
+    model, _ = load_bundled(name, device="cpu")
+    rows = F_ROWS if isinstance(model, TPUFPU) else 513
+    return rows, sorted({c[:3] for c in conv_shapes(model, frames)})
+
+
+@pytest.mark.parametrize("name", ["tpufpu_nano", "tpufpu", "tpufpu_slim", "fpu", "deepfpu",
+                                  "fpu_multigeo"])
+def test_the_route_cases_hold_every_bundled_conv(name):
+    """Every 3x3 conv of every bundled conv net at 48, 64 and 80 frames is a
+    case of test_every_bundled_shape_has_a_route_that_fits (or, the nano net
+    at 64 frames, of test_plan_of_the_nano_shapes), on its net's rows: the
+    shape lists there are the nets' own."""
+    cases = set(ROUTE_CASES) | {(s[:3], F_ROWS) for s in NANO_SHAPES}
+    for frames in (48, 64, 80):
+        rows, shapes = _bundled_conv_shapes(name, frames)
+        missing = [s for s in shapes if (s, rows) not in cases]
+        assert not missing, (frames, missing)

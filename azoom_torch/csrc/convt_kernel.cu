@@ -14,6 +14,13 @@
 //
 // out (P, 2*Cout) = x (P, K) @ W (K, 2*Cout) + bias, with W = [W1 | W0];
 // (P, 2*Cout) is (B, F, T, 2, Cout), i.e. (B, F, 2T, Cout) with no copy.
+// Any K >= 1 and Cout >= 1, as the reference's flax ConvTranspose takes any
+// width: the last K chunk walks only its K % 16 steps (never a zero-padded
+// step: fma(+-0 * w, acc) can turn an accumulator of -0 into +0, so zero
+// padding is not the same chain bit for bit), and where 2 * Cout is not a
+// multiple of 4 the W tile is staged in 8-byte copies (2 * Cout is even, so
+// a W row starts on 8 bytes) and out stored in float2 pairs, the columns
+// past 2 * Cout masked.
 //
 // What bounds it: at the mask net's shapes it is a small GEMM (K <= 256,
 // 2*Cout <= 256, P up to 528k rows at batch 128): 17.3 GFMA over the three
@@ -69,6 +76,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(src_bytes));
 }
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(src_bytes));
@@ -90,8 +101,10 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;  // columns tx*4, 64 + tx*4; rows 32 i + ty*4, i < 3
   const int chunks = (K + kChunk - 1) / kChunk;
+  const bool vec = (N2 & 3) == 0;  // W rows and out rows start on 16 bytes
 
-  // Stage chunk c: x as 12 single floats a thread, written transposed; W as 4 float4.
+  // Stage chunk c: x as 12 single floats a thread, written transposed; W as 4 float4
+  // (or 8 float2 where N2 % 4 == 2).
   auto load = [&](int c) {
     float* xs = smem + (c % kStages) * kStageFloats;
     float* ws = xs + kChunk * kXStride;
@@ -107,8 +120,17 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
     for (int j = 0; j < kChunk * kTileN / 4 / kThreads; ++j) {
       const int i = tid + j * kThreads;
       const int k = i / (kTileN / 4), c4 = (i % (kTileN / 4)) * 4;
-      const bool ok = k0 + k < K && n0 + c4 < N2;
-      cp_async16(ws + k * kTileN + c4, ok ? W + (long)(k0 + k) * N2 + n0 + c4 : W, ok ? 16 : 0);
+      const float* src = W + (long)(k0 + k) * N2 + n0 + c4;
+      if (vec) {
+        const bool ok = k0 + k < K && n0 + c4 < N2;
+        cp_async16(ws + k * kTileN + c4, ok ? src : W, ok ? 16 : 0);
+      } else {  // two pairs; N2 is even, so a pair is in or out as a whole
+#pragma unroll
+        for (int h = 0; h < 4; h += 2) {
+          const bool ok = k0 + k < K && n0 + c4 + h < N2;
+          cp_async8(ws + k * kTileN + c4 + h, ok ? src + h : W, ok ? 8 : 0);
+        }
+      }
     }
   };
 
@@ -155,7 +177,8 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
     }
   }
 
-  // Epilogue: + bias, 16-byte stores; columns come in whole float4 (N2 % 4 == 0).
+  // Epilogue: + bias, 16-byte stores (8-byte pairs where N2 % 4 == 2, the pairs
+  // past N2 masked).
   uint32_t row_bits[12];  // Amax: the largest |out| of each of this thread's rows, as bits
 #pragma unroll
   for (int i = 0; i < 12; ++i) row_bits[i] = 0;
@@ -165,7 +188,7 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
     if (c >= N2) continue;
     float bv[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = bias[(c + j) % Cout];
+    for (int j = 0; j < 4; ++j) bv[j] = c + j < N2 ? bias[(c + j) % Cout] : 0.f;
 #pragma unroll
     for (int i = 0; i < 12; ++i) {
       const long p = p0 + (i >> 2) * 32 + ty * 4 + (i & 3);
@@ -173,8 +196,19 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
       const float* a = acc[i] + h * 4;
       const float4 y = make_float4(__fadd_rn(a[0], bv[0]), __fadd_rn(a[1], bv[1]),
                                    __fadd_rn(a[2], bv[2]), __fadd_rn(a[3], bv[3]));
-      *reinterpret_cast<float4*>(out + p * N2 + c) = y;
-      if constexpr (Amax) row_bits[i] = max(row_bits[i], azt::abs_bits4(y));
+      if (vec || c + 4 <= N2) {
+        if (vec) {
+          *reinterpret_cast<float4*>(out + p * N2 + c) = y;
+        } else {
+          *reinterpret_cast<float2*>(out + p * N2 + c) = make_float2(y.x, y.y);
+          *reinterpret_cast<float2*>(out + p * N2 + c + 2) = make_float2(y.z, y.w);
+        }
+        if constexpr (Amax) row_bits[i] = max(row_bits[i], azt::abs_bits4(y));
+      } else {  // c + 2 == N2: the last pair
+        *reinterpret_cast<float2*>(out + p * N2 + c) = make_float2(y.x, y.y);
+        if constexpr (Amax)
+          row_bits[i] = max(row_bits[i], max(azt::abs_bits(y.x), azt::abs_bits(y.y)));
+      }
     }
   }
   if constexpr (Amax) {
@@ -204,7 +238,7 @@ __global__ void __launch_bounds__(kThreads, 3) convt_kernel(
 
 }  // namespace
 
-// x (P, K) f32 with K % 4 == 0; W (K, N2) f32 with N2 = 2 * Cout, N2 % 4 == 0;
+// x (P, K) f32, any K >= 1; W (K, N2) f32 with N2 = 2 * Cout, any Cout >= 1;
 // bias (Cout,) f32; out (P, N2) f32; all 16-byte aligned. out_max (P / FT,)
 // device float32 or null: raised to max|out[b]| over the FT rows of x of each
 // element b (start it at zeros). ``blocks`` and ``smem`` are
@@ -214,7 +248,7 @@ extern "C" int azt_convt1x2(const void* x, const void* W, const void* bias, void
                             void* out_max, long P, long FT, int K, int N2, int Cout, long blocks,
                             int smem, void* stream) {
   const long want = (P + kTileM - 1) / kTileM * ((N2 + kTileN - 1) / kTileN);
-  if (P <= 0 || K <= 0 || K % 4 || N2 % 4 || N2 != 2 * Cout || blocks != want ||
+  if (P <= 0 || K <= 0 || Cout <= 0 || N2 != 2 * Cout || blocks != want ||
       smem != kSmemBytes || want > 0x7fffffffL || (out_max && (FT <= 0 || P % FT)))
     return (int)cudaErrorInvalidValue;
   const float *xf = (const float*)x, *Wf = (const float*)W, *bf = (const float*)bias;

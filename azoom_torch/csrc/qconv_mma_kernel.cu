@@ -23,37 +23,48 @@
 // 256 -> 256 at 6 frames) at 2.2 to 4.3 times, its narrow route (the stems
 // of Cin 2, 4 and 16 and Cout = 32) at 1.4 to 1.9 times (H100 80GB HBM3,
 // kernels/bench.py qconv). This one is kept, chosen by shape alone
-// (kernels/qconv_kernel.py:plan), for the shapes no route of that kernel
-// fits, which no bundled net runs at those frame counts:
-//   - Cout of 64 or 128 at Cin of 256 or 512, whose two halos leave no room
-//     for three weight stages; Cout = 32 at Cin >= 256, or at few frames
-//     and Cin >= 64 (the 512-pixel tile's halos); one-frame planes at
-//     Cin >= 128; Cin % 32 == 16 beyond the 16-channel taps (48, 80, ...);
-//     stems at Cout >= 128. Its halo load zero-extends a stem of Cin1 = 2 or
-//     4 channels to 16 (x2 null, Cin1 < Cin), and the packed weights are zero
-//     there, so the int32 sums are the same;
-// and as the reference every route of csrc/qconv_kernel.cu is held against
-// bit for bit (kernels/bench.py, tests/test_torch_cuda.py, chip_smoke.py):
-// same quotient, same codes, same epilogue (csrc/qconv_common.cuh), with the
-// older quantiser.
+// (kernels/qconv_kernel.py:plan), for every shape no route of that kernel
+// takes or fits, which no bundled net runs at those frame counts: any Cin
+// and Cout that are not the bundled widths (the reference's QConv is an XLA
+// conv at any width, so a net trained at any --base is served: Cout of 8,
+// 24, 48, 96, 384, 1024, ...; Cin of 1, 3, 20, 48, 1024, 2048, ...; a
+// decoder concat of any two halves), and the bundled widths where that
+// kernel's halos leave no room for its weight stages (Cout of 64 or 128 at
+// Cin of 256 or 512, Cout = 32 at Cin >= 256, one-frame planes at
+// Cin >= 128, ...); and as the reference every route of csrc/qconv_kernel.cu
+// is held against bit for bit (kernels/bench.py, tests/test_torch_cuda.py,
+// chip_smoke.py): same quotient, same codes, same epilogue
+// (csrc/qconv_common.cuh), with the older quantiser.
 //
 // What bounds it: activation bytes, as in csrc/qconv_kernel.cu; it reaches a
-// quarter of the memory rate. Design: implicit GEMM, M = output pixels,
-// N = Cout, K = 9 * Cin in tap-major order. A block of 8 warps owns a tile of
-// 256 / (Cout / 64) pixels (FR rows of F by TW frames) and ALL Cout output
-// channels, so each input element is read from device memory and quantised
-// about once ((FR+2)/FR halo overlap), not once per channel block. The
-// quantised halo ((FR+2) x (TW+2) pixels x Cin int8) stays in shared memory;
-// the 9 taps are address offsets into it, so im2col never exists in memory.
-// Weights stream through two shared buffers in K chunks of 128 (cp.async,
-// the next chunk's copy overlapping this chunk's products): every block
-// streams the whole matrix. Warps split the tile (Cout / 64) ways along N
-// and the rest along M; each owns 32 pixels x 64 channels (MI = 2 m16 by
-// NJ = 8 n8 tiles; at Cout = 32, 64 x 32: MI = 4, NJ = 4) of int32
-// accumulators in registers, loads its fragments with ldmatrix (rows padded
-// by 16 bytes so the 8 rows of each 8x16-byte matrix hit distinct banks) and
-// runs mma.sync m16n8k32 s8. A block's phases (halo, products, epilogue)
-// run in turn; two blocks per SM overlap them.
+// quarter of the memory rate at the widths it was written for. Design:
+// implicit GEMM, M = output pixels, N = Cout, K = 9 * Cin in tap-major
+// order. Any Cin is computed as Ck = ceil(Cin / 16) * 16 channels, those
+// beyond Cin zero codes in the halo and zero weights in the packed rows, so
+// the int32 sums are the same. A block of 8 warps owns a tile of
+// 256 * 64 / NB pixels (FR rows of F by TW frames) and a slice of NB output
+// channels (NB = 32, 64, 128 or 256, the least that holds Cout, or 256 with
+// ceil(Cout / 256) slices on the grid's third axis; NB = 512 at Cout = 512,
+// the bundled widths' one slice), so each input element
+// is read from device memory and quantised about once a slice ((FR+2)/FR
+// halo overlap), not once per channel block. The quantised halo ((FR+2) x
+// (TW+2) pixels x Cp int8) stays in shared memory; the 9 taps are address
+// offsets into it, so im2col never exists in memory. Where the halo of all
+// Ck channels and the weight buffers do not fit, the halo is made in parts
+// of Cp channels (a multiple of 16) in turn, each part's K walked (tap-major
+// within the part: the weight columns tap * Ck + [c0, c0 + Cp), contiguous
+// 16-byte pieces) while the int32 accumulators stay in registers. Weights
+// stream through two shared buffers in K chunks of 128 (cp.async, the next
+// chunk's copy overlapping this chunk's products; rows at or beyond Cout and
+// columns beyond the part zero-filled): every block streams its slice's
+// rows. Warps split the tile (NB / 64) ways along N and the rest along M;
+// each owns 32 pixels x 64 channels (MI = 2 m16 by NJ = 8 n8 tiles; at
+// NB = 32, 64 x 32: MI = 4, NJ = 4) of int32 accumulators in registers,
+// loads its fragments with ldmatrix (rows padded by 16 bytes so the 8 rows
+// of each 8x16-byte matrix hit distinct banks where Cp is a multiple of
+// 128) and runs mma.sync m16n8k32 s8. The epilogue masks the columns at or
+// beyond Cout (scalar loads and stores where Cout is odd). A block's phases
+// (halo, products, epilogue) run in turn; two blocks per SM overlap them.
 
 #include "qconv_common.cuh"
 
@@ -80,9 +91,12 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+// src_bytes 0 fills the 16 bytes with zeros (a row at or beyond Cout, a
+// column beyond the part).
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, int src_bytes) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+               "r"(src_bytes));
 }
 
 // Four 8x16-byte matrices; lane L supplies the address of row L % 8 of
@@ -100,62 +114,70 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
     const float* __restrict__ x, const float* __restrict__ x2, const int8_t* __restrict__ w,
     const float* __restrict__ epi, const float* __restrict__ res, float* __restrict__ out,
     const float* __restrict__ x_max, const float* __restrict__ x2_max, float* out_max,
-    float act_scale, int relu, int F, int T, int Cin, int Cin1, int Cout, int Kpad, int TW,
-    int FR, int n_ttiles) {
+    float act_scale, int relu, int F, int T, int Ck, int Cin1, int Cin2, int Cout, int Kpad,
+    int NB, int Cp, int TW, int FR, int n_ttiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HW = TW + 2;
-  const int CinP = Cin + 16;  // pixel stride of the halo; the 16 pad bytes stay zero
+  const int CpP = Cp + 16;  // pixel stride of the halo; the 16 pad bytes stay zero
   unsigned char* halo = smem;
-  unsigned char* wbuf = smem + (FR + 2) * HW * CinP;  // 2 buffers of Cout rows of kWRow bytes
+  unsigned char* wbuf = smem + (FR + 2) * HW * CpP;  // 2 buffers of NB rows of kWRow bytes
   const long b = blockIdx.y;
+  const int n0 = blockIdx.z * NB;  // this block's slice of output channels
   const float s = Dyn ? scale_of_max(x_max, x2_max, b) : act_scale;
   const int f0 = (blockIdx.x / n_ttiles) * FR;
   const int t0 = (blockIdx.x % n_ttiles) * TW;
 
-  // 1. Quantised input halo -> shared memory (zeros outside the plane).
-  //    Channels [0, Cin1) come from x, [Cin1, Cin) from x2: the decoder's
-  //    channel concat is read in place, never materialised. Without x2 they
-  //    are zeros (a stem of Cin1 = 2 or 4 channels, Cin = 16). Each thread
-  //    takes 4 channels (one float4) of a pixel; consecutive threads take
-  //    consecutive channels, then pixels, so the loads are coalesced.
-  {
+  // 1. Quantised input halo of channels [c0, c0 + Cp) -> shared memory (zeros
+  //    outside the plane and at channels >= Cin1 + Cin2). Channels [0, Cin1)
+  //    come from x, [Cin1, Cin1 + Cin2) from x2: the decoder's channel concat
+  //    is read in place, never materialised. Each thread takes 4 channels of
+  //    a pixel, one float4 where they lie in one input whose channels are a
+  //    multiple of 4, else one by one; consecutive threads take consecutive
+  //    channels, then pixels, so the loads are coalesced.
+  const int Cr = Cin1 + Cin2;
+  const bool vec1 = (Cin1 & 3) == 0, vec2 = vec1 && (Cin2 & 3) == 0;
+  auto load_halo = [&](int c0) {
     uint32_t* halo32 = reinterpret_cast<uint32_t*>(halo);
-    const int cinp4 = CinP >> 2, cin4 = Cin >> 2, cin14 = Cin1 >> 2;
+    const int cpp4 = CpP >> 2, cp4 = Cp >> 2;
     const int n_pix = (FR + 2) * HW;
-    const bool pow2 = (cin4 & (cin4 - 1)) == 0;
-    const int sh = __ffs(cin4) - 1;
+    const bool pow2 = (cp4 & (cp4 - 1)) == 0;
+    const int sh = __ffs(cp4) - 1;
     const float rs = 1.f / s;
-    for (int i = threadIdx.x; i < n_pix * cin4; i += kThreads) {
-      const int pix = pow2 ? i >> sh : i / cin4;
-      const int c4 = i - pix * cin4;
+    for (int i = threadIdx.x; i < n_pix * cp4; i += kThreads) {
+      const int pix = pow2 ? i >> sh : i / cp4;
+      const int c4 = i - pix * cp4;
+      const int ch = c0 + 4 * c4;
       const int hr = pix / HW;
       const int f = f0 - 1 + hr;
       const int t = t0 - 1 + (pix - hr * HW);
       uint32_t q = 0;
-      if (f >= 0 && f < F && t >= 0 && t < T) {
+      if (ch < Cr && f >= 0 && f < F && t >= 0 && t < T) {
         const long at = (b * F + f) * T + t;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (c4 < cin14) {
-          v = *reinterpret_cast<const float4*>(x + at * Cin1 + 4 * c4);
-        } else if (x2) {
-          v = *reinterpret_cast<const float4*>(x2 + at * (Cin - Cin1) + 4 * (c4 - cin14));
-        } else if (4 * c4 < Cin1) {  // Cin1 = 2: the group's last two channels are zeros
-          const float* src = x + at * Cin1 + 4 * c4;
-          v.x = src[0];
-          if (4 * c4 + 1 < Cin1) v.y = src[1];
-          if (4 * c4 + 2 < Cin1) v.z = src[2];
+        float4 v;
+        if (vec1 && ch + 4 <= Cin1) {
+          v = *reinterpret_cast<const float4*>(x + at * Cin1 + ch);
+        } else if (vec2 && ch >= Cin1 && ch + 4 <= Cr) {
+          v = *reinterpret_cast<const float4*>(x2 + at * Cin2 + (ch - Cin1));
+        } else {  // a group across the inputs' boundary or their end, or a half of odd width
+          float e[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = ch + j;
+            e[j] = c < Cin1 ? x[at * Cin1 + c] : c < Cr ? x2[at * Cin2 + (c - Cin1)] : 0.f;
+          }
+          v = make_float4(e[0], e[1], e[2], e[3]);
         }
         q = quant4(v, s, rs);
       }
-      halo32[pix * cinp4 + c4] = q;
+      halo32[pix * cpp4 + c4] = q;
     }
     for (int i = threadIdx.x; i < n_pix * 4; i += kThreads)  // the 16 pad bytes
-      halo32[(i >> 2) * cinp4 + cin4 + (i & 3)] = 0;
-  }
+      halo32[(i >> 2) * cpp4 + cp4 + (i & 3)] = 0;
+  };
 
   // 2. Implicit GEMM on the tensor cores.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int WN = Cout / (8 * NJ);  // warps along N (1, 2, 4 or 8)
+  const int WN = NB / (8 * NJ);  // warps along N (1, 2, 4 or 8)
   const int wn = warp % WN, wm = warp / WN;
   const int nbase = wn * 8 * NJ;
   const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's matrix and row
@@ -164,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
     const int p = wm * 16 * MI + mi * 16 + (mat & 1) * 8 + mrow;
-    arow[mi] = ((p / TW) * HW + (p % TW)) * CinP;
+    arow[mi] = ((p / TW) * HW + (p % TW)) * CpP;
   }
   const int akhalf = (mat >> 1) * 16;
   // B (channels x K): matrices 0..3 = K bytes 0-15 / 16-31 of n-tile 2jp, then of 2jp+1
@@ -179,38 +201,51 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0;
 
-  // Weights stream in K chunks through two shared buffers: the copy of
-  // chunk c + 1 (cp.async, no registers) overlaps the products of chunk c.
-  const int K = 9 * Cin;
-  const int n_chunks = (Kpad + kKC - 1) / kKC;
-  const int wbuf_bytes = Cout * kWRow;
+  // K is walked part by part, each part's 9 * Cp columns (padded to Kp, a
+  // multiple of 32) in chunks of 128. Weights stream through two shared
+  // buffers: the copy of chunk c + 1 (cp.async, no registers) overlaps the
+  // products of chunk c.
+  const int Kc = 9 * Cp;                       // K of one part
+  const int Kp = (Kc + 31) & ~31;
+  const int cpp = (Kp + kKC - 1) / kKC;        // chunks per part
+  const int n_chunks = ((Ck + Cp - 1) / Cp) * cpp;
+  const int wbuf_bytes = NB * kWRow;
   auto stage = [&](int c) {
     unsigned char* dst = wbuf + (c & 1) * wbuf_bytes;
-    const int kc0 = c * kKC, kcn = min(kKC, Kpad - kc0);
-    for (int i = threadIdx.x; i < Cout * (kKC / 16); i += kThreads) {
+    const int part = c / cpp;
+    const int kc0 = (c - part * cpp) * kKC, kcn = min(kKC, Kp - kc0);
+    for (int i = threadIdx.x; i < NB * (kKC / 16); i += kThreads) {
       const int n = i / (kKC / 16), v = i % (kKC / 16);  // 16-byte vector v of row n
-      if (v * 16 < kcn) cp_async16(dst + n * kWRow + v * 16, w + (long)n * Kpad + kc0 + v * 16);
+      if (v * 16 >= kcn) continue;
+      const int k = kc0 + v * 16, tap = k / Cp;          // k within the part
+      const int ch = part * Cp + (k - tap * Cp);
+      const bool ok = n0 + n < Cout && tap < 9 && ch < Ck;
+      cp_async16(dst + n * kWRow + v * 16, ok ? w + (long)(n0 + n) * Kpad + tap * Ck + ch : w,
+                 ok ? 16 : 0);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
   stage(0);
   for (int c = 0; c < n_chunks; ++c) {
+    const int part = c / cpp, kc0 = (c - part * cpp) * kKC;
+    // every warp is done with the previous part's halo (the barrier ending chunk c - 1)
+    if (kc0 == 0) load_halo(part * Cp);
     if (c + 1 < n_chunks) {
       stage(c + 1);
       asm volatile("cp.async.wait_group 1;\n" ::);  // chunk c has landed
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
-    __syncthreads();  // chunk c (and, the first time, the halo) visible to all warps
+    __syncthreads();  // chunk c (and, at a part's first chunk, its halo) visible to all warps
     const unsigned char* wb = wbuf + (c & 1) * wbuf_bytes;
-    const int kc0 = c * kKC, kcn = min(kKC, Kpad - kc0);
+    const int kcn = min(kKC, Kp - kc0);
     for (int ks = 0; ks < kcn; ks += 32) {
-      // K bytes [k, k + 16) of this lane's A row lie in one tap (Cin % 16 == 0)
+      // K bytes [k, k + 16) of this lane's A row lie in one tap (Cp % 16 == 0)
       const int k = kc0 + ks + akhalf;
-      int aoff = Cin;  // K beyond 9 * Cin: the zero pad bytes of the row
-      if (k < K) {
-        const int tap = k / Cin;
-        aoff = ((tap / 3) * HW + tap % 3) * CinP + (k - tap * Cin);
+      int aoff = Cp;  // K beyond 9 * Cp: the zero pad bytes of the row
+      if (k < Kc) {
+        const int tap = k / Cp;
+        aoff = ((tap / 3) * HW + tap % 3) * CpP + (k - tap * Cp);
       }
       uint32_t a[MI][4];
 #pragma unroll
@@ -226,11 +261,12 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
         }
       }
     }
-    __syncthreads();  // every warp is done with buffer c & 1 before chunk c + 2 lands there
+    __syncthreads();  // every warp is done with buffer c & 1 (and the halo) before they are refilled
   }
 
-  // 3. Fused epilogue: dequant, BatchNorm, residual, ReLU.
+  // 3. Fused epilogue: dequant, BatchNorm, residual, ReLU; columns >= Cout masked.
   const int g = lane >> 2, tg = lane & 3;
+  const bool even = (Cout & 1) == 0;  // float2 loads and stores at (n, n + 1)
   uint32_t out_bits = 0;  // Dyn: the largest |y| this thread stores, as bits
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
@@ -243,19 +279,35 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
       const long pix = (b * F + f) * T + t;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int n = nbase + j * 8 + tg * 2;
-        float2 e[5];  // s1, b1, mean, mul, beta at channels n, n + 1
+        const int n = n0 + nbase + j * 8 + tg * 2;
+        if (n >= Cout) continue;
+        if (even) {
+          float2 e[5];  // s1, b1, mean, mul, beta at channels n, n + 1
 #pragma unroll
-        for (int r = 0; r < 5; ++r) e[r] = *reinterpret_cast<const float2*>(epi + r * Cout + n);
-        if constexpr (Dyn) e[0] = dynamic_s1(s, e[0]);
-        float y0 = dequant_bn(acc[mi][j][2 * h], e[0].x, e[1].x, e[2].x, e[3].x, e[4].x);
-        float y1 = dequant_bn(acc[mi][j][2 * h + 1], e[0].y, e[1].y, e[2].y, e[3].y, e[4].y);
-        float2 r = make_float2(0.f, 0.f);
-        if (res) r = *reinterpret_cast<const float2*>(res + pix * Cout + n);
-        y0 = res_relu(y0, r.x, res != nullptr, relu);
-        y1 = res_relu(y1, r.y, res != nullptr, relu);
-        *reinterpret_cast<float2*>(out + pix * Cout + n) = make_float2(y0, y1);
-        if constexpr (Dyn) out_bits = max(out_bits, max(abs_bits(y0), abs_bits(y1)));
+          for (int r = 0; r < 5; ++r) e[r] = *reinterpret_cast<const float2*>(epi + r * Cout + n);
+          if constexpr (Dyn) e[0] = dynamic_s1(s, e[0]);
+          float y0 = dequant_bn(acc[mi][j][2 * h], e[0].x, e[1].x, e[2].x, e[3].x, e[4].x);
+          float y1 = dequant_bn(acc[mi][j][2 * h + 1], e[0].y, e[1].y, e[2].y, e[3].y, e[4].y);
+          float2 r = make_float2(0.f, 0.f);
+          if (res) r = *reinterpret_cast<const float2*>(res + pix * Cout + n);
+          y0 = res_relu(y0, r.x, res != nullptr, relu);
+          y1 = res_relu(y1, r.y, res != nullptr, relu);
+          *reinterpret_cast<float2*>(out + pix * Cout + n) = make_float2(y0, y1);
+          if constexpr (Dyn) out_bits = max(out_bits, max(abs_bits(y0), abs_bits(y1)));
+        } else {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int nu = n + u;
+            if (nu >= Cout) break;
+            float s1 = epi[nu];
+            if constexpr (Dyn) s1 = __fmul_rn(s, s1);
+            float y = dequant_bn(acc[mi][j][2 * h + u], s1, epi[Cout + nu], epi[2 * Cout + nu],
+                                 epi[3 * Cout + nu], epi[4 * Cout + nu]);
+            y = res_relu(y, res ? res[pix * Cout + nu] : 0.f, res != nullptr, relu);
+            out[pix * Cout + nu] = y;
+            if constexpr (Dyn) out_bits = max(out_bits, abs_bits(y));
+          }
+        }
       }
     }
   if constexpr (Dyn) {
@@ -266,71 +318,81 @@ __global__ void __launch_bounds__(kThreads, 2) qconv3x3_mma_kernel(
 }  // namespace
 
 // x (B, F, T, Cin1) f32 and x2 (B, F, T, Cin - Cin1) f32 or null: the input
-// is their channel concat, or without x2 x's channels then zeros up to Cin
-// (a stem: Cin1 of 2 or 4, Cin = 16). w (Cout, Kpad) int8, K index
-// (3*dy+dx)*Cin + c, zero beyond 9*Cin; epi (5, Cout) f32 rows s1, b1, mean,
+// is their channel concat (any Cin1 >= 1 and any second half), or x alone
+// (Cin1 = Cin). The kernel computes Ck = ceil(Cin / 16) * 16 channels, the
+// ones beyond Cin zero codes. w (Cout, Kpad) int8, K index (3*dy+dx)*Ck + c,
+// zero at c >= Cin and beyond 9*Ck; epi (5, Cout) f32 rows s1, b1, mean,
 // mul, beta; res (B, F, T, Cout) f32 or null; out (B, F, T, Cout) f32;
 // x_max, x2_max and out_max (B,) device float32 or null, the dynamic mode
-// as csrc/qconv_kernel.cu's azt_qconv3x3 takes them. Needs
-// Cin % 16 == 0, Cin1 % 4 == 0 with x2 (Cin1 of 2, 4 or Cin without),
-// Cout in {32, 64, 128, 256, 512}, Kpad % 32 == 0. Returns cudaGetLastError()
-// (or the error of raising the shared-memory limit), cudaErrorInvalidValue
-// for another shape.
+// as csrc/qconv_kernel.cu's azt_qconv3x3 takes them. ``tile_w`` (frames of
+// a tile, a power of two), ``part_channels`` (Cp, the halo's channels a
+// part, a multiple of 16), ``slice_n`` (NB: 32, 64, 128, 512 at Cout = 512,
+// or 256 with ceil(Cout / 256) slices) and ``smem`` are kernels/qconv_kernel.py:plan's,
+// checked here against the kernel's own. Returns cudaGetLastError() (or the
+// error of raising the shared-memory limit), cudaErrorInvalidValue for
+// arguments it does not take.
 namespace {
 
 template <int MI, int NJ, bool Dyn>
 int launch(const void* x, const void* x2, const void* w, const void* epi, const void* res,
            void* out, const void* x_max, const void* x2_max, void* out_max, float act_scale,
-           int relu, int B, int F, int T, int Cin, int Cin1, int Cout, int Kpad,
-           cudaStream_t stream) {
-  const int m_tile = 16 * MI * (8 / (Cout / (8 * NJ)));  // pixels per block
-  int TW = 1;  // frames per tile: the largest power of two <= min(T, m_tile)
-  while (TW * 2 <= T && TW * 2 <= m_tile) TW *= 2;
+           int relu, int B, int F, int T, int Ck, int Cin1, int Cin2, int Cout, int Kpad, int NB,
+           int Cp, int TW, int smem, cudaStream_t stream) {
+  const int m_tile = 16 * MI * (8 / (NB / (8 * NJ)));  // pixels per block
   const int FR = m_tile / TW;
+  if (TW > m_tile || (TW & (TW - 1)) ||
+      smem != (FR + 2) * (TW + 2) * (Cp + 16) + 2 * NB * kWRow)
+    return (int)cudaErrorInvalidValue;
   const int n_ttiles = (T + TW - 1) / TW;
   const int n_ftiles = (F + FR - 1) / FR;
-  const int smem = (FR + 2) * (TW + 2) * (Cin + 16) + 2 * Cout * kWRow;
   if (smem > 48 * 1024) {  // dynamic shared memory above 48 KB must be opted into
     const cudaError_t e = cudaFuncSetAttribute(
         qconv3x3_mma_kernel<MI, NJ, Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid(n_ftiles * n_ttiles, B);
+  const dim3 grid(n_ftiles * n_ttiles, B, (Cout + NB - 1) / NB);
   qconv3x3_mma_kernel<MI, NJ, Dyn><<<grid, kThreads, smem, stream>>>(
       (const float*)x, (const float*)x2, (const int8_t*)w, (const float*)epi,
       (const float*)res, (float*)out, (const float*)x_max, (const float*)x2_max,
-      (float*)out_max, act_scale, relu, F, T, Cin, Cin1, Cout, Kpad, TW, FR, n_ttiles);
+      (float*)out_max, act_scale, relu, F, T, Ck, Cin1, Cin2, Cout, Kpad, NB, Cp, TW, FR,
+      n_ttiles);
   return (int)cudaGetLastError();
 }
 
-// The tile of Cout in the launch's mode: dynamic when it reads maxima.
+// The tile of the slice width in the launch's mode: dynamic when it reads maxima.
 template <int MI, int NJ>
 int launch_tile(const void* x, const void* x2, const void* w, const void* epi, const void* res,
                 void* out, const void* x_max, const void* x2_max, void* out_max,
-                float act_scale, int relu, int B, int F, int T, int Cin, int Cin1, int Cout,
-                int Kpad, cudaStream_t stream) {
+                float act_scale, int relu, int B, int F, int T, int Ck, int Cin1, int Cin2,
+                int Cout, int Kpad, int NB, int Cp, int TW, int smem, cudaStream_t stream) {
   return (x_max ? launch<MI, NJ, true> : launch<MI, NJ, false>)(
-      x, x2, w, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B, F, T, Cin, Cin1, Cout,
-      Kpad, stream);
+      x, x2, w, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B, F, T, Ck, Cin1, Cin2,
+      Cout, Kpad, NB, Cp, TW, smem, stream);
 }
 
 }  // namespace
 
 extern "C" int azt_qconv3x3_mma(const void* x, const void* x2, const void* w, const void* epi,
-                            const void* res, void* out, const void* x_max, const void* x2_max,
-                            void* out_max, float act_scale, int relu, int B, int F, int T,
-                            int Cin, int Cin1, int Cout, int Kpad, void* stream) {
-  const bool stem = x2 == nullptr && Cin1 < Cin;
+                                const void* res, void* out, const void* x_max,
+                                const void* x2_max, void* out_max, float act_scale, int relu,
+                                int B, int F, int T, int Cin, int Cin1, int Cout, int Kpad,
+                                int tile_w, int part_channels, int slice_n, int smem,
+                                void* stream) {
+  const int Ck = (Cin + 15) / 16 * 16, Cin2 = Cin - Cin1;
   const bool maxima_ok =
       x_max ? (x2_max != nullptr) == (x2 != nullptr) : x2_max == nullptr && out_max == nullptr;
-  if (Cin % 16 || Cin1 < 1 || Cin1 > Cin || (stem && Cin1 != 2 && Cin1 != 4) ||
-      (x2 != nullptr && Cin1 % 4) || Kpad % 32 || Kpad < 9 * Cin || !maxima_ok ||
-      (Cout != 32 && Cout != 64 && Cout != 128 && Cout != 256 && Cout != 512))
+  const bool slice_ok = slice_n == 256 || (slice_n == 512 && Cout == 512) ||
+                        ((slice_n == 32 || slice_n == 64 || slice_n == 128) && Cout <= slice_n);
+  if (B < 1 || F < 1 || T < 1 || Cin < 1 || Cin1 < 1 || Cin1 > Cin ||
+      (x2 == nullptr) != (Cin2 == 0) || Cout < 1 || !slice_ok || part_channels < 16 ||
+      part_channels % 16 || part_channels > Ck || Kpad % 32 || Kpad < 9 * Ck || !maxima_ok)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Cout == 32)
+  if (slice_n == 32)
     return launch_tile<4, 4>(x, x2, w, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B,
-                             F, T, Cin, Cin1, Cout, Kpad, st);
+                             F, T, Ck, Cin1, Cin2, Cout, Kpad, slice_n, part_channels, tile_w,
+                             smem, st);
   return launch_tile<2, 8>(x, x2, w, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B,
-                           F, T, Cin, Cin1, Cout, Kpad, st);
+                           F, T, Ck, Cin1, Cin2, Cout, Kpad, slice_n, part_channels, tile_w, smem,
+                           st);
 }

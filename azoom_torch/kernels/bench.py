@@ -218,18 +218,31 @@ def bench_int8_mm(dev, quick: bool) -> dict:
     return rows
 
 
+# ``--nets`` names of a conv net built at another base (``fpu_b48``): its serving class and input
+# channels, as models.trainable's twin of that base serves it (int8: the mma.sync route's widths)
+BASE_NETS = {"fpu": ("FreqPreservingUNet", 2), "deepfpu": ("DeepFPU", 4), "tpufpu": ("TPUFPU", 4)}
+
+
 def net_conv_shapes(net: str) -> tuple[int, dict]:
     """(plane rows, {(Cin, Cout, frames): (launches, {variant: its launches})})
     of a bundled net's 3x3 convs at 64 input frames (``name@N``: at N); a
-    variant is (with residual, concat input). ``CINxCOUTxT`` is that one
-    shape on a plane of 129 rows, as no net runs it."""
+    variant is (with residual, concat input). ``fpu_b48``, ``deepfpu_b64``,
+    ``tpufpu_b24`` are those nets' classes built at that base (any
+    ``--base`` of cli/train.py). ``CINxCOUTxT`` is that one shape on a plane
+    of 129 rows, as no net runs it."""
+    from azoom_torch.models import unet
     from azoom_torch.models.pretrained import load_bundled
     from azoom_torch.models.unet import TPUFPU, conv_shapes
 
     if re.fullmatch(r"\d+x\d+x\d+", net):
         return F_ROWS, {tuple(int(v) for v in net.split("x")): (1, {(False, False): 1})}
     name, _, frames = net.partition("@")
-    model, _ = load_bundled(name, device="cpu")
+    based = re.fullmatch(r"(\w+?)_b(\d+)", name)
+    if based and based[1] in BASE_NETS:
+        cls, channels = BASE_NETS[based[1]]
+        model = getattr(unet, cls)(base=int(based[2]), in_channels=channels)
+    else:
+        model, _ = load_bundled(name, device="cpu")
     shapes: dict = {}
     for cin, cout, t, res, cat in conv_shapes(model, int(frames or 64)):
         n, variants = shapes.get((cin, cout, t), (0, {}))
@@ -243,13 +256,23 @@ def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",), against: Path | None = 
     rng = np.random.default_rng(1)
     batch = 8 if quick else BATCH
     earlier = None if against is None else _earlier_qconv(qk, against)
-    rows, routes = {}, {}
+    rows, routes, sums = {}, {}, {}
     for net in nets:
         f_rows, shapes = net_conv_shapes(net)
         for (cin, cout, t), (launches, variants) in shapes.items():
             got = _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t,
                                     launches, variants, earlier)
             rows.update(got)
+            int_mm = next((row["int_mm_ms"] for row in got.values() if "int_mm_ms" in row), 0.0)
+            for row in got.values():  # the net's convs by route, each variant times its launches
+                if row["runs_in_net"] and "ms" in row:
+                    n, tot = row["launches_of_variant"], sums.setdefault(
+                        f"{net}:{row['kernel']}",
+                        dict(launches=0, ms=0.0, bound_ms=0.0, int_mm_ms=0.0))
+                    tot["launches"] += n
+                    for key, v in (("ms", row["ms"]), ("bound_ms", row["bound_ms"]),
+                                   ("int_mm_ms", int_mm)):
+                        tot[key] += n * v
             streams = not qk.plan(cin, cout, t)["resident"] and qk.plan(cin, cout, t)["kernel"] in (
                 "wgmma", "split")
             for row in got.values():
@@ -261,6 +284,11 @@ def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",), against: Path | None = 
                         n = row["launches_of_variant"]
                         routes[(net, group)] = (old + n * row["earlier_ms"],
                                                 new + n * row["turns_ms"])
+    if sums:
+        rows["qconv_sums"] = sums
+        print("[qconv] by net and route: " + " ".join(
+            f"{k}={v['launches']}x ms={v['ms']:.4g} bound={v['bound_ms']:.4g} "
+            f"int_mm={v['int_mm_ms']:.4g}" for k, v in sums.items()), flush=True)
     if routes:
         rows["qconv_routes"] = {f"{n}:{r}": dict(earlier_ms=a, ms=b)
                                 for (n, r), (a, b) in routes.items()}
@@ -277,7 +305,10 @@ def _earlier_qconv(qk, src_dir: Path):
     stream)``, the split entry with the part's channels before ``stages``)
     and DIR's own plan (``DIR/../kernels/qconv_kernel.py``, loaded from its
     file): ``fn(x, w_q, epi, act_scale, residual, x2, in_max=, out_max=)``,
-    as :func:`qconv_kernel.qconv3x3` takes them."""
+    as :func:`qconv_kernel.qconv3x3` takes them. DIR's ``mma.sync`` entry
+    takes the tile, part and slice of its plan (``slice_width`` in it) after
+    ``Kpad``, and the true Cin, or before that (an earlier tree) nothing
+    after ``Kpad`` and kernel_cin(Cin)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -285,8 +316,10 @@ def _earlier_qconv(qk, src_dir: Path):
     old = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(old)
     lib = earlier_library(src_dir, "qconv_kernel")
+    sliced = "slice_width" in old._plan_mma(16, 32, 8)
     entries = {"wgmma": (lib.azt_qconv3x3, 10), "split": (lib.azt_qconv3x3_split, 11),
-               "mma": (earlier_library(src_dir, "qconv_mma_kernel").azt_qconv3x3_mma, 8)}
+               "mma": (earlier_library(src_dir, "qconv_mma_kernel").azt_qconv3x3_mma,
+                       12 if sliced else 8)}
     for fn, ints in entries.values():
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
@@ -295,7 +328,7 @@ def _earlier_qconv(qk, src_dir: Path):
     def call(x, w_q, epi, act_scale, residual=None, x2=None, in_max=None, out_max=None):
         B, F, T, cin1 = x.shape
         cin, cout = cin1 + (0 if x2 is None else x2.shape[3]), w_q.shape[0]
-        how = old.plan(cin, cout, T)
+        how = old.plan(cin, cout, T, *(() if x2 is None or not sliced else (cin1,)))
         maxima = () if in_max is None else tuple(in_max) if x2 is not None else (in_max,)
         out = torch.empty((B, F, T, cout), dtype=torch.float32, device=x.device)
         ptrs = (x.data_ptr(), None if x2 is None else x2.data_ptr(), w_q.data_ptr(),
@@ -310,6 +343,9 @@ def _earlier_qconv(qk, src_dir: Path):
         elif how["kernel"] == "split":
             rc = entries["split"][0](*head, cin, cin1, cout, how["tile_w"],
                                      how["part_channels"], how["stages"], how["smem"], stream)
+        elif sliced:
+            rc = entries["mma"][0](*head, cin, cin1, cout, w_q.shape[1], how["tile_w"],
+                                   how["part_channels"], how["slice_width"], how["smem"], stream)
         else:
             rc = entries["mma"][0](*head, qk.kernel_cin(cin), cin1, cout, w_q.shape[1], stream)
         build.check(rc, "earlier qconv3x3")
@@ -331,14 +367,14 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
     ]).astype(np.float32)).to(dev)
     res = torch.from_numpy(rng.standard_normal((batch, f_rows, t, cout))
                            .astype(np.float32)).to(dev)
-    how = qk.plan(cin, cout, t)
-    route = how["kernel"]
     rows = {}
     for variant in ("plain", "res") + (("cat",) if any(c for _, c in variants) else ()):
         kw = dict(residual=res if variant == "res" else None)
         xin = x
         if variant == "cat":
             xin, kw["x2"] = x[..., :cin // 2].contiguous(), x[..., cin // 2:].contiguous()
+        how = qk.plan(cin, cout, t, cin // 2 if variant == "cat" else None)
+        route = how["kernel"]
         new = qk.qconv3x3(xin, w_q, epi, act_scale, **kw)
         old = qk.qconv3x3(xin, w_q, epi, act_scale, **kw, _kernel="mma")
         ref = qk.qconv3x3_plain(xin, w_q, epi, act_scale, **kw)
@@ -352,6 +388,9 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
         if route != "mma":  # L2 -> SM bytes a tile moves, from the plan
             row.update(weight_bytes_per_tile=how["weight_bytes"],
                        halo_bytes_per_tile=how["halo_bytes"])
+        else:  # the mma.sync kernel's grid: slices of output channels, halo parts
+            row.update(slices=how["n_slices"], slice_width=how["slice_width"],
+                       halo_parts=how["n_parts"], part_channels=how["part_channels"])
         if earlier is not None:
             row["not_bit_equal_to_earlier"] = int((new != earlier(xin, w_q, epi, act_scale,
                                                                   **kw)).sum())
@@ -403,9 +442,11 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
 
 
 def int_mm_ms(x, w_q, act_scale) -> float:
-    """``torch._int_mm`` on a conv's im2col'd int8 codes (a stem's channels
-    zero-extended, as the kernel takes them) and packed weights, both made
-    outside the timing: the bare GEMM, not the same function."""
+    """``torch._int_mm`` on a conv's im2col'd int8 codes (channels up to
+    kernel_cin(Cin) zero-extended, as the kernel takes them) and packed
+    weights (zero rows up to a multiple of 8 output channels, which
+    ``_int_mm`` needs on the card), both made outside the timing: the bare
+    GEMM, not the same function."""
     from azoom_torch.kernels import qconv_kernel as qk
 
     batch, rows, t, cin = x.shape
@@ -416,7 +457,7 @@ def int_mm_ms(x, w_q, act_scale) -> float:
                        dim=3).reshape(batch * rows * t, 9 * ck)
     cols = torch.nn.functional.pad(cols, (0, qk.k_padded(cin) - 9 * ck)).contiguous()
     del xq
-    w_t = w_q.t()
+    w_t = torch.nn.functional.pad(w_q, (0, 0, 0, -w_q.shape[0] % 8)).t()
     return time_ms(lambda: torch._int_mm(cols, w_t))
 
 

@@ -40,10 +40,13 @@ quantise with the same code, so a dynamic launch gives the codes of a
 static one at the same value. Dynamic launches count as
 ``qconv3x3_dynamic`` in ``kernels.launches``.
 
-The stems of the unfolded nets take Cin = 2 (logmag_ipd features) or 4
-(physics features). Their weights are packed as if Cin were 16, the
-channels beyond Cin zero (:func:`kernel_cin`), and the kernels' halo loads
-fill those channels with zero codes: the int32 sums are the same.
+Any Cin and any Cout are served, as the reference's QConv (an XLA conv)
+serves them: a net trained at any ``--base``. A Cin that is not a multiple
+of 16 (the stems' 2 logmag_ipd or 4 physics features, or 8, 20, 24, ...) is
+packed and computed as ceil(Cin / 16) * 16 channels, those beyond Cin zero
+(:func:`kernel_cin`), and the kernels' halo loads fill them with zero
+codes: the int32 sums are the same. The int32 sums are exact up to
+Cin = (2^31 - 1) // (9 * 127^2) = 14,794.
 
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it runs :func:`qconv3x3_plain`. Which kernel is a matter of shape alone
@@ -59,10 +62,14 @@ it runs :func:`qconv3x3_plain`. Which kernel is a matter of shape alone
     and a tile as wide as pads the frames least: Cin % 32 == 0 with Cout of
     256 or 512 where "wgmma" does not fit (Cout = 512, Cin = 512, 256 -> 256
     at 6 frames);
-  - the ``mma.sync`` kernel takes the rest, which no bundled net runs at 48,
-    64 or 80 frames (Cout of 64 or 128 whose halos leave no room for three
-    weight stages, Cout = 32 at Cin >= 256, Cin % 32 == 16 beyond 16, stems
-    at Cout >= 128, one-frame planes at large Cin).
+  - the ``mma.sync`` kernel takes every other shape: any width these three
+    do not take (Cout of 8, 48, 96, 384, 1024, ...; Cin of 1, 3, 20, 48,
+    ...; a concat whose halves are not multiples of 4 channels) in slices of
+    at most 256 output channels and, where the halo of all channels does not
+    fit, in parts of the channels; and the bundled widths where those
+    routes do not fit, which no bundled net runs at 48, 64 or 80 frames
+    (Cout of 64 or 128 whose halos leave no room for three weight stages,
+    Cout = 32 at Cin >= 256, one-frame planes at large Cin).
 All agree bit for bit (``kernels/bench.py`` checks it on the card); none is
 a fallback for a failed build or launch of another.
 """
@@ -80,8 +87,7 @@ from azoom_torch.kernels import build
 
 __all__ = [
     "qconv3x3", "qconv3x3_plain", "pack_weights", "epilogue_params", "quantize_weights", "plan",
-    "route_counts", "kernel_cin", "k_padded", "COUTS", "STEM_CINS", "dynamic_act_scale",
-    "input_max",
+    "route_counts", "kernel_cin", "k_padded", "STEM_CINS", "dynamic_act_scale", "input_max",
 ]
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
@@ -97,14 +103,15 @@ route_counts = {"wgmma": 0, "narrow": 0, "split": 0, "mma": 0}
 # patches (8 warps x 16 rows x 40 floats), the 5 epilogue rows, the barriers
 # (of 18 weight stages and 8 halo buffers).
 _TILE_ALIGN, _STAGING, _BARRIERS, _MAX_STAGES = 1024, 8 * 16 * 40 * 4, (2 * 18 + 2 * 8) * 8, 18
-COUTS = (32, 64, 128, 256, 512)  # the output widths a kernel takes
-STEM_CINS = (2, 4)  # input widths below 16 the kernels take, as 16 zero-extended channels
+STEM_CINS = (2, 4)  # the stems' widths below 16, which the narrow route takes as 16 channels
+_MMA_WROW = 128 + 16  # a staged weight row of its two buffers: a K chunk and 16 pad bytes
 
 
 def kernel_cin(cin: int) -> int:
-    """The input width the kernels compute with: 16 for a stem of
-    Cin in :data:`STEM_CINS`, else Cin."""
-    return 16 if cin in STEM_CINS else cin
+    """The input width the kernels compute with: Cin rounded up to a
+    multiple of 16 (16 for the stems of Cin in :data:`STEM_CINS`), the
+    channels beyond Cin zero."""
+    return -(-cin // 16) * 16
 
 
 def k_padded(cin: int) -> int:
@@ -238,20 +245,40 @@ def _pow2_floor(n: int, cap: int) -> int:
     return tw
 
 
+def _slice_width(cout: int) -> int:
+    """The ``mma.sync`` kernel's output channels a block: the least of 32,
+    64, 128 and 256 that holds Cout, else slices of 256; all 512 at
+    Cout = 512, the bundled widths' tile of 32 pixels, which quantises its
+    input once."""
+    return 512 if cout == 512 else next((n for n in (32, 64, 128, 256) if cout <= n), 256)
+
+
 def _plan_mma(cin: int, cout: int, frames: int) -> dict:
-    """The ``mma.sync`` kernel's tile and shared memory, as its C entry point
-    picks them: 256 * 64 / Cout pixels, the halo and two buffers of Cout
-    rows of 128 + 16 weight bytes."""
+    """The ``mma.sync`` kernel's plan, which its C entry point checks: a
+    slice of ``slice_width`` output channels a block (:func:`_slice_width`,
+    ``n_slices`` of them), tiles of
+    256 * 64 / slice_width pixels, and the halo in ``n_parts`` parts of
+    ``part_channels`` channels (a multiple of 16; one part of all
+    kernel_cin(Cin) channels where it fits beside the two weight buffers of
+    slice_width rows of 128 + 16 bytes). ``k_chunks`` is the K chunks of 128
+    a block walks: each part's 9 * part_channels columns rounded up to 32.
+    Every shape fits: a part of 16 channels does at every tile."""
     ck = kernel_cin(cin)
-    m_tile = 256 * 64 // cout
+    nb = _slice_width(cout)
+    m_tile = 256 * 64 // nb
     tile_w = _pow2_floor(frames, m_tile)
     tile_rows = m_tile // tile_w
-    smem = (tile_rows + 2) * (tile_w + 2) * (ck + 16) + 2 * cout * 144
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"qconv3x3: Cin {cin}, Cout {cout} at {frames} frames needs {smem} B "
-                         "of shared memory")
+    pixels = (tile_rows + 2) * (tile_w + 2)
+    weights = 2 * nb * _MMA_WROW
+    widest = ((SMEM_LIMIT - weights) // pixels - 16) // 16 * 16  # >= 16 at every tile
+    n_parts = -(-ck // widest)
+    cp = -(-ck // (16 * n_parts)) * 16
+    n_parts = -(-ck // cp)
+    k_part = -(-9 * cp // 32) * 32
     return dict(kernel="mma", m_tile=m_tile, tile_w=tile_w, tile_rows=tile_rows,
-                k_chunks=-(-k_padded(cin) // 128), stages=2, resident=False, smem=smem)
+                slice_width=nb, n_slices=-(-cout // nb), part_channels=cp, n_parts=n_parts,
+                k_chunks=n_parts * -(-k_part // 128), stages=2, resident=False,
+                smem=pixels * (cp + 16) + weights)
 
 
 def _split_tile_w(frames: int) -> int:
@@ -297,9 +324,10 @@ def _plan_split(cin: int, cout: int, frames: int) -> dict | None:
 
 
 @functools.cache
-def plan(cin: int, cout: int, frames: int) -> dict:
-    """How the card runs a (Cin, Cout) conv on planes of ``frames`` frames:
-    which kernel, its tile and its shared memory, from the shape alone.
+def plan(cin: int, cout: int, frames: int, cin1: int | None = None) -> dict:
+    """How the card runs a (Cin, Cout) conv on planes of ``frames`` frames
+    (``cin1``: at a concat, the channels of its first input): which kernel,
+    its tile and its shared memory, from the shape alone.
 
     ``kernel`` "wgmma" or "narrow": tiles of ``tile_rows`` x ``tile_w`` =
     ``m_tile`` pixels (512 at Cout = 32, 256 at 64, else 128; ``tile_w`` the
@@ -318,19 +346,18 @@ def plan(cin: int, cout: int, frames: int) -> dict:
     Cout = 512, for Cout of 256 or 512: the same kernel walking ``n_slices``
     slices of 256 channels and ``n_parts`` halo parts of ``part_channels``
     channels in ``halo_buffers`` buffers. ``kernel`` "mma": the ``mma.sync``
-    kernel's tile (256 * 64 / Cout pixels) and bytes, for what no plan above
-    fits or takes. Raises ValueError for a shape no kernel takes: Cin must be
-    2, 4 or a positive multiple of 16, Cout one of :data:`COUTS`, and no
-    kernel fits Cin >= 1024 with Cout of 256 or 512 on wide tiles."""
-    if cin not in STEM_CINS and (cin < 16 or cin % 16):
-        raise ValueError(f"qconv3x3: Cin must be 2, 4 or a multiple of 16, got {cin}")
-    if cout not in COUTS:
-        raise ValueError(f"qconv3x3: Cout must be one of {COUTS}, got {cout}")
-    if frames < 1:
-        raise ValueError(f"qconv3x3: frames must be positive, got {frames}")
+    kernel's slices, tile and halo parts (:func:`_plan_mma`), for every
+    shape no plan above takes or fits: the other widths, and a concat whose
+    halves are not multiples of 4 channels. Raises ValueError only for a
+    Cin, Cout or frame count that is not positive."""
+    for name, v in (("Cin", cin), ("Cout", cout), ("frames", frames)):
+        if v < 1:
+            raise ValueError(f"qconv3x3: {name} must be positive, got {v}")
     ck = kernel_cin(cin)
-    narrow = (ck == 16 and cout <= 64) or (ck % 32 == 0 and cout == 32)
-    if narrow or (ck % 32 == 0 and 64 <= cout <= 256):
+    if cin1 is not None and (cin1 % 4 or (cin - cin1) % 4):  # csrc/qconv_kernel.cu's float4 halves
+        return _plan_mma(cin, cout, frames)
+    narrow = (cin in STEM_CINS + (16,) and cout in (32, 64)) or (cin % 32 == 0 and cout == 32)
+    if narrow or (cin % 32 == 0 and cout in (64, 128, 256)):
         m_tile = {32: 512, 64: 256}.get(cout, 128)
         tile_w = _pow2_floor(frames, 64)
         tile_rows = m_tile // tile_w
@@ -358,7 +385,7 @@ def _entry(kernel: str):
         ints = 11
     else:
         fn = build.load_library("qconv_mma_kernel").azt_qconv3x3_mma
-        ints = 8
+        ints = 12
     fn.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_int] * ints + [ctypes.c_void_p]
     )
@@ -419,12 +446,10 @@ def qconv3x3(
     if x2 is not None:
         _require(x2.dtype == torch.float32 and x2.ndim == 4 and x2.shape[:3] == x.shape[:3],
                  f"x2 must be float32 {(B, F, T)} + (C,), got {x2.dtype} {tuple(x2.shape)}")
-        _require(cin1 % 4 == 0 and x2.shape[3] % 4 == 0,
-                 "the channels of x and x2 must be multiples of 4")
         cin = cin1 + x2.shape[3]
     cout = w_q.shape[0]
-    _require(B * F * T > 0, "empty input")
-    how = plan(cin, cout, T)  # raises for a shape no kernel takes
+    _require(B * F * T > 0 and cin > 0 and cout > 0, "empty input")
+    how = plan(cin, cout, T, None if x2 is None else cin1)
     _require(w_q.dtype == torch.int8 and tuple(w_q.shape) == (cout, k_padded(cin)),
              f"w_q must be int8 ({cout}, {k_padded(cin)}), got {w_q.dtype} {tuple(w_q.shape)}")
     if dynamic:
@@ -460,7 +485,7 @@ def qconv3x3(
             None if out_max is None else out_max.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        # A stem's channels beyond Cin1 (no x2) are zeros to the kernels.
+        # Channels beyond Cin, up to kernel_cin(Cin), are zeros to the kernels.
         if how["kernel"] in ("wgmma", "narrow"):
             rc = _entry("wgmma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),
                                  cin1, cout, how["tile_w"], how["stages"], how["smem"], stream)
@@ -469,8 +494,9 @@ def qconv3x3(
                                  how["tile_w"], how["part_channels"], how["stages"], how["smem"],
                                  stream)
         else:
-            rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),
-                               cin1, cout, w_q.shape[1], stream)
+            rc = _entry("mma")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
+                               w_q.shape[1], how["tile_w"], how["part_channels"],
+                               how["slice_width"], how["smem"], stream)
     build.check(rc, f"qconv3x3 {how['kernel']} kernel")
     kernels.count(kernels.launches, "qconv3x3_dynamic" if dynamic else "qconv3x3")
     kernels.count(route_counts, how["kernel"])

@@ -293,10 +293,28 @@ Phases, each printing its own line(s):
                --per-run` for two scenes; the compute parts of debug_srp and
                zoom_study against the CPU. It imports none of matplotlib,
                pandas and tensorstore.
+ 26. widths  - int8 convs and upsamplings at widths no bundled net has (the
+               reference serves a net trained at any --base): B2's mma.sync
+               route at Cout of 8, 24, 48, 1024 and odd ones, Cin of 1, 3,
+               20 and 2048 (halo parts), concats whose halves are not
+               multiples of 4 channels and one-frame planes, each bit for bit
+               against the plain version at batch 2, static and dynamic with
+               the maxima, then timed at batch 128 beside the plain version,
+               torch._int_mm on im2col'd int8 and the bound; convt1x2 at odd
+               K and Cout against its plain version (ties counted) and timed
+               beside torch.addmm. Then a FreqPreservingUNet at base 48 and a
+               DeepFPU at base 64 (its 1024-channel bottleneck), seeded inits
+               of their trainable twins calibrated on the card, each conv of
+               theirs on the mma.sync route checked and timed as above; both
+               served int8 by learned_enhance at (128, 2, 32000) on phase 7's
+               scenes on static and on dynamic scales: launch counts and
+               routes, the first 4 chunks within 2e-2 / 0.1 dB of the CPU
+               port, every conv bit for bit the plain version on 4 chunks,
+               the median ms per call.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
-is a loop of calls from Python for both; B2 eight times: qconv3x3 is the
+is a loop of calls from Python for both; B2 nine times: qconv3x3 is the
 tpufpu_nano net of phase 3 with phase 5's launches, qconv3x3_<net> the conv
 set of fpu, deepfpu, tpufpu and tpufpu_slim with the launches of that int8
 net's phase-16 run, qconv3x3_split the split route's four convs of the
@@ -305,7 +323,10 @@ phase 12's reuse ticks, qconv3x3_narrow the narrow route's convs of those
 four conv sets (the stems and Cout = 32) with the narrow launches of their
 phase-16 int8 runs, qconv3x3_dynamic the nano net's convs on dynamic scales
 as the net wires them, one fill of its maxima included, with the launches
-of phase 25's `batch --ckpt DIR --int8`; B3 twice: hard_null shared with
+of phase 25's `batch --ckpt DIR --int8`, qconv3x3_any_width the convs of
+phase 26's two nets on the mma.sync route, each as often as its net runs
+it, with the mma.sync launches of their four learned_enhance runs; B3
+twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run; online_mvdr at one 60 s clip with phase 17's
 launches; online_mvdr_mmic, the M-general instance, at a 60 s 4-mic clip
@@ -1928,6 +1949,258 @@ def phase_train(dev, mix_s, tgt_s, itf_s) -> dict:
         convs_vs_plain=f"{len(calls)} convs, {differ} elements differ")
     res["export"] = dict(calib_s=calib_s, npz_bytes=nbytes, launches=counts, routes=routes,
                          sir_gain_db=sir, convs_differ=differ)
+    return res
+
+
+# 26.'s conv widths beside the two nets' own: Cout of 8 and 24 and odd ones, Cin of 1, 3, 20
+# and 2048, concats whose halves are not multiples of 4 channels, one-frame planes. (rows,
+# frames, Cin, Cout, residual, Cin1 of a concat)
+WIDTH_CASES = [(129, 64, 2, 8, False, None), (129, 7, 1, 24, True, None),
+               (129, 64, 3, 48, False, None), (129, 1, 20, 48, True, None),
+               (17, 64, 2048, 24, False, None), (129, 5, 40, 24, True, 20),
+               (129, 33, 30, 8, False, 10), (129, 1, 21, 7, True, 13),
+               (129, 8, 2048, 1024, True, 1024)]
+# 26.'s upsamplings at odd widths: (K, Cout, frames) on 129 rows
+ODD_CONVT = [(10, 5, 32), (6, 3, 64), (383, 191, 8)]
+
+
+def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, itf_s) -> dict:
+    """26. widths (module docstring). ``mix_s``, ``tgt_s``, ``itf_s`` are
+    phase 7's far-field scenes on the card. Adds the kernels line's
+    "qconv3x3_any_width" entry to ``results``; returns the numbers for
+    chip_smoke.json."""
+    import numpy as np
+    import torch
+
+    from azoom_torch import kernels
+    from azoom_torch.config import PipelineConfig
+    from azoom_torch.dsp.stft import stft
+    from azoom_torch.eval.projection import osinr_osir
+    from azoom_torch.kernels.bench import int_mm_ms
+    from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
+    from azoom_torch.kernels.qconv_kernel import (
+        input_max, pack_weights, plan, qconv3x3, qconv3x3_plain, route_counts,
+    )
+    from azoom_torch.models import trainable
+    from azoom_torch.models.convert import from_flax
+    from azoom_torch.models.quantize import calibrate_act_scales
+    from azoom_torch.models.unet import ConvTranspose1x2, QConv, conv_shapes
+    from azoom_torch.pipelines.learned import learned_enhance, predict_mask
+    from azoom_torch.train.data import synth_batch
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    cfg = PipelineConfig(mic_dist=0.04)
+    act_scale = float(np.float32(3.3 / 127))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    small = 2  # the batch of the bit-for-bit checks; times at BATCH
+
+    def operands(batch, rows, t, cin, cout, with_res, cin1):
+        x = torch.randn((batch, rows, t, cin), generator=gen, device=dev)
+        w_q = pack_weights(torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, device=dev,
+                                         dtype=torch.int8))
+        epi = torch.stack([torch.full((cout,), 2e-4, device=dev)]
+                          + [0.1 * torch.randn(cout, generator=gen, device=dev) for _ in range(2)]
+                          + [1 + 0.1 * torch.randn(cout, generator=gen, device=dev),
+                             0.1 * torch.randn(cout, generator=gen, device=dev)]).contiguous()
+        kw = dict(residual=torch.randn((batch, rows, t, cout), generator=gen, device=dev)
+                  if with_res else None)
+        if cin1 is not None:
+            x, kw["x2"] = x[..., :cin1].contiguous(), x[..., cin1:].contiguous()
+        return x, w_q, epi, kw
+
+    def shape_check(rows, t, cin, cout, with_res, cin1) -> dict:
+        """Bit for bit against the plain version at a small batch, static and
+        dynamic with the maxima; then the kernel, the plain version and
+        _int_mm timed at BATCH beside the bound."""
+        how = plan(cin, cout, t, cin1)
+        x, w_q, epi, kw = operands(small, rows, t, cin, cout, with_res, cin1)
+        got = qconv3x3(x, w_q, epi, act_scale, **kw)
+        ref = qconv3x3_plain(x, w_q, epi, act_scale, **kw)
+        in_max = input_max(x, kw.get("x2"))
+        maxima = [torch.zeros(small, device=dev) for _ in range(2)]
+        dyn = qconv3x3(x, w_q, epi, None, **kw, in_max=in_max, out_max=maxima[0])
+        dref = qconv3x3_plain(x, w_q, epi, None, **kw, in_max=in_max, out_max=maxima[1])
+        torch.cuda.synchronize()
+        differ = int((got != ref).sum()) + int((dyn != dref).sum()) + int(
+            (maxima[0] != maxima[1]).sum()) + int((maxima[0] != input_max(dyn)).sum())
+        check(differ == 0, f"widths {(rows, t, cin, cout, with_res, cin1)} on {how['kernel']}: "
+                           f"{differ} elements or maxima differ from the plain version")
+        err = float((got - ref).abs().max())
+        del x, kw, got, ref, dyn, dref
+        x, w_q, epi, kw = operands(BATCH, rows, t, cin, cout, with_res, cin1)
+        ms = time_ms(lambda: qconv3x3(x, w_q, epi, act_scale, **kw), iters=5, warmup=1)
+        plain_ms = time_ms(lambda: qconv3x3_plain(x, w_q, epi, act_scale, **kw), iters=1,
+                           warmup=1)
+        m = BATCH * rows * t
+        b_ms, b_by = bound(m * cin * 4 + cout * 9 * cin + epi.numel() * 4
+                           + m * cout * 4 * (2 if with_res else 1),
+                           2.0 * m * 9 * cin * cout, INT8_OPS_PER_S)
+        xin = x if cin1 is None else torch.cat([x, kw["x2"]], dim=-1)
+        lib_ms = int_mm_ms(xin, w_q, act_scale)
+        del x, kw, xin
+        return dict(kernel=how["kernel"], slices=how.get("n_slices"),
+                    halo_parts=how.get("n_parts"), part_channels=how.get("part_channels"),
+                    max_abs_err=err, elements_differ=differ, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    # widths beside the nets' own ---------------------------------------------------
+    cases = {}
+    for case in WIDTH_CASES:
+        cases[case] = shape_check(*case)
+        rows, t, cin, cout, with_res, cin1 = case
+        log("widths_shape", shape=f"{cin}->{cout}@{t}" + "+res" * with_res
+            + (f"+cat{cin1}|{cin - cin1}" if cin1 else ""), rows=rows, batch=BATCH,
+            **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in cases[case].items()})
+    res["cases"] = {str(k): v for k, v in cases.items()}
+
+    # convt1x2 at odd K and Cout -----------------------------------------------------
+    convt = {}
+    for k, cout, t in ODD_CONVT:
+        x = torch.randn((BATCH, F_ROWS, t, k), generator=gen, device=dev)
+        w = 0.05 * torch.randn((k, 2 * cout), generator=gen, device=dev)
+        b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        out_max = torch.zeros(BATCH, device=dev)
+        got, ref = convt1x2(x, w, b, out_max), convt1x2_plain(x, w, b)
+        torch.cuda.synchronize()
+        ties = int((got != ref).sum())
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        check(rel < 1e-6 and ties <= got.numel() // 100_000 + 1
+              and torch.equal(out_max.view(torch.int32), input_max(got).view(torch.int32)),
+              f"convt {(k, cout, t)}: relative error {rel:.3e}, {ties} ties, maxima")
+        p_rows = BATCH * F_ROWS * t
+        b_ms, _ = bound(4.0 * (p_rows * k + k * 2 * cout + cout + p_rows * 2 * cout),
+                        2.0 * p_rows * k * 2 * cout, FP32_FLOPS_PER_S)
+        x2, b2 = x.reshape(-1, k), b.repeat(2)
+        convt[(k, cout, t)] = dict(ms=time_ms(lambda: convt1x2(x, w, b)), bound_ms=b_ms,
+                                   addmm_ms=time_ms(lambda: torch.addmm(b2, x2, w)),
+                                   rel_err=rel, not_bit_equal_to_plain=ties)
+        log("widths_convt", k=k, cout=cout, frames=t, batch=BATCH,
+            **{n: (f"{v:.4g}" if isinstance(v, float) else v) for n, v in convt[(k, cout, t)].items()})
+        del x, x2, got, ref
+    res["convt"] = {str(k): v for k, v in convt.items()}
+
+    # the slice's two nets: seeded inits of their trainable twins, calibrated on the
+    # card, served static and dynamic by learned_enhance ------------------------------
+    twins = {"fpu_b48": (trainable.FreqPreservingUNet(base=48), "logmag_ipd", 2),
+             "deepfpu_b64": (trainable.DeepFPU(base=64), "physics", 4)}
+    net_parts, launches_mma, worst = [], 0, 0.0
+    Y4, mix4 = stft(mix_s[:4]), mix_s[:4].cpu()
+    tgt4, itf4 = tgt_s[:4].cpu(), itf_s[:4].cpu()
+    for name, (twin, fk, channels) in twins.items():
+        twin.init(torch.Generator().manual_seed(26), (1, 513, 64, channels))
+        cls, kw = twin.serving_spec()
+        calib = [synth_batch(30 + i, 8, cfg, fk, device=dev)["features"] for i in range(2)]
+        kernels.reset_launches()
+        before = dict(route_counts)
+        variables = calibrate_act_scales(twin, twin.variables(), calib, device=dev)
+        torch.cuda.synchronize()
+        calib_routes = {r: v - before[r] for r, v in route_counts.items() if v - before[r]}
+        probe = from_flax(cls, variables, kw, True, "cpu")
+        convs = conv_shapes(probe, 64)
+        n_up = sum(isinstance(m, ConvTranspose1x2) for m in probe.modules())
+        kinds = [plan(cin, cout, t, cin // 2 if cat else None)["kernel"]
+                 for cin, cout, t, _, cat in convs]
+        check(kernels.launches["qconv3x3"] == 2 * len(convs),
+              f"{name}: calibration launches {dict(kernels.launches)}")
+        # the net's convs on the mma.sync route, at BATCH on its 513-row planes
+        shapes = {}
+        for key, kind in zip(convs, kinds):
+            cin, cout, t, with_res, cat = key
+            if key not in shapes and kind == "mma":
+                shapes[key] = shape_check(513, t, cin, cout, with_res, cin // 2 if cat else None)
+        mma_convs = [shapes[c] for c in convs if c in shapes]
+        net_parts += mma_convs
+        worst = max([worst] + [p["max_abs_err"] for p in mma_convs])
+        log("widths_net_convs", net=name, convs=len(convs), on_mma=len(mma_convs), batch=BATCH,
+            ms=f"{sum(p['ms'] for p in mma_convs):.4f}",
+            bound_ms=f"{sum(p['bound_ms'] for p in mma_convs):.4f}",
+            int_mm_ms=f"{sum(p['library_ms'] for p in mma_convs):.4f}",
+            per_shape={f"{k[0]}-{k[1]}@{k[2]}" + "+res" * k[3] + "+cat" * k[4]:
+                       round(v["ms"], 4) for k, v in shapes.items()})
+        served = {}
+        for mode, tree in (("static", variables),
+                           ("dynamic", {k: variables[k] for k in ("params", "batch_stats")})):
+            net = from_flax(cls, tree, kw, True, dev)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            before = dict(route_counts)
+            out = learned_enhance(mix_s, net, cfg, feature_kind=fk)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            routes = {r: v - before[r] for r, v in route_counts.items() if v - before[r]}
+            conv_key = "qconv3x3" if mode == "static" else "qconv3x3_dynamic"
+            want = {conv_key: len(convs), "convt1x2": n_up, "masked_mvdr": 1}
+            check(counts == want, f"{name} {mode}: launch counts {counts}, want {want}")
+            check(routes == {k: kinds.count(k) for k in set(kinds)},
+                  f"{name} {mode}: conv kernels {routes}")
+            check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
+                  f"{name} {mode}: bad output")
+            launches_mma += routes.get("mma", 0)
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                learned_enhance(mix_s, net, cfg, feature_kind=fk)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            # the first 4 chunks against the CPU port: waveform and SIR
+            cpu = learned_enhance(mix4, from_flax(cls, tree, kw, True, "cpu"), cfg,
+                                  feature_kind=fk)
+            card = out[:4].cpu()
+            rel = float((card - cpu).norm() / cpu.norm())
+            d_sir = float((osinr_osir(card, tgt4, itf4)[1] - osinr_osir(cpu, tgt4, itf4)[1])
+                          .abs().max())
+            check(rel <= 2e-2 and d_sir <= 0.1,
+                  f"{name} {mode}: 4 chunks vs CPU waveform {rel:.3e}, SIR {d_sir:.4f} dB")
+            # its convs on 4 chunks, bit for bit against the plain version
+            calls = []
+            hooks = [m.register_forward_pre_hook(
+                lambda c, a, k: calls.append((c, a[0], k)), with_kwargs=True)
+                for m in net.modules() if isinstance(m, QConv)]
+            predict_mask(net, Y4, feature_kind=fk)
+            for h in hooks:
+                h.remove()
+            differ = 0
+            for conv, x, k in calls:
+                k = dict(residual=k.get("residual"), relu=k.get("relu", True), x2=k.get("x2"),
+                         in_max=k.get("in_max"))
+                if conv.act_scale is None and k["in_max"] is None:
+                    k["in_max"] = input_max(x, k["x2"])
+                differ += int((qconv3x3(x, conv.w_q, conv.epi, conv.act_scale, **k)
+                               != qconv3x3_plain(x, conv.w_q, conv.epi, conv.act_scale, **k))
+                              .sum())
+            check(differ == 0 and len(calls) == len(convs),
+                  f"{name} {mode}: {differ} conv outputs differ from the plain version")
+            med = statistics.median(ts[1:])
+            served[mode] = dict(launches=counts, conv_kernels=routes, ms=ts, ms_median=med,
+                                cpu_4chunks_wave_rel_l2=rel, cpu_4chunks_dsir_db=d_sir,
+                                convs_differ=differ)
+            log("widths_net", net=name, mode=mode, features=fk, batch=BATCH, launches=counts,
+                conv_kernels=routes, ms_median=f"{med:.3f}", cpu_4chunks_wave_rel_l2=f"{rel:.3e}",
+                cpu_4chunks_dsir_db=f"{d_sir:.4f}", convs_vs_plain=f"{len(calls)} convs, 0 differ")
+            del net, out
+        res[name] = dict(calib_routes=calib_routes, shapes={str(k): v for k, v in shapes.items()},
+                         served=served)
+        torch.cuda.empty_cache()
+    # the kernels line: the two nets' convs on the mma.sync route, each as often as its net
+    # runs it, with the launches of their four learned_enhance runs
+    results["qconv3x3_any_width"] = dict(
+        name="qconv3x3_any_width", route="cuda", source="azoom_torch/csrc/qconv_mma_kernel.cu",
+        replaces="azoom/pallas/qconv_kernel.py:131 (qconv3x3_pallas at any Cin and Cout: the "
+                 "int8 QConv convs of azoom/models/unet.py:183 in a FreqPreservingUNet at base "
+                 "48 and a DeepFPU at base 64)",
+        launches=launches_mma, max_abs_err=worst, ms=sum(p["ms"] for p in net_parts),
+        plain_ms=sum(p["plain_ms"] for p in net_parts),
+        bound_ms=sum(p["bound_ms"] for p in net_parts), bound_by=bound_by_of(net_parts),
+        library_ms=sum(p["library_ms"] for p in net_parts))
+    res["seconds"] = time.perf_counter() - t_phase
+    log("widths", convs_on_mma=len(net_parts), launches=launches_mma,
+        ms=f"{results['qconv3x3_any_width']['ms']:.4f}",
+        bound_ms=f"{results['qconv3x3_any_width']['bound_ms']:.4f}",
+        int_mm_ms=f"{results['qconv3x3_any_width']['library_ms']:.4f}",
+        seconds=f"{res['seconds']:.1f}")
     return res
 
 
@@ -3825,10 +4098,13 @@ def main() -> int:
     # 25. entry points and checkpoints -------------------------------------------------
     entry_points = phase_entry_points(dev, results, time_ms, bound, mix_s, tgt_s, itf_s)
 
+    # 26. widths the bundled nets do not have -------------------------------------------
+    widths = phase_widths(dev, results, time_ms, bound, bound_by_of, mix_s, tgt_s, itf_s)
+
     line = {"kernels": [results[k] for k in (
         "masked_mvdr", "masked_mvdr_per_stream", "qconv3x3", "qconv3x3_fpu", "qconv3x3_deepfpu",
         "qconv3x3_tpufpu", "qconv3x3_tpufpu_slim", "qconv3x3_split", "qconv3x3_narrow",
-        "qconv3x3_dynamic", "convt1x2", "hard_null",
+        "qconv3x3_dynamic", "qconv3x3_any_width", "convt1x2", "hard_null",
         "hard_null_per_chunk", "int8_mm", "online_mvdr", "online_mvdr_mmic")]}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
@@ -3845,7 +4121,7 @@ def main() -> int:
          "learned_tracked": learned_tracked, "tracked_facade_ms": z_ms, "hrnr": hrnr,
          "qconv_sets": set_shapes, "nets": nets, "lowlat": lowlat, "mmic": mmic,
          "beamformers": beamformers, **native_eval, "sim": sim, "sweep": sweep, "train": train,
-         "entry_points": entry_points, "card": smi},
+         "entry_points": entry_points, "widths": widths, "card": smi},
         indent=1))
     print(json.dumps(line))
     print(smi)

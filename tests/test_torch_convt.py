@@ -67,11 +67,44 @@ def test_plan_covers_ragged_rows(batch, f_rows, frames, k, n2):
     assert (how["chunks"] - 1) * 16 < k <= how["chunks"] * 16  # the last chunk may be short
 
 
-@pytest.mark.parametrize("rows,k,n2", [(100, 6, 256), (100, 130, 256), (100, 64, 130),
-                                       (0, 64, 128), (100, 0, 128)])
+@pytest.mark.parametrize("rows,k,n2", [(0, 64, 128), (100, 0, 128), (100, 64, 0)])
 def test_plan_refuses_what_the_kernel_does_not_take(rows, k, n2):
+    """Only an empty product: the kernel takes any K and Cout."""
     with pytest.raises(ValueError, match="convt1x2"):
         plan(rows, k, n2)
+
+
+# K and 2 * Cout of upsamplings in nets trained at other bases (K = 2 * Cout of the level
+# below): not multiples of 4, the kernel's K and N edges masked
+@pytest.mark.parametrize("rows,k,n2", [(100, 6, 256), (100, 130, 256), (100, 64, 130),
+                                       (100, 10, 10), (7, 383, 382), (1, 1, 2)])
+def test_plan_takes_any_k_and_cout(rows, k, n2):
+    how = plan(rows, k, n2)
+    (gm, gn), tm, tn = how["grid"], how["tile_m"], how["tile_n"]
+    assert (gm - 1) * tm < rows <= gm * tm and (gn - 1) * tn < n2 <= gn * tn
+    assert (how["chunks"] - 1) * 16 < k <= how["chunks"] * 16
+    assert how["smem"] == plan(96, 16, 128)["smem"]  # one tile size for every width
+
+
+@pytest.mark.parametrize("k,cout", [(40, 300), (383, 191), (7, 129)])
+def test_plain_in_blocks_of_rows_is_the_chain_over_all_rows(k, cout):
+    """On the CPU the plain version walks the chain on blocks of rows (2^18
+    accumulators, here several blocks and a partial one); each output is the
+    same float64-emulated FMA chain as over all rows at once, bit for bit,
+    signed zeros included."""
+    rng = np.random.default_rng(k + cout)
+    x = rng.standard_normal((2, 33, 16, k)).astype(np.float32)
+    x[0, 0, 0] = -0.0  # an output row of -0 products
+    w = (0.05 * rng.standard_normal((k, 2 * cout))).astype(np.float32)
+    b = np.zeros(cout, np.float32)
+    got = convt1x2_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
+    x64, w64 = torch.from_numpy(x).reshape(-1, k).double(), torch.from_numpy(w).double()
+    acc = torch.zeros((x64.shape[0], 2 * cout), dtype=torch.float64)
+    for i in range(k):
+        acc = (acc + x64[:, i:i + 1] * w64[i]).to(torch.float32).to(torch.float64)
+    want = acc.to(torch.float32).reshape(2, 33, 32, cout) + torch.from_numpy(b)
+    assert x64.shape[0] % (2**18 // (2 * cout)) and x64.shape[0] > 2**18 // (2 * cout)
+    assert torch.equal(got, want) and torch.equal(torch.signbit(got), torch.signbit(want))
 
 
 @pytest.mark.parametrize("k,cout,frames", NANO_CONVT)

@@ -1465,3 +1465,117 @@ def test_the_run_cli_writes_the_library_call_on_the_card(cuda, tmp_path):
     assert np.array_equal(got, want.cpu().numpy())
     assert batch.main(["--per-run", "--n", "2", "--duration", "1", "--data-root",
                        str(tmp_path / "batch")]) == (2, 0)
+
+
+def _any_width_case(rng, dev, batch, f_rows, t, cin, cout, res, cin1):
+    """Operands of a conv at any width: the packed weights of any Cin, and at a
+    concat (``cin1`` channels in x, the rest in x2) the two inputs."""
+    x = _t(rng.standard_normal((batch, f_rows, t, cin)).astype(np.float32), dev)
+    w = pack_weights(torch.from_numpy(
+        rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8))).to(dev)
+    epi = _t(np.stack([np.full(cout, 2e-4), *(0.1 * rng.standard_normal((2, cout))),
+                       1 + 0.1 * rng.standard_normal(cout), 0.1 * rng.standard_normal(cout)])
+             .astype(np.float32), dev)
+    kw = dict(residual=_t(rng.standard_normal((batch, f_rows, t, cout)).astype(np.float32), dev)
+              if res else None)
+    if cin1 is not None:
+        x, kw["x2"] = x[..., :cin1].contiguous(), x[..., cin1:].contiguous()
+    return x, w, epi, kw
+
+
+# Widths the reference serves that no bundled net has, all on the mma.sync route: Cout
+# of 8, 24, 48, 1024 (four slices) and odd ones; Cin of 1, 3, 20, 1024 and 2048 (halo parts
+# at 64 frames); concats whose halves are not multiples of 4 channels; ragged rows and
+# one-frame planes. batch, F, T, Cin, Cout, residual, Cin1 of a concat.
+@pytest.mark.parametrize("batch,f_rows,t,cin,cout,res,cin1", [
+    (2, 131, 64, 2, 8, False, None), (3, 13, 7, 1, 24, True, None),
+    (1, 131, 64, 3, 48, False, None), (2, 40, 1, 20, 48, True, None),
+    (1, 33, 8, 48, 96, True, None), (2, 17, 16, 96, 1024, False, None),
+    (1, 9, 64, 1024, 1024, True, None), (1, 5, 64, 2048, 24, False, None),
+    (1, 7, 80, 1024, 512, False, 512), (2, 11, 5, 40, 24, True, 20),
+    (1, 131, 33, 30, 8, False, 10), (3, 9, 1, 21, 7, True, 13),
+    (1, 129, 64, 6, 5, False, 3), (1, 1, 1, 2048, 1024, True, 1024),
+    (2, 513, 16, 384, 192, True, 192), (1, 65, 48, 20, 1, False, None)])
+def test_mma_route_at_any_width_bit_equal_to_plain(cuda, batch, f_rows, t, cin, cout, res, cin1):
+    """Static and dynamic: the output bit for bit the plain version's, the
+    maxima a dynamic launch writes bit for bit vector_norm(inf)'s and the
+    plain version's."""
+    rng = np.random.default_rng(17 * cin + cout + t + f_rows)
+    how = plan(cin, cout, t, cin1)
+    assert how["kernel"] == "mma" or (cin, cout) == (1024, 512)
+    x, w, epi, kw = _any_width_case(rng, cuda, batch, f_rows, t, cin, cout, res, cin1)
+    before = dict(route_counts)
+    got = qconv3x3(x, w, epi, 0.026, **kw)
+    assert route_counts[how["kernel"]] == before[how["kernel"]] + 1
+    assert torch.equal(got, qconv3x3_plain(x, w, epi, 0.026, **kw))
+    assert torch.equal(got, qconv3x3(x, w, epi, 0.026, **kw, _kernel="mma"))
+    in_max = input_max(x, kw.get("x2"))
+    maxima = [torch.zeros(batch, device=cuda) for _ in range(2)]
+    dyn = qconv3x3(x, w, epi, None, **kw, in_max=in_max, out_max=maxima[0])
+    assert torch.equal(dyn, qconv3x3_plain(x, w, epi, None, **kw, in_max=in_max,
+                                           out_max=maxima[1]))
+    assert torch.equal(maxima[0].view(torch.int32), input_max(dyn).view(torch.int32))
+    assert torch.equal(maxima[0], maxima[1])
+
+
+# Odd K and odd Cout (2*Cout % 4 == 2): a short last K chunk, W staged in 8-byte pairs,
+# the last column pair of a tile masked; with and without the maxima.
+@pytest.mark.parametrize("k,cout,f_rows,t,batch", [
+    (10, 5, 129, 8, 3), (6, 3, 33, 16, 2), (1, 1, 7, 4, 2), (383, 191, 17, 5, 2),
+    (20, 65, 129, 3, 2), (13, 130, 9, 8, 3)])
+def test_convt_kernel_at_odd_widths(cuda, k, cout, f_rows, t, batch):
+    """Each output one FMA chain in K order, then the bias: bit for bit the
+    plain version's but where its float64 emulation of the FMA rounds twice
+    (rare ties, counted)."""
+    rng = np.random.default_rng(3 * k + cout)
+    x = _t(rng.standard_normal((batch, f_rows, t, k)).astype(np.float32), cuda)
+    w = _t((0.05 * rng.standard_normal((k, 2 * cout))).astype(np.float32), cuda)
+    b = _t((0.1 * rng.standard_normal(cout)).astype(np.float32), cuda)
+    out_max = torch.zeros(batch, device=cuda)
+    got, ref = convt1x2(x, w, b, out_max), convt1x2_plain(x, w, b)
+    assert got.shape == (batch, f_rows, 2 * t, cout)
+    ties = int((got != ref).sum())
+    print(f"[convt] K {k} Cout {cout}: {ties} of {got.numel()} outputs off the plain version")
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    assert ties <= got.numel() // 100_000 + 1
+    assert torch.equal(got, convt1x2(x, w, b))
+    assert torch.equal(out_max.view(torch.int32), input_max(got).view(torch.int32))
+
+
+def test_a_net_at_another_base_serves_on_the_card(cuda):
+    """An int8 FreqPreservingUNet at base 24 (a seeded init of its trainable
+    twin, calibrated on the card: every conv on B2's mma.sync route), static
+    and dynamic, against the same net on the CPU (convt1x2's plain version
+    rounds twice on rare ties); its convs bit for bit the plain version."""
+    from azoom_torch.models import trainable
+    from azoom_torch.models.convert import from_flax
+    from azoom_torch.models.quantize import calibrate_act_scales
+    from azoom_torch.models.unet import FreqPreservingUNet, QConv
+
+    twin = trainable.FreqPreservingUNet(base=24).init(torch.Generator().manual_seed(3),
+                                                      (1, 513, 64, 2))
+    rng = np.random.default_rng(5)
+    feats = torch.from_numpy(rng.standard_normal((2, 513, 64, 2)).astype(np.float32))
+    v = calibrate_act_scales(twin, twin.variables(), [feats], device=cuda)
+    kw = dict(base=24, in_channels=2)
+    for tree in (v, {k: v[k] for k in ("params", "batch_stats")}):  # static, dynamic
+        net = from_flax(FreqPreservingUNet, tree, kw, True, cuda)
+        before = dict(route_counts)
+        with torch.inference_mode():
+            got = net(feats.to(cuda)).cpu()
+            ref = from_flax(FreqPreservingUNet, tree, kw, True, "cpu")(feats)
+        assert route_counts["mma"] - before["mma"] == 14
+        err = (got - ref).abs()  # the whole-net int8 bounds, as the bundled nets'
+        assert float(err.max()) < 1e-2 and float(err.mean()) < 2e-4
+    calls = []
+    net = from_flax(FreqPreservingUNet, v, kw, True, cuda)
+    for m in net.modules():
+        if isinstance(m, QConv):
+            m.register_forward_pre_hook(lambda c, a, k: calls.append((c, a[0], k)),
+                                        with_kwargs=True)
+    with torch.inference_mode():
+        net(feats.to(cuda))
+        for conv, x, k in calls:
+            k = dict(residual=k.get("residual"), relu=k.get("relu", True), x2=k.get("x2"))
+            assert torch.equal(qconv3x3(x, conv.w_q, conv.epi, conv.act_scale, **k),
+                               qconv3x3_plain(x, conv.w_q, conv.epi, conv.act_scale, **k))

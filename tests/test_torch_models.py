@@ -271,3 +271,77 @@ def test_stem_codes_of_the_fpu_on_the_port_features():
     print(f"[parity] fpu stem codes differing: {differ} of {ref.size} "
           f"(feature elements differing: {int((got != ref).sum())})")
     assert differ <= 1e-4 * ref.size
+
+
+# a net trained at another base (cli/train.py's --base takes any integer), served int8: its
+# widths (stem 2 -> 24, 24 / 48 / 96 / 192, the decoder's 96 + 96 concat ...) are none of the
+# bundled nets', and go to the mma.sync route on the card
+BASE24 = dict(base=24, in_channels=2)
+
+
+@pytest.fixture(scope="module")
+def base24():
+    """(plane, variables with the port's calibrated quant_stats, the
+    reference's eager mask on static scales, on dynamic scales): a
+    FreqPreservingUNet at base 24 from numpy-seeded variables in the tree
+    flax's init gives (shapes by ``jax.eval_shape``: an eager init compiles
+    every initializer), calibrated by the port on the CPU. One plane of one
+    element: the reference's dynamic scale is that of its whole input."""
+    from azoom.models.unet import FreqPreservingUNet as FlaxFPU
+    from azoom_torch.models.quantize import calibrate_act_scales
+
+    rng = np.random.default_rng(24)
+    x = np.abs(rng.standard_normal((1, 24, 16, 2))).astype(np.float32)
+    flax_net = FlaxFPU(base=24, quant=True)
+    shapes = jax.eval_shape(flax_net.init, jax.random.PRNGKey(0), jnp.asarray(x))
+
+    def fill(path, a):
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        if name.endswith("var"):
+            return (0.5 + rng.random(a.shape)).astype(np.float32)
+        if "BatchNorm" in name and name.endswith("scale"):
+            return (0.7 + 0.6 * rng.random(a.shape)).astype(np.float32)
+        if name.endswith("kernel"):
+            return (rng.standard_normal(a.shape) / np.sqrt(np.prod(a.shape[:-1]))).astype(np.float32)
+        return (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+
+    filled = jax.tree_util.tree_map_with_path(fill, shapes)
+    v = {k: jax.tree_util.tree_map(np.asarray, dict(filled[k])) for k in ("params", "batch_stats")}
+    static = calibrate_act_scales((FreqPreservingUNet, BASE24), v, [x], device="cpu")
+    refs = {mode: np.asarray(flax_net.apply(tree, jnp.asarray(x)))
+            for mode, tree in (("static", static), ("dynamic", v))}
+    return x, static, refs
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+@pytest.mark.parametrize("multipliers", ["xla", "port"])
+def test_an_int8_net_at_base_24_matches_flax(base24, mode, multipliers, monkeypatch):
+    """The whole int8 net at widths no bundled net has, on calibrated static
+    scales and on the reference's dynamic ones: to 1e-6 with XLA's BatchNorm
+    multipliers in the port's epilogue rows (the one rounding it does
+    differently), within the whole-net int8 bounds as shipped."""
+    x, static, refs = base24
+    if multipliers == "xla":
+        exact = convert.epilogue_params
+
+        def with_xla_rsqrt(act_scale, w_scale, bias, bn=None):
+            epi = exact(act_scale, w_scale, bias, bn)
+            if bn is not None:
+                gamma, _, _, var = bn
+                rs = np.asarray(jax.lax.rsqrt(jnp.asarray(var.numpy()) + 1e-5))
+                epi[3] = torch.from_numpy(np.array(rs)) * gamma
+            return epi
+
+        monkeypatch.setattr(convert, "epilogue_params", with_xla_rsqrt)
+    tree = static if mode == "static" else {k: static[k] for k in ("params", "batch_stats")}
+    model = from_flax(FreqPreservingUNet, tree, BASE24, quant=True, device="cpu")
+    convs = [m for m in model.modules() if isinstance(m, QConv)]
+    assert len(convs) == 14 and all((m.act_scale is None) == (mode == "dynamic") for m in convs)
+    assert {(m.cin, m.cout) for m in convs} >= {(2, 24), (24, 48), (96, 192), (192, 96), (48, 24)}
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x)).numpy()
+    what = f"int8 fpu base 24 {mode} ({multipliers} multipliers)"
+    if multipliers == "xla":
+        _close(got, refs[mode], what, 1e-6)
+    else:
+        _close(got, refs[mode], what, 1e-2, 2e-4)

@@ -69,8 +69,13 @@ def _rel(got, ref):
     return float(np.max(np.abs(got - ref)) / (np.max(np.abs(ref)) + 1e-9))
 
 
-@pytest.mark.parametrize("cin,cout", [(16, 64), (128, 128)])
-def test_conv_bn_relu_cell_matches_flax(rng, cin, cout):
+@pytest.mark.parametrize("cin,cout,cin1", [
+    pytest.param(16, 64, None, id="16-64"), pytest.param(128, 128, None, id="128-128"),
+    # widths of nets trained at other bases (the mma.sync route on the card), and a
+    # decoder concat of two 20-channel halves, read in place
+    pytest.param(8, 16, None, id="8-16"), pytest.param(20, 24, None, id="20-24"),
+    pytest.param(48, 96, None, id="48-96"), pytest.param(40, 24, 20, id="20+20-24")])
+def test_conv_bn_relu_cell_matches_flax(rng, cin, cout, cin1):
     x = rng.standard_normal((2, 9, 8, cin)).astype(np.float32)
     cell = FlaxConvBNRelu(cout, dtype=jnp.float32, quant=True)
     v = _calibrated(cell, x, rng)
@@ -79,7 +84,8 @@ def test_conv_bn_relu_cell_matches_flax(rng, cin, cout):
     p, s, q = v["params"], v["batch_stats"], v["quant_stats"]
     with torch.no_grad():
         load_qconv(m.conv, p["Conv_0"], q["Conv_0"]["act_scale"], p["BatchNorm_0"], s["BatchNorm_0"])
-    got = m(torch.from_numpy(x)).numpy()
+    t = torch.from_numpy(x)
+    got = (m(t) if cin1 is None else m(t[..., :cin1].contiguous(), t[..., cin1:].contiguous())).numpy()
     assert got.shape == ref.shape
     assert _rel(got, ref) < 2e-5
 
@@ -163,7 +169,7 @@ def test_qconv_wrapper_on_cpu_counts_nothing(rng):
     assert kernels.launches == before
 
 
-@pytest.mark.parametrize("cin,cout", [(256, 128), (64, 64)])
+@pytest.mark.parametrize("cin,cout", [(256, 128), (64, 64), (10, 5), (6, 3)])
 def test_conv_transpose_matches_flax(rng, cin, cout):
     x = np.abs(rng.standard_normal((2, 9, 8, cin))).astype(np.float32)
     up = nn.ConvTranspose(cout, (1, 2), strides=(1, 2))
@@ -222,8 +228,8 @@ def _smem_as_the_c_side_sums_it(cin, cout, how):
     part of the channels; the narrow route is azt_qconv3x3 at N = Cout)."""
     cs = how.get("part_channels", kernel_cin(cin))
     halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (cs + 16)
-    if how["kernel"] == "mma":  # csrc/qconv_mma_kernel.cu: halo + 2 buffers of Cout x (128 + 16)
-        return halo + 2 * cout * 144
+    if how["kernel"] == "mma":  # csrc/qconv_mma_kernel.cu: a part's halo + 2 buffers of a
+        return halo + 2 * how["slice_width"] * 144  # slice's rows x (128 + 16)
     # csrc/qconv_kernel.cu: alignment slack, weight stages (N = Cout, or 256 on the split
     # route), two halos (a split tile's n_parts, one a part, where it has parts), the warps'
     # output patches, 5 epilogue rows, barriers (18 weight stages and 8 halos, full and empty)
@@ -282,7 +288,21 @@ def _check_plan(cin, cout, frames, f_rows=F_ROWS):
         widths = {lo, min(2 * lo, 64)}
         assert tw in widths and -(-frames // tw) * tw == min(-(-frames // w) * w for w in widths)
     else:
-        assert how["kernel"] == "mma" and how["m_tile"] == 256 * 64 // cout
+        # slices of the least of 32, 64, 128, 256 output channels that holds Cout, else of
+        # 256; one of 512 at Cout = 512
+        nb = how["slice_width"]
+        assert how["kernel"] == "mma" and nb == (
+            512 if cout == 512 else min(max(32, 1 << (cout - 1).bit_length()), 256))
+        assert how["m_tile"] == 256 * 64 // nb
+        assert how["n_slices"] == -(-cout // nb)
+        # the halo in parts of Cp channels (a multiple of 16) that cover kernel_cin(Cin); one
+        # part where all fit, else the fewest: one part fewer would not have fit
+        cp, parts = how["part_channels"], how["n_parts"]
+        assert cp % 16 == 0 and (parts - 1) * cp < ck <= parts * cp
+        if parts > 1:
+            fewer = -(-ck // (16 * (parts - 1))) * 16
+            assert (rows + 2) * (tw + 2) * (fewer + 16) + 2 * nb * 144 > SMEM_LIMIT
+        assert how["k_chunks"] == parts * -(-(-(-9 * cp // 32) * 32) // 128)
     return how
 
 
@@ -315,14 +335,78 @@ def test_plan_of_the_classic_widths(cin, cout, frames):
         # 512 -> 512 on 64-frame tiles, whose four parts' halos leave no room for two
         on_mma = frames == 1 or (cin == 512 and frames == 64)
         assert how["kernel"] == ("mma" if on_mma else "split")
+    if how["kernel"] == "mma":  # one block takes all Cout channels and the halo of all Cin
+        assert (how["n_slices"], how["n_parts"], how["m_tile"]) == (1, 1, 256 * 64 // cout)
 
 
-@pytest.mark.parametrize("cin,cout,frames", [
-    (8, 64, 8), (24, 64, 8), (64, 96, 8), (64, 64, 0), (1, 32, 8), (3, 32, 8), (8, 32, 8),
-    (2, 16, 8), (4, 48, 8), (32, 1024, 8), (2, 32, 0), (20, 32, 8)])
+@pytest.mark.parametrize("cin,cout,frames", [(64, 64, 0), (2, 32, 0), (0, 32, 8), (32, 0, 8)])
 def test_plan_refuses_what_no_kernel_takes(cin, cout, frames):
+    """Only an empty conv: every positive Cin, Cout and frame count has a route."""
     with pytest.raises(ValueError, match="qconv3x3"):
         plan(cin, cout, frames)
+
+
+# (Cin, Cout) of widths the reference's QConv serves (an XLA conv at any width: a net
+# trained at any --base) that no route of csrc/qconv_kernel.cu takes (but 1024 -> 512 on
+# narrow planes, which the split route takes)
+ANY_WIDTHS = (
+    [(8, 64), (24, 64), (64, 96), (1, 32), (3, 32), (8, 32), (2, 16), (4, 48), (32, 1024),
+     (20, 32)]
+    + [(64, c) for c in (1, 8, 16, 24, 48, 96, 768, 1024)]
+    + [(c, 48) for c in (1, 3, 8, 20, 24, 48, 1024, 2048, 4096)]
+    + [(4096, 1024), (2048, 768), (1024, 1024), (1024, 512), (512, 1024), (40, 20), (5, 10)])
+
+
+@pytest.mark.parametrize("cin,cout", ANY_WIDTHS)
+def test_plan_routes_every_width_the_reference_serves(cin, cout):
+    """At 1 ... 80 frames and at 4,096 each width goes to the mma.sync
+    kernel (the bundled nets' routes take none of these but 1024 -> 512 on
+    narrow planes, the split route), on slices of output
+    channels that cover Cout and halo parts that cover Cin, its shared
+    memory within the limit: one part where all channels fit, else parts a
+    wider part would not fit in."""
+    for frames in list(range(1, 81)) + [4096]:
+        how = _check_plan(cin, cout, frames)
+        split = cin % 32 == 0 and cout in (256, 512)
+        assert how["kernel"] == "mma" or (split and how["kernel"] == "split"), (frames, how)
+        if how["kernel"] == "mma":
+            assert how["n_slices"] * how["slice_width"] >= cout
+            assert how["n_parts"] * how["part_channels"] >= kernel_cin(cin)
+
+
+# the routes of csrc/qconv_kernel.cu take these output widths; the rest take a slice width
+# of the mma.sync kernel at its edges (1, 32 +- 1, ...) and the widest Cout
+PLAN_COUTS = [1, 31, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 4096]
+
+
+@pytest.mark.parametrize("cout", PLAN_COUTS)
+def test_plan_fits_every_cin_and_frame_count(cout):
+    """Every Cin of 1 ... 4,096 at this Cout gets a plan whose shared memory
+    fits at frame counts that give every tile width (powers of two up to 64
+    and the mma.sync kernel's 512-pixel tiles, 1 ... 4,096 frames): a plan
+    depends on the frames only through its tile's width, the largest power
+    of two up to min(frames, tile), and on Cout only through the slice width
+    beside the routes' own widths, which these Couts span."""
+    fresh = plan.__wrapped__  # uncached: 53,248 plans
+    for cin in range(1, 4097):
+        for frames in (1, 2, 3, 4, 8, 16, 32, 64, 80, 128, 256, 512, 4096):
+            how = fresh(cin, cout, frames)
+            assert how["smem"] <= SMEM_LIMIT, (cin, frames, how)
+            if how["kernel"] == "mma":
+                assert how["n_parts"] * how["part_channels"] >= kernel_cin(cin)
+
+
+@pytest.mark.parametrize("cin,cout,cin1", [(64, 64, 30), (64, 128, 2), (16, 32, 6), (256, 256, 126),
+                                           (512, 512, 250), (64, 64, 32)])
+def test_a_concat_of_halves_not_multiples_of_4_goes_to_mma(cin, cout, cin1):
+    """csrc/qconv_kernel.cu loads each input in float4: a concat whose halves
+    are not multiples of 4 channels goes to the mma.sync kernel, which loads
+    such a half channel by channel; whole float4 halves keep their route."""
+    how = plan(cin, cout, 64, cin1)
+    if cin1 % 4:
+        assert how["kernel"] == "mma" and how["smem"] <= SMEM_LIMIT
+    else:
+        assert how == plan(cin, cout, 64)
 
 
 @pytest.mark.parametrize("cin", [32, 64, 96, 128, 256, 512])
@@ -455,6 +539,36 @@ def test_plain_conv_at_the_base32_widths_matches_an_integer_reference(rng, cin, 
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("cin,cout", [(8, 16), (20, 24), (1, 8), (3, 5)])
+def test_packed_weights_of_any_cin_match_an_integer_reference(rng, cin, cout):
+    """A Cin that is not a multiple of 16 packs as kernel_cin(Cin) channels a
+    tap, those beyond Cin zero (8 -> 16, 160 bytes a row; 20 -> 32, 288),
+    and the plain conv of those rows is an int64 conv of the same codes
+    with the epilogue's float32 order."""
+    ck = kernel_cin(cin)
+    assert ck == -(-cin // 16) * 16 and k_padded(cin) == -(-9 * ck // 32) * 32
+    assert (kernel_cin(8), k_padded(8), kernel_cin(20), k_padded(20)) == (16, 160, 32, 288)
+    w = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    packed = pack_weights(torch.from_numpy(w))
+    assert packed.shape == (cout, k_padded(cin))
+    taps = packed[:, :9 * ck].reshape(cout, 3, 3, ck).numpy()
+    np.testing.assert_array_equal(taps[..., :cin], w.transpose(3, 0, 1, 2))
+    assert not taps[..., cin:].any() and not packed[:, 9 * ck:].any()
+    x = (rng.standard_normal((2, 6, 5, cin)) * 2).astype(np.float32)
+    s = np.float32(0.02)
+    epi = epilogue_params(float(s), torch.from_numpy(rng.random(cout).astype(np.float32) * 1e-2),
+                          torch.from_numpy(rng.standard_normal(cout).astype(np.float32)))
+    got = qconv3x3_plain(torch.from_numpy(x), packed, epi, float(s), relu=False).numpy()
+    xp = np.pad(np.clip(np.round(x / s), -127, 127).astype(np.int64),
+                ((0, 0), (1, 1), (1, 1), (0, 0)))
+    acc = np.zeros(got.shape, np.int64)
+    for dy in range(3):
+        for dx in range(3):
+            acc += np.einsum("bftc,cn->bftn", xp[:, dy:dy + 6, dx:dx + 5], w[dy, dx].astype(np.int64))
+    e = epi.numpy()
+    np.testing.assert_array_equal(got, ((acc.astype(np.float32) * e[0] + e[1]) - e[2]) * e[3] + e[4])
+
+
 @functools.cache
 def _bundled_conv_shapes(name, frames):
     from azoom_torch.models.pretrained import load_bundled
@@ -478,3 +592,78 @@ def test_the_route_cases_hold_every_bundled_conv(name):
         rows, shapes = _bundled_conv_shapes(name, frames)
         missing = [s for s in shapes if (s, rows) not in cases]
         assert not missing, (frames, missing)
+
+
+@pytest.mark.parametrize("name", ["tpufpu_nano", "tpufpu", "tpufpu_slim", "fpu", "deepfpu",
+                                  "fpu_multigeo", "fpu_reverb"])
+def test_every_bundled_conv_on_mma_takes_all_its_channels_in_one_block(name):
+    """At 16, 32, 48, 64 and 80 input frames (the pipelines pad the frames to
+    a multiple of 16) a bundled net's conv that goes to the mma.sync kernel
+    (its one- and two-frame planes at large Cin) runs one slice of
+    all Cout channels on tiles of 256 * 64 / Cout pixels and one halo part
+    of all Cin channels: the slices and parts serve only other widths."""
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.models.unet import conv_shapes
+
+    torch.set_num_threads(1)
+    model, _ = load_bundled(name, device="cpu")
+    on_mma = 0
+    for frames in range(16, 81, 16):
+        for cin, cout, t, _, cat in conv_shapes(model, frames):
+            how = plan(cin, cout, t, cin // 2 if cat else None)
+            if how["kernel"] == "mma":
+                on_mma += 1
+                assert (how["n_slices"], how["slice_width"], how["n_parts"], how["m_tile"]) == (
+                    1, cout, 1, 256 * 64 // cout), (cin, cout, t)
+    assert on_mma > 0 or name not in ("tpufpu", "deepfpu")
+
+
+# nets trained at other bases (cli/train.py's --base takes any integer), served int8: the
+# three conv net classes at six bases each, and DeepFPU at 64 (its 1024-channel bottleneck)
+TRAINED_BASES = [(cls, base) for cls in ("FreqPreservingUNet", "DeepFPU", "TPUFPU")
+                 for base in (8, 16, 24, 40, 48, 96)] + [("DeepFPU", 64)]
+# (Cin, Cout) the routes of csrc/qconv_kernel.cu are built for: the bundled nets' widths
+ROUTE_WIDTHS = {(cin, cout) for cin in (2, 4, 16) for cout in (32, 64)} | {
+    (cin, cout) for cin in range(32, 4097, 32) for cout in (32, 64, 128, 256, 512)}
+
+
+@functools.cache
+def _trained_net_convs(cls, base):
+    """(Cin1 at a concat or None, Cin, Cout, frames at T = 64) of each 3x3
+    conv of the serving net ``cls`` at ``base``, read by hooks from a
+    forward of a zero input on the CPU: the net's own list."""
+    from azoom_torch.models import unet
+
+    model = getattr(unet, cls)(base=base, in_channels=2 if cls == "FreqPreservingUNet" else 4)
+    calls = []
+
+    def hook(conv, args, kwargs):
+        x, x2 = args[0], kwargs.get("x2")
+        calls.append((None if x2 is None else x.shape[-1],
+                      x.shape[-1] + (0 if x2 is None else x2.shape[-1]), conv.cout, x.shape[-2]))
+
+    for m in model.modules():
+        if isinstance(m, QConv):
+            m.register_forward_pre_hook(hook, with_kwargs=True)
+    with torch.inference_mode():
+        model(torch.zeros((1, 3, 64, model.in_channels)))
+    return calls
+
+
+@pytest.mark.parametrize("cls,base", TRAINED_BASES, ids=lambda v: str(v))
+def test_every_conv_of_a_net_at_any_base_has_a_route_that_fits(cls, base):
+    """Every conv of the int8 net at the 64-frame window's levels and at the
+    server's 80- and 48-frame families gets a route whose shared memory
+    fits: a width that no route of csrc/qconv_kernel.cu is built for goes to
+    the mma.sync kernel, and the concats (halves that are multiples of 4
+    channels at these bases) keep the plan of their whole width."""
+    convs = _trained_net_convs(cls, base)
+    assert len(convs) == {"FreqPreservingUNet": 14, "DeepFPU": 27, "TPUFPU": 21}[cls]
+    rows = F_ROWS if cls == "TPUFPU" else 513
+    for cin1, cin, cout, t64 in convs:
+        for frames in (64, 80, 48):
+            t = t64 * frames // 64
+            how = _check_plan(cin, cout, t, f_rows=rows)
+            assert plan(cin, cout, t, cin1) == how
+            if (cin, cout) not in ROUTE_WIDTHS:
+                assert how["kernel"] == "mma", (cin, cout, t)

@@ -93,8 +93,7 @@
 //     tile's first part while the last slice runs. The plan takes the fewest
 //     parts whose n_parts buffers leave room for two weight stages (4 units a
 //     tile at 512 -> 512 on 4 frames); shapes where none does (Cin = 512 on
-//     64-frame tiles) go to the mma.sync kernel, and Cin >= 1024 on wide
-//     tiles fits no kernel.
+//     64-frame tiles, Cin >= 1024) go to the any-width instances below.
 //   - At 6 frames a 4-wide tile's halos are 13 % larger than an 8-wide
 //     tile's: the plan takes the tile width that pads the frames least
 //     (8 for 6 frames, its last two columns masked as at any ragged edge).
@@ -123,11 +122,46 @@
 //   What bounds it (the clocks build): the halo producers at Cin of 32 and
 //   64; at the stems the consumers, whose products and epilogue (128 or 256
 //   bytes written a pixel against 8 to 64 read) run in turn.
-// The shapes no route fits (Cout of 64 or 128 whose two halos leave no room
-// for three weight stages, Cout = 32 at Cin >= 256, Cin % 32 != 0 beyond the
-// 16-channel taps, stems at Cout >= 128, one-frame planes at large Cin; no
-// bundled net runs them at 48, 64 or 80 frames) stay on the mma.sync kernel;
-// the wrapper picks by shape (kernels/qconv_kernel.py:plan).
+// The any-width instances (template flag AnyWidth, entry azt_qconv3x3_any;
+// kernels/qconv_kernel.py's plans with "wide"): the convs of nets trained at
+// another --base (Cout of 24, 48, 96, 192, 384, 1024; Cin of 48, 80, 1024,
+// 2048, ...) and the bundled widths that the routes above do not fit ran on
+// the mma.sync kernel at 6-16.5 times their bound (its 64-pixel tiles each
+// streamed a 256-channel slice's whole weight matrix from L2, and quantised
+// the halo again for every slice, in turn with the products). Three things
+// kept them off this kernel, and the instances answer each:
+//   - Cout not one of 32, 64, 128, 256, 512: Cout runs on the least N of 32,
+//     64, 128 and 256 that holds it, or in ceil(Cout / 256) slices of 256
+//     (the split walk, the last slice partial). The tensor map's rows are
+//     Cout, so TMA fills the weight rows at or beyond Cout with zeros; the
+//     epilogue rows in shared memory are zero past Cout; the epilogue stores
+//     (and reads the residual and takes the maxima) only below Cout, 16
+//     bytes a lane where a slab of 32 channels is whole and Cout % 4 == 0,
+//     else channel by channel.
+//   - Taps of 16 * odd channels (kernel_cin(Cin) % 32 == 16: 48, 80, ...):
+//     each lane walks its own 16 K bytes of a step, so the lanes of bytes
+//     16-31 may point into the next tap (Tap16's walk, for any multiple of
+//     16); the packed rows keep the one layout of every route, K index
+//     tap * kernel_cin(Cin) + c. The halo pixel is padded by 32 bytes there,
+//     so its stride stays an odd number of 16-byte units. Channels past the
+//     input's (kernel_cin's padding) are zero codes; a stem of 2 channels
+//     loads float2 pixels.
+//   - Halo parts that cannot all stay beside two weight stages (1024 ->
+//     1024 at 4 frames, 1024 -> 512 at a concat at 8, 2048 -> 1024): the
+//     parts go through two buffers in (slice, part) order, made again for
+//     every slice (p.remade), the producers making the next part while the
+//     consumers multiply this one; that replaces the mma.sync kernel's
+//     re-quantisation per slice on 64-pixel tiles with the same on 128-pixel
+//     tiles, made beside the tensor cores. Parts that fit stay for every
+//     slice as on the split route, in any number up to 8 (3 at 384 -> 384).
+//   The flag keeps the other instances as they were: each new behaviour sits
+//   behind it (kernels/bench.py sass --against DIR compares their SASS with
+//   an earlier tree's).
+// The shapes no instance fits or reads (Cin1 not a multiple of 4 but a stem
+// of 2, halves of a concat that are not, a halo of kernel_cin(Cin) % 128 != 0
+// channels too large for two buffers, one-frame planes at large Cin on the
+// 512- and 256-pixel tiles) stay on the mma.sync kernel; the wrapper picks
+// by shape (kernels/qconv_kernel.py:plan).
 //
 // What bounds the streaming instances now (the clocks build, NVIDIA H100
 // 80GB HBM3 at 700 W, kernels/bench.py clocks --nets 256x256x8,512x512x4):
@@ -197,6 +231,8 @@ struct Params {
   int n_chunks;                       // K chunks of 128 bytes of one part
   int stages;                         // weight ring; == n_chunks: the weights stay (not Split)
   uint32_t magic_hw, magic_c4;        // ceil(2^32 / (TW + 2)), ceil(2^32 / (Cs / 4))
+  int Cr;                             // channels of [x, x2] (AnyWidth: Cin is kernel_cin of it)
+  int remade;                         // AnyWidth: parts made again for every slice, in two buffers
 #ifdef AZT_QCONV_CLOCKS
   // cycles of block 0 (kClockSlots sums): consumer waiting for a halo, in the
   // products (its waits for weights included), in the epilogue; producer waiting
@@ -212,6 +248,27 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
+// A lane's walk over taps of any multiple of 16 channels (AnyWidth): it reads
+// its own 16 K bytes of each 32-byte step, which may lie in the next tap when
+// a tap is 16 * odd channels: channel c of tap `tap` (column dx), whose
+// offset in the halo is off. Past tap 8 (the packed rows' zero padding) it
+// stays at tap 8.
+struct TapWalk {
+  int c, tap, dx, off;
+  __device__ __forceinline__ void advance(int bytes, int Cs, int HW, int CinP) {
+    for (c += bytes; c >= Cs; c -= Cs) {
+      if (tap == 8) continue;
+      ++tap;
+      if (++dx == 3) {
+        dx = 0;
+        off += (HW - 2) * CinP;
+      } else {
+        off += CinP;
+      }
+    }
+  }
+};
+
 // One producer thread's batch of U float4s of the halo.
 template <int U>
 struct HaloBatch {
@@ -219,7 +276,7 @@ struct HaloBatch {
   int first;  // item (float4 of the halo) of v[0]; v[u] is item first + u * n_halo
 };
 
-template <int N, int MI, int PW, bool Split, bool Tap16, bool Dyn>
+template <int N, int MI, int PW, bool Split, bool Tap16, bool Dyn, bool AnyWidth>
 __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_w, const Params p) {
   constexpr int kThreads = kConsumers + 32 * PW;
@@ -227,21 +284,34 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
   constexpr int kMTile = 128 * MI;          // pixels of a tile
   constexpr int kWStage = N * kSwizzleRow;  // bytes of one K chunk of the weights
   constexpr int G = N == 256 || MI == 4 ? 2 : 4;  // K steps per group of products
+  constexpr bool Sliced = Split || AnyWidth;      // slices and parts from the launch
   const int TW = 1 << p.tw_log2, HW = TW + 2;
   const int FR = kMTile >> p.tw_log2;
   // What the split route varies; constants of the other instances.
-  const int Cs = Split ? p.Cs : Tap16 ? 16 : p.Cin;  // channels of a halo part
-  const int Cout = Split ? p.Cout : N;
-  const int n_parts = Split ? p.n_parts : 1, n_slices = Split ? p.n_slices : 1;
+  const int Cs = Sliced ? p.Cs : Tap16 ? 16 : p.Cin;  // channels of a halo part
+  const int Cout = Sliced ? p.Cout : N;
+  const int n_parts = Sliced ? p.n_parts : 1, n_slices = Sliced ? p.n_slices : 1;
   // A tile's halo units: its n_parts parts, each made once and kept for
   // every slice. Two buffers, taken in turn by the tiles, hold a halo of all
-  // channels; parts take a buffer each (n_parts, a power of two).
-  const int nbuf = n_parts == 1 ? 2 : n_parts;
-  const int CinP = Cs + 16;                 // pixel stride of the halo
+  // channels; parts take a buffer each (n_parts, a power of two but with
+  // AnyWidth). AnyWidth with p.remade: the parts are made again for every
+  // slice, n_slices * n_parts units a tile through two buffers.
+  const bool remade = AnyWidth && p.remade;
+  const int units = remade ? n_slices * n_parts : n_parts;
+  const int nbuf = n_parts == 1 || remade ? 2 : n_parts;
+  auto buf_of = [&](int unit) { return AnyWidth ? unit % nbuf : unit & (nbuf - 1); };
+  // Pixel stride of the halo: an odd number of 16-byte units, so the eight
+  // rows of an ldmatrix hit distinct banks (taps of 16 * odd channels pad 32).
+  const int CinP = Cs + (AnyWidth && (Cs & 31) ? 32 : 16);
   const int halo_bytes = (FR + 2) * HW * CinP;
+  // The epilogue rows' stride in shared memory: AnyWidth pads them with
+  // zeros from Cout to its slices' n_slices * N channels.
+  const int CoutE = AnyWidth ? n_slices * N : Cout;
   // A stem: Cin1 = 2 or 4 channels of x, zero-extended to Cin = 16.
   const bool stem = Tap16 && p.x2 == nullptr && p.Cin1 < p.Cin;
-  const bool resident = !Split && p.stages == p.n_chunks;  // the split route's weights stream
+  // Weights that stay; the split route's and a sliced or parted AnyWidth's stream.
+  const bool resident = AnyWidth ? n_slices * n_parts == 1 && p.stages == p.n_chunks
+                                 : !Split && p.stages == p.n_chunks;
   const int n_halo = 32 * PW;  // the producer warps make the halos
 
   extern __shared__ unsigned char smem_raw[];
@@ -250,8 +320,8 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
   unsigned char* wbuf = smem;                              // stages x (N rows x 128 K bytes)
   unsigned char* halo0 = wbuf + p.stages * kWStage;        // nbuf int8 halos
   unsigned char* stage0 = halo0 + nbuf * halo_bytes;       // the consumers' output patches
-  float* epi_s = reinterpret_cast<float*>(stage0 + kStageBytes);  // (5, Cout)
-  uint64_t* w_full = reinterpret_cast<uint64_t*>(epi_s + 5 * Cout);
+  float* epi_s = reinterpret_cast<float*>(stage0 + kStageBytes);  // (5, CoutE)
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(epi_s + 5 * CoutE);
   int* w_done = reinterpret_cast<int*>(w_full + kMaxStages);  // consumer warps done with a stage
   uint64_t* h_full = w_full + 2 * kMaxStages;
   uint64_t* h_empty = h_full + kMaxParts;
@@ -303,7 +373,14 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
         load_chunk(q, at.ns, at.part, at.c);
     }
   }
-  for (int i = threadIdx.x; i < 5 * Cout; i += kThreads) epi_s[i] = p.epi[i];
+  if constexpr (AnyWidth) {
+    for (int i = threadIdx.x; i < 5 * CoutE; i += kThreads) {
+      const int k = i / CoutE, n = i - k * CoutE;
+      epi_s[i] = n < Cout ? p.epi[k * Cout + n] : 0.f;
+    }
+  } else {
+    for (int i = threadIdx.x; i < 5 * Cout; i += kThreads) epi_s[i] = p.epi[i];
+  }
   if (stem)  // channels Cin1 .. 15 of every halo pixel stay zero codes
     for (int i = threadIdx.x; i < 2 * halo_bytes / 16; i += kThreads)
       reinterpret_cast<uint4*>(halo0)[i] = make_uint4(0, 0, 0, 0);
@@ -335,13 +412,14 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       int b_s = -1;  // Dyn: the element whose scale s is
       int it = 0;  // halo units made
       for (int tile = tile_begin; tile < tile_end; ++tile)
-      for (int part = 0; part < n_parts; ++part, ++it) {
+      for (int u = 0; u < units; ++u, ++it) {
+        const int part = AnyWidth ? u % n_parts : u;  // unit u of a tile: (slice, part)
         const int b = tile / tiles_per_b, rem = tile - b * tiles_per_b;
         if (Dyn && b != b_s) s = scale_of_max(p.x_max, p.x2_max, b), rs = 1.f / s, b_s = b;
         const int ft = rem % p.n_ftiles;
         const int f0 = ft * FR - 1, t0 = (rem / p.n_ftiles) * TW - 1;
         const int c4_0 = part * cs4;  // first float4 of this part's channels
-        const int buf = it & (nbuf - 1);
+        const int buf = buf_of(it);
         uint32_t* halo32 = reinterpret_cast<uint32_t*>(halo0 + buf * halo_bytes);
 #ifdef AZT_QCONV_CLOCKS
         const long long tp0 = clock64();
@@ -349,10 +427,10 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
         mbar_wait(h_empty + buf, (((unsigned)it / nbuf) & 1) ^ 1);
         // Every halo thread is done with the previous unit (whose halo the
         // slower ones may still be copying from) before any writes into it.
-        if (it > 0) mbar_wait(h_full + ((it - 1) & (nbuf - 1)), ((unsigned)(it - 1) / nbuf) & 1);
+        if (it > 0) mbar_wait(h_full + buf_of(it - 1), ((unsigned)(it - 1) / nbuf) & 1);
         // Below the block's previous tile, whose halo holds all channels:
         // halo rows 0 and 1 are that halo's rows FR and FR + 1.
-        const bool below = n_parts == 1 && it > 0 && ft > 0;
+        const bool below = units == 1 && it > 0 && ft > 0;
         if (below) {
           const uint4* src = reinterpret_cast<const uint4*>(halo0 + (buf ^ 1) * halo_bytes +
                                                             FR * HW * CinP);
@@ -376,7 +454,21 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
             bt.v[u] = make_float4(0.f, 0.f, 0.f, 0.f);  // outside the plane: zeros
             if (i < n_items && f >= 0 && f < p.F && t >= 0 && t < p.T) {
               const long at = ((long)b * p.F + f) * p.T + t;
-              if (stem && p.Cin1 == 2) {  // the float4's last two channels stay zeros
+              if constexpr (AnyWidth) {
+                // channels Cr .. Cin - 1 (kernel_cin's padding) stay zero codes
+                const int ch = 4 * c4;
+                if (ch < p.Cin1) {
+                  if (p.Cin1 == 2) {  // a stem of 2 channels: float2 pixels
+                    const float2 v2 = __ldg(reinterpret_cast<const float2*>(p.x + at * 2));
+                    bt.v[u].x = v2.x, bt.v[u].y = v2.y;
+                  } else {
+                    bt.v[u] = __ldg(reinterpret_cast<const float4*>(p.x + at * p.Cin1 + ch));
+                  }
+                } else if (ch < p.Cr) {
+                  bt.v[u] = __ldg(reinterpret_cast<const float4*>(
+                      p.x2 + at * (p.Cr - p.Cin1) + (ch - p.Cin1)));
+                }
+              } else if (stem && p.Cin1 == 2) {  // the float4's last two channels stay zeros
                 const float2 v2 = __ldg(reinterpret_cast<const float2*>(p.x + at * 2));
                 bt.v[u].x = v2.x, bt.v[u].y = v2.y;
               } else {
@@ -429,7 +521,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       row0[mi] = (wg * MI + mi) * 64 + warp * 16;
       const int px = row0[mi] + (mat & 1) * 8 + mrow;
       arow[mi] = ((px >> p.tw_log2) * HW + (px & (TW - 1))) * CinP;
-      if (!Tap16) arow[mi] += (mat >> 1) * 16;
+      if (!Tap16 && !AnyWidth) arow[mi] += (mat >> 1) * 16;
     }
     float* st = reinterpret_cast<float*>(stage0) + (threadIdx.x >> 5) * 16 * kStageRow;
     const int n_ksteps = (9 * Cs + kWgmmaK - 1) / kWgmmaK;  // of one part
@@ -474,14 +566,15 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
       for (int ns = 0; ns < n_slices; ++ns) {
         int ks = 0;  // K step of the slice: 32 channels of one tap of one part
         for (int part = 0; part < n_parts; ++part) {
-          // Each part's unit is made once a tile and serves every slice.
-          const int unit_no = it + part;
-          const int buf = unit_no & (nbuf - 1);
+          // Each part's unit is made once a tile and serves every slice (with
+          // remade: once for each slice).
+          const int unit_no = remade ? it + ns * n_parts + part : it + part;
+          const int buf = buf_of(unit_no);
           const uint32_t halo = smem_u32(halo0 + buf * halo_bytes);
 #ifdef AZT_QCONV_CLOCKS
           const long long tc0 = clock64();
 #endif
-          if (ns == 0) mbar_wait(h_full + buf, ((unsigned)unit_no / nbuf) & 1);
+          if (remade || ns == 0) mbar_wait(h_full + buf, ((unsigned)unit_no / nbuf) & 1);
 #ifdef AZT_QCONV_CLOCKS
           const long long tc1 = clock64();
           t_wait += tc1 - tc0;
@@ -489,6 +582,9 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 
           // ---- products -----------------------------------------------------------
           int c0 = 0, dx = 0, tap_off = 0;  // channel offset, and the tap's offset in the halo
+          // AnyWidth: this lane's walk over taps of any multiple of 16 channels.
+          TapWalk walk{};
+          if constexpr (AnyWidth) walk.advance((mat >> 1) * 16, Cs, HW, CinP);
           // This warp is done with chunk q in `stage`: the eighth to say so
           // asks for chunk q + stages into it.
           auto release = [&](int stage, int q) {
@@ -521,22 +617,29 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #pragma unroll
               for (int j = 0; j < G; ++j) {
                 if (j0 + j < steps) {
-                  if (Tap16) {
-                    // step 4c + j0 + j holds taps 2k and 2k + 1, this lane's the
-                    // second if it loads K bytes 16-31; past tap 8 (the weights'
-                    // zero padding) it reads tap 8's pad bytes
-                    const int t = 2 * (4 * c + j0 + j) + (mat >> 1);
-                    tap_off = t > 8 ? (2 * HW + 2) * CinP + 16 : ((t / 3) * HW + t % 3) * CinP;
-                  }
+                  if constexpr (AnyWidth) {
 #pragma unroll
-                  for (int mi = 0; mi < MI; ++mi)
-                    ldmatrix_x4(a[mi][j], halo + arow[mi] + tap_off + c0);
-                  if (!Tap16) {
-                    c0 += kWgmmaK;
-                    if (c0 == Cs) {  // on to the next tap: (dy, dx + 1), or (dy + 1, 0)
-                      c0 = 0;
-                      tap_off += CinP;
-                      if (++dx == 3) { dx = 0; tap_off += (HW - 3) * CinP; }
+                    for (int mi = 0; mi < MI; ++mi)
+                      ldmatrix_x4(a[mi][j], halo + arow[mi] + walk.off + walk.c);
+                    walk.advance(kWgmmaK, Cs, HW, CinP);
+                  } else {
+                    if (Tap16) {
+                      // step 4c + j0 + j holds taps 2k and 2k + 1, this lane's the
+                      // second if it loads K bytes 16-31; past tap 8 (the weights'
+                      // zero padding) it reads tap 8's pad bytes
+                      const int t = 2 * (4 * c + j0 + j) + (mat >> 1);
+                      tap_off = t > 8 ? (2 * HW + 2) * CinP + 16 : ((t / 3) * HW + t % 3) * CinP;
+                    }
+#pragma unroll
+                    for (int mi = 0; mi < MI; ++mi)
+                      ldmatrix_x4(a[mi][j], halo + arow[mi] + tap_off + c0);
+                    if (!Tap16) {
+                      c0 += kWgmmaK;
+                      if (c0 == Cs) {  // on to the next tap: (dy, dx + 1), or (dy + 1, 0)
+                        c0 = 0;
+                        tap_off += CinP;
+                        if (++dx == 3) { dx = 0; tap_off += (HW - 3) * CinP; }
+                      }
                     }
                   }
                 }
@@ -560,7 +663,13 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
           }
 #pragma unroll
           for (int mi = 0; mi < MI; ++mi) acc_fence(acc[mi]);
-          if (ns == n_slices - 1) {  // its last use
+          if constexpr (AnyWidth) {
+            if (remade || ns == n_slices - 1) {  // its last use
+              __syncwarp();
+              if (lane == 0) mbar_arrive(h_empty + buf);
+            }
+            if (ns == n_slices - 1 && part == n_parts - 1) it += units;
+          } else if (ns == n_slices - 1) {  // its last use
             __syncwarp();
             if (lane == 0) mbar_arrive(h_empty + buf);  // the producers may refill this halo
             if (part == n_parts - 1) it += n_parts;     // the tile's units are taken
@@ -586,17 +695,26 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
             obase[q] = f < p.F && t < p.T
                            ? (((long)b * p.F + f) * p.T + t) * Cout + nb + 4 * (lane & 7) : -1;
           }
+          // This lane's first channel of a slab, and (AnyWidth) whether the
+          // slab's 32 channels are all below Cout, as 16-byte vectors.
+          const int lane_ch = nb + 4 * (lane & 7);
+          auto whole = [&](int slab) {
+            return !AnyWidth || (nb + slab * 32 + 32 <= Cout && (Cout & 3) == 0);
+          };
           // The residual comes from L2 (asked for when the tile began) into
           // L1 a slab ahead, while the slab before it is dequantised.
           auto residual_to_l1 = [&](int slab) {
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              if (obase[q] >= 0)
+              if (obase[q] >= 0 && (!AnyWidth || lane_ch + slab * 32 < Cout))
                 asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p.res + obase[q] + slab * 32));
           };
           if (p.res) residual_to_l1(0);
 #pragma unroll
           for (int slab = 0; slab < N / 32; ++slab) {
+            if constexpr (AnyWidth) {
+              if (nb + slab * 32 >= Cout) break;  // the slice's channels past Cout
+            }
             if (p.res && slab + 1 < N / 32) residual_to_l1(slab + 1);
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
@@ -604,7 +722,7 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
               float2 e[5];  // s1, b1, mean, mul, beta at channels nb + n, nb + n + 1
 #pragma unroll
               for (int k = 0; k < 5; ++k)
-                e[k] = *reinterpret_cast<const float2*>(epi_s + k * Cout + nb + n);
+                e[k] = *reinterpret_cast<const float2*>(epi_s + k * CoutE + nb + n);
               if constexpr (Dyn) e[0] = dynamic_s1(sb, e[0]);
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
@@ -620,8 +738,16 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               r[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-              if (p.res && obase[q] >= 0)
-                r[q] = __ldg(reinterpret_cast<const float4*>(p.res + obase[q] + slab * 32));
+              if (p.res && obase[q] >= 0) {
+                if (whole(slab)) {
+                  r[q] = __ldg(reinterpret_cast<const float4*>(p.res + obase[q] + slab * 32));
+                } else if constexpr (AnyWidth) {  // channel by channel, those below Cout
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    if (lane_ch + slab * 32 + e < Cout)
+                      (&r[q].x)[e] = __ldg(p.res + obase[q] + slab * 32 + e);
+                }
+              }
             }
             __syncwarp();
 #pragma unroll
@@ -633,8 +759,18 @@ __global__ void __launch_bounds__(kConsumers + 32 * PW, 1) qconv_wgmma_kernel(
                 y.y = res_relu(y.y, r[q].y, p.res != nullptr, p.relu);
                 y.z = res_relu(y.z, r[q].z, p.res != nullptr, p.relu);
                 y.w = res_relu(y.w, r[q].w, p.res != nullptr, p.relu);
-                *reinterpret_cast<float4*>(p.out + obase[q] + slab * 32) = y;
-                if constexpr (Dyn) out_bits = max(out_bits, abs_bits4(y));
+                if (whole(slab)) {
+                  *reinterpret_cast<float4*>(p.out + obase[q] + slab * 32) = y;
+                  if constexpr (Dyn) out_bits = max(out_bits, abs_bits4(y));
+                } else if constexpr (AnyWidth) {
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) {
+                    if (lane_ch + slab * 32 + e < Cout) {
+                      p.out[obase[q] + slab * 32 + e] = (&y.x)[e];
+                      if constexpr (Dyn) out_bits = max(out_bits, abs_bits((&y.x)[e]));
+                    }
+                  }
+                }
               }
             }
             __syncwarp();  // the patch is free for the next slab
@@ -668,19 +804,20 @@ long long* clocks_buffer() {
 }
 #endif
 
-template <int N, int MI, int PW, bool Split, bool Tap16, bool Dyn>
+template <int N, int MI, int PW, bool Split, bool Tap16, bool Dyn, bool AnyWidth>
 int launch_mode(const Params& p, const void* w, int smem, int tile_w, cudaStream_t stream) {
   const int fr = (128 * MI) / tile_w;
-  const int nbuf = p.n_parts == 1 ? 2 : p.n_parts;  // halo buffers
-  const int need = kTileAlign + p.stages * N * kSwizzleRow +
-                   nbuf * (fr + 2) * (tile_w + 2) * (p.Cs + 16) + kStageBytes + 5 * p.Cout * 4 +
-                   kBarBytes;
+  const int nbuf = p.n_parts == 1 || p.remade ? 2 : p.n_parts;  // halo buffers
+  const int cinp = p.Cs + (AnyWidth && p.Cs % 32 ? 32 : 16);    // a halo pixel's bytes
+  // the epilogue rows: n_slices * N = Cout but where AnyWidth pads them
+  const int need = kTileAlign + p.stages * N * kSwizzleRow + nbuf * (fr + 2) * (tile_w + 2) * cinp +
+                   kStageBytes + 5 * p.n_slices * N * 4 + kBarBytes;
   if (need != smem || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   static int raised = 0;
   if (smem > raised) {  // dynamic shared memory above 48 KB must be opted into
     const cudaError_t e = cudaFuncSetAttribute(
-        qconv_wgmma_kernel<N, MI, PW, Split, Tap16, Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        qconv_wgmma_kernel<N, MI, PW, Split, Tap16, Dyn, AnyWidth>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     raised = smem;
   }
@@ -689,16 +826,17 @@ int launch_mode(const Params& p, const void* w, int smem, int tile_w, cudaStream
   const int rc = cached_tensor_map_s8(&map_w, w, p.Cout, kpad, N);
   if (rc != 0) return rc;
   const int grid = p.n_tiles < sm_count() ? p.n_tiles : sm_count();
-  qconv_wgmma_kernel<N, MI, PW, Split, Tap16, Dyn>
+  qconv_wgmma_kernel<N, MI, PW, Split, Tap16, Dyn, AnyWidth>
       <<<grid, kConsumers + 32 * PW, smem, stream>>>(map_w, p);
   return (int)cudaGetLastError();
 }
 
 // The instance of a shape in the launch's mode: dynamic when it reads maxima.
-template <int N, int MI, int PW, bool Split, bool Tap16 = false>
+template <int N, int MI, int PW, bool Split, bool Tap16 = false, bool AnyWidth = false>
 int launch(const Params& p, const void* w, int smem, int tile_w, cudaStream_t stream) {
-  return p.x_max ? launch_mode<N, MI, PW, Split, Tap16, true>(p, w, smem, tile_w, stream)
-                 : launch_mode<N, MI, PW, Split, Tap16, false>(p, w, smem, tile_w, stream);
+  return p.x_max
+             ? launch_mode<N, MI, PW, Split, Tap16, true, AnyWidth>(p, w, smem, tile_w, stream)
+             : launch_mode<N, MI, PW, Split, Tap16, false, AnyWidth>(p, w, smem, tile_w, stream);
 }
 
 // The parameters both entry points share; Cs == Cin and one slice unless split.
@@ -722,6 +860,7 @@ Params make_params(const void* x, const void* x2, const void* epi, const void* r
   p.stages = stages;
   p.magic_hw = (uint32_t)(((1ull << 32) + tile_w + 1) / (tile_w + 2));
   p.magic_c4 = (uint32_t)(((1ull << 32) + Cs / 4 - 1) / (Cs / 4));
+  p.Cr = Cin, p.remade = 0;
 #ifdef AZT_QCONV_CLOCKS
   p.clocks = clocks_buffer();
 #endif
@@ -815,6 +954,52 @@ extern "C" int azt_qconv3x3_split(const void* x, const void* x2, const void* w, 
   cudaMemsetAsync(p.clocks, 0, kClockSlots * sizeof(long long), st);
 #endif
   return launch<256, 1, 4, true>(p, w, smem, tile_w, st);
+}
+
+// Any width (kernels/qconv_kernel.py's plans with "wide"): the same operands
+// at any Cin and Cout. Cin is computed as Ck = ceil(Cin / 16) * 16 channels
+// (w's K index (3*dy+dx)*Ck + c, Kpad = 9 * Ck rounded up to 32), those past
+// Cin zero codes, with taps of any multiple of 16 channels; x alone with Cin1
+// = Cin a multiple of 4 or 2 (a stem), or a concat of halves that are
+// multiples of 4. Cout on the least N of 32, 64, 128 and 256 that holds it,
+// else in ceil(Cout / 256) slices of 256, the columns at or beyond Cout
+// masked. The halo in Ck / part_channels parts (all Ck channels, or a
+// multiple of 128 that divides Ck): each made once a tile in a buffer of its
+// own (remade 0; at most 8 parts), or again for every slice through two
+// buffers (remade 1). A tile is 512 pixels at N = 32, 256 at 64, else 128.
+// tile_w, stages and smem come from the plan as for azt_qconv3x3 (one part and
+// one slice with stages == the part's K chunks: the weights stay); the other
+// arguments and the return value as azt_qconv3x3.
+extern "C" int azt_qconv3x3_any(const void* x, const void* x2, const void* w, const void* epi,
+                                const void* res, void* out, const void* x_max,
+                                const void* x2_max, void* out_max, float act_scale, int relu,
+                                int B, int F, int T, int Cin, int Cin1, int Cout, int tile_w,
+                                int part_channels, int remade, int stages, int smem,
+                                void* stream) {
+  const int Ck = (Cin + 15) / 16 * 16, Cs = part_channels;
+  const int N = Cout <= 32 ? 32 : Cout <= 64 ? 64 : Cout <= 128 ? 128 : 256;
+  const int n_slices = (Cout + N - 1) / N, n_parts = Cs > 0 ? Ck / Cs : 0;
+  const int tw_log2 = log2_of(tile_w);
+  const bool halves_ok = x2 ? Cin1 > 0 && Cin1 < Cin && Cin1 % 4 == 0 && (Cin - Cin1) % 4 == 0
+                            : Cin1 == Cin && (Cin % 4 == 0 || Cin == 2);
+  if (B < 1 || F < 1 || T < 1 || Cout < 1 || !halves_ok || tw_log2 < 0 || tile_w > 64 ||
+      Cs < 16 || Cs % 16 || Ck % Cs || (n_parts > 1 && Cs % kSwizzleRow) ||
+      (!remade && n_parts > kMaxParts) || stages < 1 || stages > kMaxStages ||
+      !maxima_ok(x2, x_max, x2_max, out_max))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(x, x2, epi, res, out, x_max, x2_max, out_max, act_scale, relu, B, F, T,
+                         Ck, Cin1, Cout, N == 32 ? 512 : N == 64 ? 256 : 128, tw_log2, Cs,
+                         n_slices, stages);
+  p.Cr = Cin, p.remade = remade != 0;
+  if (n_slices * n_parts == 1 && stages > p.n_chunks) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#ifdef AZT_QCONV_CLOCKS
+  cudaMemsetAsync(p.clocks, 0, kClockSlots * sizeof(long long), st);
+#endif
+  if (N == 32) return launch<32, 4, 8, false, false, true>(p, w, smem, tile_w, st);
+  if (N == 64) return launch<64, 2, 8, false, false, true>(p, w, smem, tile_w, st);
+  if (N == 128) return launch<128, 1, 8, false, false, true>(p, w, smem, tile_w, st);
+  return launch<256, 1, 4, false, false, true>(p, w, smem, tile_w, st);
 }
 
 #ifdef AZT_QCONV_CLOCKS

@@ -22,19 +22,20 @@
 // times this kernel's speed, its split route (Cout = 512, Cin = 512,
 // 256 -> 256 at 6 frames) at 2.2 to 4.3 times, its narrow route (the stems
 // of Cin 2, 4 and 16 and Cout = 32) at 1.4 to 1.9 times (H100 80GB HBM3,
-// kernels/bench.py qconv). This one is kept, chosen by shape alone
-// (kernels/qconv_kernel.py:plan), for every shape no route of that kernel
-// takes or fits, which no bundled net runs at those frame counts: any Cin
-// and Cout that are not the bundled widths (the reference's QConv is an XLA
-// conv at any width, so a net trained at any --base is served: Cout of 8,
-// 24, 48, 96, 384, 1024, ...; Cin of 1, 3, 20, 48, 1024, 2048, ...; a
-// decoder concat of any two halves), and the bundled widths where that
-// kernel's halos leave no room for its weight stages (Cout of 64 or 128 at
-// Cin of 256 or 512, Cout = 32 at Cin >= 256, one-frame planes at
-// Cin >= 128, ...); and as the reference every route of csrc/qconv_kernel.cu
-// is held against bit for bit (kernels/bench.py, tests/test_torch_cuda.py,
-// chip_smoke.py): same quotient, same codes, same epilogue
-// (csrc/qconv_common.cuh), with the older quantiser.
+// kernels/bench.py qconv); and its any-width instances at the widths of nets
+// trained at another --base (Cout of 24, 48, 96, 384, 1024; Cin of 48, 80,
+// 1024, 2048, ...; kernels/bench.py qconv --nets fpu_b48,deepfpu_b64,...).
+// This one is kept, chosen by shape alone (kernels/qconv_kernel.py:plan),
+// for the shapes none of that kernel's instances reads or fits: an input
+// whose channels are not a multiple of 4 (Cin of 1, 3, 5, ...; but a stem of
+// 2) or a concat whose halves are not; a halo of Ck % 128 != 0 channels too
+// large for two buffers beside two weight stages (320 channels on 8-frame
+// tiles); one-frame planes at large Cin on that kernel's 512- and 256-pixel
+// tiles (Cout <= 64). And as the reference every instance of
+// csrc/qconv_kernel.cu is held against bit for bit (kernels/bench.py,
+// tests/test_torch_cuda.py, chip_smoke.py, ``_kernel="mma"``): same
+// quotient, same codes, same epilogue (csrc/qconv_common.cuh), with the
+// older quantiser.
 //
 // What bounds it: activation bytes, as in csrc/qconv_kernel.cu; it reaches a
 // quarter of the memory rate at the widths it was written for. Design:

@@ -1,7 +1,7 @@
 """Check and time the port's kernels alone, shape by shape, on one NVIDIA GPU:
 
     python3 -m azoom_torch.kernels.bench [int8_mm] [qconv] [convt] [hard_null] [mvdr]
-                                         [online_mvdr] [float_conv] [fp32_peak] [--quick]
+                                         [online_mvdr] [float_conv] [fp32_peak] [sass] [--quick]
                                          [--against DIR] [--nets NET,...] [--mics M,...]
                                          [--roles]
     python3 -m azoom_torch.kernels.bench clocks
@@ -40,7 +40,8 @@ times the static launch of both in turns (earlier, current, current,
 earlier: ``earlier_ms``, ``turns_ms``) and sums both by net and route over
 the convs each net runs, each variant times its launches in the net
 (``qconv_routes``; ``NET:streaming`` sums the wgmma and split convs whose
-weights stream through the ring).
+weights stream through the ring, ``NET:any`` the convs on the any-width
+instances; ``qconv_sums`` marks those routes "(any)").
 
 ``clocks [--nets NET,...]`` (alone): builds the ``wgmma`` conv with
 ``-DAZT_QCONV_CLOCKS`` and prints, per shape of the nets that runs on it
@@ -103,6 +104,11 @@ mask: why FConv is a matrix product.
 ``fp32_peak``: the float32 FMA rate of ``csrc/bench_fp32_peak.cu``, FMA
 chains on registers with no memory traffic: what ``convt``'s rate is held
 against beside the published 67 TFLOP/s.
+
+``sass --against DIR``: DIR's ``qconv_kernel.cu`` and the current one built
+as the port builds them (each timed) and as cubins, whose SASS is compared
+instance by instance (:func:`bench_sass`): whether the instances both trees
+have compile alike.
 
 ``--against DIR``: DIR holds kernel sources of an earlier tree: for
 ``qconv`` as above; for ``convt`` and ``hard_null`` the ``convt_kernel.cu`` and
@@ -267,7 +273,7 @@ def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",), against: Path | None = 
             for row in got.values():  # the net's convs by route, each variant times its launches
                 if row["runs_in_net"] and "ms" in row:
                     n, tot = row["launches_of_variant"], sums.setdefault(
-                        f"{net}:{row['kernel']}",
+                        f"{net}:{row['kernel']}" + "(any)" * row["wide"],
                         dict(launches=0, ms=0.0, bound_ms=0.0, int_mm_ms=0.0))
                     tot["launches"] += n
                     for key, v in (("ms", row["ms"]), ("bound_ms", row["bound_ms"]),
@@ -277,9 +283,10 @@ def bench_qconv(dev, quick: bool, nets=("tpufpu_nano",), against: Path | None = 
                 "wgmma", "split")
             for row in got.values():
                 if "earlier_ms" in row and row["runs_in_net"]:
-                    # by route, and the instances whose weights stream together, each
-                    # variant times its launches in the net
-                    for group in (row["kernel"],) + (("streaming",) if streams else ()):
+                    # by route, the instances whose weights stream and the any-width
+                    # instances together, each variant times its launches in the net
+                    for group in ((row["kernel"],) + (("streaming",) if streams else ())
+                                  + (("any",) if row["wide"] else ())):
                         old, new = routes.get((net, group), (0.0, 0.0))
                         n = row["launches_of_variant"]
                         routes[(net, group)] = (old + n * row["earlier_ms"],
@@ -308,7 +315,8 @@ def _earlier_qconv(qk, src_dir: Path):
     as :func:`qconv_kernel.qconv3x3` takes them. DIR's ``mma.sync`` entry
     takes the tile, part and slice of its plan (``slice_width`` in it) after
     ``Kpad``, and the true Cin, or before that (an earlier tree) nothing
-    after ``Kpad`` and kernel_cin(Cin)."""
+    after ``Kpad`` and kernel_cin(Cin). A plan with ``wide`` (a tree with the
+    any-width instances) launches DIR's ``azt_qconv3x3_any``."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -320,6 +328,8 @@ def _earlier_qconv(qk, src_dir: Path):
     entries = {"wgmma": (lib.azt_qconv3x3, 10), "split": (lib.azt_qconv3x3_split, 11),
                "mma": (earlier_library(src_dir, "qconv_mma_kernel").azt_qconv3x3_mma,
                        12 if sliced else 8)}
+    if hasattr(lib, "azt_qconv3x3_any"):  # a tree with the any-width instances
+        entries["any"] = (lib.azt_qconv3x3_any, 12)
     for fn, ints in entries.values():
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
@@ -337,7 +347,10 @@ def _earlier_qconv(qk, src_dir: Path):
                 None if out_max is None else out_max.data_ptr())
         head = (*ptrs, 1.0 if act_scale is None else act_scale, 1, B, F, T)
         stream = torch.cuda.current_stream().cuda_stream
-        if how["kernel"] in ("wgmma", "narrow"):
+        if how.get("wide"):
+            rc = entries["any"][0](*head, cin, cin1, cout, how["tile_w"], how["part_channels"],
+                                   int(how["remade"]), how["stages"], how["smem"], stream)
+        elif how["kernel"] in ("wgmma", "narrow"):
             rc = entries["wgmma"][0](*head, qk.kernel_cin(cin), cin1, cout, how["tile_w"],
                                      how["stages"], how["smem"], stream)
         elif how["kernel"] == "split":
@@ -380,7 +393,7 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
         ref = qk.qconv3x3_plain(xin, w_q, epi, act_scale, **kw)
         torch.cuda.synchronize()
         rel = float((new - ref).abs().max()) / float(ref.abs().max())
-        row = dict(net=net, rows=f_rows, kernel=route, launches=launches,
+        row = dict(net=net, rows=f_rows, kernel=route, wide=how["wide"], launches=launches,
                    launches_of_variant=variants.get((variant == "res", variant == "cat"), 0),
                    runs_in_net=(variant == "res", variant == "cat") in variants,
                    bit_equal=bool(torch.equal(new, old)),
@@ -388,9 +401,10 @@ def _bench_conv_shape(qk, rng, dev, quick, net, batch, f_rows, cin, cout, t, lau
         if route != "mma":  # L2 -> SM bytes a tile moves, from the plan
             row.update(weight_bytes_per_tile=how["weight_bytes"],
                        halo_bytes_per_tile=how["halo_bytes"])
-        else:  # the mma.sync kernel's grid: slices of output channels, halo parts
+        if route == "mma" or how["wide"]:  # slices of output channels, halo parts
             row.update(slices=how["n_slices"], slice_width=how["slice_width"],
-                       halo_parts=how["n_parts"], part_channels=how["part_channels"])
+                       halo_parts=how["n_parts"], part_channels=how["part_channels"],
+                       remade=how.get("remade", False))
         if earlier is not None:
             row["not_bit_equal_to_earlier"] = int((new != earlier(xin, w_q, epi, act_scale,
                                                                   **kw)).sum())
@@ -502,6 +516,61 @@ def bench_clocks(dev, nets=("tpufpu_nano",)) -> dict:
             print(f"[clocks] {(cin, cout, t, variant)} per tile: " + " ".join(
                 f"{k}={v}" for k, v in row.items()), flush=True)
         del x, res
+    return rows
+
+
+def bench_sass(against: Path) -> dict:
+    """``sass --against DIR``: DIR's ``qconv_kernel.cu`` and the current one,
+    each built as the port builds it (timed: the build time of the file) and
+    as a cubin whose SASS (cuobjdump) is compared function by function: an
+    instance of DIR is matched to the current instance of the same template
+    arguments, the current kernel's extra trailing ``false`` (the any-width
+    flag) dropped. Counts the SASS lines (addresses and encodings left out)
+    that differ."""
+    import difflib
+    import time
+
+    tools = Path(build._nvcc()).parent
+    out_dir = build.BUILD_DIR / "sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cubin_flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    seconds, funcs = {}, {}
+    for tag, src in (("earlier", Path(against) / "qconv_kernel.cu"),
+                     ("current", build.CSRC / "qconv_kernel.cu")):
+        t0 = time.perf_counter()
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{tag}.so"),
+                        str(src)], check=True, capture_output=True, timeout=1200)
+        seconds[tag] = time.perf_counter() - t0
+        cubin = out_dir / f"{tag}.cubin"
+        subprocess.run([build._nvcc(), "-cubin", *cubin_flags, "-o", str(cubin), str(src)],
+                       check=True, capture_output=True, timeout=1200)
+        dump = subprocess.run([str(tools / "cuobjdump"), "-sass", str(cubin)], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        for part in dump.split("Function : ")[1:]:
+            name, *body = part.splitlines()
+            lines = [re.sub(r"/\*[^*]*\*/", "", ln).strip() for ln in body]
+            # the anonymous namespace's name carries a hash of the file; the mangled template
+            # arguments: a current instance has one more, the last
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "_ZN(anon)",
+                          name.strip())
+            if tag == "current":
+                name = re.sub(r"(qconv_wgmma_kernelI(?:L[ib]\d+E){6})Lb0EE", r"\1E", name)
+                name = re.sub(r"(qconv_wgmma_kernelI(?:L[ib]\d+E){6}Lb1EE.*)", r"\1 (any width)",
+                              name)
+            funcs.setdefault(tag, {})[name] = [ln for ln in lines if ln and not ln.startswith(".")]
+    rows = {"build_s": seconds}
+    for name, old in funcs["earlier"].items():
+        new = funcs["current"].get(name)
+        if new is None:
+            rows[name] = "missing"
+            print(f"[sass] {name}: missing", flush=True)
+            continue
+        diff = [d for d in difflib.ndiff(old, new) if d[:1] in "+-"]
+        rows[name] = dict(instructions=(len(old), len(new)), lines_differ=len(diff))
+        print(f"[sass] {name}: {len(old)} / {len(new)} instructions, {len(diff)} lines differ",
+              flush=True)
+    rows["new"] = sorted(set(funcs["current"]) - set(funcs["earlier"]))
+    print(f"[sass] build s {seconds}; new functions: {rows['new']}", flush=True)
     return rows
 
 
@@ -883,9 +952,9 @@ def main(argv) -> int:
         against = Path(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
     which = [a for a in argv if not a.startswith("--")] or ["int8_mm", "qconv"]
-    if "mvdr" in which and against is None:
-        print("kernels.bench: mvdr needs --against DIR (chip_smoke.py phase 2 holds B1 "
-              "against its plain version)", file=sys.stderr)
+    if ("mvdr" in which or "sass" in which) and against is None:
+        print("kernels.bench: mvdr and sass need --against DIR (chip_smoke.py phase 2 holds "
+              "B1 against its plain version)", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     info = build.build_all()
@@ -932,6 +1001,8 @@ def main(argv) -> int:
         out["float_conv"] = bench_float_conv(dev)
     if "fp32_peak" in which:
         out["fp32_peak"] = bench_fp32_peak(dev)
+    if "sass" in which:
+        out["sass"] = bench_sass(against)
     for rows in out.values():  # the card beside every time
         if isinstance(rows, dict):
             for row in rows.values():

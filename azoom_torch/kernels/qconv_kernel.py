@@ -1,8 +1,9 @@
 """Int8 SAME 3x3 conv with a fused epilogue: the CUDA kernels
 ``csrc/qconv_kernel.cu`` (``wgmma``, TMA-fed weights, persistent
 warp-specialised blocks; its instances serve three routes, "wgmma", "split"
-and "narrow") and ``csrc/qconv_mma_kernel.cu`` (``mma.sync``; kept for the
-shapes no route of the other takes), their wrapper and its plain PyTorch
+and "narrow", at the bundled widths and, its any-width instances, at any
+other) and ``csrc/qconv_mma_kernel.cu`` (``mma.sync``; kept for the shapes
+no instance of the other reads or fits), their wrapper and its plain PyTorch
 version (counterpart of azoom.pallas.qconv_kernel.qconv3x3_pallas).
 
     x_q = clip(round_half_even(x / act_scale), -127, 127)
@@ -62,14 +63,22 @@ it runs :func:`qconv3x3_plain`. Which kernel is a matter of shape alone
     and a tile as wide as pads the frames least: Cin % 32 == 0 with Cout of
     256 or 512 where "wgmma" does not fit (Cout = 512, Cin = 512, 256 -> 256
     at 6 frames);
-  - the ``mma.sync`` kernel takes every other shape: any width these three
-    do not take (Cout of 8, 48, 96, 384, 1024, ...; Cin of 1, 3, 20, 48,
-    ...; a concat whose halves are not multiples of 4 channels) in slices of
-    at most 256 output channels and, where the halo of all channels does not
-    fit, in parts of the channels; and the bundled widths where those
-    routes do not fit, which no bundled net runs at 48, 64 or 80 frames
-    (Cout of 64 or 128 whose halos leave no room for three weight stages,
-    Cout = 32 at Cin >= 256, one-frame planes at large Cin).
+  - the same three routes on the kernel's any-width instances (plans with
+    ``wide``; :func:`_plan_any`) take every other width they read (Cout of
+    8, 24, 48, 96, 384, 1024, ...; Cin of 20, 48, 80, 1024, 2048, ...: the
+    convs of a net trained at another ``--base``) and the bundled widths
+    where those routes do not fit (one- and two-frame planes at large Cin,
+    Cout of 64 or 128 at large Cin): Cout masked on the least N that holds
+    it or in slices of 256, taps of any multiple of 16 channels, and halo
+    parts kept for every slice or made again for each;
+  - the ``mma.sync`` kernel takes the rest, in slices of at most 256 output
+    channels and, where the halo of all channels does not fit, in parts of
+    the channels: inputs of Cin not a multiple of 4 (but a stem of 2) or a
+    concat whose halves are not, halos of kernel_cin(Cin) % 128 != 0
+    channels that do not fit beside two weight stages (320 on 8-frame
+    tiles), one-frame planes at large Cin on 512- and 256-pixel tiles; no
+    net of the bundled architectures at bases 16, 24, 32, 48 or 64 runs it
+    at 48, 64 or 80 frames.
 All agree bit for bit (``kernels/bench.py`` checks it on the card); none is
 a fallback for a failed build or launch of another.
 """
@@ -78,6 +87,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 import torch.nn.functional as Fn
@@ -87,7 +97,8 @@ from azoom_torch.kernels import build
 
 __all__ = [
     "qconv3x3", "qconv3x3_plain", "pack_weights", "epilogue_params", "quantize_weights", "plan",
-    "route_counts", "kernel_cin", "k_padded", "STEM_CINS", "dynamic_act_scale", "input_max",
+    "route_counts", "wide_counts", "kernel_cin", "k_padded", "STEM_CINS", "dynamic_act_scale",
+    "input_max",
 ]
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
@@ -95,8 +106,10 @@ SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on sm_90
 # Preprocessor macros of the wgmma kernel's build; kernels/bench.py sets
 # ("AZT_QCONV_CLOCKS",) before the first launch to time the kernel's roles.
 BUILD_DEFINES: tuple[str, ...] = ()
-# Launches by route since import (kernels.launches counts all as "qconv3x3").
+# Launches by route since import (kernels.launches counts all as "qconv3x3"), and of
+# those the launches of the any-width instances (plans with "wide").
 route_counts = {"wgmma": 0, "narrow": 0, "split": 0, "mma": 0}
+wide_counts = {"wgmma": 0, "narrow": 0, "split": 0}
 
 # csrc/qconv_kernel.cu's shared memory, beside the weight stages and the
 # halos: slack to align the swizzled tiles, the consumer warps' output
@@ -275,7 +288,7 @@ def _plan_mma(cin: int, cout: int, frames: int) -> dict:
     cp = -(-ck // (16 * n_parts)) * 16
     n_parts = -(-ck // cp)
     k_part = -(-9 * cp // 32) * 32
-    return dict(kernel="mma", m_tile=m_tile, tile_w=tile_w, tile_rows=tile_rows,
+    return dict(kernel="mma", wide=False, m_tile=m_tile, tile_w=tile_w, tile_rows=tile_rows,
                 slice_width=nb, n_slices=-(-cout // nb), part_channels=cp, n_parts=n_parts,
                 k_chunks=n_parts * -(-k_part // 128), stages=2, resident=False,
                 smem=pixels * (cp + 16) + weights)
@@ -314,12 +327,80 @@ def _plan_split(cin: int, cout: int, frames: int) -> dict | None:
         if stages < (3 if buffers == 2 else 2):
             continue
         k_chunks = -(-9 * cs // 128)
-        return dict(kernel="split", m_tile=128, tile_w=tile_w, tile_rows=tile_rows,
+        return dict(kernel="split", wide=False, m_tile=128, tile_w=tile_w, tile_rows=tile_rows,
                     k_chunks=k_chunks, stages=stages, resident=False,
                     part_channels=cs, n_parts=n_parts, n_slices=n_slices,
                     halo_buffers=buffers, smem=fixed + stages * 256 * 128,
                     weight_bytes=n_slices * n_parts * k_chunks * 256 * 128,
                     halo_bytes=(tile_rows + 2) * (tile_w + 2) * cin * 4)
+    return None
+
+
+def _any_width(cin: int, cin1: int | None) -> bool:
+    """Whether csrc/qconv_kernel.cu's any-width instances read this input:
+    x alone of a multiple of 4 channels or 2 (a stem: float2 pixels), or a
+    concat of halves that are multiples of 4 (float4 loads)."""
+    if cin1 is None:
+        return cin % 4 == 0 or cin == 2
+    return cin1 % 4 == 0 and (cin - cin1) % 4 == 0
+
+
+def _plan_any(cin: int, cout: int, frames: int) -> dict | None:
+    """The any-width instances' plan (azt_qconv3x3_any), for the widths the
+    routes above are not built for or do not fit: Cout on N, the least of 32,
+    64, 128 and 256 that holds it, or in ceil(Cout / 256) slices of N = 256,
+    the columns at or beyond Cout masked (the epilogue rows padded with zeros
+    to n_slices * N); kernel_cin(Cin) channels in taps of any multiple of 16;
+    tiles of 512, 256 or 128 pixels (N = 32, 64, else) as wide as pad the
+    frames least, or narrower where nothing below fits at that width. The
+    halo: all channels in two buffers beside at least three weight stages
+    (all K chunks where they fit and there is one slice: the weights stay);
+    else, at more than one slice, the fewest parts of a multiple of 128
+    channels (at most 8), each made once a tile in a buffer of its own,
+    beside two stages; else the fewest such parts made again for every slice
+    (``remade``) through two buffers, beside two stages (fewer, wider parts
+    measured faster than more stages: 1024 -> 1024 at 4 frames in 4 parts
+    and 2 stages took 39.35 ms for DeepFPU base 64's six convs against 42.04
+    in 8 parts and 4 stages, in turns, H100 80GB HBM3, kernels/bench.py
+    qconv --against); else all channels beside two stages. A halo pixel
+    takes 16 bytes of padding, 32 where kernel_cin(Cin) % 32 == 16 (an odd
+    number of 16-byte units, whatever the channels). None if nothing fits.
+    ``kernel`` names the route: "split" with slices or parts, "narrow" at
+    N = 32 or 16-channel taps, else "wgmma"."""
+    ck = kernel_cin(cin)
+    n = next((w for w in (32, 64, 128, 256) if cout <= w), 256)
+    n_slices = -(-cout // n)
+    m_tile = {32: 512, 64: 256}.get(n, 128)
+    ring = [(parts, True) for parts in range(2, ck // 128 + 1) if ck % (128 * parts) == 0]
+    keep = [(parts, False) for parts, _ in ring if parts <= 8] if n_slices > 1 else []
+    widths = [_split_tile_w(frames)]
+    while widths[-1] > 1:
+        widths.append(widths[-1] // 2)
+    for tile_w, ((n_parts, remade), least) in itertools.product(
+            widths, [((1, False), 3)] + [(c, 2) for c in keep] + [(c, 2) for c in ring]
+            + [((1, False), 2)]):
+        tile_rows = m_tile // tile_w
+        pixels = (tile_rows + 2) * (tile_w + 2)
+        cs = ck // n_parts
+        buffers = 2 if n_parts == 1 or remade else n_parts
+        halo = pixels * (cs + (32 if cs % 32 else 16))
+        fixed = _TILE_ALIGN + buffers * halo + _STAGING + 5 * n_slices * n * 4 + _BARRIERS
+        k_chunks = -(-9 * cs // 128)
+        stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // (n * 128))
+        resident = n_slices * n_parts == 1 and stages >= k_chunks
+        if resident:
+            stages = k_chunks
+        elif stages < least:
+            continue
+        kernel = ("split" if n_slices * n_parts > 1 else
+                  "narrow" if n == 32 or ck == 16 else "wgmma")
+        made = n_slices if remade else 1  # times a tile makes each part
+        return dict(kernel=kernel, wide=True, m_tile=m_tile, tile_w=tile_w,
+                    tile_rows=tile_rows, k_chunks=k_chunks, stages=stages, resident=resident,
+                    slice_width=n, n_slices=n_slices, part_channels=cs, n_parts=n_parts,
+                    halo_buffers=buffers, remade=remade, smem=fixed + stages * n * 128,
+                    weight_bytes=0 if resident else n_slices * n_parts * k_chunks * n * 128,
+                    halo_bytes=made * pixels * cin * 4)
     return None
 
 
@@ -345,16 +426,19 @@ def plan(cin: int, cout: int, frames: int, cin1: int | None = None) -> dict:
     ``kernel`` "split" (:func:`_plan_split`), where that does not fit or
     Cout = 512, for Cout of 256 or 512: the same kernel walking ``n_slices``
     slices of 256 channels and ``n_parts`` halo parts of ``part_channels``
-    channels in ``halo_buffers`` buffers. ``kernel`` "mma": the ``mma.sync``
-    kernel's slices, tile and halo parts (:func:`_plan_mma`), for every
-    shape no plan above takes or fits: the other widths, and a concat whose
-    halves are not multiples of 4 channels. Raises ValueError only for a
-    Cin, Cout or frame count that is not positive."""
+    channels in ``halo_buffers`` buffers. ``wide`` True: the any-width
+    instances' plan (:func:`_plan_any`), under the same three route names,
+    for the shapes those do not take or fit. ``kernel`` "mma": the
+    ``mma.sync`` kernel's slices, tile and halo parts (:func:`_plan_mma`),
+    for the inputs the others do not read (a Cin that is neither a multiple
+    of 4 nor 2, a concat whose halves are not multiples of 4 channels) and
+    the shapes none fits. Raises ValueError only for a Cin, Cout or frame
+    count that is not positive."""
     for name, v in (("Cin", cin), ("Cout", cout), ("frames", frames)):
         if v < 1:
             raise ValueError(f"qconv3x3: {name} must be positive, got {v}")
     ck = kernel_cin(cin)
-    if cin1 is not None and (cin1 % 4 or (cin - cin1) % 4):  # csrc/qconv_kernel.cu's float4 halves
+    if not _any_width(cin, cin1):  # csrc/qconv_kernel.cu's float4 (float2 at a stem) loads
         return _plan_mma(cin, cout, frames)
     narrow = (cin in STEM_CINS + (16,) and cout in (32, 64)) or (cin % 32 == 0 and cout == 32)
     if narrow or (cin % 32 == 0 and cout in (64, 128, 256)):
@@ -367,12 +451,14 @@ def plan(cin: int, cout: int, frames: int, cin1: int | None = None) -> dict:
         stages = min(k_chunks, _MAX_STAGES, (SMEM_LIMIT - fixed) // (cout * 128))
         if stages >= min(3, k_chunks):
             resident = stages == k_chunks
-            return dict(kernel="narrow" if narrow else "wgmma", m_tile=m_tile, tile_w=tile_w,
+            return dict(kernel="narrow" if narrow else "wgmma", wide=False, m_tile=m_tile,
+                        tile_w=tile_w,
                         tile_rows=tile_rows, k_chunks=k_chunks, stages=stages,
                         resident=resident, smem=fixed + stages * cout * 128,
                         weight_bytes=0 if resident else k_chunks * cout * 128,
                         halo_bytes=(tile_rows + 2) * (tile_w + 2) * cin * 4)
-    return _plan_split(cin, cout, frames) or _plan_mma(cin, cout, frames)
+    return _plan_split(cin, cout, frames) or _plan_any(cin, cout, frames) or _plan_mma(
+        cin, cout, frames)
 
 
 @functools.cache
@@ -383,6 +469,9 @@ def _entry(kernel: str):
     elif kernel == "split":
         fn = build.load_library("qconv_kernel", BUILD_DEFINES).azt_qconv3x3_split
         ints = 11
+    elif kernel == "any":
+        fn = build.load_library("qconv_kernel", BUILD_DEFINES).azt_qconv3x3_any
+        ints = 12
     else:
         fn = build.load_library("qconv_mma_kernel").azt_qconv3x3_mma
         ints = 12
@@ -486,7 +575,11 @@ def qconv3x3(
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         # Channels beyond Cin, up to kernel_cin(Cin), are zeros to the kernels.
-        if how["kernel"] in ("wgmma", "narrow"):
+        if how["wide"]:
+            rc = _entry("any")(*ptrs, float(act_scale), int(relu), B, F, T, cin, cin1, cout,
+                               how["tile_w"], how["part_channels"], int(how["remade"]),
+                               how["stages"], how["smem"], stream)
+        elif how["kernel"] in ("wgmma", "narrow"):
             rc = _entry("wgmma")(*ptrs, float(act_scale), int(relu), B, F, T, kernel_cin(cin),
                                  cin1, cout, how["tile_w"], how["stages"], how["smem"], stream)
         elif how["kernel"] == "split":
@@ -500,4 +593,6 @@ def qconv3x3(
     build.check(rc, f"qconv3x3 {how['kernel']} kernel")
     kernels.count(kernels.launches, "qconv3x3_dynamic" if dynamic else "qconv3x3")
     kernels.count(route_counts, how["kernel"])
+    if how["wide"]:
+        kernels.count(wide_counts, how["kernel"])
     return out

@@ -294,23 +294,27 @@ Phases, each printing its own line(s):
                zoom_study against the CPU. It imports none of matplotlib,
                pandas and tensorstore.
  26. widths  - int8 convs and upsamplings at widths no bundled net has (the
-               reference serves a net trained at any --base): B2's mma.sync
-               route at Cout of 8, 24, 48, 1024 and odd ones, Cin of 1, 3,
-               20 and 2048 (halo parts), concats whose halves are not
-               multiples of 4 channels and one-frame planes, each bit for bit
-               against the plain version at batch 2, static and dynamic with
-               the maxima, then timed at batch 128 beside the plain version,
-               torch._int_mm on im2col'd int8 and the bound; convt1x2 at odd
+               reference serves a net trained at any --base): B2 at Cout of
+               8, 24, 48, 1024 and odd ones, Cin of 1, 3, 20 and 2048 (halo
+               parts), concats whose halves are not multiples of 4 channels
+               and one-frame planes, on the route plan() gives (the any-width
+               instances of csrc/qconv_kernel.cu; mma.sync for Cin of 1 or 3
+               and odd halves), each bit for bit against the plain version
+               and the mma.sync kernel (the bit reference) at batch 2, static
+               and dynamic with the maxima, then timed at batch 128 beside
+               the mma.sync kernel, the plain version, torch._int_mm on
+               im2col'd int8 and the bound; convt1x2 at odd
                K and Cout against its plain version (ties counted) and timed
                beside torch.addmm. Then a FreqPreservingUNet at base 48 and a
                DeepFPU at base 64 (its 1024-channel bottleneck), seeded inits
                of their trainable twins calibrated on the card, each conv of
-               theirs on the mma.sync route checked and timed as above; both
-               served int8 by learned_enhance at (128, 2, 32000) on phase 7's
-               scenes on static and on dynamic scales: launch counts and
-               routes, the first 4 chunks within 2e-2 / 0.1 dB of the CPU
-               port, every conv bit for bit the plain version on 4 chunks,
-               the median ms per call.
+               theirs on the any-width instances checked and timed as above;
+               both served int8 by learned_enhance at (128, 2, 32000) on phase
+               7's scenes on static and on dynamic scales: launch counts and
+               routes (no mma.sync launch; the any-width launches counted by
+               qconv_kernel.wide_counts), the first 4 chunks within 2e-2 /
+               0.1 dB of the CPU port, every conv bit for bit the plain
+               version on 4 chunks, the median ms per call.
 Then one JSON line with every kernel's numbers (B1 twice: masked_mvdr is the
 shared form at 64 frames with phase 5's launches, masked_mvdr_per_stream the
 server's form at 65 frames with the launches of phase 12's reuse ticks; ms
@@ -324,8 +328,9 @@ four conv sets (the stems and Cout = 32) with the narrow launches of their
 phase-16 int8 runs, qconv3x3_dynamic the nano net's convs on dynamic scales
 as the net wires them, one fill of its maxima included, with the launches
 of phase 25's `batch --ckpt DIR --int8`, qconv3x3_any_width the convs of
-phase 26's two nets on the mma.sync route, each as often as its net runs
-it, with the mma.sync launches of their four learned_enhance runs; B3
+phase 26's two nets on the any-width instances of csrc/qconv_kernel.cu,
+each as often as its net runs it (mma_ms: the mma.sync kernel on them),
+with the any-width launches of their four learned_enhance runs; B3
 twice: hard_null shared with
 phase 9's launches, hard_null_per_chunk with the launches of phase 14's
 learned hard-null run; online_mvdr at one 60 s clip with phase 17's
@@ -1979,7 +1984,7 @@ def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, 
     from azoom_torch.kernels.bench import int_mm_ms
     from azoom_torch.kernels.convt_kernel import convt1x2, convt1x2_plain
     from azoom_torch.kernels.qconv_kernel import (
-        input_max, pack_weights, plan, qconv3x3, qconv3x3_plain, route_counts,
+        input_max, pack_weights, plan, qconv3x3, qconv3x3_plain, route_counts, wide_counts,
     )
     from azoom_torch.models import trainable
     from azoom_torch.models.convert import from_flax
@@ -2011,26 +2016,34 @@ def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, 
         return x, w_q, epi, kw
 
     def shape_check(rows, t, cin, cout, with_res, cin1) -> dict:
-        """Bit for bit against the plain version at a small batch, static and
-        dynamic with the maxima; then the kernel, the plain version and
-        _int_mm timed at BATCH beside the bound."""
+        """Bit for bit against the plain version and the mma.sync kernel (the
+        bit reference, ``_kernel="mma"``) at a small batch, static and dynamic
+        with the maxima; then the kernel, the mma.sync kernel, the plain
+        version and _int_mm timed at BATCH beside the bound."""
         how = plan(cin, cout, t, cin1)
         x, w_q, epi, kw = operands(small, rows, t, cin, cout, with_res, cin1)
         got = qconv3x3(x, w_q, epi, act_scale, **kw)
         ref = qconv3x3_plain(x, w_q, epi, act_scale, **kw)
+        mma = qconv3x3(x, w_q, epi, act_scale, **kw, _kernel="mma")
         in_max = input_max(x, kw.get("x2"))
-        maxima = [torch.zeros(small, device=dev) for _ in range(2)]
+        maxima = [torch.zeros(small, device=dev) for _ in range(3)]
         dyn = qconv3x3(x, w_q, epi, None, **kw, in_max=in_max, out_max=maxima[0])
         dref = qconv3x3_plain(x, w_q, epi, None, **kw, in_max=in_max, out_max=maxima[1])
+        dmma = qconv3x3(x, w_q, epi, None, **kw, in_max=in_max, out_max=maxima[2],
+                        _kernel="mma")
         torch.cuda.synchronize()
-        differ = int((got != ref).sum()) + int((dyn != dref).sum()) + int(
-            (maxima[0] != maxima[1]).sum()) + int((maxima[0] != input_max(dyn)).sum())
+        differ = sum(int((a != b).sum()) for a, b in (
+            (got, ref), (got, mma), (dyn, dref), (dyn, dmma), (maxima[0], maxima[1]),
+            (maxima[0], maxima[2]), (maxima[0], input_max(dyn))))
         check(differ == 0, f"widths {(rows, t, cin, cout, with_res, cin1)} on {how['kernel']}: "
-                           f"{differ} elements or maxima differ from the plain version")
+                           f"{differ} elements or maxima differ from the plain version or "
+                           "the mma.sync kernel")
         err = float((got - ref).abs().max())
-        del x, kw, got, ref, dyn, dref
+        del x, kw, got, ref, mma, dyn, dref, dmma
         x, w_q, epi, kw = operands(BATCH, rows, t, cin, cout, with_res, cin1)
         ms = time_ms(lambda: qconv3x3(x, w_q, epi, act_scale, **kw), iters=5, warmup=1)
+        mma_ms = time_ms(lambda: qconv3x3(x, w_q, epi, act_scale, **kw, _kernel="mma"),
+                         iters=3, warmup=1)
         plain_ms = time_ms(lambda: qconv3x3_plain(x, w_q, epi, act_scale, **kw), iters=1,
                            warmup=1)
         m = BATCH * rows * t
@@ -2040,10 +2053,11 @@ def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, 
         xin = x if cin1 is None else torch.cat([x, kw["x2"]], dim=-1)
         lib_ms = int_mm_ms(xin, w_q, act_scale)
         del x, kw, xin
-        return dict(kernel=how["kernel"], slices=how.get("n_slices"),
+        return dict(kernel=how["kernel"], wide=how["wide"], slices=how.get("n_slices"),
                     halo_parts=how.get("n_parts"), part_channels=how.get("part_channels"),
-                    max_abs_err=err, elements_differ=differ, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                    remade=how.get("remade"), max_abs_err=err, elements_differ=differ, ms=ms,
+                    mma_ms=mma_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
 
     # widths beside the nets' own ---------------------------------------------------
     cases = {}
@@ -2085,7 +2099,7 @@ def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, 
     # card, served static and dynamic by learned_enhance ------------------------------
     twins = {"fpu_b48": (trainable.FreqPreservingUNet(base=48), "logmag_ipd", 2),
              "deepfpu_b64": (trainable.DeepFPU(base=64), "physics", 4)}
-    net_parts, launches_mma, worst = [], 0, 0.0
+    net_parts, launches_any, worst = [], 0, 0.0
     Y4, mix4 = stft(mix_s[:4]), mix_s[:4].cpu()
     tgt4, itf4 = tgt_s[:4].cpu(), itf_s[:4].cpu()
     for name, (twin, fk, channels) in twins.items():
@@ -2104,19 +2118,23 @@ def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, 
                  for cin, cout, t, _, cat in convs]
         check(kernels.launches["qconv3x3"] == 2 * len(convs),
               f"{name}: calibration launches {dict(kernels.launches)}")
-        # the net's convs on the mma.sync route, at BATCH on its 513-row planes
+        # the net's convs on the any-width instances, at BATCH on its 513-row planes
+        wide = [plan(cin, cout, t, cin // 2 if cat else None)["wide"]
+                for cin, cout, t, _, cat in convs]
+        check("mma" not in kinds, f"{name}: convs planned to mma.sync: {kinds}")
         shapes = {}
-        for key, kind in zip(convs, kinds):
+        for key, on_any in zip(convs, wide):
             cin, cout, t, with_res, cat = key
-            if key not in shapes and kind == "mma":
+            if key not in shapes and on_any:
                 shapes[key] = shape_check(513, t, cin, cout, with_res, cin // 2 if cat else None)
-        mma_convs = [shapes[c] for c in convs if c in shapes]
-        net_parts += mma_convs
-        worst = max([worst] + [p["max_abs_err"] for p in mma_convs])
-        log("widths_net_convs", net=name, convs=len(convs), on_mma=len(mma_convs), batch=BATCH,
-            ms=f"{sum(p['ms'] for p in mma_convs):.4f}",
-            bound_ms=f"{sum(p['bound_ms'] for p in mma_convs):.4f}",
-            int_mm_ms=f"{sum(p['library_ms'] for p in mma_convs):.4f}",
+        any_convs = [shapes[c] for c in convs if c in shapes]
+        net_parts += any_convs
+        worst = max([worst] + [p["max_abs_err"] for p in any_convs])
+        log("widths_net_convs", net=name, convs=len(convs), on_any_width=len(any_convs),
+            batch=BATCH, ms=f"{sum(p['ms'] for p in any_convs):.4f}",
+            mma_ms=f"{sum(p['mma_ms'] for p in any_convs):.4f}",
+            bound_ms=f"{sum(p['bound_ms'] for p in any_convs):.4f}",
+            int_mm_ms=f"{sum(p['library_ms'] for p in any_convs):.4f}",
             per_shape={f"{k[0]}-{k[1]}@{k[2]}" + "+res" * k[3] + "+cat" * k[4]:
                        round(v["ms"], 4) for k, v in shapes.items()})
         served = {}
@@ -2125,19 +2143,21 @@ def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, 
             net = from_flax(cls, tree, kw, True, dev)
             torch.cuda.synchronize()
             kernels.reset_launches()
-            before = dict(route_counts)
+            before, wide_before = dict(route_counts), dict(wide_counts)
             out = learned_enhance(mix_s, net, cfg, feature_kind=fk)
             torch.cuda.synchronize()
             counts = {k: v for k, v in kernels.launches.items() if v}
             routes = {r: v - before[r] for r, v in route_counts.items() if v - before[r]}
+            on_any = sum(wide_counts.values()) - sum(wide_before.values())
             conv_key = "qconv3x3" if mode == "static" else "qconv3x3_dynamic"
             want = {conv_key: len(convs), "convt1x2": n_up, "masked_mvdr": 1}
             check(counts == want, f"{name} {mode}: launch counts {counts}, want {want}")
-            check(routes == {k: kinds.count(k) for k in set(kinds)},
-                  f"{name} {mode}: conv kernels {routes}")
+            check(routes == {k: kinds.count(k) for k in set(kinds)}
+                  and route_counts["mma"] == before["mma"] and on_any == sum(wide),
+                  f"{name} {mode}: conv kernels {routes}, {on_any} any-width launches")
             check(out.shape == (BATCH, N_SAMPLES) and bool(torch.isfinite(out).all()),
                   f"{name} {mode}: bad output")
-            launches_mma += routes.get("mma", 0)
+            launches_any += on_any
             ts = []
             for _ in range(5):
                 torch.cuda.synchronize()
@@ -2174,7 +2194,8 @@ def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, 
             check(differ == 0 and len(calls) == len(convs),
                   f"{name} {mode}: {differ} conv outputs differ from the plain version")
             med = statistics.median(ts[1:])
-            served[mode] = dict(launches=counts, conv_kernels=routes, ms=ts, ms_median=med,
+            served[mode] = dict(launches=counts, conv_kernels=routes, any_width_launches=on_any,
+                                ms=ts, ms_median=med,
                                 cpu_4chunks_wave_rel_l2=rel, cpu_4chunks_dsir_db=d_sir,
                                 convs_differ=differ)
             log("widths_net", net=name, mode=mode, features=fk, batch=BATCH, launches=counts,
@@ -2184,20 +2205,23 @@ def phase_widths(dev, results: dict, time_ms, bound, bound_by_of, mix_s, tgt_s, 
         res[name] = dict(calib_routes=calib_routes, shapes={str(k): v for k, v in shapes.items()},
                          served=served)
         torch.cuda.empty_cache()
-    # the kernels line: the two nets' convs on the mma.sync route, each as often as its net
-    # runs it, with the launches of their four learned_enhance runs
+    # the kernels line: the two nets' convs on the any-width instances of
+    # csrc/qconv_kernel.cu, each as often as its net runs it, with the launches of their
+    # four learned_enhance runs; mma_ms the mma.sync kernel on the same convs
     results["qconv3x3_any_width"] = dict(
-        name="qconv3x3_any_width", route="cuda", source="azoom_torch/csrc/qconv_mma_kernel.cu",
+        name="qconv3x3_any_width", route="cuda", source="azoom_torch/csrc/qconv_kernel.cu",
         replaces="azoom/pallas/qconv_kernel.py:131 (qconv3x3_pallas at any Cin and Cout: the "
                  "int8 QConv convs of azoom/models/unet.py:183 in a FreqPreservingUNet at base "
                  "48 and a DeepFPU at base 64)",
-        launches=launches_mma, max_abs_err=worst, ms=sum(p["ms"] for p in net_parts),
+        launches=launches_any, max_abs_err=worst, ms=sum(p["ms"] for p in net_parts),
+        mma_ms=sum(p["mma_ms"] for p in net_parts),
         plain_ms=sum(p["plain_ms"] for p in net_parts),
         bound_ms=sum(p["bound_ms"] for p in net_parts), bound_by=bound_by_of(net_parts),
         library_ms=sum(p["library_ms"] for p in net_parts))
     res["seconds"] = time.perf_counter() - t_phase
-    log("widths", convs_on_mma=len(net_parts), launches=launches_mma,
+    log("widths", convs_on_any_width=len(net_parts), launches=launches_any,
         ms=f"{results['qconv3x3_any_width']['ms']:.4f}",
+        mma_ms=f"{results['qconv3x3_any_width']['mma_ms']:.4f}",
         bound_ms=f"{results['qconv3x3_any_width']['bound_ms']:.4f}",
         int_mm_ms=f"{results['qconv3x3_any_width']['library_ms']:.4f}",
         seconds=f"{res['seconds']:.1f}")

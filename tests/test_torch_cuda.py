@@ -1483,10 +1483,12 @@ def _any_width_case(rng, dev, batch, f_rows, t, cin, cout, res, cin1):
     return x, w, epi, kw
 
 
-# Widths the reference serves that no bundled net has, all on the mma.sync route: Cout
-# of 8, 24, 48, 1024 (four slices) and odd ones; Cin of 1, 3, 20, 1024 and 2048 (halo parts
-# at 64 frames); concats whose halves are not multiples of 4 channels; ragged rows and
-# one-frame planes. batch, F, T, Cin, Cout, residual, Cin1 of a concat.
+# Widths the reference serves that no bundled net has: Cout of 8, 24, 48, 1024 (four
+# slices) and odd ones; Cin of 1, 3, 20, 1024 and 2048 (halo parts at 64 frames); concats
+# whose halves are not multiples of 4 channels; ragged rows and one-frame planes. The
+# any-width instances of csrc/qconv_kernel.cu take them but the inputs they do not read
+# (Cin of 1 or 3, halves that are not multiples of 4), which stay on the mma.sync route.
+# batch, F, T, Cin, Cout, residual, Cin1 of a concat.
 @pytest.mark.parametrize("batch,f_rows,t,cin,cout,res,cin1", [
     (2, 131, 64, 2, 8, False, None), (3, 13, 7, 1, 24, True, None),
     (1, 131, 64, 3, 48, False, None), (2, 40, 1, 20, 48, True, None),
@@ -1502,7 +1504,8 @@ def test_mma_route_at_any_width_bit_equal_to_plain(cuda, batch, f_rows, t, cin, 
     plain version's."""
     rng = np.random.default_rng(17 * cin + cout + t + f_rows)
     how = plan(cin, cout, t, cin1)
-    assert how["kernel"] == "mma" or (cin, cout) == (1024, 512)
+    unread = cin % 4 and cin != 2 if cin1 is None else cin1 % 4 or (cin - cin1) % 4
+    assert how["wide"] == (not unread) and (how["kernel"] == "mma") == bool(unread)
     x, w, epi, kw = _any_width_case(rng, cuda, batch, f_rows, t, cin, cout, res, cin1)
     before = dict(route_counts)
     got = qconv3x3(x, w, epi, 0.026, **kw)
@@ -1516,6 +1519,47 @@ def test_mma_route_at_any_width_bit_equal_to_plain(cuda, batch, f_rows, t, cin, 
                                            out_max=maxima[1]))
     assert torch.equal(maxima[0].view(torch.int32), input_max(dyn).view(torch.int32))
     assert torch.equal(maxima[0], maxima[1])
+
+
+# The any-width instances of csrc/qconv_kernel.cu: masked Cout (5, 24, 36, 47, 48, 96,
+# 192, 384) on N = 32, 64, 128, 256 and in slices of 256 (384, 512, 1024); taps of 16 *
+# odd channels (16, 48, 80) and Cin past its channels (20 as 32); a stem of 2; halo parts
+# kept for every slice (384 -> 384 in three, 512 -> 1024 in two) or remade for each
+# (1024 -> 1024, 1024 -> 512 at a concat, 2048 -> 1024 in 8, 1024 -> 24 and 2048 -> 96 on
+# one slice); a weight ring on one slice (96 -> 192, 80 -> 47 at one frame); concats,
+# residuals, ragged frames (1, 5, 7) and rows. batch, F, T, Cin, Cout, residual, Cin1.
+@pytest.mark.parametrize("batch,f_rows,t,cin,cout,res,cin1", [
+    (2, 131, 64, 48, 24, True, None), (1, 513, 64, 2, 48, False, None),
+    (3, 33, 7, 80, 48, True, None), (2, 129, 5, 48, 96, False, 24),
+    (1, 131, 16, 96, 192, True, None), (2, 17, 8, 192, 384, True, None),
+    (1, 40, 8, 384, 384, False, 192), (1, 129, 4, 512, 1024, True, None),
+    (1, 65, 4, 1024, 1024, True, None), (1, 33, 8, 1024, 512, False, 512),
+    (1, 9, 8, 2048, 1024, True, None), (2, 7, 1, 80, 47, True, None),
+    (3, 11, 5, 16, 5, False, None), (1, 131, 7, 1024, 24, False, None),
+    (2, 17, 1, 2048, 96, True, None), (1, 40, 80, 20, 36, True, None)])
+def test_any_width_instances_bit_equal_static_and_dynamic(cuda, batch, f_rows, t, cin, cout, res,
+                                                          cin1):
+    """Static and dynamic: the output bit for bit the plain version's and the
+    mma.sync kernel's, the maxima a dynamic launch writes bit for bit
+    vector_norm(inf)'s, the plain version's and the mma.sync kernel's."""
+    rng = np.random.default_rng(19 * cin + cout + t + f_rows)
+    how = plan(cin, cout, t, cin1)
+    assert how["wide"] and how["kernel"] in ("wgmma", "narrow", "split")
+    x, w, epi, kw = _any_width_case(rng, cuda, batch, f_rows, t, cin, cout, res, cin1)
+    before = dict(route_counts)
+    got = qconv3x3(x, w, epi, 0.026, **kw)
+    assert route_counts[how["kernel"]] == before[how["kernel"]] + 1
+    assert torch.equal(got, qconv3x3_plain(x, w, epi, 0.026, **kw))
+    assert torch.equal(got, qconv3x3(x, w, epi, 0.026, **kw, _kernel="mma"))
+    in_max = input_max(x, kw.get("x2"))
+    maxima = [torch.zeros(batch, device=cuda) for _ in range(3)]
+    dyn = qconv3x3(x, w, epi, None, **kw, in_max=in_max, out_max=maxima[0])
+    assert torch.equal(dyn, qconv3x3_plain(x, w, epi, None, **kw, in_max=in_max,
+                                           out_max=maxima[1]))
+    assert torch.equal(dyn, qconv3x3(x, w, epi, None, **kw, in_max=in_max, out_max=maxima[2],
+                                     _kernel="mma"))
+    assert torch.equal(maxima[0].view(torch.int32), input_max(dyn).view(torch.int32))
+    assert torch.equal(maxima[0], maxima[1]) and torch.equal(maxima[0], maxima[2])
 
 
 # Odd K and odd Cout (2*Cout % 4 == 2): a short last K chunk, W staged in 8-byte pairs,
@@ -1544,7 +1588,8 @@ def test_convt_kernel_at_odd_widths(cuda, k, cout, f_rows, t, batch):
 
 def test_a_net_at_another_base_serves_on_the_card(cuda):
     """An int8 FreqPreservingUNet at base 24 (a seeded init of its trainable
-    twin, calibrated on the card: every conv on B2's mma.sync route), static
+    twin, calibrated on the card: every conv on a route of
+    csrc/qconv_kernel.cu, its any-width instances, none on mma.sync), static
     and dynamic, against the same net on the CPU (convt1x2's plain version
     rounds twice on rare ties); its convs bit for bit the plain version."""
     from azoom_torch.models import trainable
@@ -1564,7 +1609,8 @@ def test_a_net_at_another_base_serves_on_the_card(cuda):
         with torch.inference_mode():
             got = net(feats.to(cuda)).cpu()
             ref = from_flax(FreqPreservingUNet, tree, kw, True, "cpu")(feats)
-        assert route_counts["mma"] - before["mma"] == 14
+        assert route_counts["mma"] == before["mma"]
+        assert sum(route_counts.values()) - sum(before.values()) == 14
         err = (got - ref).abs()  # the whole-net int8 bounds, as the bundled nets'
         assert float(err.max()) < 1e-2 and float(err.mean()) < 2e-4
     calls = []

@@ -9,6 +9,8 @@ tests/test_qconv_pallas.py (relative error < 2e-5).
 """
 
 import functools
+import json
+from pathlib import Path
 
 import flax.linen as nn
 import jax
@@ -223,20 +225,26 @@ CLASSIC_WIDTHS = [
 
 
 def _smem_as_the_c_side_sums_it(cin, cout, how):
-    """Shared memory of a plan, restated from the three C entry points (a
-    stem of Cin 2 or 4 is 16 channels to the kernels; a split halo holds one
-    part of the channels; the narrow route is azt_qconv3x3 at N = Cout)."""
+    """Shared memory of a plan, restated from the C entry points (a stem of
+    Cin 2 or 4 is 16 channels to the kernels; a split halo holds one part of
+    the channels; the narrow route is azt_qconv3x3 at N = Cout; the
+    any-width instances, azt_qconv3x3_any, take N = slice_width, pad a halo
+    pixel of 16 * odd channels by 32 bytes and their epilogue rows to
+    n_slices * N, and keep remade parts in two buffers)."""
     cs = how.get("part_channels", kernel_cin(cin))
-    halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (cs + 16)
+    pad = 32 if how["wide"] and cs % 32 else 16
+    halo = (how["tile_rows"] + 2) * (how["tile_w"] + 2) * (cs + pad)
     if how["kernel"] == "mma":  # csrc/qconv_mma_kernel.cu: a part's halo + 2 buffers of a
         return halo + 2 * how["slice_width"] * 144  # slice's rows x (128 + 16)
     # csrc/qconv_kernel.cu: alignment slack, weight stages (N = Cout, or 256 on the split
-    # route), two halos (a split tile's n_parts, one a part, where it has parts), the warps'
-    # output patches, 5 epilogue rows, barriers (18 weight stages and 8 halos, full and empty)
-    n = 256 if how["kernel"] == "split" else cout
-    buffers = max(2, how.get("n_parts", 1))
-    return (1024 + how["stages"] * n * 128 + buffers * halo + 8 * 16 * 40 * 4 + 5 * cout * 4
-            + 52 * 8)
+    # route), two halos (a split tile's n_parts, one a part, where it has parts and keeps
+    # them), the warps' output patches, 5 epilogue rows of n_slices * N channels, barriers
+    # (18 weight stages and 8 halos, full and empty)
+    n = how["slice_width"] if how["wide"] else 256 if how["kernel"] == "split" else cout
+    parts = how.get("n_parts", 1)
+    buffers = 2 if parts == 1 or how.get("remade") else parts
+    return (1024 + how["stages"] * n * 128 + buffers * halo + 8 * 16 * 40 * 4
+            + 5 * how.get("n_slices", 1) * n * 4 + 52 * 8)
 
 
 def _check_plan(cin, cout, frames, f_rows=F_ROWS):
@@ -246,10 +254,13 @@ def _check_plan(cin, cout, frames, f_rows=F_ROWS):
     tw, rows = how["tile_w"], how["tile_rows"]
     # a tile no wider than the plane, but for the split route's (see below)
     assert tw & (tw - 1) == 0 and tw * rows == how["m_tile"]
-    assert tw <= max(frames, 1) or how["kernel"] == "split"
+    assert tw <= max(frames, 1) or how["kernel"] == "split" or how["wide"]
     # whole tiles cover the ragged plane: ceil(F / rows) row tiles, ceil(T / tw) frame tiles
     assert -(-f_rows // rows) * rows >= f_rows and -(-frames // tw) * tw >= frames
     ck = kernel_cin(cin)
+    if how["wide"]:
+        _check_any_width_plan(cin, cout, frames, how)
+        return how
     if how["kernel"] == "wgmma":
         assert cin % 32 == 0 and cout in (64, 128, 256) and tw <= 64
         assert how["m_tile"] == (256 if cout == 64 else 128)
@@ -306,6 +317,35 @@ def _check_plan(cin, cout, frames, f_rows=F_ROWS):
     return how
 
 
+def _check_any_width_plan(cin, cout, frames, how):
+    """csrc/qconv_kernel.cu's any-width instances (azt_qconv3x3_any): Cout
+    on the least N of 32, 64, 128, 256 that holds it, or in slices of 256;
+    the halo of all kernel_cin(Cin) channels in two buffers, or in parts of a
+    multiple of 128 channels, kept (a buffer each, at most 8) or remade for
+    every slice (two buffers); the weights stay only at one slice and part."""
+    ck, tw, rows = kernel_cin(cin), how["tile_w"], how["tile_rows"]
+    n, slices = how["slice_width"], how["n_slices"]
+    assert n == min(max(32, 1 << (cout - 1).bit_length()), 256) and slices == -(-cout // n)
+    assert how["m_tile"] == {32: 512, 64: 256}.get(n, 128) and tw <= 64
+    cs, parts = how["part_channels"], how["n_parts"]
+    assert cs * parts == ck and (parts == 1 or cs % 128 == 0)
+    assert how["remade"] or parts <= 8
+    assert how["halo_buffers"] == (2 if parts == 1 or how["remade"] else parts)
+    assert how["k_chunks"] == -(-9 * cs // 128)
+    assert how["resident"] == (slices * parts == 1 and how["stages"] == how["k_chunks"])
+    assert 2 <= how["stages"] <= 18 or how["resident"]
+    made = slices if how["remade"] else 1
+    assert how["halo_bytes"] == made * (rows + 2) * (tw + 2) * cin * 4
+    assert how["weight_bytes"] == (0 if how["resident"] else slices * parts * how["k_chunks"] * n * 128)
+    assert how["kernel"] == ("split" if slices * parts > 1 else
+                             "narrow" if n == 32 or ck == 16 else "wgmma")
+    # the tile is as wide as pads the frames least, or narrower where that does not fit
+    lo = 1 << (min(frames, 64).bit_length() - 1)
+    widths = {lo, min(2 * lo, 64)}
+    best = min(-(-frames // w) * w for w in widths)
+    assert tw in widths and -(-frames // tw) * tw == best or tw < lo
+
+
 @pytest.mark.parametrize("cin,cout,frames,launches", NANO_SHAPES)
 def test_plan_of_the_nano_shapes(cin, cout, frames, launches):
     how = _check_plan(cin, cout, frames)
@@ -332,9 +372,10 @@ def test_plan_of_the_classic_widths(cin, cout, frames):
     if cin % 32:  # the 16-channel stem
         assert how["kernel"] == "narrow"
     elif cout == 512:  # split, but where no split tile fits its stages: at one frame, and
-        # 512 -> 512 on 64-frame tiles, whose four parts' halos leave no room for two
-        on_mma = frames == 1 or (cin == 512 and frames == 64)
-        assert how["kernel"] == ("mma" if on_mma else "split")
+        # 512 -> 512 on 64-frame tiles, whose four parts' halos leave no room for two, the
+        # any-width instances' slices and parts
+        on_any = frames == 1 or (cin == 512 and frames == 64)
+        assert how["kernel"] == "split" and how["wide"] == on_any
     if how["kernel"] == "mma":  # one block takes all Cout channels and the halo of all Cin
         assert (how["n_slices"], how["n_parts"], how["m_tile"]) == (1, 1, 256 * 64 // cout)
 
@@ -347,8 +388,7 @@ def test_plan_refuses_what_no_kernel_takes(cin, cout, frames):
 
 
 # (Cin, Cout) of widths the reference's QConv serves (an XLA conv at any width: a net
-# trained at any --base) that no route of csrc/qconv_kernel.cu takes (but 1024 -> 512 on
-# narrow planes, which the split route takes)
+# trained at any --base) that the bundled nets' routes of csrc/qconv_kernel.cu do not take
 ANY_WIDTHS = (
     [(8, 64), (24, 64), (64, 96), (1, 32), (3, 32), (8, 32), (2, 16), (4, 48), (32, 1024),
      (20, 32)]
@@ -359,19 +399,22 @@ ANY_WIDTHS = (
 
 @pytest.mark.parametrize("cin,cout", ANY_WIDTHS)
 def test_plan_routes_every_width_the_reference_serves(cin, cout):
-    """At 1 ... 80 frames and at 4,096 each width goes to the mma.sync
-    kernel (the bundled nets' routes take none of these but 1024 -> 512 on
-    narrow planes, the split route), on slices of output
-    channels that cover Cout and halo parts that cover Cin, its shared
-    memory within the limit: one part where all channels fit, else parts a
-    wider part would not fit in."""
+    """At 1 ... 80 frames and at 4,096 each width goes to the any-width
+    instances of csrc/qconv_kernel.cu, on slices of output channels that
+    cover Cout and halo parts that cover Cin, its shared memory within the
+    limit; the mma.sync kernel takes only the inputs those do not read (Cin of
+    1, 3 or 5: neither a multiple of 4 nor 2) and one-frame planes at large
+    Cin on their 512- and 256-pixel tiles (N = 32 and 64), whose halos fit in
+    no part."""
     for frames in list(range(1, 81)) + [4096]:
         how = _check_plan(cin, cout, frames)
-        split = cin % 32 == 0 and cout in (256, 512)
-        assert how["kernel"] == "mma" or (split and how["kernel"] == "split"), (frames, how)
+        assert how["n_slices"] * how["slice_width"] >= cout
+        assert how["n_parts"] * how["part_channels"] >= kernel_cin(cin)
+        unread = cin % 4 and cin != 2
         if how["kernel"] == "mma":
-            assert how["n_slices"] * how["slice_width"] >= cout
-            assert how["n_parts"] * how["part_channels"] >= kernel_cin(cin)
+            assert unread or (frames == 1 and cout <= 64), (frames, how)
+        else:
+            assert how["wide"] and not unread, (frames, how)
 
 
 # the routes of csrc/qconv_kernel.cu take these output widths; the rest take a slice width
@@ -392,7 +435,7 @@ def test_plan_fits_every_cin_and_frame_count(cout):
         for frames in (1, 2, 3, 4, 8, 16, 32, 64, 80, 128, 256, 512, 4096):
             how = fresh(cin, cout, frames)
             assert how["smem"] <= SMEM_LIMIT, (cin, frames, how)
-            if how["kernel"] == "mma":
+            if how["kernel"] == "mma" or how["wide"]:
                 assert how["n_parts"] * how["part_channels"] >= kernel_cin(cin)
 
 
@@ -413,12 +456,14 @@ def test_a_concat_of_halves_not_multiples_of_4_goes_to_mma(cin, cout, cin1):
 def test_packed_rows_have_no_padding_where_wgmma_reads_them(cin):
     """The TMA tensor map of the wgmma kernel takes the packed rows as they
     are: exactly 9 * Cin bytes (a multiple of 16) at Cin % 32 == 0; only
-    Cin % 32 != 0 pads, and of those the kernel reads only the 16-channel
-    taps' rows (the narrow route: 144 bytes and 16 zeros, two K chunks)."""
+    Cin % 32 != 0 pads: the 16-channel taps' rows (the narrow route: 144
+    bytes and 16 zeros, two K chunks) and, on the any-width instances, taps
+    of 16 * odd channels (48: 432 bytes and 16 zeros, four K chunks)."""
     assert k_padded(cin) == 9 * cin and (9 * cin) % 16 == 0
     assert k_padded(16) == k_padded(2) == k_padded(4) == 160 and k_padded(48) == 448
     assert plan(16, 64, 64)["k_chunks"] == plan(2, 32, 64)["k_chunks"] == 2
-    assert plan(48, 64, 64)["kernel"] == "mma"
+    how = plan(48, 64, 64)
+    assert (how["kernel"], how["wide"], how["k_chunks"], how["resident"]) == ("wgmma", True, 4, True)
 
 
 # (Cin, Cout, frames at T = 64) of the base-32 nets on unfolded 513-row planes:
@@ -598,24 +643,24 @@ def test_the_route_cases_hold_every_bundled_conv(name):
                                   "fpu_multigeo", "fpu_reverb"])
 def test_every_bundled_conv_on_mma_takes_all_its_channels_in_one_block(name):
     """At 16, 32, 48, 64 and 80 input frames (the pipelines pad the frames to
-    a multiple of 16) a bundled net's conv that goes to the mma.sync kernel
-    (its one- and two-frame planes at large Cin) runs one slice of
-    all Cout channels on tiles of 256 * 64 / Cout pixels and one halo part
-    of all Cin channels: the slices and parts serve only other widths."""
+    a multiple of 16) no bundled net's conv goes to the mma.sync kernel: the
+    convs that the bundled routes do not fit (the one- and two-frame planes
+    of tpufpu and deepfpu at large Cin) go to the any-width instances, in
+    whole slices of 256 output channels (the bundled widths need no mask)."""
     from azoom_torch.models.pretrained import load_bundled
     from azoom_torch.models.unet import conv_shapes
 
     torch.set_num_threads(1)
     model, _ = load_bundled(name, device="cpu")
-    on_mma = 0
+    on_any = 0
     for frames in range(16, 81, 16):
         for cin, cout, t, _, cat in conv_shapes(model, frames):
             how = plan(cin, cout, t, cin // 2 if cat else None)
-            if how["kernel"] == "mma":
-                on_mma += 1
-                assert (how["n_slices"], how["slice_width"], how["n_parts"], how["m_tile"]) == (
-                    1, cout, 1, 256 * 64 // cout), (cin, cout, t)
-    assert on_mma > 0 or name not in ("tpufpu", "deepfpu")
+            assert how["kernel"] != "mma", (cin, cout, t)
+            if how["wide"]:
+                on_any += 1
+                assert how["n_slices"] * how["slice_width"] == cout, (cin, cout, t)
+    assert on_any > 0 or name not in ("tpufpu", "deepfpu")
 
 
 # nets trained at other bases (cli/train.py's --base takes any integer), served int8: the
@@ -654,8 +699,10 @@ def _trained_net_convs(cls, base):
 def test_every_conv_of_a_net_at_any_base_has_a_route_that_fits(cls, base):
     """Every conv of the int8 net at the 64-frame window's levels and at the
     server's 80- and 48-frame families gets a route whose shared memory
-    fits: a width that no route of csrc/qconv_kernel.cu is built for goes to
-    the mma.sync kernel, and the concats (halves that are multiples of 4
+    fits: a width that the bundled routes of csrc/qconv_kernel.cu are not
+    built for goes to its any-width instances, the mma.sync kernel only where
+    none fits (kernel_cin(Cin) not a multiple of 128, whose halo has no parts:
+    base 40's 320 channels), and the concats (halves that are multiples of 4
     channels at these bases) keep the plan of their whole width."""
     convs = _trained_net_convs(cls, base)
     assert len(convs) == {"FreqPreservingUNet": 14, "DeepFPU": 27, "TPUFPU": 21}[cls]
@@ -666,4 +713,101 @@ def test_every_conv_of_a_net_at_any_base_has_a_route_that_fits(cls, base):
             how = _check_plan(cin, cout, t, f_rows=rows)
             assert plan(cin, cout, t, cin1) == how
             if (cin, cout) not in ROUTE_WIDTHS:
-                assert how["kernel"] == "mma", (cin, cout, t)
+                assert how["wide"] or (how["kernel"] == "mma" and kernel_cin(cin) % 128), (
+                    cin, cout, t)
+
+
+# (Cin, Cout, frames, Cin1 at a concat) of the any-width instances: masked Cout (5, 24,
+# 48, 96, 192, 384), taps of 16 * odd channels (48, 80), a stem of 2 channels, halo parts
+# kept for every slice (384 -> 384, 512 -> 1024) or remade for each (1024 -> 1024,
+# 1024 -> 512 at a concat, 2048 -> 1024), and the plan each must take
+ANY_WIDTH_PLANS = [
+    ((2, 48, 64, None), dict(kernel="narrow", slice_width=64, n_parts=1, resident=True)),
+    ((16, 24, 64, None), dict(kernel="narrow", slice_width=32, n_parts=1, resident=True)),
+    ((48, 48, 64, None), dict(kernel="wgmma", slice_width=64, part_channels=48, resident=True)),
+    ((80, 5, 7, None), dict(kernel="narrow", slice_width=32, tile_w=8, n_parts=1)),
+    ((96, 192, 16, None), dict(kernel="wgmma", slice_width=256, resident=False)),
+    ((192, 384, 8, None), dict(kernel="split", n_slices=2, n_parts=1, remade=False)),
+    ((384, 384, 8, None), dict(kernel="split", n_slices=2, n_parts=3, remade=False,
+                               halo_buffers=3)),
+    ((384, 192, 16, 192), dict(kernel="split", n_slices=1, n_parts=3, halo_buffers=2)),
+    ((512, 1024, 4, None), dict(kernel="split", n_slices=4, n_parts=2, remade=False)),
+    ((1024, 1024, 4, None), dict(kernel="split", n_slices=4, n_parts=4, remade=True,
+                                 halo_buffers=2, part_channels=256, stages=2)),
+    ((1024, 512, 8, 512), dict(kernel="split", n_slices=2, n_parts=4, remade=True)),
+    ((2048, 1024, 8, None), dict(kernel="split", n_slices=4, n_parts=8, remade=True)),
+]
+
+
+@pytest.mark.parametrize("shape,expect", ANY_WIDTH_PLANS, ids=lambda v: "x".join(
+    str(c) for c in v if c is not None) if isinstance(v, tuple) else None)
+def test_any_width_plan_takes_its_shared_memory_as_the_c_side_sums_it(shape, expect):
+    """A masked-Cout or remade-part plan of the any-width instances: its
+    shared memory is azt_qconv3x3_any's own sum (epilogue rows padded to
+    n_slices * N, a halo pixel of 16 * odd channels padded by 32 bytes,
+    remade parts in two buffers) and within the limit; one weight stage more
+    would not fit, nor, where it has parts, all channels in two buffers."""
+    cin, cout, frames, cin1 = shape
+    how = plan(cin, cout, frames, cin1)
+    assert how == plan(cin, cout, frames) and how["wide"]
+    assert {k: how[k] for k in expect} == expect
+    _check_plan(cin, cout, frames, f_rows=513)
+    assert how["smem"] == _smem_as_the_c_side_sums_it(cin, cout, how) <= SMEM_LIMIT
+    n = how["slice_width"]
+    if not how["resident"] and how["stages"] < 18:
+        assert how["smem"] + n * 128 > SMEM_LIMIT
+    if how["n_parts"] > 1:  # the fewest parts: all channels in two buffers did not fit
+        whole = dict(how, part_channels=kernel_cin(cin), n_parts=1, stages=2)
+        assert _smem_as_the_c_side_sums_it(cin, cout, whole) > SMEM_LIMIT
+
+
+# the bases the port serves int8 at on the Hopper routes alone, at every frame family
+HOPPER_BASES = [(cls, base) for cls in ("FreqPreservingUNet", "DeepFPU", "TPUFPU")
+                for base in (16, 24, 48, 64)]
+
+
+@pytest.mark.parametrize("cls,base", HOPPER_BASES, ids=lambda v: str(v))
+def test_every_conv_of_a_net_at_bases_16_to_64_runs_on_a_hopper_route(cls, base):
+    """FreqPreservingUNet, DeepFPU and TPUFPU at bases 16, 24, 48 and 64, at
+    48, 64 and 80 frames: every conv plans to a route of csrc/qconv_kernel.cu
+    (its any-width instances where the bundled routes are not built for the
+    width), none to the mma.sync kernel, each within the shared memory."""
+    rows = F_ROWS if cls == "TPUFPU" else 513
+    kinds = set()
+    for cin1, cin, cout, t64 in _trained_net_convs(cls, base):
+        for frames in (48, 64, 80):
+            t = t64 * frames // 64
+            how = _check_plan(cin, cout, t, f_rows=rows)
+            assert plan(cin, cout, t, cin1) == how
+            assert how["kernel"] in ("wgmma", "narrow", "split"), (cin, cout, t)
+            kinds.add(how["wide"])
+    # at base 64 only DeepFPU's 1024-channel convs leave the bundled widths
+    assert (True in kinds) == (base != 64 or cls == "DeepFPU")
+
+
+def _bundled_plans_of_the_parent():
+    """The parent tree's plan of every bundled conv shape at 48, 64 and 80
+    frames, field for field (tests/torch_qconv_bundled_plans.json: keys
+    "Cin Cout frames Cin1", Cin1 "-" but at a concat)."""
+    path = Path(__file__).with_name("torch_qconv_bundled_plans.json")
+    return {tuple(None if v == "-" else int(v) for v in key.split()): how
+            for key, how in json.loads(path.read_text()).items()}
+
+
+@pytest.mark.parametrize("name", ["tpufpu_nano", "tpufpu", "tpufpu_slim", "fpu", "deepfpu",
+                                  "fpu_multigeo", "fpu_reverb"])
+def test_bundled_plans_equal_the_parents(name):
+    """The bundled nets keep their routes: at 48, 64 and 80 frames each conv's
+    plan equals the one before the any-width instances, for every field that
+    plan had (the any-width instances add ``wide``, False here)."""
+    from azoom_torch.models.pretrained import load_bundled
+    from azoom_torch.models.unet import conv_shapes
+
+    torch.set_num_threads(1)
+    model, _ = load_bundled(name, device="cpu")
+    parent = _bundled_plans_of_the_parent()
+    for frames in (48, 64, 80):
+        for cin, cout, t, _, cat in conv_shapes(model, frames):
+            key = (cin, cout, t, cin // 2 if cat else None)
+            how = plan(*key)
+            assert not how["wide"] and {k: how[k] for k in parent[key]} == parent[key], key
